@@ -11,6 +11,8 @@ reference on identical data:
         gaussian chip_smoke_out/gaussian_batch8.npz
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_replay.py \\
         lofar chip_smoke_out/lofar_bench.npz
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_replay.py \\
+        lofar-block chip_smoke_out/lofar_bench_block.npz
 
 ``gaussian``: the toy batch (Φ, Y, X_true) at bits 4 and 8 through the
 reference's packed and fake-quantized (``requantize="fixed"``) ``qniht_batch``
@@ -22,6 +24,10 @@ reference and the port, and each rel_error.
 reference's dense NIHT and its packed and fake-fixed QNIHT. Φ is the file's
 own when it holds one, else it is rebuilt by the reference's
 ``measurement_matrix`` (which agrees with the port's to 1e-4).
+
+``lofar-block``: one sky through the reference's packed QNIHT with a
+block-scaled Φ̂ (``scale_granularity="per_block"``, the file's
+``group_size``), beside the port's answer from the card; Φ as for ``lofar``.
 
 Imports the reference only; nothing of the port.
 """
@@ -78,12 +84,7 @@ def replay_gaussian(d) -> dict:
 
 def replay_lofar(d, config: str) -> dict:
     cs = LOFAR[config]
-    if "phi" in d:
-        phi = jnp.asarray(d["phi"])
-    else:
-        phi = measurement_matrix(Station(n_antennas=cs.n_antennas, seed=cs.seed),
-                                 cs.resolution, cs.extent)
-    y, x_true = jnp.asarray(d["y"]), d["x_true"]
+    phi, y, x_true = _phi(d, cs), jnp.asarray(d["y"]), d["x_true"]
     kw = dict(real_signal=True, nonneg=True)
     qkw = dict(bits_phi=int(d["bits_phi"]), bits_y=int(d["bits_y"]),
                key=jax.random.PRNGKey(int(d["seed"])), requantize="fixed", **kw)
@@ -103,10 +104,33 @@ def replay_lofar(d, config: str) -> dict:
     return out
 
 
+def _phi(d, cs):
+    """The file's Φ, or the reference's own rebuild of the station's."""
+    if "phi" in d:
+        return jnp.asarray(d["phi"])
+    return measurement_matrix(Station(n_antennas=cs.n_antennas, seed=cs.seed),
+                              cs.resolution, cs.extent)
+
+
+def replay_lofar_block(d, config: str) -> dict:
+    cs = LOFAR[config]
+    phi, y, x_true = _phi(d, cs), jnp.asarray(d["y"]), d["x_true"]
+    x = np.asarray(qniht(phi, y, cs.n_sources, cs.n_iters, bits_phi=int(d["bits_phi"]),
+                         bits_y=int(d["bits_y"]), key=jax.random.PRNGKey(int(d["seed"])),
+                         requantize="fixed", backend="packed", real_signal=True, nonneg=True,
+                         scale_granularity="per_block", group_size=int(d["group_size"])).x)
+    port = d["x_packed"]
+    return {"phi": "from the file" if "phi" in d else "rebuilt by the reference",
+            "group_size": int(d["group_size"]),
+            "reference rel_error": _rows(x, x_true)[0],
+            "port rel_error": _rows(port, x_true)[0],
+            "port vs reference ‖Δx‖/‖x‖": _rows(port, x)[0]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("kind", choices=["gaussian", "lofar"])
+    ap.add_argument("kind", choices=["gaussian", "lofar", "lofar-block"])
     ap.add_argument("npz", help="a file written by chip_smoke.py")
     ap.add_argument("--config", default=None, choices=sorted(LOFAR),
                     help="LOFAR configuration (default: the one named in the file)")
@@ -115,6 +139,8 @@ def main(argv=None) -> int:
     d = dict(np.load(args.npz))
     if args.kind == "gaussian":
         out = replay_gaussian(d)
+    elif args.kind == "lofar-block":
+        out = replay_lofar_block(d, args.config or str(d["config"]))
     else:
         out = replay_lofar(d, args.config or str(d["config"]))
     print(json.dumps(out, indent=1))

@@ -3,7 +3,8 @@ as numpy (or anything ``np.asarray`` accepts), become the port's objects.
 
 * :func:`key_from_numpy` — a uint32[2] PRNG key → a :mod:`repro_torch.random` key;
 * :func:`packed_weights_from_numpy` / :func:`packed_operator_from_numpy` —
-  packed bytes, scale, bits and k_dim → ``PackedWeights`` / ``PackedOperator``;
+  packed bytes, scale, bits, k_dim and granularity → ``PackedWeights`` /
+  ``PackedOperator``;
 * :func:`problem_from_numpy` — a CS problem's Φ, y, x_true, e and s → ``CSProblem``.
 
 The tests use these so that both packages compute on identical inputs. Any
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.qmm.ops import PackedOperator, PackedWeights
+from repro_torch.quant.formats import as_granularity
 from repro_torch.sensing.gaussian import CSProblem
 
 
@@ -37,11 +39,16 @@ def packed_weights_from_numpy(w, device=None) -> PackedWeights:
     packed = np.asarray(w.packed)
     if packed.dtype != np.uint8:
         raise ValueError(f"packed codes must be uint8, got {packed.dtype}")
+    gran = as_granularity(str(getattr(w, "granularity", "per_tensor")))
+    scale = np.asarray(w.scale, np.float32)
     return PackedWeights(
         packed=tensor_from_numpy(packed, device),
-        scale=tensor_from_numpy(np.asarray(w.scale, np.float32).reshape(1, -1), device),
+        # (N, ⌈K/g⌉) for per_block, else one scale per row as (1, N)
+        scale=tensor_from_numpy(scale if gran.kind == "per_block" else scale.reshape(1, -1),
+                                device),
         bits=int(w.bits),
         k_dim=int(w.k_dim),
+        granularity=gran,
     )
 
 

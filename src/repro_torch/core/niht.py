@@ -8,7 +8,13 @@ Port of ``repro.core.niht`` (the paper's Algorithm 1):
   ω = ||x⁺−x||² / ||Φ̂₁(x⁺−x)||², else shrink µ ← µ/(k(1−c)) and re-propose,
 * Φ̂ redrawn every iteration (``requantize="pair"``) or quantized once
   (``"fixed"``); ``backend="packed"`` streams the fixed quantization's packed
-  codes through the ``qmm`` kernel.
+  codes through the ``qmm`` kernels, with one scale per tensor (shared codes),
+  per row (``scale_granularity="per_channel"``) or per g codes along the
+  contraction (``"per_block"``, ``group_size=g``; the group kernel);
+* H_s is the exact top s (``threshold="topk"``) or, for a real signal, the
+  streaming histogram-select-mask of paper §8 (``threshold="hsthresh"``),
+  one launch of the ``hist`` and ``mask`` kernels per proposal for the
+  whole batch.
 
 PyTorch idiom in place of JAX's: the batch axis is written out, the iteration
 loop is a Python loop and the per-row backtracking a Python loop on
@@ -17,8 +23,7 @@ reference (ŷ from ``split(key)[0]``, Φ̂ from ``fold_in(split(key)[1], 0)``),
 so both packages quantize identically.
 
 Not yet ported: ``early_exit``, ``exit_tol``, ``unroll``, the segmented
-``SolverState`` path, sharding, ``threshold="hsthresh"`` and non-per-tensor
-scale granularities; :func:`_validate` rejects them.
+``SolverState`` path and sharding; :func:`_validate` rejects them.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core.operators import is_linear_operator, make_iteration_operators
 from repro_torch.core.threshold import hard_threshold, top_s_mask
+from repro_torch.kernels.hsthresh.ops import hsthresh
 from repro_torch.quant.formats import as_granularity
 from repro_torch.quant.quantize import fake_quantize
 
@@ -59,6 +65,15 @@ def _project(a: torch.Tensor, real_signal: bool, nonneg: bool) -> torch.Tensor:
         if nonneg:
             a = torch.clamp_min(a, 0.0)
     return a
+
+
+def _make_hs(threshold: str, s: int):
+    """Batched H_s: (B, N) → (B, N) with per-row support size ≤ s."""
+    if threshold == "topk":
+        return lambda v: hard_threshold(v, s)
+    if threshold == "hsthresh":
+        return lambda v: hsthresh(v, s)
+    raise ValueError(f"unknown threshold {threshold!r} (use 'topk' or 'hsthresh')")
 
 
 def _niht_iteration_batch(X, Yhat, op1, op2, s, c, shrink_k, max_backtracks,
@@ -116,13 +131,11 @@ def _validate(phi, bits_phi, bits_y, key, requantize, backend, threshold, real_s
         raise ValueError(f"unknown requantize {requantize!r}")
     if backend not in ("dense", "packed"):
         raise ValueError(f"unknown backend {backend!r} (use 'dense' or 'packed')")
-    if not as_granularity(scale_granularity, group_size).is_per_tensor:
-        raise NotImplementedError(
-            f"scale_granularity={scale_granularity!r} is not yet ported (per_tensor only)")
-    if threshold == "hsthresh":
-        raise NotImplementedError("threshold='hsthresh' is not yet ported")
-    if threshold != "topk":
-        raise ValueError(f"unknown threshold {threshold!r}")
+    gran = as_granularity(scale_granularity, group_size)   # validates the spelling
+    if not gran.is_per_tensor and backend != "packed":
+        raise ValueError(
+            "scale_granularity selects the Φ̂ scale layout of the packed "
+            "streaming backend; use backend='packed'")
     if is_linear_operator(phi):
         if bits_phi:
             raise ValueError(
@@ -137,6 +150,8 @@ def _validate(phi, bits_phi, bits_y, key, requantize, backend, threshold, real_s
             raise ValueError(
                 "backend='packed' is the requantize='fixed' deployment mode; "
                 "use backend='dense' for requantize='pair'")
+    if threshold == "hsthresh" and not real_signal:
+        raise ValueError("threshold='hsthresh' is the real-signal streaming H_s")
 
 
 def _quantize_rows(Y: torch.Tensor, bits_y: int, ky: torch.Tensor) -> torch.Tensor:
@@ -146,7 +161,8 @@ def _quantize_rows(Y: torch.Tensor, bits_y: int, ky: torch.Tensor) -> torch.Tens
 
 
 def _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend, threshold,
-                  c, shrink_k, max_backtracks, real_signal, nonneg, with_trace):
+                  c, shrink_k, max_backtracks, real_signal, nonneg, with_trace,
+                  scale_granularity="per_tensor", group_size=None):
     """Returns ``(X0, iteration)``; ``iteration(X, i)`` is Algorithm 1's step
     at iteration i, returning X_new and the trace row (rq, rt, mu, changed, n_bt)."""
     key = key if key is not None else prng.PRNGKey(0)
@@ -155,10 +171,10 @@ def _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend, thresho
     n = phi.shape[1]
     x_dtype = torch.float32 if (real_signal or not phi.dtype.is_complex) else phi.dtype
     X0 = torch.zeros((Y.shape[0], n), dtype=x_dtype, device=Y.device)
-    def hs(v):
-        return hard_threshold(v, s)
-
-    phi_true, get_ops = make_iteration_operators(phi, bits_phi, requantize, backend, kphi)
+    hs = _make_hs(threshold, s)
+    phi_true, get_ops = make_iteration_operators(
+        phi, bits_phi, requantize, backend, kphi,
+        granularity=as_granularity(scale_granularity, group_size))
 
     def iteration(X, i):
         op1, op2 = get_ops(i)
@@ -176,11 +192,12 @@ def _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend, thresho
 
 
 def _qniht_core(phi, Y, s, n_iters, bits_phi, bits_y, key, requantize, backend,
-                threshold, c, shrink_k, max_backtracks, real_signal, nonneg, with_trace):
+                threshold, c, shrink_k, max_backtracks, real_signal, nonneg, with_trace,
+                scale_granularity="per_tensor", group_size=None):
     """Batched implementation behind qniht / qniht_batch (Y is (B, M))."""
     X, iteration = _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend,
                                  threshold, c, shrink_k, max_backtracks, real_signal,
-                                 nonneg, with_trace)
+                                 nonneg, with_trace, scale_granularity, group_size)
     rows = []
     for i in range(n_iters):
         X, row = iteration(X, i)
@@ -214,7 +231,7 @@ def qniht(phi, y: torch.Tensor, s: int, n_iters: int = 50, *,
               scale_granularity, group_size, early_exit, exit_tol, unroll)
     res = _qniht_core(phi, y[None, :], s, n_iters, bits_phi, bits_y, key, requantize,
                       backend, threshold, c, shrink_k, max_backtracks, real_signal,
-                      nonneg, with_trace)
+                      nonneg, with_trace, scale_granularity, group_size)
     return IHTResult(x=res.x[0], trace=IHTTrace(*(t[:, 0] for t in res.trace)))
 
 
@@ -238,7 +255,7 @@ def qniht_batch(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
               scale_granularity, group_size, early_exit, exit_tol, unroll)
     return _qniht_core(phi, Y, s, n_iters, bits_phi, bits_y, key, requantize, backend,
                        threshold, c, shrink_k, max_backtracks, real_signal, nonneg,
-                       with_trace)
+                       with_trace, scale_granularity, group_size)
 
 
 def niht(phi, y, s, n_iters=50, **kw) -> IHTResult:

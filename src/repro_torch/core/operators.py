@@ -29,7 +29,7 @@ from repro_torch.kernels.qmm.ops import (
     packed_matvec,
     packed_rmatvec,
 )
-from repro_torch.quant.formats import as_granularity
+from repro_torch.quant.formats import Granularity, as_granularity
 from repro_torch.quant.quantize import fake_quantize
 
 
@@ -90,11 +90,15 @@ class FakeQuantPairOperator:
 
 
 class PackedStreamingOperator:
-    """Φ̂ as packed uint8 codes, applied through the ``qmm`` kernel.
+    """Φ̂ as packed uint8 codes, applied through the ``qmm`` kernels.
 
-    Per-tensor scale: both orientations are packed once from one shared
-    quantization, so the codes equal ``fake_quantize(phi, bits, key)``'s and
-    every application streams ``bits/32`` of the f32 bytes.
+    Per-tensor scale (the default): both orientations are packed once from
+    one shared quantization, so the codes equal ``fake_quantize(phi, bits,
+    key)``'s and every application streams ``bits/32`` of the f32 bytes.
+    ``per_channel``/``per_block`` scales follow each orientation's own axes,
+    so each orientation (and each part of a complex Φ) is quantized
+    separately; the adjoint identity then holds to quantization error, and
+    the f32 scales add ``scale_nbytes`` to the stream.
     """
 
     def __init__(self, packed: PackedOperator):
@@ -104,14 +108,25 @@ class PackedStreamingOperator:
     def pack(cls, phi: torch.Tensor, bits: int, key: Optional[torch.Tensor] = None,
              granularity=None) -> "PackedStreamingOperator":
         gran = as_granularity(granularity)
-        if not gran.is_per_tensor:
-            raise NotImplementedError(
-                f"{gran} scales for the packed stream are not yet ported")
-        return cls(pack_operator(phi, bits, key, shared=True))
+        if gran.is_per_tensor:
+            return cls(pack_operator(phi, bits, key, shared=True))
+        return cls(pack_operator(phi, bits, key, shared=False, granularity=gran))
 
     @property
     def bits(self) -> int:
         return self.packed.fwd_re.bits
+
+    @property
+    def granularity(self) -> Granularity:
+        return self.packed.fwd_re.granularity
+
+    @property
+    def scale_nbytes(self) -> int:
+        """f32 scale bytes streamed per application (forward orientation)."""
+        n = self.packed.fwd_re.scale_nbytes
+        if self.packed.is_complex:
+            n += self.packed.fwd_im.scale_nbytes
+        return n
 
     @property
     def shape(self):
@@ -148,7 +163,8 @@ def as_operator(phi):
 def make_iteration_operators(phi, bits_phi, requantize, backend, key, granularity=None):
     """``(phi_true, get_ops)``: ``phi_true`` applies full-precision Φ (for the
     true-residual trace), ``get_ops(i)`` yields iteration i's (gradient,
-    residual) operators. Same dispatch and key folding as the reference."""
+    residual) operators. Same dispatch and key folding as the reference;
+    ``granularity`` reaches only the packed backend."""
     if is_linear_operator(phi):
         return phi, lambda i: (phi, phi)
     phi_true = DenseOperator(phi)

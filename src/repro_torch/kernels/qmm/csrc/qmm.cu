@@ -1,17 +1,27 @@
 // Packed low-precision matmul (qmm) for NVIDIA Hopper, sm_90a.
 //
-// Replaces repro/kernels/qmm/kernel.py::qmm_pallas (_qmm_kernel, _unpack_block),
-// the one TPU kernel on the packed streaming QNIHT path. It computes
+// Two entry points share one row walk:
+//
+// repro_qmm replaces repro/kernels/qmm/kernel.py::qmm_pallas (_qmm_kernel,
+// _unpack_block), the per-tensor / per-channel packed Φ̂. It computes
 //
 //     y[m, n] = (sum_k x[m, k] * (c[n, k] - K_h)) * scale[n] / K_h
 //
+// repro_qmm_group replaces qmm_group_pallas (_qmm_group_kernel), the
+// block-scaled (per_block) packed Φ̂, with one scale per g contiguous codes:
+//
+//     y[m, n] = (sum_k x[m, k] * (c[n, k] - K_h) * scale[n, k / g]) / K_h
+//
 // x is (M, K) float32, c is (N, Kp) uint8 with Kp = ceil(K / vpb) and vpb =
 // 8 / bits codes per byte (code i of a byte at bit bits*i, biased by +K_h),
-// scale is (N,) float32, and the sum is accumulated in float32.
+// scale is (N,) float32 or, grouped, (N, G) with G = ceil(K / g), and the sum
+// is accumulated in float32.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the
-// tensor cores): the bytes N*Kp + 4*M*K + 4*M*N + 4*N over 3.35 TB/s, or, for
-// large M, the 2*M*N*K float32 operations (FMAs on the CUDA cores).
+// tensor cores): the bytes N*Kp + 4*M*K + 4*M*N + 4*N (grouped: + 4*N*G in
+// place of 4*N) over 3.35 TB/s, or, for large M, the 2*M*N*K float32
+// operations (FMAs on the CUDA cores). At 2 bits and g = 64 the scale slab
+// is a quarter of the code bytes (32 / (g * bits)).
 //
 // Design, and what it does about that:
 //   * No padding. The Pallas version pads every operand to 8x128x(128*vpb)
@@ -39,6 +49,15 @@
 //     M tiles (B up to 64 in the batched solver).
 //   * A warp-shuffle reduction (and, for block rows, one pass through shared
 //     memory) ends the sum; the scale is applied once, as acc * (scale / K_h).
+//   * Grouped: the group size g is a multiple of vpb (validate_group_packing),
+//     so no byte straddles two groups and one scale is read per packed byte,
+//     not per code: scale[n, b / (g / vpb)] for byte b, read through L1 (the
+//     lanes of a warp walk neighbouring bytes, so they read one or two scale
+//     words between them). The scale multiplies each code before its FMAs,
+//     because it varies along the contraction; 1 / K_h (a power of two) is
+//     applied once at the end. The ragged K edge is masked, not padded with
+//     scale 1.0: a pad code of the last byte lies in the last (real) group
+//     and meets an x that reads as 0, so it adds exactly +0.
 //
 // Plain C interface, built with nvcc and loaded with ctypes: repro_qmm
 // launches on the given stream, does not synchronise, and returns
@@ -75,8 +94,9 @@ __device__ __forceinline__ void load_vec(float (&dst)[V], const float* src) {
 // Adds the vpb codes of packed byte `kb` of a row, times x, into acc[BM].
 // xs: BM rows of x at stride ldx (shared memory when SMEM, else global rows
 // at the offsets xoff[m]); vec: x may be read as aligned vectors of vpb.
-template <int BITS, int BM, bool SMEM>
-__device__ __forceinline__ void fma_byte(float (&acc)[BM], unsigned byte,
+// GROUP: each code is multiplied by the byte's group scale `sc` first.
+template <int BITS, int BM, bool SMEM, bool GROUP>
+__device__ __forceinline__ void fma_byte(float (&acc)[BM], unsigned byte, float sc,
                                          const float* __restrict__ xs, int ldx,
                                          const size_t (&xoff)[BM], int kb, int K,
                                          bool vec) {
@@ -98,20 +118,23 @@ __device__ __forceinline__ void fma_byte(float (&acc)[BM], unsigned byte,
   }
 #pragma unroll
   for (int i = 0; i < F::kVpb; ++i) {
-    const float c = static_cast<float>(
+    float c = static_cast<float>(
         static_cast<int>((byte >> (BITS * i)) & F::kMask) - F::kHalf);
+    if constexpr (GROUP) c *= sc;
 #pragma unroll
     for (int m = 0; m < BM; ++m) acc[m] = fmaf(xv[m][i], c, acc[m]);
   }
 }
 
 // BLOCK_ROW: one block per long row, x read from global memory; otherwise
-// row groups of tpr lanes with x staged in shared memory.
-template <int BITS, int BM, bool BLOCK_ROW>
+// row groups of tpr lanes with x staged in shared memory. GROUP: scale is
+// (N, G) and byte b of a row takes scale[n, b / gbytes] (gbytes = g / vpb);
+// otherwise scale is (N,) and G, gbytes are unused.
+template <int BITS, int BM, bool BLOCK_ROW, bool GROUP>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ c,
            const float* __restrict__ scale, float* __restrict__ y,
-           int M, int N, int K, int Kp, int tpr, int ldx, int vec) {
+           int M, int N, int K, int Kp, int tpr, int ldx, int vec, int G, int gbytes) {
   extern __shared__ float4 smem_raw[];
   float* xsm = reinterpret_cast<float*>(smem_raw);
   using F = Fmt<BITS>;
@@ -139,8 +162,11 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ c,
 #pragma unroll
     for (int m = 0; m < BM; ++m) acc[m] = 0.0f;
     const uint8_t* row = c + static_cast<size_t>(n) * Kp;
+    const float* srow = scale + static_cast<size_t>(n) * G;
     for (int b = threadIdx.x; b < Kp; b += kThreads)
-      fma_byte<BITS, BM, SMEM>(acc, __ldg(row + b), xs, ldx, xoff, b, K, vec);
+      fma_byte<BITS, BM, SMEM, GROUP>(acc, __ldg(row + b),
+                                      GROUP ? __ldg(srow + b / gbytes) : 1.0f,
+                                      xs, ldx, xoff, b, K, vec);
 #pragma unroll
     for (int m = 0; m < BM; ++m)
 #pragma unroll
@@ -158,7 +184,8 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ c,
 #pragma unroll
       for (int w = 0; w < kThreads / 32; ++w) s += red[w][threadIdx.x];
       y[static_cast<size_t>(m0 + threadIdx.x) * N + n] =
-          s * (scale[n] / static_cast<float>(F::kHalf));
+          s * (GROUP ? 1.0f / static_cast<float>(F::kHalf)
+                     : scale[n] / static_cast<float>(F::kHalf));
     }
   } else {
     // row groups of tpr lanes (a power of two <= 32), kThreads / tpr per block
@@ -172,15 +199,19 @@ qmm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ c,
       for (int m = 0; m < BM; ++m) acc[m] = 0.0f;
       if (n < N) {
         const uint8_t* row = c + static_cast<size_t>(n) * Kp;
+        const float* srow = scale + static_cast<size_t>(n) * G;
         for (int b = lane; b < Kp; b += tpr)
-          fma_byte<BITS, BM, SMEM>(acc, __ldg(row + b), xs, ldx, xoff, b, K, vec);
+          fma_byte<BITS, BM, SMEM, GROUP>(acc, __ldg(row + b),
+                                          GROUP ? __ldg(srow + b / gbytes) : 1.0f,
+                                          xs, ldx, xoff, b, K, vec);
       }
 #pragma unroll
       for (int m = 0; m < BM; ++m)
         for (int off = tpr >> 1; off > 0; off >>= 1)
           acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
       if (lane == 0 && n < N) {
-        const float s = scale[n] / static_cast<float>(F::kHalf);
+        const float s = GROUP ? 1.0f / static_cast<float>(F::kHalf)
+                              : scale[n] / static_cast<float>(F::kHalf);
 #pragma unroll
         for (int m = 0; m < BM; ++m)
           if (m0 + m < M) y[static_cast<size_t>(m0 + m) * N + n] = acc[m] * s;
@@ -205,21 +236,21 @@ int num_sms() {
 // Lets the short-row instantiation take the dynamic shared memory its
 // largest x tile needs (BM rows of up to kBlockRowBytes * vpb floats), once
 // per instantiation and device.
-template <int BITS, int BM>
+template <int BITS, int BM, bool GROUP>
 cudaError_t opt_in_smem() {
   static bool done[kMaxDevices] = {false};
   const int dev = current_device();
   if (done[dev]) return cudaSuccess;
   const int most = static_cast<int>(sizeof(float)) * BM * kBlockRowBytes * Fmt<BITS>::kVpb;
   const cudaError_t err = cudaFuncSetAttribute(
-      qmm_kernel<BITS, BM, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      qmm_kernel<BITS, BM, false, GROUP>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
   if (err == cudaSuccess) done[dev] = true;
   return err;
 }
 
-template <int BITS, int BM>
+template <int BITS, int BM, bool GROUP>
 cudaError_t launch(const float* x, const uint8_t* c, const float* scale, float* y,
-                   int M, int N, int K, int Kp, cudaStream_t stream) {
+                   int M, int N, int K, int Kp, int G, int gbytes, cudaStream_t stream) {
   constexpr int vpb = Fmt<BITS>::kVpb;
   const dim3 block(kThreads);
   const unsigned m_tiles = static_cast<unsigned>((M + BM - 1) / BM);
@@ -227,11 +258,11 @@ cudaError_t launch(const float* x, const uint8_t* c, const float* scale, float* 
                    (reinterpret_cast<uintptr_t>(x) % (4 * vpb) == 0);
   if (Kp > kBlockRowBytes) {
     const dim3 grid(static_cast<unsigned>(N), m_tiles);
-    qmm_kernel<BITS, BM, true><<<grid, block, 0, stream>>>(
-        x, c, scale, y, M, N, K, Kp, kThreads, K, vec);
+    qmm_kernel<BITS, BM, true, GROUP><<<grid, block, 0, stream>>>(
+        x, c, scale, y, M, N, K, Kp, kThreads, K, vec, G, gbytes);
     return cudaGetLastError();
   }
-  const cudaError_t err = opt_in_smem<BITS, BM>();
+  const cudaError_t err = opt_in_smem<BITS, BM, GROUP>();
   if (err != cudaSuccess) return err;
   int tpr = 1;
   while (tpr < 32 && tpr < Kp) tpr <<= 1;
@@ -242,18 +273,39 @@ cudaError_t launch(const float* x, const uint8_t* c, const float* scale, float* 
   // each block stages x once and walks many row groups
   const int blocks = n_groups < 4 * num_sms() ? n_groups : 4 * num_sms();
   const dim3 grid(static_cast<unsigned>(blocks), m_tiles);
-  qmm_kernel<BITS, BM, false><<<grid, block, smem, stream>>>(
-      x, c, scale, y, M, N, K, Kp, tpr, ldx, vec);
+  qmm_kernel<BITS, BM, false, GROUP><<<grid, block, smem, stream>>>(
+      x, c, scale, y, M, N, K, Kp, tpr, ldx, vec, G, gbytes);
   return cudaGetLastError();
 }
 
-template <int BITS>
+template <int BITS, bool GROUP>
 cudaError_t launch_bits(const float* x, const uint8_t* c, const float* scale, float* y,
-                        int M, int N, int K, int Kp, cudaStream_t stream) {
-  if (M <= 1) return launch<BITS, 1>(x, c, scale, y, M, N, K, Kp, stream);
-  if (M <= 2) return launch<BITS, 2>(x, c, scale, y, M, N, K, Kp, stream);
-  if (M <= 4) return launch<BITS, 4>(x, c, scale, y, M, N, K, Kp, stream);
-  return launch<BITS, 8>(x, c, scale, y, M, N, K, Kp, stream);
+                        int M, int N, int K, int Kp, int G, int gbytes,
+                        cudaStream_t stream) {
+  if (M <= 1) return launch<BITS, 1, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, stream);
+  if (M <= 2) return launch<BITS, 2, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, stream);
+  if (M <= 4) return launch<BITS, 4, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, stream);
+  return launch<BITS, 8, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, stream);
+}
+
+template <bool GROUP>
+int dispatch(const float* x, const unsigned char* c, const float* scale, float* y,
+             int M, int N, int K, int Kp, int bits, int G, int gbytes, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return static_cast<int>(
+        launch_bits<2, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, s));
+    case 4: return static_cast<int>(
+        launch_bits<4, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, s));
+    case 8: return static_cast<int>(
+        launch_bits<8, GROUP>(x, c, scale, y, M, N, K, Kp, G, gbytes, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool bad_shape(int M, int N, int K, int Kp, int bits) {
+  if (bits != 2 && bits != 4 && bits != 8) return true;
+  return M <= 0 || N <= 0 || K < 0 || Kp != (K + 8 / bits - 1) / (8 / bits);
 }
 
 }  // namespace
@@ -261,14 +313,17 @@ cudaError_t launch_bits(const float* x, const uint8_t* c, const float* scale, fl
 extern "C" int repro_qmm(const float* x, const unsigned char* c, const float* scale,
                          float* y, int M, int N, int K, int Kp, int bits,
                          void* stream) {
-  if (bits != 2 && bits != 4 && bits != 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 0 || N <= 0 || K < 0 || Kp != (K + 8 / bits - 1) / (8 / bits))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 2: return static_cast<int>(launch_bits<2>(x, c, scale, y, M, N, K, Kp, s));
-    case 4: return static_cast<int>(launch_bits<4>(x, c, scale, y, M, N, K, Kp, s));
-    case 8: return static_cast<int>(launch_bits<8>(x, c, scale, y, M, N, K, Kp, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_shape(M, N, K, Kp, bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(x, c, scale, y, M, N, K, Kp, bits, 0, 1, stream);
+}
+
+// scale is (N, ceil(K / group_size)); group_size a positive multiple of 8 / bits.
+extern "C" int repro_qmm_group(const float* x, const unsigned char* c, const float* scale,
+                               float* y, int M, int N, int K, int Kp, int bits,
+                               int group_size, void* stream) {
+  if (bad_shape(M, N, K, Kp, bits)) return static_cast<int>(cudaErrorInvalidValue);
+  const int vpb = 8 / bits;
+  if (group_size <= 0 || group_size % vpb) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = (K + group_size - 1) / group_size;
+  return dispatch<true>(x, c, scale, y, M, N, K, Kp, bits, G, group_size / vpb, stream);
 }

@@ -2,8 +2,9 @@
 
 * :func:`pack_weights` — quantize and pack an (N, K) matrix for qmm.
 * :func:`qmm` — ``x @ dequant(w)ᵀ``: the Hopper kernel for a CUDA tensor, the
-  plain PyTorch version (:func:`qmm_ref`) for a CPU tensor. There is no
-  padding: the kernel masks the ragged edges itself.
+  plain PyTorch version (:func:`qmm_ref`) for a CPU tensor. Block-scaled
+  weights (``per_block``) go to the group kernel or :func:`qmm_group_ref`.
+  There is no padding: the kernels mask the ragged edges themselves.
 * :class:`PackedOperator` / :func:`pack_operator` — Φ̂ in both orientations,
   the pair QNIHT streams every iteration; ``shared=True`` packs one
   quantization in both (the ``requantize="fixed"`` deployment mode).
@@ -21,8 +22,8 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.kernels.qmm.kernel import qmm_cuda
-from repro_torch.kernels.qmm.ref import qmm_ref
+from repro_torch.kernels.qmm.kernel import qmm_cuda, qmm_group_cuda
+from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
 from repro_torch.quant.formats import (
     BY_BITS,
     PER_CHANNEL,
@@ -30,16 +31,20 @@ from repro_torch.quant.formats import (
     Granularity,
     as_granularity,
 )
-from repro_torch.quant.pack import pack_codes
+from repro_torch.quant.pack import pack_codes, validate_group_packing
 from repro_torch.quant.quantize import quantize, quantize_codes
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedWeights:
-    """(N, K) matrix quantized and packed along K; ``scale`` is (1, N) f32."""
+    """(N, K) matrix quantized and packed along K.
+
+    ``scale`` is f32 in one of two layouts: (1, N), one scale per output row
+    (``per_tensor``, broadcast, and ``per_channel``), or (N, ⌈K/g⌉), one per
+    g contiguous codes of a row (``per_block(g)``)."""
 
     packed: torch.Tensor      # (N, packed_len(K)) uint8
-    scale: torch.Tensor       # (1, N) float32
+    scale: torch.Tensor       # (1, N) or (N, ⌈K/g⌉) float32
     bits: int
     k_dim: int
     granularity: Granularity = PER_TENSOR
@@ -56,12 +61,8 @@ class PackedWeights:
 
 def _resolve_granularity(granularity, per_channel: bool) -> Granularity:
     if granularity is not None:
-        gran = as_granularity(granularity)
-    else:
-        gran = PER_CHANNEL if per_channel else PER_TENSOR
-    if gran.kind == "per_block":
-        raise NotImplementedError("per_block scale granularity is not yet ported")
-    return gran
+        return as_granularity(granularity)
+    return PER_CHANNEL if per_channel else PER_TENSOR
 
 
 def pack_weights(
@@ -72,10 +73,21 @@ def pack_weights(
     granularity: Union[Granularity, str, None] = None,
 ) -> PackedWeights:
     """Quantize (stochastically if ``key`` is given) and pack an (N, K) real
-    matrix, with one scale per tensor or per output row N."""
+    matrix, with one scale per tensor, per output row N, or per g contiguous
+    K elements (``per_block(g)``, g a multiple of the packing word)."""
     if w.ndim != 2:
         raise ValueError("pack_weights expects (N, K)")
     gran = _resolve_granularity(granularity, per_channel)
+    if gran.kind == "per_block":
+        validate_group_packing(gran.group_size, bits)
+        codes, scale = quantize_codes(w, bits, key, granularity=gran)
+        return PackedWeights(
+            packed=pack_codes(codes, bits),
+            scale=scale.to(torch.float32).contiguous(),          # (N, ⌈K/g⌉)
+            bits=bits,
+            k_dim=w.shape[1],
+            granularity=gran,
+        )
     if gran.kind == "per_channel":
         codes, scale = quantize_codes(w, bits, key, channel_axis=0)
     else:
@@ -93,13 +105,21 @@ def pack_weights(
 def qmm(x: torch.Tensor, w: PackedWeights, *, w_t: Optional[PackedWeights] = None) -> torch.Tensor:
     """y = x @ dequant(w)ᵀ, (M, K) → (M, N) float32.
 
-    A CUDA ``x`` launches the Hopper kernel (which raises if it cannot build
-    or launch); a CPU ``x`` runs :func:`qmm_ref`. ``w_t`` is ignored."""
+    A CUDA ``x`` launches a Hopper kernel (which raises if it cannot build
+    or launch): the group kernel for ``per_block`` weights, else the
+    per-row-scale one. A CPU ``x`` runs the matching plain version
+    (:func:`qmm_group_ref` or :func:`qmm_ref`). ``w_t`` is ignored."""
     del w_t
     if x.shape[-1] != w.k_dim:
         raise ValueError(f"x K dim {x.shape[-1]} != packed k_dim {w.k_dim}")
     if x.device != w.packed.device:
         raise ValueError(f"x is on {x.device} but the packed weights on {w.packed.device}")
+    if w.granularity.kind == "per_block":
+        g = w.granularity.group_size
+        if x.is_cuda:
+            return qmm_group_cuda(x.to(torch.float32).contiguous(), w.packed, w.scale,
+                                  w.bits, w.k_dim, g)
+        return qmm_group_ref(x, w.packed, w.scale, w.bits, w.k_dim, g)
     if x.is_cuda:
         return qmm_cuda(x.to(torch.float32).contiguous(), w.packed, w.scale, w.bits, w.k_dim)
     return qmm_ref(x, w.packed, w.scale, w.bits, w.k_dim)
@@ -169,7 +189,10 @@ def pack_operator(
     ``shared=True`` quantizes once (per-tensor scale) and packs the same codes
     in both orientations: the adjoint identity ⟨Φ̂x, r⟩ = ⟨x, Φ̂†r⟩ is exact and
     the codes equal ``fake_quantize(phi, bits, key)``'s. ``shared=False``
-    draws an independent quantization per orientation from ``split(key)``.
+    draws an independent quantization per orientation (and per part, for a
+    complex Φ) from ``split(key, 2)`` or ``split(key, 4)``; it is the only
+    mode for ``per_channel``/``per_block``, whose scales follow each
+    orientation's own axes.
     """
     from repro_torch import random as prng
 

@@ -15,13 +15,22 @@ Backends (``--backend``):
   ``requantize=fixed``). Same codes as ``fake --requantize fixed`` with the
   same ``--seed``.
 
+``--scale-granularity per_channel|per_block`` (with ``--group-size g`` for
+``per_block``) gives the packed Φ̂ one scale per row or per g codes along the
+contraction instead of one per tensor; each orientation is then quantized on
+its own, and ``per_block`` streams through the group kernel. It needs
+``--backend packed``.
+
 ``--batch B`` recovers B observations of one Φ̂ at once (``qniht_batch``).
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions on the CPU. Problem instances come from a ``torch.Generator`` seeded
 with ``--seed``; the quantization draws from ``repro_torch.random.PRNGKey(seed)``.
 
+The streaming H_s (``threshold="hsthresh"``) has no flag here, as in the
+reference's CLI; it is reached through ``qniht``/``qniht_batch``.
+
 Not yet ported: the ``mri*`` configs, ``--devices``, ``--checkpoint-dir`` and
-scale granularities other than ``per_tensor``.
+``--scale-granularity per_band`` (the MRI observation scales).
 """
 from __future__ import annotations
 
@@ -51,12 +60,20 @@ NOT_PORTED = ("mri", "mri-bench", "mri-smoke", "mri-wavelet", "mri-wavelet-bench
               "mri-wavelet-smoke")
 
 
-def _solver_kwargs(backend, bits_phi, bits_y, key, requantize):
+def _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity="per_tensor",
+                   group_size=None):
+    if granularity != "per_tensor" and backend != "packed":
+        raise ValueError(
+            f"--scale-granularity {granularity} scales the packed Φ̂ stream; "
+            f"combine it with --backend packed (got --backend {backend})")
     if backend == "dense":
         return {}
-    return dict(bits_phi=bits_phi, bits_y=bits_y, key=key,
-                requantize="fixed" if backend == "packed" else requantize,
-                backend="packed" if backend == "packed" else "dense")
+    kw = dict(bits_phi=bits_phi, bits_y=bits_y, key=key,
+              requantize="fixed" if backend == "packed" else requantize,
+              backend="packed" if backend == "packed" else "dense")
+    if granularity != "per_tensor":
+        kw.update(scale_granularity=granularity, group_size=group_size)
+    return kw
 
 
 def _sync(device: torch.device) -> None:
@@ -80,12 +97,12 @@ def lofar_instance(cs, seed, batch, device):
 
 
 def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batch=0,
-                  device=None):
+                  device=None, granularity="per_tensor", group_size=None):
     """LOFAR sky recovery. Returns (metrics dict, IHTResult, x_true)."""
     dev = resolve_device(device)
     key = prng.PRNGKey(seed)
+    kw = _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity, group_size)
     phi, y, x = lofar_instance(cs, seed, batch, dev)
-    kw = _solver_kwargs(backend, bits_phi, bits_y, key, requantize)
     if batch:
         Y, X_true = y, x
         _sync(dev)
@@ -128,11 +145,11 @@ def gaussian_batch_instance(g, seed, batch, device):
 
 
 def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", batch=0,
-                     device=None):
+                     device=None, granularity="per_tensor", group_size=None):
     """Gaussian toy recovery. Returns (metrics dict, IHTResult, x_true)."""
     dev = resolve_device(device)
     key = prng.PRNGKey(seed)
-    kw = _solver_kwargs(backend, bits_phi, bits_y, key, requantize)
+    kw = _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity, group_size)
     if batch:
         phi, Y, X_true = gaussian_batch_instance(g, seed, batch, dev)
         _sync(dev)
@@ -172,7 +189,13 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0,
                     help="recover B observations of one Φ̂ at once (qniht_batch)")
     ap.add_argument("--scale-granularity", default=None,
-                    choices=["per_tensor", "per_channel", "per_block", "per_band"])
+                    choices=["per_tensor", "per_channel", "per_block", "per_band"],
+                    help="scale layout of the packed Φ̂ (--backend packed): one per "
+                         "tensor, per row, or per --group-size codes along the "
+                         "contraction")
+    ap.add_argument("--group-size", type=int, default=None,
+                    help="per_block group size along the contraction axis (a "
+                         "multiple of 8 / --bits-phi)")
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -185,12 +208,15 @@ def main(argv=None):
         ap.exit(2, "recover: --devices is not yet ported\n")
     if args.checkpoint_dir is not None:
         ap.exit(2, "recover: --checkpoint-dir is not yet ported\n")
-    if args.scale_granularity not in (None, "per_tensor"):
-        ap.exit(2, f"recover: --scale-granularity {args.scale_granularity} is not yet ported\n")
+    if args.scale_granularity == "per_band":
+        ap.exit(2, "recover: --scale-granularity per_band is not yet ported\n")
+    gran = args.scale_granularity or "per_tensor"
+    if gran == "per_block" and args.group_size is None:
+        ap.error("--scale-granularity per_block needs --group-size")
     backend = args.backend
     run = recover_lofar if args.config.startswith("lofar") else recover_gaussian
     out, _, _ = run(CONFIGS[args.config], backend, args.bits_phi, args.bits_y, args.seed,
-                    args.requantize, args.batch, args.device)
+                    args.requantize, args.batch, args.device, gran, args.group_size)
     label = "32bit" if backend == "dense" else f"{args.bits_phi}&{args.bits_y}bit[{backend}]"
     print(format_line(args.config, label, out), flush=True)
 

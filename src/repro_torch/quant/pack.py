@@ -6,12 +6,26 @@ The layout is the contract the packed matmul shares with the reference:
 * codes are stored biased by +K, so they are non-negative in ``bits`` bits;
 * code i of a byte sits at bit ``bits·i`` (8/bits codes per byte);
 * the last axis is padded with code 0 (biased K) to a whole number of bytes.
+
+Group-scaled (``per_block``) data packs the same way, its scales carried as a
+separate f32 array; :func:`validate_group_packing` keeps every byte inside one
+scale group.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.quant.formats import BY_BITS
+
+
+def validate_group_packing(group_size: int, bits: int) -> None:
+    """Group-scaled packed storage needs every byte inside one scale group."""
+    vpb = 8 // bits
+    if group_size % vpb:
+        raise ValueError(
+            f"per_block group_size {group_size} must be a multiple of the "
+            f"packing word ({vpb} values/byte at {bits} bits) so packed bytes "
+            f"do not straddle scale groups")
 
 
 def packed_len(n: int, bits: int) -> int:

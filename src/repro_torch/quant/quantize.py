@@ -6,10 +6,12 @@ stochastically with the uniforms of :mod:`repro_torch.random`, which are the
 reference's ``jax.random.uniform`` draws word for word, so codes match the
 reference bit for bit. Without a key it rounds to nearest.
 
-Scales: ``per_tensor`` (the paper's single c_v) and ``per_channel`` (one scale
-per leading index, or per ``channel_axis``). ``per_block`` is not yet ported.
-Complex tensors are quantized component-wise, real and imaginary parts sharing
-one scale; the imaginary part draws from the second key of ``split(key)``.
+Scales: ``per_tensor`` (the paper's single c_v), ``per_channel`` (one scale
+per leading index, or per ``channel_axis``) and ``per_block(g)`` (one scale per
+g contiguous elements of the last axis, the last group possibly short; the
+scale then has the compact shape ``(..., ⌈n/g⌉)``). Complex tensors are
+quantized component-wise, real and imaginary parts sharing one scale per
+group; the imaginary part draws from the second key of ``split(key)``.
 """
 from __future__ import annotations
 
@@ -29,16 +31,12 @@ from repro_torch.quant.formats import (
 _REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
-def _not_ported(gran: Granularity) -> None:
-    if gran.kind == "per_block":
-        raise NotImplementedError("per_block scale granularity is not yet ported")
-
-
 class QTensor:
     """Integer codes + scale + bit width + granularity.
 
-    ``dequantize()`` returns ``codes * (scale / K)``. Complex tensors carry
-    codes with a leading axis of size 2 (real, imaginary).
+    ``dequantize()`` returns ``codes * (scale / K)``, expanding per-block
+    scales along the last axis. Complex tensors carry codes with a leading
+    axis of size 2 (real, imaginary).
     """
 
     def __init__(self, codes: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -57,8 +55,15 @@ class QTensor:
     def shape(self):
         return self.codes.shape[1:] if self.is_complex else self.codes.shape
 
+    def elementwise_scale(self) -> torch.Tensor:
+        """The scale each code dequantizes with, broadcastable to ``shape``."""
+        if self.granularity.kind == "per_block":
+            return expand_block_scale(self.scale, self.granularity.group_size,
+                                      self.shape[-1])
+        return self.scale
+
     def dequantize(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        step = self.scale / self.fmt.half_steps
+        step = self.elementwise_scale() / self.fmt.half_steps
         vals = self.codes.to(torch.float32) * step
         if self.is_complex:
             if dtype is not None:
@@ -80,11 +85,28 @@ def _max_abs(v: torch.Tensor, dims=None) -> torch.Tensor:
     return _guard_zero(a.amax(dim=dims, keepdim=True))
 
 
+def block_scale(v: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Per-block max-abs along the last axis: (..., n) → (..., ⌈n/g⌉)."""
+    n = v.shape[-1]
+    nb = (n + group_size - 1) // group_size
+    pad = nb * group_size - n
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    blocks = v.abs().reshape(*v.shape[:-1], nb, group_size)
+    return _guard_zero(blocks.amax(dim=-1))
+
+
+def expand_block_scale(scale: torch.Tensor, group_size: int, n: int) -> torch.Tensor:
+    """Inverse broadcast of :func:`block_scale`: (..., ⌈n/g⌉) → (..., n)."""
+    return torch.repeat_interleave(scale, group_size, dim=-1)[..., :n]
+
+
 def _granular_scale(v: torch.Tensor, gran: Granularity) -> torch.Tensor:
-    _not_ported(gran)
     if gran.kind == "per_tensor":
         return _max_abs(v)
-    return _max_abs(v, dims=v.ndim - 1)
+    if gran.kind == "per_channel":
+        return _max_abs(v, dims=v.ndim - 1)
+    return block_scale(v, gran.group_size)
 
 
 def quantize_codes(
@@ -98,21 +120,26 @@ def quantize_codes(
     """Quantize a real tensor to int8 codes in [-K, K]; returns (codes, scale).
 
     The scale is the per-tensor max-abs, the per-channel max-abs (keepdims)
-    when ``channel_axis`` is given or ``granularity`` is per_channel, or the
-    ``scale`` passed in. Values are clipped to [-scale, scale] first."""
+    when ``channel_axis`` is given or ``granularity`` is per_channel, the
+    compact per-block max-abs ``(..., ⌈n/g⌉)`` for per_block, or the ``scale``
+    passed in (in the compact per-group shape for per_block). Values are
+    clipped to [-scale, scale] first."""
     fmt = BY_BITS[bits]
     k = fmt.half_steps
     gran = as_granularity(granularity)
-    _not_ported(gran)
     if channel_axis is not None:
         if not gran.is_per_tensor:
             raise ValueError("pass either channel_axis or granularity, not both")
         if scale is None:
             dims = tuple(a for a in range(v.ndim) if a != channel_axis)
             scale = _max_abs(v, dims=dims)
-    elif scale is None:
-        scale = _granular_scale(v, gran)
-    scaled = torch.clamp(v / scale, -1.0, 1.0) * k
+        scale_elem = scale
+    else:
+        if scale is None:
+            scale = _granular_scale(v, gran)
+        scale_elem = (expand_block_scale(scale, gran.group_size, v.shape[-1])
+                      if gran.kind == "per_block" else scale)
+    scaled = torch.clamp(v / scale_elem, -1.0, 1.0) * k
     if key is None:
         codes = torch.round(scaled)
     else:
@@ -155,7 +182,9 @@ def quantize(
 def dequantize_codes(codes: torch.Tensor, scale: torch.Tensor, bits: int,
                      dtype: torch.dtype = torch.float32,
                      granularity: Union[Granularity, str, None] = None) -> torch.Tensor:
-    _not_ported(as_granularity(granularity))
+    gran = as_granularity(granularity)
+    if gran.kind == "per_block":
+        scale = expand_block_scale(scale, gran.group_size, codes.shape[-1])
     return (codes.to(torch.float32) * (scale / BY_BITS[bits].half_steps)).to(dtype)
 
 

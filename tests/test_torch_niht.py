@@ -138,10 +138,21 @@ def test_without_trace_fills_nan():
     assert res.trace.mu.shape == (5,)
 
 
-@pytest.mark.parametrize("kw", [dict(early_exit=True), dict(unroll=2),
-                                dict(threshold="hsthresh", real_signal=True),
+@pytest.mark.parametrize("kw", [dict(threshold="hsthresh", real_signal=True),
                                 dict(scale_granularity="per_channel", backend="packed",
                                      bits_phi=8, requantize="fixed")])
+def test_hsthresh_and_per_channel_match_reference(kw):
+    """Options the first slice refused, now ported: the same solve as the
+    reference's."""
+    phi, Y, _ = gaussian_case(16, 32, 2, 1, seed=3)
+    jkey = jax.random.PRNGKey(0)
+    res_j = jax_qniht(_j(phi), _j(Y[0]), 2, 3, key=jkey, **kw)
+    res_t = qniht(torch.from_numpy(phi), torch.from_numpy(Y[0]), 2, 3,
+                  key=convert.key_from_numpy(np.asarray(jkey)), **kw)
+    assert_solve_close(res_t, res_j)
+
+
+@pytest.mark.parametrize("kw", [dict(early_exit=True), dict(unroll=2)])
 def test_unported_options_are_rejected(kw):
     phi, Y, _ = gaussian_case(16, 32, 2, 1, seed=3)
     key = convert.key_from_numpy(np.asarray(jax.random.PRNGKey(0)))

@@ -104,7 +104,7 @@ def test_recover_cli_default_device_fails_without_gpu():
 
 @pytest.mark.parametrize("argv", [["--config", "mri-smoke"], ["--devices", "2"],
                                   ["--checkpoint-dir", "ck"],
-                                  ["--scale-granularity", "per_block"]])
+                                  ["--scale-granularity", "per_band"]])
 def test_recover_rejects_unported_options(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         recover.main(["--device", "cpu", *argv])

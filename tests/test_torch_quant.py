@@ -141,6 +141,13 @@ def test_zero_byte(bits):
     assert int(pack_codes(codes, bits)[0, 0]) == _zero_byte(bits)
 
 
-def test_per_block_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        quantize_codes(torch.ones(8), 4, granularity="per_block:4")
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_codes_per_block(bits):
+    """per_block codes and compact (…, ⌈n/g⌉) scales, ragged last group."""
+    v = _real((13, 29), 11)
+    jk, tk = _keys(12)
+    cj, sj = jax_quantize_codes(_j(v), bits, jk, granularity="per_block:4")
+    ct, st = quantize_codes(torch.from_numpy(v), bits, tk, granularity="per_block:4")
+    assert st.shape == (13, 8)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
