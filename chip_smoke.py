@@ -10,7 +10,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 
 1. build the Hopper kernel libraries from ``src/repro_torch/kernels/*/csrc``
    (``qmm.cu``: ``qmm`` and ``qmm_group``; ``hsthresh.cu``: ``hist`` and
-   ``mask``), one nvcc per source, started together;
+   ``mask``; ``sqround.cu``; ``flashattn.cu``), one nvcc per source, started
+   together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
@@ -55,7 +56,23 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    ``mask_ref`` standing in on the card give bit-identical x and trace;
    iterations whose support differs from the ``topk`` solve are counted;
 10. the Gaussian toy per_block (g = 64, bits 4 and 8, batch 8) against its
-    ``qmm_group_ref`` witness, per row as in 4.
+    ``qmm_group_ref`` witness, per row as in 4;
+11. ``sqround`` through its entry point at the LOFAR CS302 Φ (the real part
+    of the 870×65,536 measurement matrix), the ``kernels_micro`` 512×512 and
+    a ragged 333×1,001, bits 2/4/8: one launch per call, codes and scale bit
+    for bit equal to ``sqround_ref`` on the same words; timed alone, as the
+    whole call (with the threefry draw) and as the plain version, beside the
+    9-bytes-per-element bound;
+12. ``flash_attention`` through its entry point at starcoder2-3b's attention
+    width (24 query heads on 2 KV heads, D = 128, bf16, causal) at S = 4,096
+    (held over the whole output against the plain version) and S = 32,768
+    (its last 256 rows against the plain version's causal Sq = 256, Sk =
+    32,768 call, and every row against the plain version run in 1,024-row
+    chunks), plus ragged and cross-attention f32 shapes, causal and not;
+    |Δ| ≤ 2e-4 (f32) and 2e-2 (bf16), abs and rel, TF32 off; bf16 rows also
+    ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ (one bf16 ulp, relative), which scales with the
+    output where 2e-2 does not. Timed beside
+    ``scaled_dot_product_attention`` on the same tensors and the bound.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -65,6 +82,13 @@ line ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Details go to ``chip_smoke.json`` and the trace in the directory named by
 ``--out`` (default ``chip_smoke_out/`` beside this script).
+
+``python3 chip_smoke.py --flash-mutants`` runs none of that. It checks the bf16
+checks of phase 12 instead: it plants each fault of ``FLASH_MUTANTS`` in a
+copy of ``flashattn.cu`` in a temporary directory, builds the copies, and
+holds each, beside the real kernel, to the starcoder2-3b checks. It passes
+when the real kernel meets every check and every copy fails one, and writes
+``flash_mutants.json`` to ``--out``.
 """
 from __future__ import annotations
 
@@ -86,6 +110,31 @@ M_VALUES = (1, 8, 64)
 GROUP = 64                     # per_block group size (docs/quantization.md's example)
 NBINS = 2048                   # the solver's hsthresh bins
 HS_SHAPES = ((1, 65536), (8, 65536), (3, 1001))
+BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM data sheet
+# starcoder2-3b's attention (src/repro/configs/starcoder2_3b.py) at the
+# lengths of src/repro/configs/shapes.py's train_4k and prefill_32k
+STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_HEAD_DIM = 24, 2, 128
+TRAIN_4K_LEN, PREFILL_32K_LEN = 4096, 32768
+PREFILL_TAIL_ROWS = 256        # rows of the 32k output held against a causal Sq = 256 call
+PLAIN_CHUNK_ROWS = 1024        # query rows per plain-version call at 32k
+BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
+                               # equal rows to bf16 sets them apart, in 2-norm
+# Faults planted in copies of flashattn.cu by --flash-mutants: name ->
+# (what it breaks, [(text of the source, its replacement), ...])
+FLASH_MUTANTS = {
+    "diagonal_tile": ("causal query blocks past the first skip their diagonal KV tile", [
+        ("  if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);\n",
+         "  if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);\n"
+         "  if (causal && qb > 0) n_kv -= 1;\n")]),
+    "own_key": ("the causal mask drops each row's own key (j < i + Sk - Sq)", [
+        ("(!causal || j <= qi + off)", "(!causal || j < qi + off)")]),
+    "bf16_pv": ("P rounded to bf16 and P·V accumulated in bf16", [
+        ("const float p = Ps[r * kLP + j];",
+         "const float p = __bfloat162float(__float2bfloat16_rn(Ps[r * kLP + j]));")] + [
+        (f"acc[c][{i}] = fmaf(p, vv.{x}, acc[c][{i}]);",
+         f"acc[c][{i}] = __bfloat162float(__float2bfloat16_rn(fmaf(p, vv.{x}, acc[c][{i}])));")
+        for i, x in enumerate("xyzw")]),
+}
 
 
 class Phases:
@@ -836,6 +885,289 @@ def phase_gaussian_block(torch, mods):
     return out
 
 
+def phase_sqround(torch, mods):
+    """sqround through its entry point at the LOFAR Φ and two small shapes,
+    bits 2/4/8, bit for bit against sqround_ref on the same words."""
+    SQ, sqround, ref, prng = mods["SQROUND"], mods["sqround"], mods["sqround_ref"], mods["prng"]
+    dev = torch.device("cuda")
+    cs = mods["LOFAR"]
+    phi = mods["measurement_matrix"](mods["Station"](n_antennas=cs.n_antennas, seed=cs.seed),
+                                     cs.resolution, cs.extent, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [("lofar_phi", phi.real.contiguous()),
+             ("kernels_micro", torch.randn(512, 512, generator=gen, device=dev)),
+             ("ragged", 3.0 * torch.randn(333, 1001, generator=gen, device=dev))]
+    del phi
+    keys = {bits: prng.fold_in(prng.PRNGKey(0), bits) for bits in (2, 4, 8)}
+    reset_counts(mods)
+    outs = {(name, bits): sqround(v, bits, keys[bits]) for name, v in cases for bits in keys}
+    torch.cuda.synchronize()
+    launches, by_shape = SQ.launches, dict(SQ.launches_by_shape)
+    others = {k.entry: k.launches for k in mods["KERNELS"] if k is not SQ and k.launches}
+    if launches != len(outs) or others:
+        raise AssertionError(f"sqround: {launches} launches for {len(outs)} calls, others {others}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, v in cases:
+        m = v.abs().amax()
+        want_scale = torch.where(m > 0, m, torch.ones_like(m))
+        for bits, key in keys.items():
+            codes, scale = outs[(name, bits)]
+            words = mods["narrow_words"](prng.bits(key, v.shape, device=dev))
+            plain = ref(v, words, scale, bits)
+            differ = int((codes != plain).sum())
+            if differ or not torch.equal(scale, want_scale):
+                raise AssertionError(f"sqround {name} bits={bits}: {differ} codes differ from "
+                                     f"sqround_ref; scale {float(scale)} (want {float(want_scale)})")
+            n = v.numel()
+            row = {"shape": name, "bits": bits, "R": v.shape[0], "C": v.shape[1],
+                   "max_abs_err": 0.0,
+                   "ms": time_ms(torch, lambda: SQ(v, words, scale, bits), 20, flush),
+                   "call_ms": time_ms(torch, lambda: sqround(v, bits, key), 3, flush),
+                   "plain_ms": time_ms(torch, lambda: ref(v, words, scale, bits), 5, flush),
+                   "library_ms": None,
+                   "bound_ms": 9 * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            rows.append(row)
+            print(f"[chip_smoke]   sqround {name:13s} {v.shape[0]}x{v.shape[1]} bits={bits}: "
+                  f"bitwise equal; kernel {row['ms']:.4f} ms  whole call (threefry draw "
+                  f"included) {row['call_ms']:.3f} ms  plain {row['plain_ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms (bytes); no single PyTorch call computes it",
+                  flush=True)
+    del cases, outs, flush
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches,
+            "launches_by_shape": {str(k): n for k, n in by_shape.items()}}
+
+
+def attention_bound(b, hq, hkv, sq, sk, d, itemsize, causal):
+    """(bound ms, bound_by, ms at the f32 CUDA-core peak): q, k, v and o
+    moved once, or 4·D flops per visible (query, key) pair (causal: row i
+    sees keys j <= i + Sk - Sq) over the peak of the inputs' type."""
+    pairs = sq * (sk - sq) + sq * (sq + 1) // 2 if causal else sq * sk
+    flops = 4 * b * hq * d * pairs
+    nbytes = itemsize * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    peak = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            flops / F32_FLOP_PER_S * 1e3)
+
+
+def attention_gap(torch, out, ref, tol):
+    """How far an attention output is from the plain version's: elements off
+    by more than tol (abs and rel), rows with ‖Δ‖₂ > 2⁻⁷·‖ref‖₂, max |Δ| and
+    the largest ‖Δ‖₂/‖ref‖₂ of a row."""
+    err = out.float() - ref.float()
+    ref_abs = ref.float().abs()
+    over = int((err.abs() > tol + tol * ref_abs).sum())
+    err_norm, ref_norm = err.norm(dim=-1), ref_abs.norm(dim=-1)
+    return {"over": over, "rows_over": int((err_norm > BF16_ROW_REL * ref_norm).sum()),
+            "finite": bool(torch.isfinite(out).all()), "max_abs_err": float(err.abs().max()),
+            "max_row_rel": float((err_norm / ref_norm.clamp_min(1e-30)).max())}
+
+
+def held(torch, label, out, ref, tol, bf16):
+    """attention_gap, raising where it fails: every element within tol (abs
+    and rel), and for bf16 every row within 2⁻⁷ in 2-norm."""
+    gap = attention_gap(torch, out, ref, tol)
+    if gap["over"] or (bf16 and gap["rows_over"]) or not gap["finite"]:
+        raise AssertionError(f"flash_attention {label}: {gap['over']} elements off by more "
+                             f"than {tol} (abs and rel), {gap['rows_over'] if bf16 else 0} "
+                             f"rows off by more than 2^-7 in 2-norm, max |Δ| "
+                             f"{gap['max_abs_err']}, max row ‖Δ‖/‖ref‖ {gap['max_row_rel']}")
+    return gap
+
+
+def plain_chunked(torch, plain, q, k, v, scale, flush=None):
+    """The plain version of a causal Sq = Sk call, PLAIN_CHUNK_ROWS query rows
+    a call (rows a.. see keys < a + chunk), and its device time in ms."""
+    s = q.shape[2]
+    full = torch.empty_like(q)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if flush is not None:
+        flush.zero_()
+    start.record()
+    for a in range(0, s, PLAIN_CHUNK_ROWS):
+        e = a + PLAIN_CHUNK_ROWS
+        full[:, :, a:e] = plain(q[:, :, a:e], k[:, :, :e], v[:, :, :e], causal=True,
+                                scale=scale)
+    end.record()
+    end.synchronize()
+    return full, start.elapsed_time(end)
+
+
+def starcoder2_qkv(torch, gen, s):
+    """bf16 q, k, v of starcoder2-3b's attention at length s, B = 1."""
+    return tuple(torch.randn(1, h, s, STARCODER2_3B_HEAD_DIM, generator=gen,
+                             device=gen.device).to(torch.bfloat16)
+                 for h in (STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_KV_HEADS))
+
+
+def phase_flash(torch, mods):
+    """flash_attention through its entry point at starcoder2-3b's width
+    (S = 4,096 and 32,768, bf16, causal) and small f32 shapes, held against
+    the plain version; timed beside scaled_dot_product_attention."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    FLASH, flash_attention, plain = mods["FLASH"], mods["flash_attention"], mods["attention_plain"]
+
+    def sdpa(q, k, v):
+        """The library call, held to its flash backend (never the math one,
+        which would materialize the S² scores)."""
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                    enable_gqa=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        return tuple(torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+                     for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+
+    hq, hkv, d = STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_HEAD_DIM
+    small = [(f"{name} causal={causal}", causal, qkv(*shape, torch.float32))
+             for name, shape in (("ragged", (2, 4, 2, 333, 333, 64)),
+                                 ("cross", (1, 4, 2, 64, 256, 32)))
+             for causal in (True, False)]
+    big = [(f"starcoder2_3b S={s}", s, starcoder2_qkv(torch, gen, s))
+           for s in (TRAIN_4K_LEN, PREFILL_32K_LEN)]
+    reset_counts(mods)
+    outs = [flash_attention(*t, causal=causal) for _, causal, t in small]
+    outs += [flash_attention(*t, causal=True) for _, _, t in big]
+    torch.cuda.synchronize()
+    launches, by_shape = FLASH.launches, dict(FLASH.launches_by_shape)
+    others = {k.entry: k.launches for k in mods["KERNELS"] if k is not FLASH and k.launches}
+    if launches != len(outs) or others:
+        raise AssertionError(f"flash_attention: {launches} launches for {len(outs)} calls, "
+                             f"others {others}")
+
+    rows = []
+    for (label, causal, (q, k, v)), out in zip(small, outs):
+        err = held(torch, label, out,
+                   plain(q, k, v, causal=causal, scale=1.0 / q.shape[-1] ** 0.5), 2e-4,
+                   False)["max_abs_err"]
+        print(f"[chip_smoke]   flash_attention f32 {label} {tuple(q.shape)} kv "
+              f"{tuple(k.shape)}: max|Δ|={err:.3g} (tolerance 2e-4)", flush=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    scale = 1.0 / d ** 0.5          # flash_attention's default
+    for (label, s, (q, k, v)), out in zip(big, outs[len(small):]):
+        row = {"shape": label, "B": 1, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "dtype": "bf16"}
+        if s == TRAIN_4K_LEN:
+            gap = held(torch, label, out, plain(q, k, v, causal=True, scale=scale), 2e-2, True)
+            row["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, causal=True, scale=scale),
+                                      3, flush)
+            row["plain_how"] = f"one call ({hq}·S² f32 scores)"
+            reps = 10
+        else:
+            tail = plain(q[:, :, -PREFILL_TAIL_ROWS:], k, v, causal=True, scale=scale)
+            tail_gap = held(torch, f"{label} last {PREFILL_TAIL_ROWS} rows",
+                            out[:, :, -PREFILL_TAIL_ROWS:], tail, 2e-2, True)
+            row["tail_max_abs_err"] = tail_gap["max_abs_err"]
+            row["tail_max_row_rel"] = tail_gap["max_row_rel"]
+            del tail
+            full, row["plain_ms"] = plain_chunked(torch, plain, q, k, v, scale, flush)
+            row["plain_how"] = f"{s // PLAIN_CHUNK_ROWS} calls of {PLAIN_CHUNK_ROWS} query rows"
+            gap = held(torch, f"{label} every row", out, full, 2e-2, True)
+            del full
+            reps = 3
+        row["max_abs_err"], row["max_row_rel"] = gap["max_abs_err"], gap["max_row_rel"]
+        row["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, causal=True), reps, flush)
+        lib = sdpa(q, k, v)
+        row["library_max_abs_diff"] = float((lib.float() - out.float()).abs().max())
+        del lib
+        row["library_ms"] = time_ms(torch, lambda: sdpa(q, k, v), 10, flush)
+        row["bound_ms"], row["bound_by"], row["f32_core_bound_ms"] = attention_bound(
+            1, hq, hkv, s, s, d, 2, True)
+        rows.append(row)
+        print(f"[chip_smoke]   flash_attention {label} ({hq}/{hkv} heads, D={d}, bf16, causal): "
+              f"max|Δ|={row['max_abs_err']:.3g} (tolerance 2e-2), max row ‖Δ‖/‖ref‖="
+              f"{row['max_row_rel']:.3g} (tolerance 2^-7); kernel {row['ms']:.3f} ms  "
+              f"plain {row['plain_ms']:.3f} ms ({row['plain_how']})  sdpa "
+              f"{row['library_ms']:.3f} ms (|Δ| to the kernel {row['library_max_abs_diff']:.3g})"
+              f"  bound {row['bound_ms']:.3f} ms ({row['bound_by']}; "
+              f"{row['f32_core_bound_ms']:.2f} ms at the f32 CUDA-core peak)", flush=True)
+    del small, big, outs, flush
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches,
+            "launches_by_shape": {str(k): n for k, n in by_shape.items()}}
+
+
+def flash_mutants(torch, mods):
+    """Plant each fault of FLASH_MUTANTS in a copy of flashattn.cu in a
+    temporary directory, build the copies and the real source together, and
+    hold each at starcoder2-3b's width (bf16, causal) to phase 12's checks:
+    S = 4,096 every row, S = 32,768 the last 256 rows and every row. For each
+    check it reports the elementwise 2e-2 rule and the 2⁻⁷ row rule apart."""
+    import tempfile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    plain, FLASH, CudaLibrary = mods["attention_plain"], mods["FLASH"], mods["CudaLibrary"]
+
+    class CopyLibrary(CudaLibrary):
+        """A copy's library, built beside the copy."""
+
+        def library_path(self):
+            return self.source.with_suffix(".so")
+
+    source = FLASH.library.source.read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels = {"kernel": FLASH}
+        for name, (_, edits) in FLASH_MUTANTS.items():
+            text = source
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise AssertionError(f"mutant {name}: {old!r} is not in flashattn.cu once")
+                text = text.replace(old, new)
+            path = Path(tmp) / f"flashattn_{name}.cu"
+            path.write_text(text)
+            kernels[name] = type(FLASH)(CopyLibrary(path, FLASH.library.entries), FLASH.entry)
+        phase_build([FLASH.library] + [k.library for n, k in kernels.items() if n != "kernel"])
+
+        gen = torch.Generator(device=torch.device("cuda")).manual_seed(5)
+        scale = 1.0 / STARCODER2_3B_HEAD_DIM ** 0.5
+        results = {name: {} for name in kernels}
+        for s in (TRAIN_4K_LEN, PREFILL_32K_LEN):
+            q, k, v = starcoder2_qkv(torch, gen, s)
+            if s == TRAIN_4K_LEN:
+                checks = {f"S={s} every row": (slice(None), plain(q, k, v, causal=True,
+                                                                  scale=scale))}
+            else:
+                tail = plain(q[:, :, -PREFILL_TAIL_ROWS:], k, v, causal=True, scale=scale)
+                checks = {f"S={s} last {PREFILL_TAIL_ROWS} rows":
+                          (slice(s - PREFILL_TAIL_ROWS, s), tail),
+                          f"S={s} every row": (slice(None),
+                                               plain_chunked(torch, plain, q, k, v, scale)[0])}
+            for name, kernel in kernels.items():
+                out = kernel(q, k, v, True, scale)
+                for check, (rows, ref) in checks.items():
+                    gap = attention_gap(torch, out[:, :, rows], ref, 2e-2)
+                    gap["elementwise_2e-2"] = "pass" if gap["over"] == 0 and gap["finite"] \
+                        else "FAIL"
+                    gap["row_2^-7"] = "pass" if gap["rows_over"] == 0 else "FAIL"
+                    results[name][check] = gap
+                    print(f"[chip_smoke]   {name:13s} {check:22s} elementwise 2e-2: "
+                          f"{gap['elementwise_2e-2']} ({gap['over']} elements over, max|Δ| "
+                          f"{gap['max_abs_err']:.3g})  row 2^-7: {gap['row_2^-7']} "
+                          f"({gap['rows_over']} rows over, max ‖Δ‖/‖ref‖ "
+                          f"{gap['max_row_rel']:.3g})", flush=True)
+                del out
+            del q, k, v, checks
+            torch.cuda.empty_cache()
+
+    def failed(name):
+        return any(g["elementwise_2e-2"] == "FAIL" or g["row_2^-7"] == "FAIL"
+                   for g in results[name].values())
+
+    missed = [name for name in FLASH_MUTANTS if not failed(name)]
+    if failed("kernel") or missed:
+        raise AssertionError(f"flash mutants: the real kernel failed a check: "
+                             f"{failed('kernel')}; mutants no check caught: {missed}")
+    return {"mutants": {n: what for n, (what, _) in FLASH_MUTANTS.items()},
+            "results": results}
+
+
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
     sys.path.insert(0, str(SRC))
@@ -843,8 +1175,14 @@ def load_port() -> dict:
     from repro_torch.configs.gaussian_toy import CONFIG as GAUSS
     from repro_torch.configs.lofar_cs302 import BENCH as LOFAR_BENCH, CONFIG as LOFAR
     from repro_torch.core.niht import _solver_setup, qniht_batch
+    from repro_torch.kernels.cudalib import CudaLibrary
     from repro_torch.kernels.hsthresh import kernel as hs_kernel, ops as hs_ops
     from repro_torch.kernels.hsthresh import ref as hsthresh_ref_mod
+    from repro_torch.kernels.flashattn import kernel as fa_kernel
+    from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
+    from repro_torch.kernels.sqround import kernel as sq_kernel
+    from repro_torch.kernels.sqround.ops import sqround
+    from repro_torch.kernels.sqround.ref import sqround_ref
     from repro_torch.kernels.qmm import kernel as qmm_kernel
     from repro_torch.kernels.qmm.kernel import QMM, QMM_GROUP
     from repro_torch.kernels.qmm import ops as qmm_ops
@@ -872,10 +1210,23 @@ def load_port() -> dict:
                 qmm_group_ref=qmm_group_ref, expand_block_scale=expand_block_scale,
                 HIST=hs_kernel.HIST, MASK=hs_kernel.MASK, hs_ops=hs_ops,
                 hsthresh_ref_mod=hsthresh_ref_mod, qniht_batch=qniht_batch,
-                solver_setup=_solver_setup,
-                KERNELS=(QMM, QMM_GROUP, hs_kernel.HIST, hs_kernel.MASK),
-                LIBRARIES=(qmm_kernel.LIBRARY, hs_kernel.LIBRARY))
+                solver_setup=_solver_setup, SQROUND=sq_kernel.SQROUND, sqround=sqround,
+                sqround_ref=sqround_ref, narrow_words=sq_kernel.narrow_words,
+                FLASH=fa_kernel.FLASH, flash_attention=flash_attention,
+                attention_plain=attention_plain, CudaLibrary=CudaLibrary,
+                KERNELS=(QMM, QMM_GROUP, hs_kernel.HIST, hs_kernel.MASK, sq_kernel.SQROUND,
+                         fa_kernel.FLASH),
+                LIBRARIES=(qmm_kernel.LIBRARY, hs_kernel.LIBRARY, sq_kernel.LIBRARY,
+                           fa_kernel.LIBRARY))
     return mods
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them ("" if it
+    cannot)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout else ""
 
 
 def main(argv=None) -> int:
@@ -885,6 +1236,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=str(ROOT / "chip_smoke_out"),
                     help="directory for chip_smoke.json and the profiler trace")
+    ap.add_argument("--flash-mutants", action="store_true",
+                    help="only check that planted faults of flashattn.cu fail the bf16 checks")
     args = ap.parse_args(argv)
     import torch
 
@@ -900,6 +1253,12 @@ def main(argv=None) -> int:
           flush=True)
     phases = Phases()
     t0 = time.perf_counter()
+    if args.flash_mutants:
+        result = phases.run("flash-mutants", flash_mutants, torch, mods)
+        mods["out_dir"].mkdir(parents=True, exist_ok=True)
+        (mods["out_dir"] / "flash_mutants.json").write_text(json.dumps(result, indent=1))
+        print(nvidia_smi_line(), flush=True)
+        return 1 if phases.failed else 0
     report = {"device": kind}
     report["build"] = phases.run("build", phase_build, mods["LIBRARIES"])
     report["kernel"] = phases.run("kernel-vs-plain", phase_kernel, torch, mods)
@@ -912,10 +1271,10 @@ def main(argv=None) -> int:
     report["gaussian"] = phases.run("gaussian", phase_gaussian, torch, mods)
     report["gaussian_block"] = phases.run("gaussian-per-block", phase_gaussian_block, torch,
                                           mods)
+    report["sqround"] = phases.run("sqround", phase_sqround, torch, mods)
+    report["flash"] = phases.run("flash-attention", phase_flash, torch, mods)
     report["profile"] = phases.run("profile", phase_profile, torch, mods)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout else ""
+    card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
     out_dir = mods["out_dir"]
@@ -964,6 +1323,39 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": f"B=1 N={row['N']} nbins={NBINS}",
         })
+    row = next(r for r in report["sqround"]["rows"]
+               if r["shape"] == "lofar_phi" and r["bits"] == LOFAR.bits_phi)
+    kernels.append({
+        "name": "sqround[lofar_phi]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/sqround/csrc/sqround.cu",
+        "replaces": "src/repro/kernels/sqround/kernel.py:49",
+        "launches": report["sqround"]["launches"],
+        "max_abs_err": 0.0,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "call_ms": row["call_ms"],
+        "shape": f"R={row['R']} C={row['C']} bits={row['bits']}",
+    })
+    row = next(r for r in report["flash"]["rows"] if r["S"] == PREFILL_32K_LEN)
+    kernels.append({
+        "name": "flash_attention[starcoder2_3b_prefill_32k]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
+        "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+        "launches": report["flash"]["launches"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "f32_core_bound_ms": row["f32_core_bound_ms"],
+        "shape": f"B=1 Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} bf16 causal",
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

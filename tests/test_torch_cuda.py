@@ -5,9 +5,15 @@ They skip on a machine without a GPU and nvcc; on the card run them with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance for qmm and qmm_group, as in the CPU tests: |Δ| ≤ 1e-5·|ref| +
-1e-5·(|x|@|w|ᵀ) against the plain version, with TF32 off. hist and mask
-equal their plain versions bit for bit.
+1e-5·(|x|@|w|ᵀ) against the plain version, with TF32 off. hist, mask and
+sqround equal their plain versions bit for bit. Flash attention: |Δ| ≤ 2e-4
+(abs and rel) for float32 inputs, 2e-2 for bfloat16, the reference's
+kernel-vs-oracle bounds; for bfloat16 also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for every
+output row (one bfloat16 ulp, relative: the most that rounding both results
+to bfloat16 can set them apart), which scales with the output where 2e-2
+does not.
 """
+import math
 import shutil
 from pathlib import Path
 
@@ -17,12 +23,17 @@ import torch
 from repro_torch import random as prng
 from repro_torch.core.niht import qniht_batch
 from repro_torch.core.niht import qniht
+from repro_torch.kernels.flashattn import kernel as fa_kernel
+from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
 from repro_torch.kernels.hsthresh import kernel as hs_kernel
 from repro_torch.kernels.hsthresh.ops import hsthresh
 from repro_torch.kernels.hsthresh.ref import hist_ref, mask_ref, row_vmax
 from repro_torch.kernels.qmm import kernel as qmm_kernel
 from repro_torch.kernels.qmm.ops import pack_operator, pack_weights, qmm
 from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
+from repro_torch.kernels.sqround import kernel as sq_kernel
+from repro_torch.kernels.sqround.ops import sqround
+from repro_torch.kernels.sqround.ref import sqround_ref
 from repro_torch.quant.pack import unpack_codes
 from repro_torch.quant.quantize import expand_block_scale
 
@@ -171,3 +182,89 @@ def test_slice2_solves_on_card_match_cpu(cuda, kw):
     ref = float(torch.linalg.vector_norm(r_cpu.x))
     assert float(torch.linalg.vector_norm(r_gpu.x.cpu() - r_cpu.x)) <= 1e-3 * ref
     assert torch.equal(r_gpu.x.cpu() != 0, r_cpu.x != 0)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 1), (512, 512), (333, 1001), (870, 4096)])
+def test_sqround_kernel_equals_plain_version(cuda, bits, shape):
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] + bits)
+    v = torch.randn(*shape, generator=gen, device=cuda) * 3.0
+    key = prng.PRNGKey(bits + shape[1])
+    before = sq_kernel.SQROUND.launches
+    codes, scale = sqround(v, bits, key)
+    assert sq_kernel.SQROUND.launches == before + 1
+    u = prng.bits(key, shape, device=cuda)
+    assert torch.equal(codes, sqround_ref(v, u, scale, bits))
+    codes_cpu, scale_cpu = sqround(v.cpu(), bits, key)
+    assert torch.equal(codes.cpu(), codes_cpu) and scale.item() == scale_cpu.item()
+
+
+def test_sqround_kernel_off_the_vector_boundary(cuda):
+    """A view that starts one element into its storage takes the scalar loop."""
+    flat = torch.randn(1 + 37 * 41, device=cuda)
+    v = flat[1:].view(37, 41)
+    u = prng.bits(prng.PRNGKey(3), v.shape, device=cuda)
+    scale = v.abs().amax()
+    for bits in (2, 4, 8):
+        assert torch.equal(sq_kernel.sqround_cuda(v, u, scale, bits),
+                           sqround_ref(v, u, scale, bits))
+
+
+# (B, Hq, Hkv, Sq, Sk, D): ragged, causal cross, starcoder2-3b SMOKE and full
+# head widths, no GQA, one query row
+FLASH_SHAPES = [(2, 4, 2, 333, 333, 64), (1, 4, 2, 64, 256, 32), (2, 4, 2, 64, 64, 16),
+                (1, 24, 2, 300, 300, 128), (2, 8, 8, 128, 128, 64), (1, 2, 1, 1, 77, 32)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain_version(cuda, dtype, tol, causal, shape):
+    b, hq, hkv, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    before = fa_kernel.FLASH.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert fa_kernel.FLASH.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = attention_plain(q, k, v, causal=causal, scale=1.0 / math.sqrt(d))
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= tol + tol * ref.float().abs()).all()), float(err.max())
+    if dtype == torch.bfloat16:
+        row_rel = err.norm(dim=-1) / ref.float().norm(dim=-1)
+        assert float(row_rel.max()) <= 2.0 ** -7, float(row_rel.max())
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_refuses_a_misaligned_view(cuda, which):
+    """The kernel reads 16-byte vectors: a view that starts one element into
+    its storage is refused, not copied, and nothing is launched."""
+    q = torch.randn(1, 4, 64, 32, device=cuda)
+    kv = {n: torch.randn(1, 2, 64, 32, device=cuda) for n in "kv"}
+    flat = torch.randn(1 + q.numel(), device=cuda)
+    inputs = {"q": q, **kv}
+    inputs[which] = flat[1:1 + inputs[which].numel()].view(inputs[which].shape)
+    before = fa_kernel.FLASH.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(inputs["q"], inputs["k"], inputs["v"], causal=True)
+    assert fa_kernel.FLASH.launches == before
+
+
+@pytest.mark.parametrize("which", ["sqround", "flash_attention"])
+def test_missing_library_raises_on_a_cuda_tensor(cuda, which, monkeypatch, tmp_path):
+    """A CUDA tensor never falls back to the plain version: with the kernel's
+    library missing the entry point raises, and nothing is counted."""
+    mod = sq_kernel if which == "sqround" else fa_kernel
+    kernel = sq_kernel.SQROUND if which == "sqround" else fa_kernel.FLASH
+    monkeypatch.setattr(mod.LIBRARY, "_lib", None)
+    monkeypatch.setattr(mod.LIBRARY, "source", tmp_path / "missing.cu")
+    x = torch.randn(1, 2, 64, 32, device=cuda)
+    before = kernel.launches
+    with pytest.raises((FileNotFoundError, RuntimeError)):
+        if which == "sqround":
+            sqround(x[0, 0], 8, prng.PRNGKey(0))
+        else:
+            flash_attention(x, x[:, :1], x[:, :1])
+    assert kernel.launches == before

@@ -1,0 +1,151 @@
+"""The port's flash attention against the JAX reference.
+
+Inputs are made with numpy from a seed and handed to both packages. On the
+CPU the port's ``flash_attention`` repeats K/V and runs its plain version.
+It is held against the reference's oracle path
+(``flash_attention(use_pallas=False)``) and its Pallas kernel in interpret
+mode (``use_pallas=True, interpret=True``), with the reference's own
+kernel-vs-oracle tolerances: |Δ| <= 2e-4 (abs and rel) for float32 inputs,
+2e-2 for bfloat16.
+
+Where the reference's two paths disagree, the port follows the oracle
+``attention_ref``: causal attention with Sq < Sk aligns the diagonal
+bottom-right (the Pallas kernel aligns it top-left), and ragged lengths
+(which the Pallas path refuses) are masked. Those cases are held against the
+oracle only; the Pallas path only where it accepts the shape and aligns the
+same way (Sq = Sk, or not causal).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flashattn.ops import flash_attention as jax_flash_attention
+from repro_torch.kernels.flashattn import kernel as fa_kernel
+from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
+
+F32_TOL = 2e-4
+BF16_TOL = 2e-2
+
+
+def _qkv(b, hq, hkv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    return q, k, v
+
+
+def _port(arrays, causal, dtype=torch.float32):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    out = flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+def _reference(arrays, causal, pallas, dtype=jnp.float32):
+    q, k, v = (jnp.asarray(a, dtype) for a in arrays)
+    kw = dict(use_pallas=True, interpret=True, block_q=64, block_k=64) if pallas else dict(
+        use_pallas=False)
+    return np.asarray(jax_flash_attention(q, k, v, causal=causal, **kw), np.float32)
+
+
+def _hold(arrays, causal, *, pallas=True, tol=F32_TOL, dtype=(torch.float32, jnp.float32)):
+    out = _port(arrays, causal, dtype[0])
+    np.testing.assert_allclose(out, _reference(arrays, causal, False, dtype[1]),
+                               rtol=tol, atol=tol)
+    if pallas:
+        np.testing.assert_allclose(out, _reference(arrays, causal, True, dtype[1]),
+                                   rtol=tol, atol=tol)
+    return out
+
+
+# (causal, B, H, S, D): the reference's shape sweep, S a multiple of its 64 block
+SWEEP = [(False, 2, 2, 128, 64), (True, 3, 4, 192, 32), (True, 2, 1, 256, 64)]
+
+
+@pytest.mark.parametrize("causal,b,h,s,d", SWEEP)
+def test_shape_sweep(causal, b, h, s, d):
+    _hold(_qkv(b, h, h, s, s, d, seed=b * h + s + d), causal)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 1), (4, 2), (8, 8)])
+def test_gqa_ratios(hq, hkv):
+    _hold(_qkv(2, hq, hkv, 128, 128, 64, seed=hq + hkv), True)
+
+
+@pytest.mark.parametrize("dtype,tol", [((torch.float32, jnp.float32), F32_TOL),
+                                       ((torch.bfloat16, jnp.bfloat16), BF16_TOL)])
+def test_dtypes(dtype, tol):
+    _hold(_qkv(1, 2, 2, 128, 128, 64, seed=1), True, tol=tol, dtype=dtype)
+
+
+def test_cross_attention_longer_kv():
+    """Sq != Sk, not causal: both reference paths agree."""
+    _hold(_qkv(2, 2, 2, 64, 256, 32, seed=2), False)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_starcoder2_smoke_widths(causal):
+    """starcoder2-3b's SMOKE attention: 4 query heads on 2 KV heads, D = 16,
+    at its 64-token attention chunk."""
+    _hold(_qkv(2, 4, 2, 64, 64, 16, seed=3), causal)
+
+
+def test_causal_cross_attention_follows_the_oracle():
+    """Causal Sq < Sk: row i sees keys j <= i + Sk - Sq (``attention_ref``),
+    so the rows equal the last Sq rows of the square causal call."""
+    arrays = _qkv(1, 4, 2, 64, 256, 32, seed=4)
+    out = _hold(arrays, True, pallas=False)
+    q, k, v = arrays
+    q_full = np.random.default_rng(5).standard_normal((1, 4, 256, 32)).astype(np.float32)
+    q_full[:, :, -64:] = q
+    square = _port((q_full, k, v), True)
+    np.testing.assert_allclose(out, square[:, :, -64:], rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(100, 100), (37, 100), (333, 333)])
+def test_ragged_lengths_follow_the_oracle(causal, sq, sk):
+    """Lengths that are no multiple of a block; the Pallas path refuses them."""
+    _hold(_qkv(2, 4, 2, sq, sk, 64, seed=sq + sk), causal, pallas=False)
+
+
+def test_causality():
+    """Changing future keys must not change causal outputs."""
+    q, k, v = _qkv(1, 2, 1, 128, 128, 32, seed=6)
+    out1 = _port((q, k, v), True)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, :, 100:] = 99.0
+    v2[:, :, 100:] = -99.0
+    out2 = _port((q, k2, v2), True)
+    np.testing.assert_array_equal(out1[:, :, :100], out2[:, :, :100])
+
+
+def test_scale_defaults_to_inverse_sqrt_d():
+    arrays = _qkv(1, 2, 2, 16, 16, 64, seed=7)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    assert torch.equal(flash_attention(q, k, v, causal=False),
+                       flash_attention(q, k, v, causal=False, scale=0.125))
+
+
+def test_rejects_what_the_reference_cannot_answer():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 3, 2, 8, 8, 16))
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, k, v)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 16, 8, 16))
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention(q, k, v, causal=True)
+    flash_attention(q, k, v, causal=False)          # not causal: every row sees every key
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never computes on the CPU: it raises before any
+    build or launch, and counts nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, 32))
+    before = fa_kernel.FLASH.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_cuda(q, k, v, True, 0.1)
+    assert fa_kernel.FLASH.launches == before
+    assert torch.equal(attention_plain(q, k, v, causal=True, scale=0.1),
+                       flash_attention(q, k, v, causal=True, scale=0.1))
