@@ -10,8 +10,9 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 
 1. build the Hopper kernel libraries from ``src/repro_torch/kernels/*/csrc``
    (``qmm.cu``: ``qmm`` and ``qmm_group``; ``hsthresh.cu``: ``hist`` and
-   ``mask``; ``sqround.cu``; ``flashattn.cu``), one nvcc per source, started
-   together;
+   ``mask``; ``sqround.cu``; ``flashattn.cu``, float32 attention on the CUDA
+   cores; ``flashattn_wgmma.cu``, bf16/fp16 attention on the tensor cores),
+   one nvcc per source, started together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
@@ -64,15 +65,19 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     whole call (with the threefry draw) and as the plain version, beside the
     9-bytes-per-element bound;
 12. ``flash_attention`` through its entry point at starcoder2-3b's attention
-    width (24 query heads on 2 KV heads, D = 128, bf16, causal) at S = 4,096
+    width (24 query heads on 2 KV heads, D = 128, causal): bf16 at S = 4,096
     (held over the whole output against the plain version) and S = 32,768
     (its last 256 rows against the plain version's causal Sq = 256, Sk =
     32,768 call, and every row against the plain version run in 1,024-row
-    chunks), plus ragged and cross-attention f32 shapes, causal and not;
-    |Δ| ≤ 2e-4 (f32) and 2e-2 (bf16), abs and rel, TF32 off; bf16 rows also
-    ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ (one bf16 ulp, relative), which scales with the
-    output where 2e-2 does not. Timed beside
-    ``scaled_dot_product_attention`` on the same tensors and the bound.
+    chunks), fp16 and f32 at S = 4,096, plus ragged and cross-attention f32
+    shapes, causal and not. bf16 and fp16 calls must launch ``FLASH_TC``
+    (``flashattn_wgmma.cu``) and f32 calls ``FLASH`` (``flashattn.cu``).
+    |Δ| ≤ 2e-4 (f32) and 2e-2 (bf16, fp16), abs and rel, TF32 off; 16-bit
+    rows also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ (one bf16 ulp, relative), which scales with
+    the output where 2e-2 does not. Timed beside
+    ``scaled_dot_product_attention`` on the same tensors (its flash backend
+    for 16-bit inputs) and the bound; the library's own max row ‖Δ‖/‖ref‖
+    against the plain version is reported beside the kernel's, not gated.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -85,10 +90,10 @@ Details go to ``chip_smoke.json`` and the trace in the directory named by
 
 ``python3 chip_smoke.py --flash-mutants`` runs none of that. It checks the bf16
 checks of phase 12 instead: it plants each fault of ``FLASH_MUTANTS`` in a
-copy of ``flashattn.cu`` in a temporary directory, builds the copies, and
-holds each, beside the real kernel, to the starcoder2-3b checks. It passes
-when the real kernel meets every check and every copy fails one, and writes
-``flash_mutants.json`` to ``--out``.
+copy of ``flashattn_wgmma.cu`` in a temporary directory, builds the copies,
+and holds each, beside the real kernel, to the starcoder2-3b checks. It
+passes when the real kernel meets every check and every copy fails one, and
+writes ``flash_mutants.json`` to ``--out``.
 """
 from __future__ import annotations
 
@@ -119,21 +124,20 @@ PREFILL_TAIL_ROWS = 256        # rows of the 32k output held against a causal Sq
 PLAIN_CHUNK_ROWS = 1024        # query rows per plain-version call at 32k
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
-# Faults planted in copies of flashattn.cu by --flash-mutants: name ->
+# Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
 # (what it breaks, [(text of the source, its replacement), ...])
 FLASH_MUTANTS = {
-    "diagonal_tile": ("causal query blocks past the first skip their diagonal KV tile", [
-        ("  if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);\n",
-         "  if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);\n"
-         "  if (causal && qb > 0) n_kv -= 1;\n")]),
+    "diagonal_tile": ("causal query tiles past the first skip their diagonal KV tile", [
+        ("  if (causal) n_kv = min(n_kv, (min(q0 + kBlockM, Sq) - 1 + off) / kBlockN + 1);\n",
+         "  if (causal) n_kv = min(n_kv, (min(q0 + kBlockM, Sq) - 1 + off) / kBlockN + 1);\n"
+         "  if (causal && qt > 0) n_kv -= 1;\n")]),
     "own_key": ("the causal mask drops each row's own key (j < i + Sk - Sq)", [
-        ("(!causal || j <= qi + off)", "(!causal || j < qi + off)")]),
-    "bf16_pv": ("P rounded to bf16 and P·V accumulated in bf16", [
-        ("const float p = Ps[r * kLP + j];",
-         "const float p = __bfloat162float(__float2bfloat16_rn(Ps[r * kLP + j]));")] + [
-        (f"acc[c][{i}] = fmaf(p, vv.{x}, acc[c][{i}]);",
-         f"acc[c][{i}] = __bfloat162float(__float2bfloat16_rn(fmaf(p, vv.{x}, acc[c][{i}])));")
-        for i, x in enumerate("xyzw")]),
+        ("(!causal || key <= row + off)", "(!causal || key < row + off)")]),
+    "bf16_acc": ("the f32 O accumulator rounded to bf16 after each KV tile", [
+        ("    fence_regs(acc);                                // P V has retired: acc holds tile t\n",
+         "    fence_regs(acc);                                // P V has retired: acc holds tile t\n"
+         "#pragma unroll\n"
+         "    for (int i = 0; i < DP / 2; ++i) acc[i] = __bfloat162float(__float2bfloat16_rn(acc[i]));\n")]),
 }
 
 
@@ -965,13 +969,14 @@ def attention_gap(torch, out, ref, tol):
             "max_row_rel": float((err_norm / ref_norm.clamp_min(1e-30)).max())}
 
 
-def held(torch, label, out, ref, tol, bf16):
+def held(torch, label, out, ref, tol, rows):
     """attention_gap, raising where it fails: every element within tol (abs
-    and rel), and for bf16 every row within 2⁻⁷ in 2-norm."""
+    and rel), and with ``rows`` (16-bit outputs) every row within 2⁻⁷ in
+    2-norm."""
     gap = attention_gap(torch, out, ref, tol)
-    if gap["over"] or (bf16 and gap["rows_over"]) or not gap["finite"]:
+    if gap["over"] or (rows and gap["rows_over"]) or not gap["finite"]:
         raise AssertionError(f"flash_attention {label}: {gap['over']} elements off by more "
-                             f"than {tol} (abs and rel), {gap['rows_over'] if bf16 else 0} "
+                             f"than {tol} (abs and rel), {gap['rows_over'] if rows else 0} "
                              f"rows off by more than 2^-7 in 2-norm, max |Δ| "
                              f"{gap['max_abs_err']}, max row ‖Δ‖/‖ref‖ {gap['max_row_rel']}")
     return gap
@@ -995,27 +1000,33 @@ def plain_chunked(torch, plain, q, k, v, scale, flush=None):
     return full, start.elapsed_time(end)
 
 
-def starcoder2_qkv(torch, gen, s):
-    """bf16 q, k, v of starcoder2-3b's attention at length s, B = 1."""
+def starcoder2_qkv(torch, gen, s, dtype=None):
+    """q, k, v of starcoder2-3b's attention at length s, B = 1, in dtype
+    (bf16 by default)."""
     return tuple(torch.randn(1, h, s, STARCODER2_3B_HEAD_DIM, generator=gen,
-                             device=gen.device).to(torch.bfloat16)
+                             device=gen.device).to(dtype or torch.bfloat16)
                  for h in (STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_KV_HEADS))
 
 
 def phase_flash(torch, mods):
     """flash_attention through its entry point at starcoder2-3b's width
-    (S = 4,096 and 32,768, bf16, causal) and small f32 shapes, held against
-    the plain version; timed beside scaled_dot_product_attention."""
+    (causal; bf16 at S = 4,096 and 32,768, fp16 and f32 at 4,096) and small
+    f32 shapes, held against the plain version; timed beside
+    scaled_dot_product_attention. 16-bit calls must launch FLASH_TC and f32
+    calls FLASH."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    FLASH, flash_attention, plain = mods["FLASH"], mods["flash_attention"], mods["attention_plain"]
+    FLASH, FLASH_TC = mods["FLASH"], mods["FLASH_TC"]
+    flash_attention, plain = mods["flash_attention"], mods["attention_plain"]
 
     def sdpa(q, k, v):
-        """The library call, held to its flash backend (never the math one,
-        which would materialize the S² scores)."""
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        """The library call: its flash backend for 16-bit inputs (never the
+        math one, which would materialize the S² scores); for float32, which
+        that backend refuses, PyTorch's own choice, TF32 off."""
+        with (sdpa_kernel([SDPBackend.FLASH_ATTENTION]) if q.dtype != torch.float32
+              else contextlib.nullcontext()):
             return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                     enable_gqa=True)
     dev = torch.device("cuda")
@@ -1030,17 +1041,25 @@ def phase_flash(torch, mods):
              for name, shape in (("ragged", (2, 4, 2, 333, 333, 64)),
                                  ("cross", (1, 4, 2, 64, 256, 32)))
              for causal in (True, False)]
-    big = [(f"starcoder2_3b S={s}", s, starcoder2_qkv(torch, gen, s))
-           for s in (TRAIN_4K_LEN, PREFILL_32K_LEN)]
+    big = [(f"starcoder2_3b S={s} {name}", s, dtype, starcoder2_qkv(torch, gen, s, dtype))
+           for s, name, dtype in ((TRAIN_4K_LEN, "bf16", torch.bfloat16),
+                                  (PREFILL_32K_LEN, "bf16", torch.bfloat16),
+                                  (TRAIN_4K_LEN, "fp16", torch.float16),
+                                  (TRAIN_4K_LEN, "f32", torch.float32))]
     reset_counts(mods)
     outs = [flash_attention(*t, causal=causal) for _, causal, t in small]
-    outs += [flash_attention(*t, causal=True) for _, _, t in big]
+    outs += [flash_attention(*t, causal=True) for *_, t in big]
     torch.cuda.synchronize()
-    launches, by_shape = FLASH.launches, dict(FLASH.launches_by_shape)
-    others = {k.entry: k.launches for k in mods["KERNELS"] if k is not FLASH and k.launches}
-    if launches != len(outs) or others:
-        raise AssertionError(f"flash_attention: {launches} launches for {len(outs)} calls, "
-                             f"others {others}")
+    n16 = sum(dtype != torch.float32 for _, _, dtype, _ in big)
+    launches = {"FLASH": FLASH.launches, "FLASH_TC": FLASH_TC.launches}
+    expected = {"FLASH": len(outs) - n16, "FLASH_TC": n16}
+    others = {k.entry: k.launches for k in mods["KERNELS"]
+              if k not in (FLASH, FLASH_TC) and k.launches}
+    if launches != expected or others:
+        raise AssertionError(f"flash_attention: launches {launches}, expected {expected} "
+                             f"(f32 on FLASH, bf16/fp16 on FLASH_TC); others {others}")
+    by_shape = {kernel.entry: {str(k): n for k, n in kernel.launches_by_shape.items()}
+                for kernel in (FLASH, FLASH_TC)}
 
     rows = []
     for (label, causal, (q, k, v)), out in zip(small, outs):
@@ -1051,10 +1070,15 @@ def phase_flash(torch, mods):
               f"{tuple(k.shape)}: max|Δ|={err:.3g} (tolerance 2e-4)", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     scale = 1.0 / d ** 0.5          # flash_attention's default
-    for (label, s, (q, k, v)), out in zip(big, outs[len(small):]):
-        row = {"shape": label, "B": 1, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "dtype": "bf16"}
+    for (label, s, dtype, (q, k, v)), out in zip(big, outs[len(small):]):
+        f32 = dtype == torch.float32
+        tol = 2e-4 if f32 else 2e-2
+        row = {"shape": label, "B": 1, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+               "dtype": str(dtype).replace("torch.", ""),
+               "kernel": (FLASH if f32 else FLASH_TC).entry}
         if s == TRAIN_4K_LEN:
-            gap = held(torch, label, out, plain(q, k, v, causal=True, scale=scale), 2e-2, True)
+            ref = plain(q, k, v, causal=True, scale=scale)
+            gap = held(torch, label, out, ref, tol, not f32)
             row["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, causal=True, scale=scale),
                                       3, flush)
             row["plain_how"] = f"one call ({hq}·S² f32 scores)"
@@ -1062,39 +1086,44 @@ def phase_flash(torch, mods):
         else:
             tail = plain(q[:, :, -PREFILL_TAIL_ROWS:], k, v, causal=True, scale=scale)
             tail_gap = held(torch, f"{label} last {PREFILL_TAIL_ROWS} rows",
-                            out[:, :, -PREFILL_TAIL_ROWS:], tail, 2e-2, True)
+                            out[:, :, -PREFILL_TAIL_ROWS:], tail, tol, True)
             row["tail_max_abs_err"] = tail_gap["max_abs_err"]
             row["tail_max_row_rel"] = tail_gap["max_row_rel"]
             del tail
-            full, row["plain_ms"] = plain_chunked(torch, plain, q, k, v, scale, flush)
+            ref, row["plain_ms"] = plain_chunked(torch, plain, q, k, v, scale, flush)
             row["plain_how"] = f"{s // PLAIN_CHUNK_ROWS} calls of {PLAIN_CHUNK_ROWS} query rows"
-            gap = held(torch, f"{label} every row", out, full, 2e-2, True)
-            del full
+            gap = held(torch, f"{label} every row", out, ref, tol, True)
             reps = 3
         row["max_abs_err"], row["max_row_rel"] = gap["max_abs_err"], gap["max_row_rel"]
         row["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, causal=True), reps, flush)
         lib = sdpa(q, k, v)
         row["library_max_abs_diff"] = float((lib.float() - out.float()).abs().max())
-        del lib
+        # the library's own distance from the plain version: a witness of what
+        # a kernel that rounds P to 16 bits reaches (reported, not gated)
+        lib_gap = attention_gap(torch, lib, ref, tol)
+        row["library_max_abs_err"] = lib_gap["max_abs_err"]
+        row["library_max_row_rel"] = lib_gap["max_row_rel"]
+        del lib, ref
         row["library_ms"] = time_ms(torch, lambda: sdpa(q, k, v), 10, flush)
         row["bound_ms"], row["bound_by"], row["f32_core_bound_ms"] = attention_bound(
-            1, hq, hkv, s, s, d, 2, True)
+            1, hq, hkv, s, s, d, q.element_size(), True)
         rows.append(row)
-        print(f"[chip_smoke]   flash_attention {label} ({hq}/{hkv} heads, D={d}, bf16, causal): "
-              f"max|Δ|={row['max_abs_err']:.3g} (tolerance 2e-2), max row ‖Δ‖/‖ref‖="
-              f"{row['max_row_rel']:.3g} (tolerance 2^-7); kernel {row['ms']:.3f} ms  "
-              f"plain {row['plain_ms']:.3f} ms ({row['plain_how']})  sdpa "
-              f"{row['library_ms']:.3f} ms (|Δ| to the kernel {row['library_max_abs_diff']:.3g})"
-              f"  bound {row['bound_ms']:.3f} ms ({row['bound_by']}; "
-              f"{row['f32_core_bound_ms']:.2f} ms at the f32 CUDA-core peak)", flush=True)
+        print(f"[chip_smoke]   flash_attention {label} ({hq}/{hkv} heads, D={d}, causal, "
+              f"{row['kernel']}): max|Δ|={row['max_abs_err']:.3g} (tolerance {tol:g}), max row "
+              f"‖Δ‖/‖ref‖={row['max_row_rel']:.3g}"
+              f"{'' if f32 else ' (tolerance 2^-7)'} [sdpa {row['library_max_row_rel']:.3g}]; "
+              f"kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms ({row['plain_how']})  "
+              f"sdpa {row['library_ms']:.3f} ms (|Δ| to the kernel "
+              f"{row['library_max_abs_diff']:.3g})  bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}; {row['f32_core_bound_ms']:.2f} ms at the f32 CUDA-core "
+              f"peak)", flush=True)
     del small, big, outs, flush
     torch.cuda.empty_cache()
-    return {"rows": rows, "launches": launches,
-            "launches_by_shape": {str(k): n for k, n in by_shape.items()}}
+    return {"rows": rows, "launches": launches, "launches_by_shape": by_shape}
 
 
 def flash_mutants(torch, mods):
-    """Plant each fault of FLASH_MUTANTS in a copy of flashattn.cu in a
+    """Plant each fault of FLASH_MUTANTS in a copy of flashattn_wgmma.cu in a
     temporary directory, build the copies and the real source together, and
     hold each at starcoder2-3b's width (bf16, causal) to phase 12's checks:
     S = 4,096 every row, S = 32,768 the last 256 rows and every row. For each
@@ -1103,7 +1132,8 @@ def flash_mutants(torch, mods):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
-    plain, FLASH, CudaLibrary = mods["attention_plain"], mods["FLASH"], mods["CudaLibrary"]
+    plain, FLASH_TC, CudaLibrary = (mods["attention_plain"], mods["FLASH_TC"],
+                                    mods["CudaLibrary"])
 
     class CopyLibrary(CudaLibrary):
         """A copy's library, built beside the copy."""
@@ -1111,19 +1141,21 @@ def flash_mutants(torch, mods):
         def library_path(self):
             return self.source.with_suffix(".so")
 
-    source = FLASH.library.source.read_text()
+    source = FLASH_TC.library.source.read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        kernels = {"kernel": FLASH}
+        kernels = {"kernel": FLASH_TC}
         for name, (_, edits) in FLASH_MUTANTS.items():
             text = source
             for old, new in edits:
                 if text.count(old) != 1:
-                    raise AssertionError(f"mutant {name}: {old!r} is not in flashattn.cu once")
+                    raise AssertionError(f"mutant {name}: {old!r} is not in "
+                                         "flashattn_wgmma.cu once")
                 text = text.replace(old, new)
-            path = Path(tmp) / f"flashattn_{name}.cu"
+            path = Path(tmp) / f"flashattn_wgmma_{name}.cu"
             path.write_text(text)
-            kernels[name] = type(FLASH)(CopyLibrary(path, FLASH.library.entries), FLASH.entry)
-        phase_build([FLASH.library] + [k.library for n, k in kernels.items() if n != "kernel"])
+            kernels[name] = type(FLASH_TC)(CopyLibrary(path, FLASH_TC.library.entries),
+                                           FLASH_TC.entry, FLASH_TC.dtypes)
+        phase_build([k.library for k in kernels.values()])
 
         gen = torch.Generator(device=torch.device("cuda")).manual_seed(5)
         scale = 1.0 / STARCODER2_3B_HEAD_DIM ** 0.5
@@ -1212,12 +1244,13 @@ def load_port() -> dict:
                 hsthresh_ref_mod=hsthresh_ref_mod, qniht_batch=qniht_batch,
                 solver_setup=_solver_setup, SQROUND=sq_kernel.SQROUND, sqround=sqround,
                 sqround_ref=sqround_ref, narrow_words=sq_kernel.narrow_words,
-                FLASH=fa_kernel.FLASH, flash_attention=flash_attention,
-                attention_plain=attention_plain, CudaLibrary=CudaLibrary,
+                FLASH=fa_kernel.FLASH, FLASH_TC=fa_kernel.FLASH_TC,
+                flash_attention=flash_attention, attention_plain=attention_plain,
+                CudaLibrary=CudaLibrary,
                 KERNELS=(QMM, QMM_GROUP, hs_kernel.HIST, hs_kernel.MASK, sq_kernel.SQROUND,
-                         fa_kernel.FLASH),
+                         fa_kernel.FLASH, fa_kernel.FLASH_TC),
                 LIBRARIES=(qmm_kernel.LIBRARY, hs_kernel.LIBRARY, sq_kernel.LIBRARY,
-                           fa_kernel.LIBRARY))
+                           fa_kernel.LIBRARY, fa_kernel.TC_LIBRARY))
     return mods
 
 
@@ -1237,7 +1270,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(ROOT / "chip_smoke_out"),
                     help="directory for chip_smoke.json and the profiler trace")
     ap.add_argument("--flash-mutants", action="store_true",
-                    help="only check that planted faults of flashattn.cu fail the bf16 checks")
+                    help="only check that planted faults of flashattn_wgmma.cu fail the bf16 "
+                         "checks")
     args = ap.parse_args(argv)
     import torch
 
@@ -1340,22 +1374,33 @@ def main(argv=None) -> int:
         "call_ms": row["call_ms"],
         "shape": f"R={row['R']} C={row['C']} bits={row['bits']}",
     })
-    row = next(r for r in report["flash"]["rows"] if r["S"] == PREFILL_32K_LEN)
-    kernels.append({
-        "name": "flash_attention[starcoder2_3b_prefill_32k]",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
-        "replaces": "src/repro/kernels/flashattn/kernel.py:87",
-        "launches": report["flash"]["launches"],
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "f32_core_bound_ms": row["f32_core_bound_ms"],
-        "shape": f"B=1 Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} bf16 causal",
-    })
+    flash = report["flash"]
+    rows = {(r["S"], r["dtype"]): r for r in flash["rows"]}
+    for name, key, source, entry in (
+            ("flash_attention[starcoder2_3b_prefill_32k]", (PREFILL_32K_LEN, "bfloat16"),
+             "flashattn_wgmma.cu", "FLASH_TC"),
+            ("flash_attention_f32[starcoder2_3b_train_4k]", (TRAIN_4K_LEN, "float32"),
+             "flashattn.cu", "FLASH")):
+        row = rows[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/flashattn/csrc/{source}",
+            "entry": row["kernel"],
+            "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+            "launches": flash["launches"][entry],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "max_row_rel": row["max_row_rel"],
+            "library_max_row_rel": row["library_max_row_rel"],
+            "f32_core_bound_ms": row["f32_core_bound_ms"],
+            "shape": f"B=1 Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} "
+                     f"{row['dtype']} causal",
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

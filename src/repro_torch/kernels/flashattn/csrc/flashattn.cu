@@ -1,25 +1,27 @@
 // Causal or full multi-head attention with grouped K/V heads (GQA), in one
-// online-softmax pass, for NVIDIA Hopper, sm_90a.
+// online-softmax pass, for NVIDIA Hopper, sm_90a, for float32 inputs.
 //
-// repro_flash_attention replaces
-// repro/kernels/flashattn/kernel.py::flash_attention_pallas (_flash_kernel).
-// For queries q (B, Hq, Sq, D) and keys and values k, v (B, Hkv, Sk, D),
-// float32 or bfloat16, Hq a multiple of Hkv:
+// repro_flash_attention replaces, for float32 inputs,
+// repro/kernels/flashattn/kernel.py::flash_attention_pallas (_flash_kernel);
+// bfloat16 and float16 inputs go to the tensor-core kernel of
+// flashattn_wgmma.cu. For queries q (B, Hq, Sq, D) and keys and values k, v
+// (B, Hkv, Sk, D), float32, Hq a multiple of Hkv:
 //
 //     o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / (Hq / Hkv), j]) v[b, h / (Hq / Hkv), j]
 //
 // over keys j < Sk, or, causal, j <= i + (Sk - Sq): the bottom-right
 // alignment of the reference's oracle attention_ref (for Sq = Sk, j <= i, as
-// the Pallas kernel masks it). The output is in q's dtype.
+// the Pallas kernel masks it).
 //
 // What bounds it on an H100 SXM: operations. A causal pass does
 // 4 * B * Hq * D * (number of visible (i, j) pairs) flops, against bytes of
-// q, k, v and o read or written once. At the starcoder2-3b prefill width
-// (Hq = 24, Hkv = 2, D = 128, bf16, S = 32,768) that is 6.6e12 flops, 6.7 ms
-// at the 989 TFLOP/s of the bf16 tensor cores, 99 ms at the 67 TFLOP/s of the
-// float32 CUDA cores this kernel uses, against 0.24 ms of bytes.
+// q, k, v and o read or written once. The products stay in full float32 (the
+// reference computes float32 in float32; TF32 tensor cores would not meet its
+// 2e-4), so the bound is the 67 TFLOP/s of the float32 CUDA cores this kernel
+// uses: at the starcoder2-3b prefill width (Hq = 24, Hkv = 2, D = 128,
+// S = 32,768) 6.6e12 flops, 99 ms, against 0.26 ms of bytes.
 //
-// Design (a first kernel: right and simple; no wgmma or TMA yet):
+// Design (right and simple; the CUDA cores):
 //   * The Pallas grid's sequential KV axis becomes a loop inside the block.
 //     One block takes 64 query rows of one (b, h) and walks the KV tiles of
 //     64 keys, keeping, as _flash_kernel keeps in VMEM scratch, a running row
@@ -31,9 +33,8 @@
 //     row's four lanes, and accumulates output columns 4(part + 4c) .. +3.
 //     Rows are padded by 4 floats so that the four lanes of a row, and the
 //     eight rows of a warp, hit different banks.
-//   * K and then V of a tile pass through one shared buffer, converted to
-//     float32 on the way in (bfloat16 is exact in float32); with the q tile
-//     and the probabilities that is 83 KB at D = 128, two blocks per SM.
+//   * K and then V of a tile pass through one shared buffer; with the q
+//     tile and the probabilities that is 83 KB at D = 128, two blocks per SM.
 //   * Causal: KV tiles strictly above the block's last row's diagonal are not
 //     visited at all; the tiles that cross it and the ragged Sq and Sk edges
 //     are masked element by element, so every length works without padding.
@@ -46,7 +47,6 @@
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError().
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -63,30 +63,14 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);   // round to nearest even
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 // kRows rows of a (rows, D) array from row0 into shared memory as float32,
 // row stride D + 4; rows at or past `rows` read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int rows) {
   constexpr int kVec = D / 4;
   for (int idx = threadIdx.x; idx < kRows * kVec; idx += kThreads) {
@@ -102,10 +86,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kRows * (D + 4) + kRows * kLP);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, bool causal) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
+             float scale, bool causal) {
   constexpr int LD = D + 4;
   constexpr int kCols = D / (4 * kParts);   // float4 column groups of a thread
   extern __shared__ float4 smem4[];
@@ -121,10 +106,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
   const int qi = q0 + r;
   const int off = Sk - Sq;                        // causal: row i sees keys j <= i + off
-  const T* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  const T* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const float* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const float* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
 
-  load_tile<T, D>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
+  load_tile<D>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
   int n_kv = (Sk + kRows - 1) / kRows;
   if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);
 
@@ -136,7 +121,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * kRows;
     __syncthreads();                              // the last tile's P and V reads are done
-    load_tile<T, D>(KVs, kbase, k0, Sk);
+    load_tile<D>(KVs, kbase, k0, Sk);
     __syncthreads();
     float s[kKeys];
 #pragma unroll
@@ -184,7 +169,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       acc[c][3] *= alpha;
     }
     __syncthreads();                              // K reads done: the buffer takes V
-    load_tile<T, D>(KVs, vbase, k0, Sk);
+    load_tile<D>(KVs, vbase, k0, Sk);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kRows; ++j) {
@@ -201,7 +186,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
   if (qi < Sq) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
+    float* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       store4(orow + 4 * (part + kParts * c),
@@ -216,7 +201,7 @@ int current_device() {
   return (dev < 0 || dev >= kMaxDevices) ? 0 : dev;
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                    int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -224,25 +209,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const int dev = current_device();
   if (!opted_in[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in[dev] = true;
   }
   const dim3 grid(static_cast<unsigned>((Sq + kRows - 1) / kRows), static_cast<unsigned>(B * Hq));
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Sk, scale, causal);
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hkv, Sq, Sk, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
                      int Hkv, int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 16: return launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 32: return launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 64: return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 128: return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -250,7 +234,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
 }  // namespace
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), o (B, Hq, Sq, D), contiguous and
-// 16-byte aligned; dtype 0 for float32, 1 for bfloat16; D in {16, 32, 64, 128}.
+// 16-byte aligned; dtype 0 (float32, the only one); D in {16, 32, 64, 128}.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
                                      float scale, int causal, void* stream) {
@@ -258,10 +242,6 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       static_cast<long long>(B) * Hq > 65535 || (causal && Sq > Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0, s));
-  if (dtype == 1)
-    return static_cast<int>(
-        launch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_d(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0, s));
 }

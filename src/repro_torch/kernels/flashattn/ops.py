@@ -1,8 +1,10 @@
 """Multi-head attention with GQA (port of ``repro.kernels.flashattn.ops``).
 
-:func:`flash_attention` launches the flash attention kernel once on CUDA
-tensors, which reads each K/V head in place for its group of query heads. On
-CPU tensors it repeats K/V across the groups and runs the plain version
+:func:`flash_attention` launches one flash attention kernel on CUDA tensors,
+chosen by dtype: float32 goes to ``FLASH`` (CUDA cores), bfloat16 and
+float16 to ``FLASH_TC`` (tensor cores); any other dtype raises. Both read
+each K/V head in place for its group of query heads. On CPU tensors, of any
+float dtype, it repeats K/V across the groups and runs the plain version
 (:func:`attention_plain`), as the reference does off the TPU.
 
 Causal attention aligns the diagonal bottom-right (query row i sees keys
@@ -16,8 +18,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flashattn.kernel import flash_attention_cuda
+from repro_torch.kernels.flashattn.kernel import FLASH, FLASH_TC
 from repro_torch.kernels.flashattn.ref import attention_ref
+
+# The card's kernel for each dtype: a fixed route, not a fallback.
+CUDA_KERNELS = {dtype: kernel for kernel in (FLASH, FLASH_TC) for dtype in kernel.dtypes}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -51,13 +56,17 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D) with Hq % Hkv == 0. Returns
-    (B, Hq, Sq, D) in q's dtype; ``scale`` defaults to 1/√D. The card's
-    kernel takes float32 or bfloat16, D in {16, 32, 64, 128}, and q, k, v
-    that start on a 16-byte boundary; it raises for anything else."""
+    (B, Hq, Sq, D) in q's dtype; ``scale`` defaults to 1/√D. On the card,
+    float32 runs on ``FLASH`` and bfloat16 and float16 on ``FLASH_TC``, for
+    D in {16, 32, 64, 128} and q, k, v that start on a 16-byte boundary; it
+    raises for anything else."""
     _check(q, k, v, causal)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
-        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal,
-                                    scale)
+        if q.dtype not in CUDA_KERNELS:
+            raise TypeError(f"flash_attention: the card's kernels take "
+                            f"{tuple(CUDA_KERNELS)}, got {q.dtype}")
+        return CUDA_KERNELS[q.dtype](q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                                     scale)
     return attention_plain(q, k, v, causal=causal, scale=scale)

@@ -7,11 +7,12 @@ They skip on a machine without a GPU and nvcc; on the card run them with
 Tolerance for qmm and qmm_group, as in the CPU tests: |Δ| ≤ 1e-5·|ref| +
 1e-5·(|x|@|w|ᵀ) against the plain version, with TF32 off. hist, mask and
 sqround equal their plain versions bit for bit. Flash attention: |Δ| ≤ 2e-4
-(abs and rel) for float32 inputs, 2e-2 for bfloat16, the reference's
-kernel-vs-oracle bounds; for bfloat16 also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for every
-output row (one bfloat16 ulp, relative: the most that rounding both results
-to bfloat16 can set them apart), which scales with the output where 2e-2
-does not.
+(abs and rel) for float32 inputs (the CUDA-core kernel FLASH), 2e-2 for
+bfloat16 and float16 (the tensor-core kernel FLASH_TC), the reference's
+kernel-vs-oracle bounds; for the 16-bit types also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for
+every output row (one bfloat16 ulp, relative: the most that rounding both
+results to bfloat16 can set them apart), which scales with the output where
+2e-2 does not.
 """
 import math
 import shutil
@@ -216,7 +217,27 @@ FLASH_SHAPES = [(2, 4, 2, 333, 333, 64), (1, 4, 2, 64, 256, 32), (2, 4, 2, 64, 6
                 (1, 24, 2, 300, 300, 128), (2, 8, 8, 128, 128, 64), (1, 2, 1, 1, 77, 32)]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+def _flash_held(q, k, v, causal, tol):
+    """flash_attention on the card, launched once on the kernel of q's dtype
+    (FLASH for float32, FLASH_TC for bfloat16 and float16) and none on the
+    other, held to the plain version: |Δ| ≤ tol (abs and rel), and 16-bit
+    rows ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂."""
+    kernel, other = ((fa_kernel.FLASH, fa_kernel.FLASH_TC) if q.dtype == torch.float32
+                     else (fa_kernel.FLASH_TC, fa_kernel.FLASH))
+    before, before_other = kernel.launches, other.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert kernel.launches == before + 1 and other.launches == before_other
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = attention_plain(q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= tol + tol * ref.float().abs()).all()), float(err.max())
+    if q.dtype != torch.float32:
+        row_rel = err.norm(dim=-1) / ref.float().norm(dim=-1)
+        assert float(row_rel.max()) <= 2.0 ** -7, float(row_rel.max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain_version(cuda, dtype, tol, causal, shape):
@@ -225,16 +246,17 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype, tol, causal, 
     q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
     k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
     v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
-    before = fa_kernel.FLASH.launches
-    out = flash_attention(q, k, v, causal=causal)
-    assert fa_kernel.FLASH.launches == before + 1
-    assert out.dtype == dtype and out.shape == q.shape
-    ref = attention_plain(q, k, v, causal=causal, scale=1.0 / math.sqrt(d))
-    err = (out.float() - ref.float()).abs()
-    assert bool((err <= tol + tol * ref.float().abs()).all()), float(err.max())
-    if dtype == torch.bfloat16:
-        row_rel = err.norm(dim=-1) / ref.float().norm(dim=-1)
-        assert float(row_rel.max()) <= 2.0 ** -7, float(row_rel.max())
+    _flash_held(q, k, v, causal, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_tensor_cores_at_starcoder2_width(cuda, dtype):
+    """starcoder2-3b's attention (24 query heads on 2 KV heads, D = 128),
+    causal, S = 4,096: 32 KV tiles per late query tile through the ring."""
+    gen = torch.Generator(device=cuda).manual_seed(4096)
+    q, k, v = (torch.randn(1, h, 4096, 128, generator=gen, device=cuda).to(dtype)
+               for h in (24, 2, 2))
+    _flash_held(q, k, v, True, 2e-2)
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
@@ -252,15 +274,33 @@ def test_flash_attention_refuses_a_misaligned_view(cuda, which):
     assert fa_kernel.FLASH.launches == before
 
 
-@pytest.mark.parametrize("which", ["sqround", "flash_attention"])
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_tc_refuses_a_misaligned_view(cuda, which):
+    """The tensor-core kernel's TMA needs 16-byte aligned tensors: a bfloat16
+    view that starts one element into its storage is refused, not copied."""
+    shapes = {"q": (1, 4, 64, 32), "k": (1, 2, 64, 32), "v": (1, 2, 64, 32)}
+    inputs = {n: torch.randn(*shape, device=cuda).to(torch.bfloat16)
+              for n, shape in shapes.items()}
+    flat = torch.randn(1 + inputs[which].numel(), device=cuda).to(torch.bfloat16)
+    inputs[which] = flat[1:].view(shapes[which])
+    before = fa_kernel.FLASH_TC.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(inputs["q"], inputs["k"], inputs["v"], causal=True)
+    assert fa_kernel.FLASH_TC.launches == before
+
+
+@pytest.mark.parametrize("which", ["sqround", "flash_attention", "flash_attention_tc"])
 def test_missing_library_raises_on_a_cuda_tensor(cuda, which, monkeypatch, tmp_path):
     """A CUDA tensor never falls back to the plain version: with the kernel's
     library missing the entry point raises, and nothing is counted."""
-    mod = sq_kernel if which == "sqround" else fa_kernel
-    kernel = sq_kernel.SQROUND if which == "sqround" else fa_kernel.FLASH
-    monkeypatch.setattr(mod.LIBRARY, "_lib", None)
-    monkeypatch.setattr(mod.LIBRARY, "source", tmp_path / "missing.cu")
+    library, kernel = {"sqround": (sq_kernel.LIBRARY, sq_kernel.SQROUND),
+                       "flash_attention": (fa_kernel.LIBRARY, fa_kernel.FLASH),
+                       "flash_attention_tc": (fa_kernel.TC_LIBRARY, fa_kernel.FLASH_TC)}[which]
+    monkeypatch.setattr(library, "_lib", None)
+    monkeypatch.setattr(library, "source", tmp_path / "missing.cu")
     x = torch.randn(1, 2, 64, 32, device=cuda)
+    if which == "flash_attention_tc":
+        x = x.to(torch.bfloat16)
     before = kernel.launches
     with pytest.raises((FileNotFoundError, RuntimeError)):
         if which == "sqround":

@@ -6,7 +6,7 @@ It is held against the reference's oracle path
 (``flash_attention(use_pallas=False)``) and its Pallas kernel in interpret
 mode (``use_pallas=True, interpret=True``), with the reference's own
 kernel-vs-oracle tolerances: |Δ| <= 2e-4 (abs and rel) for float32 inputs,
-2e-2 for bfloat16.
+2e-2 for bfloat16 and float16 (16-bit inputs and outputs).
 
 Where the reference's two paths disagree, the port follows the oracle
 ``attention_ref``: causal attention with Sq < Sk aligns the diagonal
@@ -75,7 +75,8 @@ def test_gqa_ratios(hq, hkv):
 
 
 @pytest.mark.parametrize("dtype,tol", [((torch.float32, jnp.float32), F32_TOL),
-                                       ((torch.bfloat16, jnp.bfloat16), BF16_TOL)])
+                                       ((torch.bfloat16, jnp.bfloat16), BF16_TOL),
+                                       ((torch.float16, jnp.float16), BF16_TOL)])
 def test_dtypes(dtype, tol):
     _hold(_qkv(1, 2, 2, 128, 128, 64, seed=1), True, tol=tol, dtype=dtype)
 
@@ -90,6 +91,14 @@ def test_starcoder2_smoke_widths(causal):
     """starcoder2-3b's SMOKE attention: 4 query heads on 2 KV heads, D = 16,
     at its 64-token attention chunk."""
     _hold(_qkv(2, 4, 2, 64, 64, 16, seed=3), causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_starcoder2_smoke_widths_float16(causal):
+    """The same SMOKE width in float16, the card's tensor-core kernel's other
+    16-bit type: q's dtype out, within the reference's 16-bit tolerance."""
+    _hold(_qkv(2, 4, 2, 64, 64, 16, seed=3), causal, tol=BF16_TOL,
+          dtype=(torch.float16, jnp.float16))
 
 
 def test_causal_cross_attention_follows_the_oracle():
@@ -145,7 +154,32 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, 32))
     before = fa_kernel.FLASH.launches
     with pytest.raises(ValueError, match="CUDA"):
-        fa_kernel.flash_attention_cuda(q, k, v, True, 0.1)
+        fa_kernel.FLASH(q, k, v, True, 0.1)
     assert fa_kernel.FLASH.launches == before
     assert torch.equal(attention_plain(q, k, v, causal=True, scale=0.1),
                        flash_attention(q, k, v, causal=True, scale=0.1))
+
+
+def test_card_route_by_dtype():
+    """A CUDA tensor goes to one fixed kernel by dtype: float32 to the CUDA-core
+    FLASH, bfloat16 and float16 to the tensor-core FLASH_TC; nothing else."""
+    from repro_torch.kernels.flashattn import ops as fa_ops
+
+    assert fa_ops.CUDA_KERNELS == {torch.float32: fa_kernel.FLASH,
+                                   torch.bfloat16: fa_kernel.FLASH_TC,
+                                   torch.float16: fa_kernel.FLASH_TC}
+    assert fa_kernel.FLASH.library is not fa_kernel.FLASH_TC.library
+    assert fa_kernel.FLASH_TC.library.source.name == "flashattn_wgmma.cu"
+
+
+@pytest.mark.parametrize("dtype,error,match", [(torch.bfloat16, ValueError, "CUDA"),
+                                               (torch.float16, ValueError, "CUDA"),
+                                               (torch.float32, TypeError, "dtype")])
+def test_tensor_core_wrapper_refuses_before_launching(dtype, error, match):
+    """FLASH_TC never computes on the CPU and takes only 16-bit inputs: it
+    raises before any build or launch, and counts nothing."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 2, 1, 8, 8, 32))
+    before = fa_kernel.FLASH_TC.launches
+    with pytest.raises(error, match=match):
+        fa_kernel.FLASH_TC(q, k, v, True, 0.1)
+    assert fa_kernel.FLASH_TC.launches == before
