@@ -9,18 +9,23 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 (any failure makes the exit code non-zero and suppresses the result line):
 
 1. build the Hopper kernel libraries from ``src/repro_torch/kernels/*/csrc``
-   (``qmm.cu``: ``qmm`` and ``qmm_group``; ``hsthresh.cu``: ``hist`` and
-   ``mask``; ``sqround.cu``; ``flashattn.cu``, float32 attention on the CUDA
-   cores; ``flashattn_wgmma.cu``, bf16/fp16 attention on the tensor cores),
-   one nvcc per source, started together;
+   (``qmm_wgmma.cu``: ``qmm`` and ``qmm_group`` on the tensor cores; ``qmm.cu``:
+   the CUDA-core ``qmm_group`` for g not a multiple of 16; ``hsthresh.cu``:
+   ``hist`` and ``mask``; ``sqround.cu``; ``flashattn.cu``, float32 attention
+   on the CUDA cores; ``flashattn_wgmma.cu``, bf16/fp16 attention on the
+   tensor cores), one nvcc per source, started together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
    own packed Φ̂, plus a ragged shape; tolerance |Δ| ≤ 1e-5·|ref| +
-   1e-5·(|x|@|w|ᵀ), the reference's kernel-vs-oracle bound. Times the kernel,
-   the plain version and ``torch.matmul`` against the pre-dequantized f32 Φ̂
-   (the dense stream the paper compares against), with the L2 cache flushed
-   before every timed call;
+   1e-5·(|x|@|w|ᵀ), the reference's kernel-vs-oracle bound. Every call must
+   launch ``QMM`` of ``qmm_wgmma.cu``. Then the checks a tolerance cannot
+   give (``exact_checks``), at the LOFAR shapes, 2 and 8 bits: integer x
+   (bit for bit, M ∈ {1, 8, 64}), one-hot rows of Φ̂ with full-mantissa x
+   (bit for bit) and batch rows (row b of M = 8 equals M = 1, bit for bit).
+   Times the kernel, the plain version and ``torch.matmul`` against the
+   pre-dequantized f32 Φ̂ (the dense stream the paper compares against),
+   with the L2 cache flushed before every timed call;
 3. the main path at full size: LOFAR CS302 (870×65,536 complex Φ, 2-bit Φ̂,
    8-bit y, s=30, 60 iterations) packed, single and ``--batch 8``, with the
    kernel's launch counter set to 0 before and read after each solve; then
@@ -36,11 +41,15 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    kernel are the witness; the instance and the answers go to
    ``gaussian_batch8.npz`` for ``scripts/reference_replay.py``;
 5. a torch.profiler trace of one packed single-row LOFAR solve on each path
-   (per_tensor, per_block, hsthresh): device time by kernel, the device's
-   busy share and the set-up alone (``lofar_*_trace.json``);
+   (per_tensor, per_block, hsthresh): device time by kernel (``qmm_wgmma_kernel``,
+   the CUDA-core ``qmm_kernel``, ``hist``, ``mask``), the device's busy share
+   and the set-up alone (``lofar_*_trace.json``);
 6. ``qmm_group`` against ``qmm_group_ref`` at the LOFAR forward and adjoint
    shapes of the per_block Φ̂ (g = 64), bits 2/4/8 × M ∈ {1, 8, 64}, plus a
-   ragged shape with a short last group; same tolerance and timings as 2;
+   ragged shape with a short last group; same tolerance, timings and exact
+   checks as 2 (power-of-two scales; one-hot within 2 ulp); every call must
+   launch ``QMM_GROUP`` of ``qmm_wgmma.cu``. The ragged shape at g = 8 goes
+   through ``qmm`` and must launch the CUDA-core ``QMM_GROUP_CORE`` (``qmm.cu``);
 7. ``hist`` and ``mask`` against ``hist_ref``/``mask_ref`` at (1, 65,536),
    (8, 65,536) and (3, 1,001), bit for bit, timed beside their bytes bound;
 8. LOFAR CS302 at full size with ``scale_granularity="per_block",
@@ -56,7 +65,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    proposal for the whole batch, and the same solves with ``hist_ref``/
    ``mask_ref`` standing in on the card give bit-identical x and trace;
    iterations whose support differs from the ``topk`` solve are counted;
-10. the Gaussian toy per_block (g = 64, bits 4 and 8, batch 8) against its
+10. the Gaussian toy per_block (g = 64 on ``QMM_GROUP``, and g = 8 on the
+    CUDA-core ``QMM_GROUP_CORE``; bits 4 and 8, batch 8) against its
     ``qmm_group_ref`` witness, per row as in 4;
 11. ``sqround`` through its entry point at the LOFAR CS302 Φ (the real part
     of the 870×65,536 measurement matrix), the ``kernels_micro`` 512×512 and
@@ -83,7 +93,10 @@ Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
 
 Before its last line it prints the card's name and power limit and one JSON
-line ``{"kernels": [...]}``; the last line is
+line ``{"kernels": [...]}`` (its ``bound_ms`` is the larger of the bytes and
+the f32 CUDA-core operations, as since the first slice; ``bytes_bound_ms``,
+beside it for ``qmm`` and ``qmm_group``, is the bytes alone at 3.35 TB/s, the
+bound a tensor-core kernel is held to at small M); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Details go to ``chip_smoke.json`` and the trace in the directory named by
 ``--out`` (default ``chip_smoke_out/`` beside this script).
@@ -161,12 +174,15 @@ class Phases:
 
 def bound_ms(m, n, k, kp, n_groups=None):
     """Least time for x (M, K) @ dequant(w)ᵀ: codes, scales, x and y moved
-    once, or the FMAs (plus, grouped, one scale product per code)."""
+    once, or the FMAs at the f32 CUDA-core peak (plus, grouped, one scale
+    product per code); and the bytes alone. Returns (ms, bound_by,
+    bytes-only ms)."""
     scale_words = n if n_groups is None else n * n_groups
     nbytes = n * kp + 4 * scale_words + 4 * m * k + 4 * m * n
     flops = 2 * m * n * k + (0 if n_groups is None else n * k)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            t_bytes * 1e3)
 
 
 def time_ms(torch, fn, reps, flush):
@@ -182,6 +198,26 @@ def time_ms(torch, fn, reps, flush):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(torch, fn, reps, flush, name):
+    """Mean device time per call of fn of the kernels whose name holds
+    `name` (torch.profiler, CUPTI), the L2 cache flushed before each call:
+    the kernel alone, without the launch and the host's share that the
+    event timing of time_ms takes in. None when the profiler sees none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+             if name in e.key and getattr(e, "device_type", None) == DeviceType.CUDA)
+    return us / reps / 1e3 if us else None
 
 
 def phase_build(libraries):
@@ -239,7 +275,14 @@ def phase_kernel(torch, mods):
                 w.scale.reshape(-1, 1) / (2 ** (bits - 1) // 2))
             for m in ms:
                 x = torch.randn(m, k, generator=gen, device=dev)
-                y = QMM(x, w.packed, w.scale, bits, k)
+                routed = mods["cuda_kernel"](w)
+                if routed is not QMM or QMM.library.source.name != "qmm_wgmma.cu":
+                    raise AssertionError(f"qmm {name}: routed to {routed.entry} of "
+                                         f"{routed.library.source.name}")
+                before = QMM.launches
+                y = mods["qmm"](x, w)
+                if QMM.launches != before + 1:
+                    raise AssertionError(f"qmm {name} bits={bits} M={m}: QMM was not launched")
                 ref = qmm_ref(x, w.packed, w.scale, bits, k)
                 torch.cuda.synchronize()
                 tol = 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wdeq.abs().T)
@@ -248,7 +291,7 @@ def phase_kernel(torch, mods):
                     raise AssertionError(f"qmm {name} bits={bits} M={m}: max |Δ| "
                                          f"{float(err.max())} exceeds the tolerance")
                 max_err = max(max_err, float(err.max()))
-                b_ms, b_by = bound_ms(m, n, k, kp)
+                b_ms, b_by, bb_ms = bound_ms(m, n, k, kp)
                 row = {"shape": name, "bits": bits, "M": m, "N": n, "K": k,
                        "max_abs_err": float(err.max()),
                        "ms": time_ms(torch, lambda: QMM(x, w.packed, w.scale, bits, k), 20,
@@ -256,17 +299,97 @@ def phase_kernel(torch, mods):
                        "plain_ms": time_ms(torch, lambda: qmm_ref(x, w.packed, w.scale, bits, k),
                                            5, flush),
                        "library_ms": time_ms(torch, lambda: torch.matmul(x, wdeq.T), 20, flush),
-                       "bound_ms": b_ms, "bound_by": b_by}
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms,
+                       "device_ms": (device_ms(torch, lambda: QMM(x, w.packed, w.scale, bits, k),
+                                               20, flush, "qmm_wgmma_kernel")
+                                     if name != "ragged" and bits == cs.bits_phi else None)}
                 rows.append(row)
                 print(f"[chip_smoke]   qmm {name:9s} bits={bits} M={m:2d}: max|Δ|={row['max_abs_err']:.3g} "
                       f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-                      f"matmul(f32 Φ̂) {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
-                      flush=True)
+                      f"matmul(f32 Φ̂) {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+                      f"bytes alone {bb_ms:.4f} ms, device (profiler) {row['device_ms']}", flush=True)
             del wdeq
         del op
     del phi, flush
     torch.cuda.empty_cache()
-    return {"rows": rows, "max_abs_err": max_err}
+    exact = exact_checks(torch, mods, group=False)
+    return {"rows": rows, "max_abs_err": max_err, "entry": QMM.entry,
+            "source": QMM.library.source.name, "exact": exact}
+
+
+def ulps(torch, got, want):
+    """|got - want| in units in the last place of want (f32)."""
+    _, e = torch.frexp(want)
+    return ((got - want).abs() / torch.ldexp(torch.ones_like(want), e - 24)).max()
+
+
+def exact_checks(torch, mods, group):
+    """The checks a tolerance cannot give, at the LOFAR CS302 forward
+    (870×65,536) and adjoint (65,536×870) shapes, 2 and 8 bits, random codes:
+
+    * integer x: qmm with x in {-2..2} (Σ|x|·|c - K_h| < 2²⁴ in every row),
+      qmm_group with x in {-1, 0, 1} and power-of-two scales {1/2, 1}: every
+      partial sum is exact in f32, so the kernel equals the plain version bit
+      for bit, M ∈ {1, 8, 64};
+    * one-hot: rows of Φ̂ with a single nonzero code, x with full 24-bit
+      mantissas: qmm bit for bit, qmm_group within 2 ulp. A kernel that
+      dropped the lo piece of x would miss by ~2⁻¹⁶ relative here while
+      passing the 1e-5 rule;
+    * batch rows: row b of an M = 8 call equals the M = 1 call on row b,
+      bit for bit."""
+    dev = torch.device("cuda")
+    kern = mods["QMM_GROUP"] if group else mods["QMM"]
+    ref = mods["qmm_group_ref"] if group else mods["qmm_ref"]
+    cs = mods["LOFAR"]
+    n_pix, n_vis = cs.resolution ** 2, cs.n_antennas * (cs.n_antennas - 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for bits in (2, 8):
+        kh = 2 ** (bits - 1) // 2
+        for shape, (n, k) in (("lofar_fwd", (n_vis, n_pix)), ("lofar_adj", (n_pix, n_vis))):
+            extra = (GROUP,) if group else ()
+            if group:
+                n_groups = (k + GROUP - 1) // GROUP
+                scale = 2.0 ** -torch.randint(0, 2, (n, n_groups), generator=gen,
+                                              device=dev).float()
+            else:
+                scale = torch.rand(n, generator=gen, device=dev) + 0.5
+            codes = torch.randint(-kh, kh + 1, (n, k), generator=gen, device=dev,
+                                  dtype=torch.int32).to(torch.int8)
+            packed = mods["pack_codes"](codes, bits)
+            for m in M_VALUES:
+                lim = 1 if group else 2
+                x = torch.randint(-lim, lim + 1, (m, k), generator=gen, device=dev).float()
+                if not torch.equal(kern(x, packed, scale, bits, k, *extra),
+                                   ref(x, packed, scale, bits, k, *extra)):
+                    raise AssertionError(f"{kern.entry} integer {shape} bits={bits} M={m}: "
+                                         "not bit for bit")
+            onehot = torch.zeros(n, k, dtype=torch.int8, device=dev)
+            sign = torch.randint(0, 2, (n,), generator=gen, device=dev) * 2 - 1
+            value = torch.randint(1, kh + 1, (n,), generator=gen, device=dev) * sign
+            onehot[torch.arange(n, device=dev),
+                   torch.randint(0, k, (n,), generator=gen, device=dev)] = value.to(torch.int8)
+            packed = mods["pack_codes"](onehot, bits)
+            x = torch.randn(8, k, generator=gen, device=dev) * 3.7
+            y = kern(x, packed, scale, bits, k, *extra)
+            want = ref(x, packed, scale, bits, k, *extra)
+            off = float(ulps(torch, y, want))
+            if off > (2.0 if group else 0.0):
+                raise AssertionError(f"{kern.entry} one-hot {shape} bits={bits}: {off} ulp")
+            rows = torch.cat([kern(x[b:b + 1].contiguous(), packed, scale, bits, k, *extra)
+                              for b in range(8)])
+            if not torch.equal(rows, y):
+                raise AssertionError(f"{kern.entry} batch rows {shape} bits={bits}: row b of "
+                                     "M = 8 differs from the M = 1 call")
+            torch.cuda.synchronize()
+            out.append({"shape": shape, "bits": bits, "integer_bitwise": list(M_VALUES),
+                        "onehot_ulp": off, "batch_rows_bitwise": True})
+            print(f"[chip_smoke]   {kern.entry} exact {shape} bits={bits}: integer x bit for bit "
+                  f"at M = {', '.join(map(str, M_VALUES))}; one-hot {off:g} ulp; batch rows "
+                  f"bit for bit", flush=True)
+            del codes, onehot, packed
+    torch.cuda.empty_cache()
+    return out
 
 
 def expected_launches(res, n_iters):
@@ -534,16 +657,22 @@ def phase_profile(torch, mods):
                          "kernels": []}
             continue
         ours = {name: sum(r["device_ms"] for r in rows if f"{name}_kernel" in r["name"])
-                for name in ("qmm", "hist", "mask")}
+                for name in ("qmm_wgmma", "qmm", "hist", "mask")}
+        calls = {name: sum(r["calls"] for r in rows if f"{name}_kernel" in r["name"])
+                 for name in ("qmm_wgmma", "qmm")}
         print(f"[chip_smoke]   profile of one packed LOFAR solve, {path}: wall {wall_ms:.1f} ms "
               f"(set-up alone {setup_ms:.1f} ms), device busy {busy_ms:.1f} ms "
-              f"({100 * busy_ms / wall_ms:.1f}%), qmm kernels {ours['qmm']:.1f} ms, hist "
-              f"{ours['hist']:.2f} ms, mask {ours['mask']:.2f} ms", flush=True)
+              f"({100 * busy_ms / wall_ms:.1f}%), qmm_wgmma_kernel {ours['qmm_wgmma']:.1f} ms "
+              f"({calls['qmm_wgmma']}×), CUDA-core qmm_kernel {ours['qmm']:.1f} ms "
+              f"({calls['qmm']}×), hist {ours['hist']:.2f} ms, mask {ours['mask']:.2f} ms",
+              flush=True)
         for r in rows[:10]:
             print(f"[chip_smoke]     {r['device_ms']:9.3f} ms  {r['calls']:6d}×  "
                   f"{r['name'][:90]}", flush=True)
         out[path] = {"wall_ms": wall_ms, "setup_ms": setup_ms, "device_busy_ms": busy_ms,
-                     "qmm_device_ms": ours["qmm"], "hist_device_ms": ours["hist"],
+                     "qmm_wgmma_device_ms": ours["qmm_wgmma"],
+                     "qmm_wgmma_calls": calls["qmm_wgmma"],
+                     "qmm_core_device_ms": ours["qmm"], "hist_device_ms": ours["hist"],
                      "mask_device_ms": ours["mask"], "kernels": rows[:40]}
     return out
 
@@ -561,7 +690,7 @@ def phase_group_kernel(torch, mods):
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gran = f"per_block:{GROUP}"
-    rows, max_err = [], 0.0
+    rows, max_err, core_rows = [], 0.0, []
     for bits in (2, 4, 8):
         # the main path's own per-orientation quantization of Φ
         op = mods["pack_operator"](phi, bits, prng.fold_in(prng.PRNGKey(0), 0), shared=False,
@@ -578,7 +707,13 @@ def phase_group_kernel(torch, mods):
                     * expand(w.scale, GROUP, k) / (2 ** (bits - 1) // 2))
             for m in ms:
                 x = torch.randn(m, k, generator=gen, device=dev)
-                y = QG(x, w.packed, w.scale, bits, k, GROUP)
+                if mods["cuda_kernel"](w) is not QG or QG.library.source.name != "qmm_wgmma.cu":
+                    raise AssertionError(f"qmm_group {name}: not routed to QMM_GROUP")
+                before = QG.launches
+                y = mods["qmm"](x, w)
+                if QG.launches != before + 1:
+                    raise AssertionError(f"qmm_group {name} bits={bits} M={m}: QMM_GROUP was "
+                                         "not launched")
                 ref = ref_fn(x, w.packed, w.scale, bits, k, GROUP)
                 torch.cuda.synchronize()
                 tol = 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wdeq.abs().T)
@@ -587,7 +722,7 @@ def phase_group_kernel(torch, mods):
                     raise AssertionError(f"qmm_group {name} bits={bits} M={m}: max |Δ| "
                                          f"{float(err.max())} exceeds the tolerance")
                 max_err = max(max_err, float(err.max()))
-                b_ms, b_by = bound_ms(m, n, k, kp, n_groups)
+                b_ms, b_by, bb_ms = bound_ms(m, n, k, kp, n_groups)
                 row = {"shape": name, "bits": bits, "M": m, "N": n, "K": k, "G": n_groups,
                        "max_abs_err": float(err.max()),
                        "ms": time_ms(torch, lambda: QG(x, w.packed, w.scale, bits, k, GROUP),
@@ -595,17 +730,55 @@ def phase_group_kernel(torch, mods):
                        "plain_ms": time_ms(torch, lambda: ref_fn(x, w.packed, w.scale, bits, k,
                                                                  GROUP), 5, flush),
                        "library_ms": time_ms(torch, lambda: torch.matmul(x, wdeq.T), 20, flush),
-                       "bound_ms": b_ms, "bound_by": b_by}
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms,
+                       "device_ms": (device_ms(torch, lambda: QG(x, w.packed, w.scale, bits, k,
+                                                                 GROUP),
+                                               20, flush, "qmm_wgmma_kernel")
+                                     if name != "ragged" and bits == cs.bits_phi else None)}
                 rows.append(row)
                 print(f"[chip_smoke]   qmm_group {name:9s} bits={bits} M={m:2d}: "
                       f"max|Δ|={row['max_abs_err']:.3g} kernel {row['ms']:.4f} ms  plain "
                       f"{row['plain_ms']:.4f} ms  matmul(f32 Φ̂) {row['library_ms']:.4f} ms  "
-                      f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+                      f"bound {b_ms:.4f} ms ({b_by}), bytes alone {bb_ms:.4f} ms, device "
+                      f"(profiler) {row['device_ms']}", flush=True)
             del wdeq
         del op
+        # the CUDA-core route: g = 8 is no multiple of 16 (8 // bits divides it)
+        core, g_core = mods["QMM_GROUP_CORE"], 8
+        w = mods["pack_weights"](torch.randn(333, 1001, generator=gen, device=dev), bits,
+                                 prng.PRNGKey(bits), granularity=f"per_block:{g_core}")
+        x = torch.randn(5, 1001, generator=gen, device=dev)
+        if mods["cuda_kernel"](w) is not core or core.library.source.name != "qmm.cu":
+            raise AssertionError(f"g = {g_core} is not routed to the CUDA-core QMM_GROUP_CORE")
+        before = (QG.launches, core.launches)
+        y = mods["qmm"](x, w)
+        if (QG.launches, core.launches) != (before[0], before[1] + 1):
+            raise AssertionError(f"g = {g_core}: launched QMM_GROUP {QG.launches - before[0]}, "
+                                 f"QMM_GROUP_CORE {core.launches - before[1]} times")
+        ref = ref_fn(x, w.packed, w.scale, bits, 1001, g_core)
+        wdeq = (unpack_codes(w.packed, bits, 1001).to(torch.float32)
+                * expand(w.scale, g_core, 1001) / (2 ** (bits - 1) // 2))
+        err = (y - ref).abs()
+        if not bool((err <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wdeq.abs().T)).all()):
+            raise AssertionError(f"qmm_group core g={g_core} bits={bits}: max |Δ| "
+                                 f"{float(err.max())} exceeds the tolerance")
+        n, kp = w.packed.shape
+        b_ms, b_by, bb_ms = bound_ms(5, n, 1001, kp, w.scale.shape[1])
+        core_rows.append({"shape": "ragged", "bits": bits, "M": 5, "N": n, "K": 1001,
+                          "G": w.scale.shape[1], "g": g_core, "max_abs_err": float(err.max()),
+                          "ms": time_ms(torch, lambda: mods["qmm"](x, w), 20, flush),
+                          "plain_ms": time_ms(torch, lambda: ref_fn(x, w.packed, w.scale, bits,
+                                                                    1001, g_core), 5, flush),
+                          "library_ms": time_ms(torch, lambda: torch.matmul(x, wdeq.T), 20, flush),
+                          "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms})
+        print(f"[chip_smoke]   qmm_group (CUDA-core route) ragged bits={bits} g={g_core}: "
+              f"max|Δ|={core_rows[-1]['max_abs_err']:.3g} kernel {core_rows[-1]['ms']:.4f} ms",
+              flush=True)
     del phi, flush
     torch.cuda.empty_cache()
-    return {"rows": rows, "max_abs_err": max_err, "group_size": GROUP}
+    exact = exact_checks(torch, mods, group=True)
+    return {"rows": rows, "max_abs_err": max_err, "group_size": GROUP, "entry": QG.entry,
+            "source": QG.library.source.name, "exact": exact, "core_rows": core_rows}
 
 
 def phase_hs_kernels(torch, mods):
@@ -859,33 +1032,37 @@ def phase_lofar_hsthresh(torch, mods):
 
 
 def phase_gaussian_block(torch, mods):
-    """The Gaussian toy per_block (g = 64), bits 4 and 8, batch 8, held per
-    row against the same solves with qmm_group_ref standing in."""
-    QG, recover_gaussian, g = mods["QMM_GROUP"], mods["recover_gaussian"], mods["GAUSS"]
+    """The Gaussian toy per_block, bits 4 and 8, batch 8, held per row
+    against the same solves with qmm_group_ref standing in: g = 64 runs on
+    the tensor-core QMM_GROUP, g = 8 (no multiple of 16) on the CUDA-core
+    QMM_GROUP_CORE, and each must launch only its own kernel."""
+    recover_gaussian, g = mods["recover_gaussian"], mods["GAUSS"]
     dev = torch.device(mods["device"])
     out = {}
-    for bits in (4, 8):
-        label = f"gaussian per_block bits={bits} batch=8"
+    for bits, group_size in ((4, GROUP), (8, GROUP), (4, 8), (8, 8)):
+        QG = mods["group_kernel"](group_size)
+        label = f"gaussian per_block g={group_size} bits={bits} batch=8"
         reset_counts(mods)
         m_k, r_k, x_true = recover_gaussian(g, "packed", bits, 8, 0, "fixed", 8, dev,
-                                            "per_block", GROUP)
+                                            "per_block", group_size)
         launches = QG.launches
         others = {k.entry: k.launches for k in mods["KERNELS"] if k is not QG and k.launches}
         with stand_in(mods["qmm_ops"], qmm_group_cuda=mods["qmm_group_ref"]):
             reset_counts(mods)
             m_w, r_w, _ = recover_gaussian(g, "packed", bits, 8, 0, "fixed", 8, dev,
-                                           "per_block", GROUP)
+                                           "per_block", group_size)
             if QG.launches:
                 raise AssertionError("the witness run launched the group kernel")
         print(f"[chip_smoke]   {label}: rel_error_mean={m_k['rel_error_mean']:.4f} "
               f"wall_s={m_k['wall_s']:.3f} | witness {m_w['rel_error_mean']:.4f} | "
-              f"qmm_group launches {launches}", flush=True)
+              f"{QG.entry} launches {launches}", flush=True)
         held = hold_rows(torch, label, r_k, r_w, x_true)
         print(f"[chip_smoke]     ‖Δx_b‖/‖x_b‖ kernel vs witness: "
               + " ".join(f"{v:.1e}" for v in held["dx_rows"]), flush=True)
         if launches == 0 or others:
-            raise AssertionError(f"{label}: {launches} qmm_group launches, others {others}")
-        out[label] = {"kernel": m_k, "witness": m_w, "launches": launches, **held}
+            raise AssertionError(f"{label}: {launches} {QG.entry} launches, others {others}")
+        out[label] = {"kernel": m_k, "witness": m_w, "launches": launches,
+                      "entry": QG.entry, **held}
     return out
 
 
@@ -1216,9 +1393,15 @@ def load_port() -> dict:
     from repro_torch.kernels.sqround.ops import sqround
     from repro_torch.kernels.sqround.ref import sqround_ref
     from repro_torch.kernels.qmm import kernel as qmm_kernel
-    from repro_torch.kernels.qmm.kernel import QMM, QMM_GROUP
+    from repro_torch.kernels.qmm.kernel import QMM, QMM_GROUP, QMM_GROUP_CORE
     from repro_torch.kernels.qmm import ops as qmm_ops
-    from repro_torch.kernels.qmm.ops import pack_operator, pack_weights
+    from repro_torch.kernels.qmm.ops import (
+        cuda_kernel,
+        group_kernel,
+        pack_operator,
+        pack_weights,
+        qmm,
+    )
     from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
     from repro_torch.quant.quantize import expand_block_scale
     from repro_torch.launch.recover import (
@@ -1227,7 +1410,7 @@ def load_port() -> dict:
         recover_gaussian,
         recover_lofar,
     )
-    from repro_torch.quant.pack import unpack_codes
+    from repro_torch.quant.pack import pack_codes, unpack_codes
     from repro_torch.core.niht import qniht
     from repro_torch.sensing.sky import make_sky
     from repro_torch.sensing.telescope import Station, measurement_matrix, visibilities
@@ -1246,11 +1429,12 @@ def load_port() -> dict:
                 sqround_ref=sqround_ref, narrow_words=sq_kernel.narrow_words,
                 FLASH=fa_kernel.FLASH, FLASH_TC=fa_kernel.FLASH_TC,
                 flash_attention=flash_attention, attention_plain=attention_plain,
-                CudaLibrary=CudaLibrary,
-                KERNELS=(QMM, QMM_GROUP, hs_kernel.HIST, hs_kernel.MASK, sq_kernel.SQROUND,
-                         fa_kernel.FLASH, fa_kernel.FLASH_TC),
-                LIBRARIES=(qmm_kernel.LIBRARY, hs_kernel.LIBRARY, sq_kernel.LIBRARY,
-                           fa_kernel.LIBRARY, fa_kernel.TC_LIBRARY))
+                CudaLibrary=CudaLibrary, QMM_GROUP_CORE=QMM_GROUP_CORE, qmm=qmm,
+                cuda_kernel=cuda_kernel, group_kernel=group_kernel, pack_codes=pack_codes,
+                KERNELS=(QMM, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
+                         sq_kernel.SQROUND, fa_kernel.FLASH, fa_kernel.FLASH_TC),
+                LIBRARIES=(qmm_kernel.LIBRARY, qmm_kernel.CORE_LIBRARY, hs_kernel.LIBRARY,
+                           sq_kernel.LIBRARY, fa_kernel.LIBRARY, fa_kernel.TC_LIBRARY))
     return mods
 
 
@@ -1328,7 +1512,8 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": f"{name}[{shape}]",
                 "route": "cuda",
-                "source": "src/repro_torch/kernels/qmm/csrc/qmm.cu",
+                "source": f"src/repro_torch/kernels/qmm/csrc/{report[phase]['source']}",
+                "entry": report[phase]["entry"],
                 "replaces": replaces,
                 "launches": by_orientation[shape],
                 "max_abs_err": report[phase]["max_abs_err"],
@@ -1336,10 +1521,31 @@ def main(argv=None) -> int:
                 "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
+                "bytes_bound_ms": row["bytes_bound_ms"],
+                "device_ms": row["device_ms"],
                 "library_ms": row["library_ms"],
                 "shape": f"{shape} bits={row['bits']} M=1 N={row['N']} K={row['K']}"
                          + (f" g={GROUP}" if name == "qmm_group" else ""),
             })
+    core = next(r for r in report["group_kernel"]["core_rows"] if r["bits"] == 4)
+    kernels.append({
+        "name": "qmm_group_core[gaussian g=8]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/qmm/csrc/qmm.cu",
+        "entry": "repro_qmm_group",
+        "replaces": "src/repro/kernels/qmm/kernel.py:221",
+        "launches": sum(v["launches"] for k, v in report["gaussian_block"].items()
+                        if v["entry"] == "repro_qmm_group"),
+        "max_abs_err": max(r["max_abs_err"] for r in report["group_kernel"]["core_rows"]),
+        "ms": core["ms"],
+        "plain_ms": core["plain_ms"],
+        "bound_ms": core["bound_ms"],
+        "bound_by": core["bound_by"],
+        "bytes_bound_ms": core["bytes_bound_ms"],
+        "library_ms": core["library_ms"],
+        "shape": f"ragged bits=4 M=5 N={core['N']} K={core['K']} g={core['g']} (timed); "
+                 "launches from the Gaussian per_block g=8 solves",
+    })
     for name, replaces in (("hist", "src/repro/kernels/hsthresh/kernel.py:48"),
                            ("mask", "src/repro/kernels/hsthresh/kernel.py:69")):
         row = next(r for r in report["hs_kernels"]["rows"] if r["name"] == name and r["B"] == 1)

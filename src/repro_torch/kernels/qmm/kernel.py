@@ -1,16 +1,22 @@
-"""ctypes binding of the Hopper ``qmm`` kernels (``csrc/qmm.cu``).
+"""ctypes binding of the Hopper ``qmm`` kernels.
 
-One library, two entry points:
+Two libraries:
 
-* ``repro_qmm`` replaces ``repro/kernels/qmm/kernel.py::qmm_pallas``: one
+* ``csrc/qmm_wgmma.cu`` (:data:`LIBRARY`), the tensor-core kernel (``wgmma``,
+  x split exactly into three bf16 pieces, split-K). ``repro_qmm_tc``
+  (:data:`QMM`) replaces ``repro/kernels/qmm/kernel.py::qmm_pallas``: one
   scale per output row (per_tensor is the broadcast special case);
-* ``repro_qmm_group`` replaces ``qmm_group_pallas``: an (N, ⌈K/g⌉) slab of
-  scales, one per g contiguous codes along K (``per_block``).
+  ``repro_qmm_group_tc`` (:data:`QMM_GROUP`) replaces ``qmm_group_pallas``:
+  an (N, ⌈K/g⌉) slab of scales, one per g contiguous codes along K
+  (``per_block``), for g a multiple of 16 codes.
+* ``csrc/qmm.cu`` (:data:`CORE_LIBRARY`), the CUDA-core row walk, keeps
+  ``repro_qmm_group`` (:data:`QMM_GROUP_CORE`) for the group sizes the
+  tensor-core kernel does not take (g not a multiple of 16).
+  :func:`repro_torch.kernels.qmm.ops.group_kernel` routes by g.
 
-The source is compiled with nvcc into ``build/repro_torch/`` on first use
+Each source is compiled with nvcc into ``build/repro_torch/`` on first use
 (:mod:`repro_torch.kernels.cudalib`). There is no fallback: a CUDA tensor that
-reaches :func:`qmm_cuda` or :func:`qmm_group_cuda` launches the kernel or
-raises. ``QMM.launches`` and ``QMM_GROUP.launches`` count each entry's
+reaches a kernel launches it or raises. Each kernel object counts its own
 launches; ``launches_by_shape`` splits them by the (N, K) of the packed
 operand, so the two orientations of Φ̂ read apart.
 """
@@ -31,17 +37,29 @@ from repro_torch.kernels.cudalib import (
 from repro_torch.quant.formats import BY_BITS
 from repro_torch.quant.pack import packed_len
 
-__all__ = ["NVCC_FLAGS", "SOURCE", "LIBRARY", "QMM", "QMM_GROUP", "build_dir", "qmm_cuda",
+__all__ = ["NVCC_FLAGS", "SOURCE", "CORE_SOURCE", "LIBRARY", "CORE_LIBRARY", "QMM",
+           "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE", "build_dir", "qmm_cuda",
            "qmm_group_cuda"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm_wgmma.cu"
+CORE_SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
+TC_GROUP_MULTIPLE = 16          # the tensor-core group kernel takes g = 16·j
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(SOURCE, {
-    # x, codes, scale, y, M, N, K, Kp, bits, stream
-    "repro_qmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # N, Kp -> split-K parts S of a call (the workspace is S·M·N floats)
+    "repro_qmm_tc_splits": [_I, _I],
+    # x, codes, scale, y, workspace, counters, M, N, K, Kp, bits, stream
+    "repro_qmm_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, codes, scale, y, workspace, counters, M, N, K, Kp, bits, group_size, stream
+    "repro_qmm_group_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+})
+CORE_LIBRARY = CudaLibrary(CORE_SOURCE, {
     # x, codes, scale, y, M, N, K, Kp, bits, group_size, stream
     "repro_qmm_group": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 })
+_ROWS = 128                     # Φ̂ rows of one block of qmm_wgmma.cu
+_SPLITS: dict = {}              # (device, N, Kp) -> split-K parts
+_SCRATCH: dict = {}             # device -> [workspace f32, tickets int32 (zero between launches)]
 
 
 def _check(who, x, w_packed, scale, bits, k_dim):
@@ -62,36 +80,79 @@ def _check(who, x, w_packed, scale, bits, k_dim):
     return m, k, n, kp
 
 
+def _check_aligned(who, w_packed):
+    """The tensor-core kernel reads codes by TMA and by 16-byte copies aligned
+    to the array's start."""
+    if w_packed.data_ptr() % 16:
+        raise ValueError(f"{who}: w_packed must start on a 16-byte boundary")
+
+
+def _scratch(device, m, n, kp, lib):
+    """The split-K workspace (S·M·N floats) and the zeroed tickets of a call,
+    kept per device and grown as needed; launches on one stream share them."""
+    key = (device, n, kp)
+    parts = _SPLITS.get(key)
+    if parts is None:
+        parts = lib.repro_qmm_tc_splits(n, kp)
+        if parts < 1:
+            raise RuntimeError(f"repro_qmm_tc_splits({n}, {kp}) returned {parts}")
+        _SPLITS[key] = parts
+    buf = _SCRATCH.get(device)
+    if buf is None:
+        buf = _SCRATCH[device] = [torch.empty(0, dtype=torch.float32, device=device),
+                                  torch.zeros(0, dtype=torch.int32, device=device)]
+    need_ws = parts * m * n if parts > 1 else 1
+    need_t = -(-n // _ROWS) * -(-m // 4)
+    if buf[0].numel() < need_ws:
+        buf[0] = torch.empty(need_ws, dtype=torch.float32, device=device)
+    if buf[1].numel() < need_t:
+        buf[1] = torch.zeros(max(need_t, 1024), dtype=torch.int32, device=device)
+    return buf[0], buf[1]
+
+
 class QmmKernel(CudaKernel):
-    """``repro_qmm``: y = x @ dequant(w)ᵀ with one scale per row of w."""
+    """``repro_qmm_tc``: y = x @ dequant(w)ᵀ with one scale per row of w."""
 
     def __call__(self, x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
                  bits: int, k_dim: int) -> torch.Tensor:
         """x (M, K) f32, w_packed (N, Kp) uint8, scale (1, N) or (N,) f32, all
         CUDA and contiguous."""
         m, k, n, kp = _check("qmm_cuda", x, w_packed, scale, bits, k_dim)
+        _check_aligned("qmm_cuda", w_packed)
         if scale.numel() != n:
             raise ValueError(f"qmm_cuda: scale has {scale.numel()} entries, N={n}")
         y = torch.empty((m, n), dtype=torch.float32, device=x.device)
         if m == 0 or n == 0:
             return y
+        ws, counters = _scratch(x.device, m, n, kp, self.build())
         self.launch(x.device, (n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-                    y.data_ptr(), m, n, k, kp, bits)
+                    y.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, n, k, kp, bits)
         return y
 
 
 class QmmGroupKernel(CudaKernel):
-    """``repro_qmm_group``: y = x @ dequant(w)ᵀ with scale (N, ⌈K/g⌉)."""
+    """A group-scaled entry: y = x @ dequant(w)ᵀ with scale (N, ⌈K/g⌉).
+
+    ``multiple`` is the granule g must be a multiple of, beside the packing
+    word: 16 for the tensor-core ``repro_qmm_group_tc``, 1 for the CUDA-core
+    ``repro_qmm_group``."""
+
+    def __init__(self, library: CudaLibrary, entry: str, multiple: int, split_k: bool):
+        super().__init__(library, entry)
+        self.multiple = multiple
+        self.split_k = split_k
 
     def __call__(self, x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
                  bits: int, k_dim: int, group_size: int) -> torch.Tensor:
         """x (M, K) f32, w_packed (N, Kp) uint8, scale (N, ⌈K/g⌉) f32, all
-        CUDA and contiguous; g a positive multiple of 8 // bits."""
+        CUDA and contiguous; g a positive multiple of 8 // bits and of
+        ``multiple``."""
         m, k, n, kp = _check("qmm_group_cuda", x, w_packed, scale, bits, k_dim)
         vpb = BY_BITS[bits].values_per_byte
-        if group_size < 1 or group_size % vpb:
+        if group_size < 1 or group_size % vpb or group_size % self.multiple:
             raise ValueError(f"qmm_group_cuda: group_size {group_size} must be a positive "
-                             f"multiple of {vpb} at {bits} bits")
+                             f"multiple of {vpb} at {bits} bits and of {self.multiple} for "
+                             f"{self.entry}")
         n_groups = (k + group_size - 1) // group_size
         if tuple(scale.shape) != (n, n_groups):
             raise ValueError(f"qmm_group_cuda: scale is {tuple(scale.shape)}, "
@@ -99,13 +160,18 @@ class QmmGroupKernel(CudaKernel):
         y = torch.empty((m, n), dtype=torch.float32, device=x.device)
         if m == 0 or n == 0:
             return y
-        self.launch(x.device, (n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-                    y.data_ptr(), m, n, k, kp, bits, group_size)
+        ptrs = [x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), y.data_ptr()]
+        if self.split_k:
+            _check_aligned("qmm_group_cuda", w_packed)
+            ws, counters = _scratch(x.device, m, n, kp, self.build())
+            ptrs += [ws.data_ptr(), counters.data_ptr()]
+        self.launch(x.device, (n, k), *ptrs, m, n, k, kp, bits, group_size)
         return y
 
 
-QMM = QmmKernel(LIBRARY, "repro_qmm")
-QMM_GROUP = QmmGroupKernel(LIBRARY, "repro_qmm_group")
+QMM = QmmKernel(LIBRARY, "repro_qmm_tc")
+QMM_GROUP = QmmGroupKernel(LIBRARY, "repro_qmm_group_tc", TC_GROUP_MULTIPLE, split_k=True)
+QMM_GROUP_CORE = QmmGroupKernel(CORE_LIBRARY, "repro_qmm_group", 1, split_k=False)
 
 
 def qmm_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -116,5 +182,6 @@ def qmm_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits:
 
 def qmm_group_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
                    k_dim: int, group_size: int) -> torch.Tensor:
-    """Launch the Hopper group-scaled kernel (see :class:`QmmGroupKernel`)."""
+    """Launch the tensor-core group-scaled kernel (g a multiple of 16; see
+    :class:`QmmGroupKernel`)."""
     return QMM_GROUP(x, w_packed, scale, bits, k_dim, group_size)

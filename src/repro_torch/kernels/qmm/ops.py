@@ -3,8 +3,12 @@
 * :func:`pack_weights` — quantize and pack an (N, K) matrix for qmm.
 * :func:`qmm` — ``x @ dequant(w)ᵀ``: the Hopper kernel for a CUDA tensor, the
   plain PyTorch version (:func:`qmm_ref`) for a CPU tensor. Block-scaled
-  weights (``per_block``) go to the group kernel or :func:`qmm_group_ref`.
+  weights (``per_block``) go to a group kernel or :func:`qmm_group_ref`.
   There is no padding: the kernels mask the ragged edges themselves.
+* :func:`cuda_kernel` / :func:`group_kernel` — the card's kernel for a packed
+  operand, a fixed route by group size: per-row scales and g = 16·j run on
+  the tensor cores (``QMM``, ``QMM_GROUP``, ``csrc/qmm_wgmma.cu``), other g
+  on the CUDA-core row walk (``QMM_GROUP_CORE``, ``csrc/qmm.cu``).
 * :class:`PackedOperator` / :func:`pack_operator` — Φ̂ in both orientations,
   the pair QNIHT streams every iteration; ``shared=True`` packs one
   quantization in both (the ``requantize="fixed"`` deployment mode).
@@ -22,7 +26,14 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.kernels.qmm.kernel import qmm_cuda, qmm_group_cuda
+from repro_torch.kernels.cudalib import CudaKernel
+from repro_torch.kernels.qmm.kernel import (
+    QMM,
+    QMM_GROUP,
+    QMM_GROUP_CORE,
+    TC_GROUP_MULTIPLE,
+    qmm_cuda,
+)
 from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
 from repro_torch.quant.formats import (
     BY_BITS,
@@ -102,12 +113,32 @@ def pack_weights(
     )
 
 
+def group_kernel(group_size: int) -> CudaKernel:
+    """The card's group-scaled kernel for g: a fixed route, not a fallback.
+    g = 16·j runs on the tensor cores (``QMM_GROUP``), any other g on the
+    CUDA-core row walk (``QMM_GROUP_CORE``)."""
+    return QMM_GROUP if group_size % TC_GROUP_MULTIPLE == 0 else QMM_GROUP_CORE
+
+
+def cuda_kernel(w: PackedWeights) -> CudaKernel:
+    """The kernel :func:`qmm` launches for ``w`` on the card."""
+    if w.granularity.kind == "per_block":
+        return group_kernel(w.granularity.group_size)
+    return QMM
+
+
+def qmm_group_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
+                   k_dim: int, group_size: int) -> torch.Tensor:
+    """Launch the group-scaled kernel that :func:`group_kernel` routes g to."""
+    return group_kernel(group_size)(x, w_packed, scale, bits, k_dim, group_size)
+
+
 def qmm(x: torch.Tensor, w: PackedWeights, *, w_t: Optional[PackedWeights] = None) -> torch.Tensor:
     """y = x @ dequant(w)ᵀ, (M, K) → (M, N) float32.
 
     A CUDA ``x`` launches a Hopper kernel (which raises if it cannot build
-    or launch): the group kernel for ``per_block`` weights, else the
-    per-row-scale one. A CPU ``x`` runs the matching plain version
+    or launch): the group kernel :func:`group_kernel` routes g to for
+    ``per_block`` weights, else the per-row-scale one. A CPU ``x`` runs the matching plain version
     (:func:`qmm_group_ref` or :func:`qmm_ref`). ``w_t`` is ignored."""
     del w_t
     if x.shape[-1] != w.k_dim:

@@ -5,7 +5,11 @@ They skip on a machine without a GPU and nvcc; on the card run them with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance for qmm and qmm_group, as in the CPU tests: |Δ| ≤ 1e-5·|ref| +
-1e-5·(|x|@|w|ᵀ) against the plain version, with TF32 off. hist, mask and
+1e-5·(|x|@|w|ᵀ) against the plain version, with TF32 off. Beside it, the
+tensor-core kernel (``qmm_wgmma.cu``) is held to what a tolerance cannot
+show: integer x equals the plain version bit for bit, rows of Φ̂ with one
+nonzero code give fl(c·x) (bit for bit; 2 ulp grouped), and row b of an
+M = 8 call equals the M = 1 call on row b. hist, mask and
 sqround equal their plain versions bit for bit. Flash attention: |Δ| ≤ 2e-4
 (abs and rel) for float32 inputs (the CUDA-core kernel FLASH), 2e-2 for
 bfloat16 and float16 (the tensor-core kernel FLASH_TC), the reference's
@@ -30,12 +34,12 @@ from repro_torch.kernels.hsthresh import kernel as hs_kernel
 from repro_torch.kernels.hsthresh.ops import hsthresh
 from repro_torch.kernels.hsthresh.ref import hist_ref, mask_ref, row_vmax
 from repro_torch.kernels.qmm import kernel as qmm_kernel
-from repro_torch.kernels.qmm.ops import pack_operator, pack_weights, qmm
+from repro_torch.kernels.qmm.ops import cuda_kernel, group_kernel, pack_operator, pack_weights, qmm
 from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
 from repro_torch.kernels.sqround import kernel as sq_kernel
 from repro_torch.kernels.sqround.ops import sqround
 from repro_torch.kernels.sqround.ref import sqround_ref
-from repro_torch.quant.pack import unpack_codes
+from repro_torch.quant.pack import pack_codes, unpack_codes
 from repro_torch.quant.quantize import expand_block_scale
 
 pytestmark = pytest.mark.cuda
@@ -54,7 +58,8 @@ def cuda():
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("shape", [(1, 870, 4096), (8, 4096, 870), (5, 333, 1001),
-                                   (64, 64, 2048), (3, 7, 5)])
+                                   (64, 64, 2048), (3, 7, 5), (64, 870, 65536),
+                                   (64, 65536, 870), (1, 2048, 870)])
 def test_kernel_matches_plain_version(cuda, bits, shape):
     m, n, k = shape
     gen = torch.Generator(device=cuda).manual_seed(m + n + k)
@@ -120,10 +125,11 @@ def test_group_kernel_matches_plain_version(cuda, bits, g, shape):
     w = pack_weights(torch.randn(n, k, generator=gen, device=cuda), bits, prng.PRNGKey(bits),
                      granularity=f"per_block:{g}")
     x = torch.randn(m, k, generator=gen, device=cuda)
-    before = (qmm_kernel.QMM.launches, qmm_kernel.QMM_GROUP.launches)
+    routed = group_kernel(g)          # g = 64 on the tensor cores, g = 8 // bits on qmm.cu
+    kernels = (qmm_kernel.QMM, qmm_kernel.QMM_GROUP, qmm_kernel.QMM_GROUP_CORE)
+    before = [k.launches for k in kernels]
     y = qmm(x, w)
-    assert (qmm_kernel.QMM.launches, qmm_kernel.QMM_GROUP.launches) == (before[0],
-                                                                         before[1] + 1)
+    assert [k.launches for k in kernels] == [b + (k is routed) for k, b in zip(kernels, before)]
     ref = qmm_group_ref(x, w.packed, w.scale, bits, k, g)
     wabs = (unpack_codes(w.packed, bits, k).float().abs() * expand_block_scale(w.scale, g, k)
             / (2 ** (bits - 1) // 2))
@@ -136,8 +142,105 @@ def test_group_kernel_rejects_bad_inputs(cuda):
     x = torch.randn(2, 40, device=cuda)
     with pytest.raises(ValueError):
         qmm_kernel.qmm_group_cuda(x, w.packed, w.scale, 4, 40, 3)
+    with pytest.raises(ValueError):       # g = 8 is not the tensor-core kernel's
+        qmm_kernel.qmm_group_cuda(x, w.packed, w.scale, 4, 40, 8)
     with pytest.raises(ValueError):
-        qmm_kernel.qmm_group_cuda(x, w.packed, w.scale[:, :2].contiguous(), 4, 40, 8)
+        qmm_kernel.QMM_GROUP_CORE(x, w.packed, w.scale[:, :2].contiguous(), 4, 40, 8)
+    w16 = pack_weights(torch.randn(16, 40, device=cuda), 4, granularity="per_block:16")
+    with pytest.raises(ValueError):
+        qmm_kernel.qmm_group_cuda(x, w16.packed, w16.scale[:, :2].contiguous(), 4, 40, 16)
+
+
+# the LOFAR CS302 orientations: 870 baselines x 65,536 pixels, 16,384-byte
+# (TMA) rows forward, 218-byte rows (2 bits) in the adjoint
+LOFAR_SHAPES = [(870, 65536), (65536, 870)]
+
+
+def _onehot_codes(gen, n, k, bits, device):
+    kh = 2 ** (bits - 1) // 2
+    codes = torch.zeros(n, k, dtype=torch.int8, device=device)
+    sign = torch.randint(0, 2, (n,), generator=gen, device=device) * 2 - 1
+    value = (torch.randint(1, kh + 1, (n,), generator=gen, device=device) * sign).to(torch.int8)
+    codes[torch.arange(n, device=device),
+          torch.randint(0, k, (n,), generator=gen, device=device)] = value
+    return codes
+
+
+def _ulps(got, want):
+    _, e = torch.frexp(want)
+    return float(((got - want).abs() / torch.ldexp(torch.ones_like(want), e - 24)).max())
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("nk", LOFAR_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_integer_x_is_bit_for_bit(cuda, bits, nk, m):
+    """Σ|x|·|c − K_h| < 2²⁴ in every row: every partial sum is exact in f32."""
+    n, k = nk
+    kh = 2 ** (bits - 1) // 2
+    gen = torch.Generator(device=cuda).manual_seed(bits * m + n)
+    codes = torch.randint(-kh, kh + 1, (n, k), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.int8)
+    packed = pack_codes(codes, bits)
+    x = torch.randint(-2, 3, (m, k), generator=gen, device=cuda).float()
+    scale = torch.rand(n, generator=gen, device=cuda) + 0.5
+    assert torch.equal(qmm_kernel.QMM(x, packed, scale, bits, k),
+                       qmm_ref(x, packed, scale, bits, k))
+    g = 64                                  # power-of-two scales {1/2, 1}, |x| <= 1
+    gscale = 2.0 ** -torch.randint(0, 2, (n, (k + g - 1) // g), generator=gen,
+                                   device=cuda).float()
+    x1 = x.clamp(-1, 1)
+    assert torch.equal(qmm_kernel.QMM_GROUP(x1, packed, gscale, bits, k, g),
+                       qmm_group_ref(x1, packed, gscale, bits, k, g))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("nk", LOFAR_SHAPES)
+def test_one_nonzero_code_per_row(cuda, bits, nk):
+    """A row with one nonzero code c gives fl(c·x) for full-mantissa x: the
+    three bf16 pieces of x all count (dropping lo misses by ~2⁻¹⁶)."""
+    n, k = nk
+    gen = torch.Generator(device=cuda).manual_seed(bits + n)
+    packed = pack_codes(_onehot_codes(gen, n, k, bits, cuda), bits)
+    x = torch.randn(8, k, generator=gen, device=cuda) * 3.7
+    scale = torch.rand(n, generator=gen, device=cuda) + 0.5
+    assert torch.equal(qmm_kernel.QMM(x, packed, scale, bits, k),
+                       qmm_ref(x, packed, scale, bits, k))
+    gscale = torch.rand(n, (k + 63) // 64, generator=gen, device=cuda) + 0.5
+    assert _ulps(qmm_kernel.QMM_GROUP(x, packed, gscale, bits, k, 64),
+                 qmm_group_ref(x, packed, gscale, bits, k, 64)) <= 2.0
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("nk", LOFAR_SHAPES + [(333, 1001)])
+@pytest.mark.parametrize("g", [None, 64, 16])
+def test_batch_rows_equal_single_rows(cuda, bits, nk, g):
+    """Row b of an M = 8 call computes, bit for bit, what M = 1 does."""
+    n, k = nk
+    gen = torch.Generator(device=cuda).manual_seed(bits + n + (g or 0))
+    gran = "per_channel" if g is None else f"per_block:{g}"
+    w = pack_weights(torch.randn(n, k, generator=gen, device=cuda), bits, prng.PRNGKey(bits),
+                     granularity=gran)
+    x = torch.randn(8, k, generator=gen, device=cuda)
+    y = qmm(x, w)
+    assert torch.equal(y, torch.cat([qmm(x[b:b + 1].contiguous(), w) for b in range(8)]))
+
+
+def test_group_size_8_runs_on_the_cuda_core_kernel(cuda):
+    """g = 8 is no multiple of 16: the route sends it to qmm.cu's kernel,
+    whose counter alone moves."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    w = pack_weights(torch.randn(333, 1001, generator=gen, device=cuda), 4, prng.PRNGKey(4),
+                     granularity="per_block:8")
+    assert cuda_kernel(w) is qmm_kernel.QMM_GROUP_CORE
+    x = torch.randn(5, 1001, generator=gen, device=cuda)
+    before = (qmm_kernel.QMM_GROUP.launches, qmm_kernel.QMM_GROUP_CORE.launches)
+    y = qmm(x, w)
+    assert (qmm_kernel.QMM_GROUP.launches,
+            qmm_kernel.QMM_GROUP_CORE.launches) == (before[0], before[1] + 1)
+    ref = qmm_group_ref(x, w.packed, w.scale, 4, 1001, 8)
+    wabs = unpack_codes(w.packed, 4, 1001).float().abs() * expand_block_scale(w.scale, 8, 1001) / 4
+    assert bool(((y - ref).abs() <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wabs.T)).all())
 
 
 @pytest.mark.parametrize("shape", [(1, 65536), (8, 65536), (3, 1001), (2, 5)])
