@@ -10,10 +10,13 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 
 1. build the Hopper kernel libraries from ``src/repro_torch/kernels/*/csrc``
    (``qmm_wgmma.cu``: ``qmm`` and ``qmm_group`` on the tensor cores; ``qmm.cu``:
-   the CUDA-core ``qmm_group`` for g not a multiple of 16; ``hsthresh.cu``:
-   ``hist`` and ``mask``; ``sqround.cu``; ``flashattn.cu``, float32 attention
-   on the CUDA cores; ``flashattn_wgmma.cu``, bf16/fp16 attention on the
-   tensor cores), one nvcc per source, started together;
+   the CUDA-core row walk, ``qmm_group`` for g not a multiple of 16 and both
+   for codes off a 16-byte boundary; ``hsthresh.cu``: ``hist`` and ``mask``;
+   ``hsthresh_fused.cu``: the whole H_s in one cluster launch; ``sqround.cu``;
+   ``flashattn.cu``, attention on the CUDA cores (float32, 16-bit at head dims
+   8/160/256, and views off a 16-byte boundary); ``flashattn_wgmma.cu``,
+   bf16/fp16 attention on the tensor cores), one nvcc per source, started
+   together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
@@ -23,6 +26,13 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    give (``exact_checks``), at the LOFAR shapes, 2 and 8 bits: integer x
    (bit for bit, M ∈ {1, 8, 64}), one-hot rows of Φ̂ with full-mantissa x
    (bit for bit) and batch rows (row b of M = 8 equals M = 1, bit for bit).
+   The split's edges (``edge_checks``): x with every |x| in [2⁻¹²⁵, 2⁻¹¹⁰),
+   rows whose largest |x| is the largest f32, rows spanning the whole f32
+   range and rows whose sums overflow, bits 2 and 8, M ∈ {1, 8}, both
+   orientations: the 1e-5 rule in float64 where the plain version is
+   finite, inf or nan in the same places where it is not. Codes that start
+   1, 2 and 8 bytes past a 16-byte boundary must launch the byte-load
+   ``QMM_CORE`` of ``qmm.cu`` once each, and nothing else, within the rule.
    Times the kernel, the plain version and ``torch.matmul`` against the
    pre-dequantized f32 Φ̂ (the dense stream the paper compares against),
    with the L2 cache flushed before every timed call;
@@ -42,16 +52,21 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    ``gaussian_batch8.npz`` for ``scripts/reference_replay.py``;
 5. a torch.profiler trace of one packed single-row LOFAR solve on each path
    (per_tensor, per_block, hsthresh): device time by kernel (``qmm_wgmma_kernel``,
-   the CUDA-core ``qmm_kernel``, ``hist``, ``mask``), the device's busy share
-   and the set-up alone (``lofar_*_trace.json``);
+   the CUDA-core ``qmm_kernel``, ``hsthresh_kernel``), the device's busy share
+   and the set-up alone (``lofar_*_trace.json``); on the hsthresh path also
+   the H_s calls' span on the device timeline and the device launches per
+   proposal, beside the same solve with the two-kernel chain standing in;
 6. ``qmm_group`` against ``qmm_group_ref`` at the LOFAR forward and adjoint
    shapes of the per_block Φ̂ (g = 64), bits 2/4/8 × M ∈ {1, 8, 64}, plus a
    ragged shape with a short last group; same tolerance, timings and exact
-   checks as 2 (power-of-two scales; one-hot within 2 ulp); every call must
+   checks as 2 (power-of-two scales; one-hot within 2 ulp; the split's
+   edges; misaligned codes on ``QMM_GROUP_CORE``); every aligned call must
    launch ``QMM_GROUP`` of ``qmm_wgmma.cu``. The ragged shape at g = 8 goes
    through ``qmm`` and must launch the CUDA-core ``QMM_GROUP_CORE`` (``qmm.cu``);
 7. ``hist`` and ``mask`` against ``hist_ref``/``mask_ref`` at (1, 65,536),
-   (8, 65,536) and (3, 1,001), bit for bit, timed beside their bytes bound;
+   (8, 65,536) and (3, 1,001), bit for bit, timed beside their bytes bound
+   (their launches in the kernels line are this phase's checking calls: the
+   solver no longer calls them);
 8. LOFAR CS302 at full size with ``scale_granularity="per_block",
    group_size=64``, single and batch 8: ``qmm_group`` takes exactly the
    launches ``qmm`` takes on the per_tensor path and ``qmm`` none; the same
@@ -61,10 +76,13 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    no Φ) and ``lofar_bench_block.npz`` (with Φ) for
    ``scripts/reference_replay.py lofar-block``;
 9. LOFAR CS302 at full size with ``threshold="hsthresh"`` (per_tensor
-   packed), single and batch 8: ``hist`` and ``mask`` launch once per
-   proposal for the whole batch, and the same solves with ``hist_ref``/
-   ``mask_ref`` standing in on the card give bit-identical x and trace;
-   iterations whose support differs from the ``topk`` solve are counted;
+   packed), single and batch 8: the fused ``HSTHRESH`` launches once per
+   proposal for the whole batch, ``hist`` and ``mask`` never, ``qmm`` as on
+   the topk path, and the same solves with ``hsthresh_ref`` standing in on
+   the card give bit-identical x and trace; iterations whose support
+   differs from the ``topk`` solve are counted; the single solve's wall is
+   taken five times beside the same solve with the two-kernel chain
+   (``hist``, ``mask`` and the plain pick and fill) standing in;
 10. the Gaussian toy per_block (g = 64 on ``QMM_GROUP``, and g = 8 on the
     CUDA-core ``QMM_GROUP_CORE``; bits 4 and 8, batch 8) against its
     ``qmm_group_ref`` witness, per row as in 4;
@@ -80,14 +98,27 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     (its last 256 rows against the plain version's causal Sq = 256, Sk =
     32,768 call, and every row against the plain version run in 1,024-row
     chunks), fp16 and f32 at S = 4,096, plus ragged and cross-attention f32
-    shapes, causal and not. bf16 and fp16 calls must launch ``FLASH_TC``
-    (``flashattn_wgmma.cu``) and f32 calls ``FLASH`` (``flashattn.cu``).
+    shapes, causal and not; the head dims of the reference's other configs
+    (D = 8, 160, 256 in f32, bf16 and fp16, and stablelm-12b's,
+    recurrentgemma-2b's and qwen3-moe-235b SMOKE's attention at S = 4,096 in
+    bf16); and q, k, v as views
+    2 elements into larger tensors. Aligned bf16 and fp16 calls at D ≤ 128
+    must launch ``FLASH_TC`` (``flashattn_wgmma.cu``), at D = 8, 160, 256
+    ``FLASH_CORE``, f32 calls ``FLASH``, and views off a 16-byte boundary
+    ``FLASH_UNALIGNED`` (all three ``flashattn.cu``).
     |Δ| ≤ 2e-4 (f32) and 2e-2 (bf16, fp16), abs and rel, TF32 off; 16-bit
     rows also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ (one bf16 ulp, relative), which scales with
     the output where 2e-2 does not. Timed beside
     ``scaled_dot_product_attention`` on the same tensors (its flash backend
     for 16-bit inputs) and the bound; the library's own max row ‖Δ‖/‖ref‖
-    against the plain version is reported beside the kernel's, not gated.
+    against the plain version is reported beside the kernel's, not gated;
+13. the fused H_s (``HSTHRESH``, ``hsthresh_fused.cu``) against
+    ``hsthresh_ref`` at (1, 65,536), (8, 65,536) and (3, 1,001), nbins
+    2,048, s = 30, bit for bit (and on rows whose threshold-bin ties
+    straddle the cluster's chunk edges), one launch per call; timed as CUDA
+    events and as profiler device time beside the two-kernel chain it
+    replaces and the plain version, with each call's device launches
+    counted.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -128,11 +159,19 @@ M_VALUES = (1, 8, 64)
 GROUP = 64                     # per_block group size (docs/quantization.md's example)
 NBINS = 2048                   # the solver's hsthresh bins
 HS_SHAPES = ((1, 65536), (8, 65536), (3, 1001))
+HS_S = 30                      # the LOFAR CS302 sparsity
+EDGE_KINDS = ("tiny", "top", "mixed", "overflow")
+CODE_OFFSETS = (1, 2, 8)       # bytes past a 16-byte boundary of the misaligned code views
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM data sheet
 # starcoder2-3b's attention (src/repro/configs/starcoder2_3b.py) at the
 # lengths of src/repro/configs/shapes.py's train_4k and prefill_32k
 STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_HEAD_DIM = 24, 2, 128
 TRAIN_4K_LEN, PREFILL_32K_LEN = 4096, 32768
+# (query heads, KV heads, head dim) of src/repro/configs/stablelm_12b.py,
+# recurrentgemma_2b.py and qwen3_moe_235b.py's SMOKE: the head dims the
+# tensor-core kernel does not take
+STABLELM_12B_ATTN, RECURRENTGEMMA_2B_ATTN = (32, 8, 160), (10, 1, 256)
+QWEN3_MOE_SMOKE_ATTN = (8, 2, 8)
 PREFILL_TAIL_ROWS = 256        # rows of the 32k output held against a causal Sq = 256 call
 PLAIN_CHUNK_ROWS = 1024        # query rows per plain-version call at 32k
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
@@ -261,7 +300,7 @@ def phase_kernel(torch, mods):
                                      cs.resolution, cs.extent, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows, max_err = [], 0.0
+    rows, max_err, core_rows, core_launches = [], 0.0, [], 0
     for bits in (2, 4, 8):
         op = pack_operator(phi, bits, prng.fold_in(prng.PRNGKey(0), 0), shared=True)
         ragged = pack_weights(torch.randn(333, 1001, generator=gen, device=dev), bits,
@@ -308,13 +347,20 @@ def phase_kernel(torch, mods):
                       f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                       f"matmul(f32 Φ̂) {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
                       f"bytes alone {bb_ms:.4f} ms, device (profiler) {row['device_ms']}", flush=True)
+            if name != "ragged" and bits == cs.bits_phi:
+                mrow, n_launch = misaligned_rows(torch, mods, name, w, bits, wdeq, gen, flush,
+                                                 group=False)
+                core_rows.append(mrow)
+                core_launches += n_launch
             del wdeq
         del op
     del phi, flush
     torch.cuda.empty_cache()
     exact = exact_checks(torch, mods, group=False)
+    edges = edge_checks(torch, mods, group=False)
     return {"rows": rows, "max_abs_err": max_err, "entry": QMM.entry,
-            "source": QMM.library.source.name, "exact": exact}
+            "source": QMM.library.source.name, "exact": exact, "edges": edges,
+            "misaligned_rows": core_rows, "misaligned_launches": core_launches}
 
 
 def ulps(torch, got, want):
@@ -390,6 +436,157 @@ def exact_checks(torch, mods, group):
             del codes, onehot, packed
     torch.cuda.empty_cache()
     return out
+
+
+def edge_x(torch, kind, m, k, gen):
+    """x at the edges of the tensor-core kernel's three-piece split: every
+    |x| in [2⁻¹²⁵, 2⁻¹¹⁰) ("tiny"); rows whose largest |x| is the largest f32
+    over x near 2⁸⁰ ("top"); rows spanning 2⁻¹²⁶ to the largest f32
+    ("mixed"); rows with two entries of the largest f32, whose sums overflow
+    where their codes agree in sign and add up past 1 ("overflow")."""
+    dev = gen.device
+    fmax = torch.finfo(torch.float32).max
+    sign = torch.where(torch.rand(m, k, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    mant = 1.0 + torch.rand(m, k, generator=gen, device=dev)
+    rows = torch.arange(m, device=dev)
+
+    def pick(lo, hi):
+        return sign * mant * torch.exp2(torch.randint(lo, hi, (m, k), generator=gen,
+                                                      device=dev).float())
+
+    def cols():
+        return torch.randint(0, k, (m,), generator=gen, device=dev)
+    if kind == "tiny":
+        return pick(-125, -110)
+    if kind == "top":
+        x = torch.randn(m, k, generator=gen, device=dev) * 2.0 ** 80
+        x[rows, cols()] = fmax * sign[:, 0]
+        return x
+    if kind == "mixed":
+        x = pick(-126, 80)
+        x[rows, cols()] = fmax * sign[:, 1]
+        x[rows, cols()] = 2.0 ** -126
+        return x
+    x = torch.randn(m, k, generator=gen, device=dev)
+    c0 = cols()
+    x[rows, c0] = fmax
+    x[rows, (c0 + 1 + cols() % (k - 1)) % k] = fmax
+    return x
+
+
+def edge_checks(torch, mods, group):
+    """x at both edges of the split through QMM (QMM_GROUP, g = 64, when
+    ``group``) at the LOFAR CS302 forward and adjoint shapes, bits 2 and 8,
+    M ∈ {1, 8}, random codes, scales in [0.5, 0.75]: |Δ| ≤ 1e-5·|ref| +
+    1e-5·(|x|@|w|ᵀ), computed in float64 so that the tolerance cannot
+    overflow to inf, wherever the plain version is finite, and inf or nan in
+    the same places where it is not (and the overflow rows must overflow
+    somewhere). Returns the largest |Δ| / tolerance per case."""
+    dev = torch.device("cuda")
+    kern = mods["QMM_GROUP"] if group else mods["QMM"]
+    ref = mods["qmm_group_ref"] if group else mods["qmm_ref"]
+    cs = mods["LOFAR"]
+    n_pix, n_vis = cs.resolution ** 2, cs.n_antennas * (cs.n_antennas - 1)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for bits in (2, 8):
+        kh = 2 ** (bits - 1) // 2
+        for shape, (n, k) in (("lofar_fwd", (n_vis, n_pix)), ("lofar_adj", (n_pix, n_vis))):
+            codes = torch.randint(-kh, kh + 1, (n, k), generator=gen, device=dev,
+                                  dtype=torch.int32).to(torch.int8)
+            packed = mods["pack_codes"](codes, bits)
+            if group:
+                scale = torch.rand(n, (k + GROUP - 1) // GROUP, generator=gen, device=dev)
+                scale = scale * 0.25 + 0.5
+                wabs = codes.double().abs() * mods["expand_block_scale"](scale, GROUP, k) / kh
+                extra = (GROUP,)
+            else:
+                scale = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.5
+                wabs = codes.double().abs() * (scale.double()[:, None] / kh)
+                extra = ()
+            for m in (1, 8):
+                for kind in EDGE_KINDS:
+                    x = edge_x(torch, kind, m, k, gen)
+                    y = kern(x, packed, scale, bits, k, *extra)
+                    want = ref(x, packed, scale, bits, k, *extra)
+                    fin = torch.isfinite(want)
+                    label = f"{kern.entry} edge {kind} {shape} bits={bits} M={m}"
+                    if not torch.equal(torch.isfinite(y), fin):
+                        raise AssertionError(f"{label}: inf/nan in "
+                                             f"{int((torch.isfinite(y) != fin).sum())} other "
+                                             "places than the plain version's")
+                    if kind == "overflow" and bool(fin.all()):
+                        raise AssertionError(f"{label}: no output overflowed")
+                    tol = 1e-5 * want.double().abs() + 1e-5 * (x.double().abs() @ wabs.T)
+                    ratio = float(((y.double() - want.double()).abs() / tol)[fin].max())
+                    if not ratio <= 1.0:
+                        raise AssertionError(f"{label}: |Δ| is {ratio} times the tolerance")
+                    out.append({"kind": kind, "shape": shape, "bits": bits, "M": m,
+                                "err_over_tol": ratio,
+                                "nonfinite": int((~fin).sum())})
+            del codes, packed, wabs
+    torch.cuda.synchronize()
+    worst = max(r["err_over_tol"] for r in out)
+    print(f"[chip_smoke]   {kern.entry} split edges ({', '.join(EDGE_KINDS)}; LOFAR fwd and "
+          f"adj, bits 2 and 8, M = 1 and 8): within the 1e-5 rule, largest |Δ|/tolerance "
+          f"{worst:.3g}; inf/nan where the plain version's", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def codes_at(torch, packed, offset):
+    """The same codes as a contiguous view that starts ``offset`` bytes past a
+    16-byte boundary of a larger buffer (a row slice of a bigger operand)."""
+    buf = torch.zeros(offset + packed.numel() + 16, dtype=torch.uint8, device=packed.device)
+    view = buf[offset:offset + packed.numel()].view(packed.shape)
+    view.copy_(packed)
+    return view
+
+
+def misaligned_rows(torch, mods, name, w, bits, wdeq, gen, flush, group):
+    """The main path's packed operand ``w`` as views 1, 2 and 8 bytes past a
+    16-byte boundary, M = 1: ``qmm`` must launch the byte-load QMM_CORE
+    (QMM_GROUP_CORE grouped) once per call and no other kernel, within the
+    1e-5 rule; offset 1 is timed. Returns (row, checking launches)."""
+    core = mods["QMM_GROUP_CORE"] if group else mods["QMM_CORE"]
+    ref_fn = mods["qmm_group_ref"] if group else mods["qmm_ref"]
+    extra = (GROUP,) if group else ()
+    k = w.k_dim
+    n, kp = w.packed.shape
+    x = torch.randn(1, k, generator=gen, device=torch.device("cuda"))
+    launches, row = 0, None
+    for offset in CODE_OFFSETS:
+        view = mods["PackedWeights"](codes_at(torch, w.packed, offset), w.scale, bits, k,
+                                     w.granularity)
+        if mods["cuda_kernel"](view) is not core:
+            raise AssertionError(f"{name} codes at offset {offset}: not routed to {core.entry}")
+        before = [kk.launches for kk in mods["KERNELS"]]
+        y = mods["qmm"](x, view)
+        moved = {kk.entry: kk.launches - b for kk, b in zip(mods["KERNELS"], before)
+                 if kk.launches != b}
+        if moved != {core.entry: 1}:
+            raise AssertionError(f"{name} codes at offset {offset}: launched {moved}")
+        launches += 1
+        want = ref_fn(x, view.packed, w.scale, bits, k, *extra)
+        err = (y - want).abs()
+        if not bool((err <= 1e-5 * want.abs() + 1e-5 * (x.abs() @ wdeq.abs().T)).all()):
+            raise AssertionError(f"{name} codes at offset {offset}: max |Δ| "
+                                 f"{float(err.max())} exceeds the tolerance")
+        if offset == CODE_OFFSETS[0]:
+            b_ms, b_by, bb_ms = bound_ms(1, n, k, kp, w.scale.shape[1] if group else None)
+            row = {"shape": name, "bits": bits, "M": 1, "N": n, "K": k, "offset": offset,
+                   "entry": core.entry, "max_abs_err": float(err.max()),
+                   "ms": time_ms(torch, lambda: core(x, view.packed, w.scale, bits, k, *extra),
+                                 20, flush),
+                   "plain_ms": time_ms(torch, lambda: ref_fn(x, view.packed, w.scale, bits, k,
+                                                             *extra), 5, flush),
+                   "library_ms": time_ms(torch, lambda: torch.matmul(x, wdeq.T), 20, flush),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms}
+    print(f"[chip_smoke]   {core.entry} (codes off a 16-byte boundary, offsets "
+          f"{', '.join(map(str, CODE_OFFSETS))}) {name} bits={bits} M=1: within the rule; "
+          f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+          f"{row['bound_ms']:.4f} ms", flush=True)
+    return row, launches
 
 
 def expected_launches(res, n_iters):
@@ -603,9 +800,13 @@ def phase_gaussian(torch, mods):
 
 def phase_profile(torch, mods):
     """Device time by kernel and the device's busy share over one packed
-    single-row LOFAR solve on each path: per_tensor topk, per_block (g = 64)
-    and hsthresh (torch.profiler, CUPTI), beside the set-up alone (a
-    0-iteration solve: ŷ draw, Φ̂ quantize and pack). Reports "not measured"
+    single-row LOFAR solve on each path: per_tensor topk, per_block (g = 64),
+    hsthresh, and hsthresh with the two-kernel chain standing in
+    (torch.profiler, CUPTI), beside the set-up alone (a 0-iteration solve: ŷ
+    draw, Φ̂ quantize and pack). On the hsthresh paths each H_s call runs in
+    a profiler range "H_s", whose span on the device timeline (its kernels
+    and the gaps between them) is reported beside the kernels' own device
+    time; device launches are counted per proposal. Reports "not measured"
     when the profiler sees no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -621,50 +822,77 @@ def phase_profile(torch, mods):
     out_dir = mods["out_dir"]
     out_dir.mkdir(parents=True, exist_ok=True)
     out = {}
+    fused = mods["hs_ops"].hsthresh_cuda
+
+    def h_s(hs):
+        """hs inside a profiler range named "H_s", so that the trace sums the
+        device time of the kernels it launches."""
+        def call(x, s, nbins):
+            with torch.profiler.record_function("H_s"):
+                return hs(x, s, nbins)
+        return call
     for path, extra, trace in (
             ("per_tensor", {}, "lofar_packed_trace.json"),
             ("per_block", dict(scale_granularity="per_block", group_size=GROUP),
              "lofar_per_block_trace.json"),
-            ("hsthresh", dict(threshold="hsthresh"), "lofar_hsthresh_trace.json")):
+            ("hsthresh", dict(threshold="hsthresh"), "lofar_hsthresh_trace.json"),
+            ("hsthresh_chain", dict(threshold="hsthresh"), "lofar_hsthresh_chain_trace.json")):
         kw = {**base, **extra}
-        mods["qniht"](phi, y, cs.n_sources, 2, **kw)          # warm-up (allocator, kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mods["qniht"](phi, y, cs.n_sources, 0, **kw)          # the set-up alone
-        torch.cuda.synchronize()
-        setup_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mods["qniht"](phi, y, cs.n_sources, cs.n_iters, **kw)
+        with contextlib.ExitStack() as stack:
+            if path.startswith("hsthresh"):
+                hs = fused if path == "hsthresh" else (
+                    lambda x, s, nbins: hs_chain(mods, x, s, nbins))
+                stack.enter_context(stand_in(mods["hs_ops"], hsthresh_cuda=h_s(hs)))
+            mods["qniht"](phi, y, cs.n_sources, 2, **kw)      # warm-up (allocator, kernels)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            mods["qniht"](phi, y, cs.n_sources, 0, **kw)      # the set-up alone
+            torch.cuda.synchronize()
+            setup_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = mods["qniht"](phi, y, cs.n_sources, cs.n_iters, **kw)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        proposals = cs.n_iters + backtrack_steps(res)
+        h_s_ms = None
         rows = []
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) != DeviceType.CUDA:
                 continue                                  # host-side op rows repeat the time
+            if ev.key == "H_s":
+                # the range on the device timeline: from the first kernel an
+                # H_s call launches to the end of its last, gaps included
+                h_s_ms = (getattr(ev, "device_time_total", 0) or 0) / 1e3 or None
+                continue
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0)
-            if us > 0:
+            if us > 0 or ev.count:
                 rows.append({"name": ev.key, "device_ms": us / 1e3, "calls": ev.count})
         rows.sort(key=lambda r: -r["device_ms"])
         busy_ms = sum(r["device_ms"] for r in rows)
+        device_launches = sum(r["calls"] for r in rows)
         prof.export_chrome_trace(str(out_dir / trace))
         if not rows:
             print(f"[chip_smoke]   profile {path}: no device time seen (not measured)",
                   flush=True)
             out[path] = {"wall_ms": wall_ms, "setup_ms": setup_ms, "device_busy_ms": None,
-                         "kernels": []}
+                         "proposals": proposals, "kernels": []}
             continue
         ours = {name: sum(r["device_ms"] for r in rows if f"{name}_kernel" in r["name"])
-                for name in ("qmm_wgmma", "qmm", "hist", "mask")}
+                for name in ("qmm_wgmma", "qmm", "hist", "mask", "hsthresh")}
         calls = {name: sum(r["calls"] for r in rows if f"{name}_kernel" in r["name"])
-                 for name in ("qmm_wgmma", "qmm")}
+                 for name in ("qmm_wgmma", "qmm", "hsthresh")}
         print(f"[chip_smoke]   profile of one packed LOFAR solve, {path}: wall {wall_ms:.1f} ms "
               f"(set-up alone {setup_ms:.1f} ms), device busy {busy_ms:.1f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%), qmm_wgmma_kernel {ours['qmm_wgmma']:.1f} ms "
               f"({calls['qmm_wgmma']}×), CUDA-core qmm_kernel {ours['qmm']:.1f} ms "
-              f"({calls['qmm']}×), hist {ours['hist']:.2f} ms, mask {ours['mask']:.2f} ms",
+              f"({calls['qmm']}×), hsthresh_kernel {ours['hsthresh']:.2f} ms "
+              f"({calls['hsthresh']}×), hist {ours['hist']:.2f} ms, mask {ours['mask']:.2f} ms; "
+              f"{device_launches} device launches, {proposals} proposals "
+              f"({device_launches / proposals:.1f} per proposal); H_s calls' span on the "
+              f"device timeline {'not measured' if h_s_ms is None else f'{h_s_ms:.2f} ms'}",
               flush=True)
         for r in rows[:10]:
             print(f"[chip_smoke]     {r['device_ms']:9.3f} ms  {r['calls']:6d}×  "
@@ -673,7 +901,10 @@ def phase_profile(torch, mods):
                      "qmm_wgmma_device_ms": ours["qmm_wgmma"],
                      "qmm_wgmma_calls": calls["qmm_wgmma"],
                      "qmm_core_device_ms": ours["qmm"], "hist_device_ms": ours["hist"],
-                     "mask_device_ms": ours["mask"], "kernels": rows[:40]}
+                     "mask_device_ms": ours["mask"], "hsthresh_device_ms": ours["hsthresh"],
+                     "hsthresh_calls": calls["hsthresh"], "h_s_span_ms": h_s_ms,
+                     "device_launches": device_launches, "proposals": proposals,
+                     "kernels": rows[:40]}
     return out
 
 
@@ -690,7 +921,7 @@ def phase_group_kernel(torch, mods):
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gran = f"per_block:{GROUP}"
-    rows, max_err, core_rows = [], 0.0, []
+    rows, max_err, core_rows, mis_rows, mis_launches = [], 0.0, [], [], 0
     for bits in (2, 4, 8):
         # the main path's own per-orientation quantization of Φ
         op = mods["pack_operator"](phi, bits, prng.fold_in(prng.PRNGKey(0), 0), shared=False,
@@ -741,6 +972,11 @@ def phase_group_kernel(torch, mods):
                       f"{row['plain_ms']:.4f} ms  matmul(f32 Φ̂) {row['library_ms']:.4f} ms  "
                       f"bound {b_ms:.4f} ms ({b_by}), bytes alone {bb_ms:.4f} ms, device "
                       f"(profiler) {row['device_ms']}", flush=True)
+            if name != "ragged" and bits == cs.bits_phi:
+                mrow, n_launch = misaligned_rows(torch, mods, name, w, bits, wdeq, gen, flush,
+                                                 group=True)
+                mis_rows.append(mrow)
+                mis_launches += n_launch
             del wdeq
         del op
         # the CUDA-core route: g = 8 is no multiple of 16 (8 // bits divides it)
@@ -777,8 +1013,10 @@ def phase_group_kernel(torch, mods):
     del phi, flush
     torch.cuda.empty_cache()
     exact = exact_checks(torch, mods, group=True)
+    edges = edge_checks(torch, mods, group=True)
     return {"rows": rows, "max_abs_err": max_err, "group_size": GROUP, "entry": QG.entry,
-            "source": QG.library.source.name, "exact": exact, "core_rows": core_rows}
+            "source": QG.library.source.name, "exact": exact, "core_rows": core_rows,
+            "edges": edges, "misaligned_rows": mis_rows, "misaligned_launches": mis_launches}
 
 
 def phase_hs_kernels(torch, mods):
@@ -788,15 +1026,18 @@ def phase_hs_kernels(torch, mods):
     ref = mods["hsthresh_ref_mod"]
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    rows = []
+    rows, launches = [], {"hist": 0, "mask": 0}
     for b, n in HS_SHAPES:
         # a projected gradient step's shape of data: nonnegative, half zeros
         x = torch.clamp_min(torch.randn(b, n, generator=gen, device=dev), 0.0)
         vmax = ref.row_vmax(x.abs())
+        before = (HIST.launches, MASK.launches)
         h = HIST(x, vmax, NBINS)
         h_ref = ref.hist_ref(x.abs(), vmax, NBINS)
-        t = ref.select_threshold(h, vmax, 30)
+        t = ref.select_threshold(h, vmax, HS_S)
         y, y_ref = MASK(x, t), ref.mask_ref(x, t)
+        launches["hist"] += HIST.launches - before[0]
+        launches["mask"] += MASK.launches - before[1]
         torch.cuda.synchronize()
         if not torch.equal(h, h_ref):
             raise AssertionError(f"hist ({b}, {n}): differs from hist_ref in "
@@ -819,7 +1060,89 @@ def phase_hs_kernels(torch, mods):
                   f" plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms (bytes); "
                   "no single PyTorch call computes it", flush=True)
     del flush
-    return {"rows": rows}
+    return {"rows": rows, "launches": launches}
+
+
+def hs_chain(mods, x, s, nbins):
+    """The H_s as the two-kernel chain computes it on the card: the plain
+    vmax, the ``hist`` kernel, the plain pick, the ``mask`` kernel and the
+    plain tie fill, some 35 device launches per call (the fused kernel's
+    predecessor on the solver path, kept here as its yardstick)."""
+    ref = mods["hsthresh_ref_mod"]
+    vmax = ref.row_vmax(x.abs())
+    h = mods["HIST"](x, vmax, nbins)
+    t = ref.select_threshold(h, vmax, s)
+    y = mods["MASK"](x, t)
+    return ref.fill_threshold_bin(x, y, t, vmax / nbins, s)
+
+
+def profile_calls(torch, fn, reps):
+    """Device time (ms) and device launches (kernels, memsets, copies) per
+    call of fn, from torch.profiler over reps warm calls; (None, None) when
+    the profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in evs)
+    count = sum(e.count for e in evs)
+    return (us / reps / 1e3, count / reps) if count else (None, None)
+
+
+def phase_fused_hs(torch, mods):
+    """The fused H_s against hsthresh_ref, bit for bit, one launch per call;
+    timed beside the two-kernel chain it replaces and the plain version."""
+    dev = torch.device("cuda")
+    HS, ref = mods["HSTHRESH"], mods["hsthresh_ref_mod"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows, launches = [], 0
+    for b, n in HS_SHAPES:
+        x = torch.clamp_min(torch.randn(b, n, generator=gen, device=dev), 0.0)
+        # threshold-bin ties straddling the cluster's chunk edges (8,192 apart)
+        ties = torch.randn(b, n, generator=gen, device=dev) * 0.1
+        for edge in range(0, n, 8192):
+            ties[:, max(0, edge - 6):edge + 6] = 1.0
+        for label, inp in (("", x), (" ties across chunk edges", ties)):
+            before = [k.launches for k in mods["KERNELS"]]
+            y = mods["hsthresh_cuda"](inp, HS_S, NBINS)
+            moved = {k.entry: k.launches - c for k, c in zip(mods["KERNELS"], before)
+                     if k.launches != c}
+            if moved != {HS.entry: 1}:
+                raise AssertionError(f"fused H_s ({b}, {n}){label}: launched {moved}")
+            launches += 1
+            want = ref.hsthresh_ref(inp, HS_S, NBINS)
+            if not torch.equal(y, want) or not torch.equal(y, hs_chain(mods, inp, HS_S, NBINS)):
+                raise AssertionError(f"fused H_s ({b}, {n}){label}: differs from hsthresh_ref "
+                                     f"in {int((y != want).sum())} places")
+        row = {"name": "hsthresh", "B": b, "N": n, "s": HS_S, "nbins": NBINS, "max_abs_err": 0.0,
+               "ms": time_ms(torch, lambda: mods["hsthresh_cuda"](x, HS_S, NBINS), 50, flush),
+               "chain_ms": time_ms(torch, lambda: hs_chain(mods, x, HS_S, NBINS), 50, flush),
+               "plain_ms": time_ms(torch, lambda: ref.hsthresh_ref(x, HS_S, NBINS), 20, flush),
+               "library_ms": None,
+               "bound_ms": 8 * b * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "device_ms": device_ms(torch, lambda: mods["hsthresh_cuda"](x, HS_S, NBINS), 50,
+                                      flush, "hsthresh_kernel")}
+        row["device_ms_warm"], row["device_launches"] = profile_calls(
+            torch, lambda: mods["hsthresh_cuda"](x, HS_S, NBINS), 50)
+        row["chain_device_ms_warm"], row["chain_device_launches"] = profile_calls(
+            torch, lambda: hs_chain(mods, x, HS_S, NBINS), 50)
+        rows.append(row)
+        print(f"[chip_smoke]   fused H_s B={b} N={n} s={HS_S}: bitwise equal (and on ties across "
+              f"chunk edges); kernel {row['ms']:.4f} ms (device {row['device_ms']}, warm "
+              f"{row['device_ms_warm']}; {row['device_launches']} device launches per call) | "
+              f"two-kernel chain {row['chain_ms']:.4f} ms (device warm "
+              f"{row['chain_device_ms_warm']}; {row['chain_device_launches']} launches per "
+              f"call) | plain {row['plain_ms']:.4f} ms | bound {row['bound_ms']:.5f} ms (bytes)",
+              flush=True)
+    del flush
+    return {"rows": rows, "launches": launches}
 
 
 def as_batch(res):
@@ -965,10 +1288,12 @@ def support_trajectory(torch, mods, phi, Y, threshold):
 
 def phase_lofar_hsthresh(torch, mods):
     """LOFAR CS302 at full size with threshold="hsthresh", per_tensor packed,
-    through qniht/qniht_batch: hist and mask launch once per proposal; the
-    same solves with the plain versions standing in on the card must give the
-    same x and trace bit for bit."""
+    through qniht/qniht_batch: the fused H_s launches once per proposal and
+    hist and mask never; the same solves with the plain version standing in
+    on the card must give the same x and trace bit for bit. The single
+    solve's wall is taken five times beside the two-kernel chain's."""
     HIST, MASK, QMM, cs = mods["HIST"], mods["MASK"], mods["QMM"], mods["LOFAR"]
+    HS = mods["HSTHRESH"]
     dev = torch.device(mods["device"])
     ref = mods["hsthresh_ref_mod"]
     kw = dict(bits_phi=cs.bits_phi, bits_y=cs.bits_y, key=mods["prng"].PRNGKey(0),
@@ -986,17 +1311,18 @@ def phase_lofar_hsthresh(torch, mods):
         res = solve(phi, y, cs.n_sources, cs.n_iters, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"hist": HIST.launches, "mask": MASK.launches, "qmm": QMM.launches,
-                    "qmm_group": mods["QMM_GROUP"].launches}
-        by_shape.update(HIST.launches_by_shape)
+        launches = {"hsthresh": HS.launches, "hist": HIST.launches, "mask": MASK.launches,
+                    "qmm": QMM.launches, "qmm_group": mods["QMM_GROUP"].launches}
+        others = {k.entry: k.launches for k in mods["KERNELS"]
+                  if k not in (HS, HIST, MASK, QMM, mods["QMM_GROUP"]) and k.launches}
+        by_shape.update(HS.launches_by_shape)
         want_hs = cs.n_iters + backtrack_steps(res)
         want_qmm = expected_launches(res, cs.n_iters)
-        with stand_in(mods["hs_ops"], hist_cuda=lambda x, vmax, nbins: ref.hist_ref(
-                x.abs(), vmax, nbins), mask_cuda=ref.mask_ref):
+        with stand_in(mods["hs_ops"], hsthresh_cuda=ref.hsthresh_ref):
             reset_counts(mods)
             res_w = solve(phi, y, cs.n_sources, cs.n_iters, **kw)
-            if HIST.launches or MASK.launches:
-                raise AssertionError("the witness run launched hist or mask")
+            if HS.launches or HIST.launches or MASK.launches:
+                raise AssertionError("the witness run launched an H_s kernel")
         same = torch.equal(res.x, res_w.x) and all(
             torch.equal(a, b) for a, b in zip(res.trace, res_w.trace))
         rel = row_dx(torch, as_batch(res).x, x_true if batch else x_true[None])
@@ -1007,28 +1333,59 @@ def phase_lofar_hsthresh(torch, mods):
         rel_top = row_dx(torch, x_top, x_true if batch else x_true[None])
         print(f"[chip_smoke]   {label}: rel_error {' '.join(f'{v:.4f}' for v in rel)} "
               f"(topk on the same codes {' '.join(f'{v:.4f}' for v in rel_top)}) wall_s="
-              f"{wall:.3f} | hist {launches['hist']} mask {launches['mask']} launches "
-              f"(predicted {want_hs}), qmm {launches['qmm']} (predicted {want_qmm}) | witness "
-              f"(hist_ref/mask_ref on the card) {'bitwise identical' if same else 'DIFFERS'} | "
-              f"iterations whose support differs from topk: {int(differ.any(dim=1).sum())} of "
-              f"{cs.n_iters} (per row {differ.sum(dim=0).tolist()})", flush=True)
+              f"{wall:.3f} | fused H_s {launches['hsthresh']} launches (predicted {want_hs}), "
+              f"hist {launches['hist']} mask {launches['mask']}, qmm {launches['qmm']} "
+              f"(predicted {want_qmm}) | witness (hsthresh_ref on the card) "
+              f"{'bitwise identical' if same else 'DIFFERS'} | iterations whose support "
+              f"differs from topk: {int(differ.any(dim=1).sum())} of {cs.n_iters} (per row "
+              f"{differ.sum(dim=0).tolist()})", flush=True)
         if not torch.equal(x_hs, res.x if batch else res.x[None]):
             raise AssertionError(f"{label}: the solver's own loop and qniht disagree")
         if not same:
             raise AssertionError(f"{label}: kernel and plain-version solves differ")
-        if launches["hist"] != want_hs or launches["mask"] != want_hs:
-            raise AssertionError(f"{label}: hist/mask launched {launches['hist']}/"
-                                 f"{launches['mask']} times, predicted {want_hs}")
-        if launches["qmm"] != want_qmm or launches["qmm_group"]:
+        if launches["hsthresh"] != want_hs or launches["hist"] or launches["mask"]:
+            raise AssertionError(f"{label}: the fused H_s launched {launches['hsthresh']} times "
+                                 f"(predicted {want_hs}), hist {launches['hist']}, mask "
+                                 f"{launches['mask']} (predicted 0)")
+        if launches["qmm"] != want_qmm or launches["qmm_group"] or others:
             raise AssertionError(f"{label}: qmm launched {launches['qmm']} times (predicted "
-                                 f"{want_qmm}), qmm_group {launches['qmm_group']}")
+                                 f"{want_qmm}), qmm_group {launches['qmm_group']}, {others}")
         out[label] = {"rel_error_rows": rel, "topk_rel_error_rows": rel_top, "wall_s": wall,
                       "launches": launches, "hs_launches_predicted": want_hs,
                       "qmm_launches_predicted": want_qmm, "witness_bitwise": same,
                       "iterations_support_differs": int(differ.any(dim=1).sum()),
                       "iterations_support_differs_per_row": differ.sum(dim=0).tolist()}
+        if not batch:
+            out["walls"] = hsthresh_walls(torch, mods, solve, phi, y, kw, res)
     out["launches"] = sum(by_shape.values())
     return out
+
+
+def hsthresh_walls(torch, mods, solve, phi, y, kw, res):
+    """The single solve's wall five times with the fused H_s and five times
+    with the two-kernel chain standing in, in turns (chain, fused, fused,
+    chain, ...); both must give res's x bit for bit."""
+    cs = mods["LOFAR"]
+    walls = {"fused": [], "chain": []}
+    order = ["chain", "fused", "fused", "chain"] * 2 + ["chain", "fused"]
+    for which in order:
+        with contextlib.ExitStack() as stack:
+            if which == "chain":
+                stack.enter_context(stand_in(mods["hs_ops"], hsthresh_cuda=lambda x, s, nbins:
+                                             hs_chain(mods, x, s, nbins)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve(phi, y, cs.n_sources, cs.n_iters, **kw)
+            torch.cuda.synchronize()
+            walls[which].append(time.perf_counter() - t0)
+        if not torch.equal(r.x, res.x):
+            raise AssertionError(f"hsthresh solve with the {which} H_s: x differs")
+    summary = {k: {"walls_s": v, "min_s": min(v), "median_s": sorted(v)[len(v) // 2],
+                   "max_s": max(v)} for k, v in walls.items()}
+    print("[chip_smoke]   lofar hsthresh single, wall over 5 solves each, in turns: "
+          + " | ".join(f"{k}: median {w['median_s']:.3f} s (min {w['min_s']:.3f}, max "
+                       f"{w['max_s']:.3f})" for k, w in summary.items()), flush=True)
+    return summary
 
 
 def phase_gaussian_block(torch, mods):
@@ -1187,78 +1544,118 @@ def starcoder2_qkv(torch, gen, s, dtype=None):
 
 def phase_flash(torch, mods):
     """flash_attention through its entry point at starcoder2-3b's width
-    (causal; bf16 at S = 4,096 and 32,768, fp16 and f32 at 4,096) and small
-    f32 shapes, held against the plain version; timed beside
-    scaled_dot_product_attention. 16-bit calls must launch FLASH_TC and f32
-    calls FLASH."""
+    (causal; bf16 at S = 4,096 and 32,768, fp16 and f32 at 4,096), at
+    stablelm-12b's (D = 160), recurrentgemma-2b's (D = 256) and qwen3-moe
+    SMOKE's (D = 8) widths in bf16 at 4,096, starcoder2-3b's bf16 at 4,096 with q, k, v as views off a
+    16-byte boundary, and small shapes (f32 ragged and cross; D = 8, 160, 256
+    in f32, bf16 and fp16; views 2 elements in), held against the plain
+    version; timed beside scaled_dot_product_attention. Each call must
+    launch the kernel its case names: FLASH (f32), FLASH_TC (aligned 16-bit,
+    D <= 128), FLASH_CORE (aligned 16-bit, D = 8, 160, 256) or
+    FLASH_UNALIGNED (views off a 16-byte boundary)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    FLASH, FLASH_TC = mods["FLASH"], mods["FLASH_TC"]
     flash_attention, plain = mods["flash_attention"], mods["attention_plain"]
+    routes = {name: mods[name] for name in ("FLASH", "FLASH_TC", "FLASH_CORE",
+                                            "FLASH_UNALIGNED")}
 
     def sdpa(q, k, v):
-        """The library call: its flash backend for 16-bit inputs (never the
-        math one, which would materialize the S² scores); for float32, which
-        that backend refuses, PyTorch's own choice, TF32 off."""
-        with (sdpa_kernel([SDPBackend.FLASH_ATTENTION]) if q.dtype != torch.float32
+        """The library call: its flash backend for 16-bit inputs at D <= 128
+        (never the math one, which would materialize the S² scores); for
+        float32, which that backend refuses, and wider heads, PyTorch's own
+        choice, TF32 off. Its kernels read 16-byte vectors and fault on views
+        off a 16-byte boundary, so such views are handed to it as aligned
+        copies (made outside the timed call)."""
+        flash_ok = q.dtype != torch.float32 and q.shape[-1] <= 128
+        with (sdpa_kernel([SDPBackend.FLASH_ATTENTION]) if flash_ok
               else contextlib.nullcontext()):
             return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                     enable_gqa=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def qkv(b, hq, hkv, sq, sk, d, dtype):
-        return tuple(torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
-                     for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    def qkv(b, hq, hkv, sq, sk, d, dtype, offset=0):
+        """q, k, v; with ``offset``, each a view that many elements into a
+        larger tensor."""
+        out = []
+        for h, s in ((hq, sq), (hkv, sk), (hkv, sk)):
+            t = torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+            if offset:
+                flat = torch.zeros(offset + t.numel(), dtype=dtype, device=dev)
+                view = flat[offset:].view(t.shape)
+                view.copy_(t)
+                t = view
+            out.append(t)
+        return tuple(out)
 
     hq, hkv, d = STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_HEAD_DIM
-    small = [(f"{name} causal={causal}", causal, qkv(*shape, torch.float32))
+    f32, bf16, fp16 = torch.float32, torch.bfloat16, torch.float16
+    # (label, causal, (q, k, v), tolerance, kernel that must run it)
+    small = [(f"{name} causal={causal}", causal, qkv(*shape, f32), 2e-4, "FLASH")
              for name, shape in (("ragged", (2, 4, 2, 333, 333, 64)),
                                  ("cross", (1, 4, 2, 64, 256, 32)))
              for causal in (True, False)]
-    big = [(f"starcoder2_3b S={s} {name}", s, dtype, starcoder2_qkv(torch, gen, s, dtype))
-           for s, name, dtype in ((TRAIN_4K_LEN, "bf16", torch.bfloat16),
-                                  (PREFILL_32K_LEN, "bf16", torch.bfloat16),
-                                  (TRAIN_4K_LEN, "fp16", torch.float16),
-                                  (TRAIN_4K_LEN, "f32", torch.float32))]
+    small += [(f"D={dd} {str(dt)[6:]}", True, qkv(2, 4, 2, 200, 333, dd, dt),
+               2e-4 if dt == f32 else 2e-2, "FLASH" if dt == f32 else "FLASH_CORE")
+              for dd in (8, 160, 256) for dt in (f32, bf16, fp16)]
+    small += [(f"views 2 elements in, D=64 {str(dt)[6:]}", True,
+               qkv(1, 4, 2, 130, 130, 64, dt, offset=2), 2e-4 if dt == f32 else 2e-2,
+               "FLASH_UNALIGNED") for dt in (f32, bf16, fp16)]
+    # (label, S, dtype, (q, k, v), kernel, (Hq, Hkv, D))
+    big = [(f"starcoder2_3b S={s} {name}", s, dtype, starcoder2_qkv(torch, gen, s, dtype),
+            "FLASH" if dtype == f32 else "FLASH_TC", (hq, hkv, d))
+           for s, name, dtype in ((TRAIN_4K_LEN, "bf16", bf16), (PREFILL_32K_LEN, "bf16", bf16),
+                                  (TRAIN_4K_LEN, "fp16", fp16), (TRAIN_4K_LEN, "f32", f32))]
+    big += [(f"{name} S={TRAIN_4K_LEN} bf16", TRAIN_4K_LEN, bf16,
+             qkv(1, heads, kv, TRAIN_4K_LEN, TRAIN_4K_LEN, dd, bf16), "FLASH_CORE",
+             (heads, kv, dd))
+            for name, heads, kv, dd in (("stablelm_12b", *STABLELM_12B_ATTN),
+                                        ("recurrentgemma_2b", *RECURRENTGEMMA_2B_ATTN),
+                                        ("qwen3_moe_235b_smoke", *QWEN3_MOE_SMOKE_ATTN))]
+    big += [(f"starcoder2_3b S={TRAIN_4K_LEN} bf16 views 2 elements in", TRAIN_4K_LEN, bf16,
+             qkv(1, hq, hkv, TRAIN_4K_LEN, TRAIN_4K_LEN, d, bf16, offset=2), "FLASH_UNALIGNED",
+             (hq, hkv, d))]
     reset_counts(mods)
-    outs = [flash_attention(*t, causal=causal) for _, causal, t in small]
-    outs += [flash_attention(*t, causal=True) for *_, t in big]
+    outs, expected = [], collections.Counter()
+    for label, causal, t, _, kernel in small:
+        outs.append(flash_attention(*t, causal=causal))
+        expected[kernel] += 1
+    for label, _, _, t, kernel, _ in big:
+        outs.append(flash_attention(*t, causal=True))
+        expected[kernel] += 1
     torch.cuda.synchronize()
-    n16 = sum(dtype != torch.float32 for _, _, dtype, _ in big)
-    launches = {"FLASH": FLASH.launches, "FLASH_TC": FLASH_TC.launches}
-    expected = {"FLASH": len(outs) - n16, "FLASH_TC": n16}
+    launches = {name: k.launches for name, k in routes.items()}
     others = {k.entry: k.launches for k in mods["KERNELS"]
-              if k not in (FLASH, FLASH_TC) and k.launches}
-    if launches != expected or others:
-        raise AssertionError(f"flash_attention: launches {launches}, expected {expected} "
-                             f"(f32 on FLASH, bf16/fp16 on FLASH_TC); others {others}")
-    by_shape = {kernel.entry: {str(k): n for k, n in kernel.launches_by_shape.items()}
-                for kernel in (FLASH, FLASH_TC)}
+              if k not in routes.values() and k.launches}
+    if launches != {name: expected[name] for name in routes} or others:
+        raise AssertionError(f"flash_attention: launches {launches}, expected "
+                             f"{dict(expected)}; others {others}")
+    by_shape = {k.entry: {str(key): n for key, n in k.launches_by_shape.items()}
+                for k in routes.values()}
 
-    rows = []
-    for (label, causal, (q, k, v)), out in zip(small, outs):
+    for (label, causal, (q, k, v), tol, kernel), out in zip(small, outs):
         err = held(torch, label, out,
-                   plain(q, k, v, causal=causal, scale=1.0 / q.shape[-1] ** 0.5), 2e-4,
-                   False)["max_abs_err"]
-        print(f"[chip_smoke]   flash_attention f32 {label} {tuple(q.shape)} kv "
-              f"{tuple(k.shape)}: max|Δ|={err:.3g} (tolerance 2e-4)", flush=True)
+                   plain(q, k, v, causal=causal, scale=1.0 / q.shape[-1] ** 0.5), tol,
+                   q.dtype != f32)["max_abs_err"]
+        print(f"[chip_smoke]   flash_attention {label} {tuple(q.shape)} kv {tuple(k.shape)} "
+              f"({routes[kernel].entry}): max|Δ|={err:.3g} (tolerance {tol:g})", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    scale = 1.0 / d ** 0.5          # flash_attention's default
-    for (label, s, dtype, (q, k, v)), out in zip(big, outs[len(small):]):
-        f32 = dtype == torch.float32
-        tol = 2e-4 if f32 else 2e-2
-        row = {"shape": label, "B": 1, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-               "dtype": str(dtype).replace("torch.", ""),
-               "kernel": (FLASH if f32 else FLASH_TC).entry}
+    rows = []
+    for (label, s, dtype, (q, k, v), kernel, (h_q, h_kv, dd)), out in zip(big, outs[len(small):]):
+        is_f32 = dtype == f32
+        tol = 2e-4 if is_f32 else 2e-2
+        scale = 1.0 / dd ** 0.5          # flash_attention's default
+        row = {"shape": label, "B": 1, "Hq": h_q, "Hkv": h_kv, "S": s, "D": dd,
+               "dtype": str(dtype).replace("torch.", ""), "kernel": routes[kernel].entry,
+               "route": kernel}
         if s == TRAIN_4K_LEN:
             ref = plain(q, k, v, causal=True, scale=scale)
-            gap = held(torch, label, out, ref, tol, not f32)
+            gap = held(torch, label, out, ref, tol, not is_f32)
             row["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, causal=True, scale=scale),
                                       3, flush)
-            row["plain_how"] = f"one call ({hq}·S² f32 scores)"
+            row["plain_how"] = f"one call ({h_q}·S² f32 scores)"
             reps = 10
         else:
             tail = plain(q[:, :, -PREFILL_TAIL_ROWS:], k, v, causal=True, scale=scale)
@@ -1273,7 +1670,8 @@ def phase_flash(torch, mods):
             reps = 3
         row["max_abs_err"], row["max_row_rel"] = gap["max_abs_err"], gap["max_row_rel"]
         row["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, causal=True), reps, flush)
-        lib = sdpa(q, k, v)
+        lq, lk, lv = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+        lib = sdpa(lq, lk, lv)
         row["library_max_abs_diff"] = float((lib.float() - out.float()).abs().max())
         # the library's own distance from the plain version: a witness of what
         # a kernel that rounds P to 16 bits reaches (reported, not gated)
@@ -1281,14 +1679,15 @@ def phase_flash(torch, mods):
         row["library_max_abs_err"] = lib_gap["max_abs_err"]
         row["library_max_row_rel"] = lib_gap["max_row_rel"]
         del lib, ref
-        row["library_ms"] = time_ms(torch, lambda: sdpa(q, k, v), 10, flush)
+        row["library_ms"] = time_ms(torch, lambda: sdpa(lq, lk, lv), 10, flush)
+        del lq, lk, lv
         row["bound_ms"], row["bound_by"], row["f32_core_bound_ms"] = attention_bound(
-            1, hq, hkv, s, s, d, q.element_size(), True)
+            1, h_q, h_kv, s, s, dd, q.element_size(), True)
         rows.append(row)
-        print(f"[chip_smoke]   flash_attention {label} ({hq}/{hkv} heads, D={d}, causal, "
+        print(f"[chip_smoke]   flash_attention {label} ({h_q}/{h_kv} heads, D={dd}, causal, "
               f"{row['kernel']}): max|Δ|={row['max_abs_err']:.3g} (tolerance {tol:g}), max row "
               f"‖Δ‖/‖ref‖={row['max_row_rel']:.3g}"
-              f"{'' if f32 else ' (tolerance 2^-7)'} [sdpa {row['library_max_row_rel']:.3g}]; "
+              f"{'' if is_f32 else ' (tolerance 2^-7)'} [sdpa {row['library_max_row_rel']:.3g}]; "
               f"kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms ({row['plain_how']})  "
               f"sdpa {row['library_ms']:.3f} ms (|Δ| to the kernel "
               f"{row['library_max_abs_diff']:.3g})  bound {row['bound_ms']:.3f} ms "
@@ -1393,9 +1792,10 @@ def load_port() -> dict:
     from repro_torch.kernels.sqround.ops import sqround
     from repro_torch.kernels.sqround.ref import sqround_ref
     from repro_torch.kernels.qmm import kernel as qmm_kernel
-    from repro_torch.kernels.qmm.kernel import QMM, QMM_GROUP, QMM_GROUP_CORE
+    from repro_torch.kernels.qmm.kernel import QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE
     from repro_torch.kernels.qmm import ops as qmm_ops
     from repro_torch.kernels.qmm.ops import (
+        PackedWeights,
         cuda_kernel,
         group_kernel,
         pack_operator,
@@ -1424,6 +1824,9 @@ def load_port() -> dict:
                 LOFAR_BENCH=LOFAR_BENCH, device="cuda", QMM_GROUP=QMM_GROUP,
                 qmm_group_ref=qmm_group_ref, expand_block_scale=expand_block_scale,
                 HIST=hs_kernel.HIST, MASK=hs_kernel.MASK, hs_ops=hs_ops,
+                HSTHRESH=hs_kernel.HSTHRESH, hsthresh_cuda=hs_kernel.hsthresh_cuda,
+                QMM_CORE=QMM_CORE, PackedWeights=PackedWeights,
+                FLASH_CORE=fa_kernel.FLASH_CORE, FLASH_UNALIGNED=fa_kernel.FLASH_UNALIGNED,
                 hsthresh_ref_mod=hsthresh_ref_mod, qniht_batch=qniht_batch,
                 solver_setup=_solver_setup, SQROUND=sq_kernel.SQROUND, sqround=sqround,
                 sqround_ref=sqround_ref, narrow_words=sq_kernel.narrow_words,
@@ -1431,10 +1834,12 @@ def load_port() -> dict:
                 flash_attention=flash_attention, attention_plain=attention_plain,
                 CudaLibrary=CudaLibrary, QMM_GROUP_CORE=QMM_GROUP_CORE, qmm=qmm,
                 cuda_kernel=cuda_kernel, group_kernel=group_kernel, pack_codes=pack_codes,
-                KERNELS=(QMM, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
-                         sq_kernel.SQROUND, fa_kernel.FLASH, fa_kernel.FLASH_TC),
+                KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
+                         hs_kernel.HSTHRESH, sq_kernel.SQROUND, fa_kernel.FLASH,
+                         fa_kernel.FLASH_TC, fa_kernel.FLASH_CORE, fa_kernel.FLASH_UNALIGNED),
                 LIBRARIES=(qmm_kernel.LIBRARY, qmm_kernel.CORE_LIBRARY, hs_kernel.LIBRARY,
-                           sq_kernel.LIBRARY, fa_kernel.LIBRARY, fa_kernel.TC_LIBRARY))
+                           hs_kernel.FUSED_LIBRARY, sq_kernel.LIBRARY, fa_kernel.LIBRARY,
+                           fa_kernel.TC_LIBRARY))
     return mods
 
 
@@ -1482,6 +1887,7 @@ def main(argv=None) -> int:
     report["kernel"] = phases.run("kernel-vs-plain", phase_kernel, torch, mods)
     report["group_kernel"] = phases.run("qmm_group-vs-plain", phase_group_kernel, torch, mods)
     report["hs_kernels"] = phases.run("hist-mask-vs-plain", phase_hs_kernels, torch, mods)
+    report["fused_hs"] = phases.run("fused-hsthresh-vs-plain", phase_fused_hs, torch, mods)
     report["lofar"] = phases.run("lofar-main-path", phase_lofar, torch, mods)
     report["lofar_block"] = phases.run("lofar-per-block", phase_lofar_block, torch, mods,
                                        report["lofar"])
@@ -1527,6 +1933,28 @@ def main(argv=None) -> int:
                 "shape": f"{shape} bits={row['bits']} M=1 N={row['N']} K={row['K']}"
                          + (f" g={GROUP}" if name == "qmm_group" else ""),
             })
+    for name, phase, source in (("qmm_core", "kernel", "qmm.cu"),
+                                ("qmm_group_core", "group_kernel", "qmm.cu")):
+        for row in report[phase]["misaligned_rows"]:
+            kernels.append({
+                "name": f"{name}[{row['shape']} codes at offset {row['offset']}]",
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/qmm/csrc/{source}",
+                "entry": row["entry"],
+                "replaces": ("src/repro/kernels/qmm/kernel.py:265" if name == "qmm_core"
+                             else "src/repro/kernels/qmm/kernel.py:221"),
+                "launches": report[phase]["misaligned_launches"],
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "bytes_bound_ms": row["bytes_bound_ms"],
+                "library_ms": row["library_ms"],
+                "shape": f"{row['shape']} bits={row['bits']} M=1 N={row['N']} K={row['K']}"
+                         + (f" g={GROUP}" if name == "qmm_group_core" else "")
+                         + "; launches: the misaligned checks of its phase",
+            })
     core = next(r for r in report["group_kernel"]["core_rows"] if r["bits"] == 4)
     kernels.append({
         "name": "qmm_group_core[gaussian g=8]",
@@ -1546,6 +1974,25 @@ def main(argv=None) -> int:
         "shape": f"ragged bits=4 M=5 N={core['N']} K={core['K']} g={core['g']} (timed); "
                  "launches from the Gaussian per_block g=8 solves",
     })
+    row = next(r for r in report["fused_hs"]["rows"] if r["B"] == 1)
+    kernels.append({
+        "name": "hsthresh[lofar]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/hsthresh/csrc/hsthresh_fused.cu",
+        "entry": "repro_hsthresh",
+        "replaces": "src/repro/kernels/hsthresh/kernel.py:48 and :69 (hist_pallas, "
+                    "mask_pallas and the jnp pick and fill between them)",
+        "launches": report["lofar_hsthresh"]["launches"],
+        "max_abs_err": 0.0,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "device_ms": row["device_ms"],
+        "chain_ms": row["chain_ms"],
+        "shape": f"B=1 N={row['N']} s={row['s']} nbins={NBINS}",
+    })
     for name, replaces in (("hist", "src/repro/kernels/hsthresh/kernel.py:48"),
                            ("mask", "src/repro/kernels/hsthresh/kernel.py:69")):
         row = next(r for r in report["hs_kernels"]["rows"] if r["name"] == name and r["B"] == 1)
@@ -1554,7 +2001,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/hsthresh/csrc/hsthresh.cu",
             "replaces": replaces,
-            "launches": report["lofar_hsthresh"]["launches"],
+            "launches": report["hs_kernels"]["launches"][name],
             "max_abs_err": 0.0,
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -1581,12 +2028,21 @@ def main(argv=None) -> int:
         "shape": f"R={row['R']} C={row['C']} bits={row['bits']}",
     })
     flash = report["flash"]
-    rows = {(r["S"], r["dtype"]): r for r in flash["rows"]}
+    rows = {r["shape"]: r for r in flash["rows"]}
     for name, key, source, entry in (
-            ("flash_attention[starcoder2_3b_prefill_32k]", (PREFILL_32K_LEN, "bfloat16"),
-             "flashattn_wgmma.cu", "FLASH_TC"),
-            ("flash_attention_f32[starcoder2_3b_train_4k]", (TRAIN_4K_LEN, "float32"),
-             "flashattn.cu", "FLASH")):
+            ("flash_attention[starcoder2_3b_prefill_32k]",
+             f"starcoder2_3b S={PREFILL_32K_LEN} bf16", "flashattn_wgmma.cu", "FLASH_TC"),
+            ("flash_attention_f32[starcoder2_3b_train_4k]",
+             f"starcoder2_3b S={TRAIN_4K_LEN} f32", "flashattn.cu", "FLASH"),
+            ("flash_attention_core[stablelm_12b_train_4k]",
+             f"stablelm_12b S={TRAIN_4K_LEN} bf16", "flashattn.cu", "FLASH_CORE"),
+            ("flash_attention_core[recurrentgemma_2b_train_4k]",
+             f"recurrentgemma_2b S={TRAIN_4K_LEN} bf16", "flashattn.cu", "FLASH_CORE"),
+            ("flash_attention_core[qwen3_moe_235b_smoke_train_4k]",
+             f"qwen3_moe_235b_smoke S={TRAIN_4K_LEN} bf16", "flashattn.cu", "FLASH_CORE"),
+            ("flash_attention_unaligned[starcoder2_3b_train_4k]",
+             f"starcoder2_3b S={TRAIN_4K_LEN} bf16 views 2 elements in", "flashattn.cu",
+             "FLASH_UNALIGNED")):
         row = rows[key]
         kernels.append({
             "name": name,

@@ -1,11 +1,20 @@
 // Causal or full multi-head attention with grouped K/V heads (GQA), in one
-// online-softmax pass, for NVIDIA Hopper, sm_90a, for float32 inputs.
+// online-softmax pass on the CUDA cores of NVIDIA Hopper, sm_90a.
 //
-// repro_flash_attention replaces, for float32 inputs,
-// repro/kernels/flashattn/kernel.py::flash_attention_pallas (_flash_kernel);
-// bfloat16 and float16 inputs go to the tensor-core kernel of
-// flashattn_wgmma.cu. For queries q (B, Hq, Sq, D) and keys and values k, v
-// (B, Hkv, Sk, D), float32, Hq a multiple of Hkv:
+// Three entries replace repro/kernels/flashattn/kernel.py::flash_attention_pallas
+// (_flash_kernel) where the tensor-core kernel of flashattn_wgmma.cu does
+// not run:
+//   * repro_flash_attention: float32 inputs, every head dim of the
+//     reference's configs, D in {8, 16, 32, 64, 128, 160, 256};
+//   * repro_flash_attention_core: bfloat16 and float16 inputs at the head
+//     dims flashattn_wgmma.cu does not take, D in {8, 160, 256};
+//   * repro_flash_attention_unaligned: any of the three types and head dims
+//     when q, k or v does not start on a 16-byte boundary (a view into a
+//     larger tensor): scalar loads, no vectors, no copy.
+// 16-bit inputs are widened to float32 as they are loaded, so every entry
+// computes in float32 and rounds once, when it stores o in q's type. For
+// queries q (B, Hq, Sq, D) and keys and values k, v (B, Hkv, Sk, D), Hq a
+// multiple of Hkv:
 //
 //     o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / (Hq / Hkv), j]) v[b, h / (Hq / Hkv), j]
 //
@@ -30,11 +39,15 @@
 //   * 256 threads, four per query row. A thread scores keys part + 4i of the
 //     tile (16 of them) from float4 reads of its q row and the K tile in
 //     shared memory, reduces the row max and sum with two shuffles among the
-//     row's four lanes, and accumulates output columns 4(part + 4c) .. +3.
-//     Rows are padded by 4 floats so that the four lanes of a row, and the
-//     eight rows of a warp, hit different banks.
+//     row's four lanes, and accumulates output columns CW(part + 4c) .. +CW-1
+//     (CW = 4; 2 at D = 8). Rows are padded by 4 floats so that the four
+//     lanes of a row, and the eight rows of a warp, hit different banks.
+//   * Tiles are loaded as 16-byte vectors (4 float32 or 8 16-bit values)
+//     when q, k and v start on a 16-byte boundary (rows are then aligned
+//     too: D is a multiple of 8), else element by element.
 //   * K and then V of a tile pass through one shared buffer; with the q
-//     tile and the probabilities that is 83 KB at D = 128, two blocks per SM.
+//     tile and the probabilities that is 83 KB at D = 128, two blocks per SM
+//     (150 KB at D = 256: one).
 //   * Causal: KV tiles strictly above the block's last row's diagonal are not
 //     visited at all; the tiles that cross it and the ragged Sq and Sk edges
 //     are masked element by element, so every length works without padding.
@@ -46,6 +59,8 @@
 // Plain C interface, built with nvcc and loaded with ctypes: the entry
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError().
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,25 +74,68 @@ constexpr int kLP = kRows + 4;           // padded row of the probability tile
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
+// CW consecutive floats of shared memory (CW = 2 or 4, aligned).
+template <int CW>
+__device__ __forceinline__ void load_cols(float (&dst)[CW], const float* p) {
+  if constexpr (CW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  }
 }
 
-// kRows rows of a (rows, D) array from row0 into shared memory as float32,
-// row stride D + 4; rows at or past `rows` read as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
+// kRows rows of a (rows, D) array of T from row0 into shared memory as
+// float32, row stride D + 4; rows at or past `rows` read as zeros. VEC:
+// 16-byte loads (the array starts on a 16-byte boundary), else one element
+// at a time.
+template <typename T, int D, bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
                                           int rows) {
-  constexpr int kVec = D / 4;
-  for (int idx = threadIdx.x; idx < kRows * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) x = load4(src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = x;
+  if constexpr (VEC) {
+    constexpr int kE = 16 / sizeof(T);    // elements of one 16-byte load
+    constexpr int kVec = D / kE;
+    for (int idx = threadIdx.x; idx < kRows * kVec; idx += kThreads) {
+      const int r = idx / kVec, c = (idx % kVec) * kE;
+      float f[kE];
+      if (row0 + r < rows) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < kE; ++i) f[i] = to_f32(e[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kE; ++i) f[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kE; i += 4)
+        *reinterpret_cast<float4*>(dst + r * (D + 4) + c + i) =
+            make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
+      const int r = idx / D, c = idx % D;
+      dst[r * (D + 4) + c] =
+          row0 + r < rows ? to_f32(src[static_cast<size_t>(row0 + r) * D + c]) : 0.f;
+    }
   }
 }
 
@@ -86,13 +144,14 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kRows * (D + 4) + kRows * kLP);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
-             float scale, bool causal) {
+template <typename T, int D, bool VEC>
+__global__ void __launch_bounds__(kThreads, D > 160 ? 1 : 2)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             T* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, bool causal) {
   constexpr int LD = D + 4;
-  constexpr int kCols = D / (4 * kParts);   // float4 column groups of a thread
+  constexpr int CW = D % 16 == 0 ? 4 : 2;    // output columns a thread holds together
+  constexpr int kCols = D / (CW * kParts);   // column groups of a thread
+  static_assert(D % 8 == 0 && kCols >= 1, "head dim");
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* KVs = Qs + kRows * LD;
@@ -106,22 +165,24 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
   const int qi = q0 + r;
   const int off = Sk - Sq;                        // causal: row i sees keys j <= i + off
-  const float* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  const float* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const T* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const T* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
 
-  load_tile<D>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
+  load_tile<T, D, VEC>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
   int n_kv = (Sk + kRows - 1) / kRows;
   if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);
 
   float m = kNegInf, l = 0.f;
-  float acc[kCols][4];
+  float acc[kCols][CW];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  for (int c = 0; c < kCols; ++c)
+#pragma unroll
+    for (int e = 0; e < CW; ++e) acc[c][e] = 0.f;
 
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * kRows;
     __syncthreads();                              // the last tile's P and V reads are done
-    load_tile<D>(KVs, kbase, k0, Sk);
+    load_tile<T, D, VEC>(KVs, kbase, k0, Sk);
     __syncthreads();
     float s[kKeys];
 #pragma unroll
@@ -162,36 +223,32 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l = alpha * l + psum;
     m = m_new;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      acc[c][0] *= alpha;
-      acc[c][1] *= alpha;
-      acc[c][2] *= alpha;
-      acc[c][3] *= alpha;
-    }
+    for (int c = 0; c < kCols; ++c)
+#pragma unroll
+      for (int e = 0; e < CW; ++e) acc[c][e] *= alpha;
     __syncthreads();                              // K reads done: the buffer takes V
-    load_tile<D>(KVs, vbase, k0, Sk);
+    load_tile<T, D, VEC>(KVs, vbase, k0, Sk);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kRows; ++j) {
       const float p = Ps[r * kLP + j];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(KVs + j * LD + 4 * (part + kParts * c));
-        acc[c][0] = fmaf(p, vv.x, acc[c][0]);
-        acc[c][1] = fmaf(p, vv.y, acc[c][1]);
-        acc[c][2] = fmaf(p, vv.z, acc[c][2]);
-        acc[c][3] = fmaf(p, vv.w, acc[c][3]);
+        float vv[CW];
+        load_cols<CW>(vv, KVs + j * LD + CW * (part + kParts * c));
+#pragma unroll
+        for (int e = 0; e < CW; ++e) acc[c][e] = fmaf(p, vv[e], acc[c][e]);
       }
     }
   }
   if (qi < Sq) {
     const float denom = fmaxf(l, 1e-30f);
-    float* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
+    T* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      store4(orow + 4 * (part + kParts * c),
-             make_float4(acc[c][0] / denom, acc[c][1] / denom, acc[c][2] / denom,
-                         acc[c][3] / denom));
+#pragma unroll
+      for (int e = 0; e < CW; ++e)
+        orow[CW * (part + kParts * c) + e] = from_f32<T>(acc[c][e] / denom);
   }
 }
 
@@ -201,7 +258,7 @@ int current_device() {
   return (dev < 0 || dev >= kMaxDevices) ? 0 : dev;
 }
 
-template <int D>
+template <typename T, int D, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                    int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -209,39 +266,91 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const int dev = current_device();
   if (!opted_in[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        flash_kernel<T, D, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in[dev] = true;
   }
   const dim3 grid(static_cast<unsigned>((Sq + kRows - 1) / kRows), static_cast<unsigned>(B * Hq));
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hkv, Sq, Sk, scale, causal);
+  flash_kernel<T, D, VEC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Hq, Hkv, Sq, Sk, scale, causal);
   return cudaGetLastError();
 }
 
+// ALL: every head dim; otherwise only those flashattn_wgmma.cu does not take.
+template <typename T, bool VEC, bool ALL>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
                      int Hkv, int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 32: return launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 64: return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 128: return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
+    case 8: return launch<T, 8, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 160: return launch<T, 160, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 256: return launch<T, 256, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    default: break;
   }
+  if constexpr (ALL) {
+    switch (D) {
+      case 16: return launch<T, 16, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+      case 32: return launch<T, 32, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+      case 64: return launch<T, 64, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+      case 128: return launch<T, 128, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int causal) {
+  return B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
+         static_cast<long long>(B) * Hq > 65535 || (causal && Sq > Sk);
 }
 
 }  // namespace
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), o (B, Hq, Sq, D), contiguous and
-// 16-byte aligned; dtype 0 (float32, the only one); D in {16, 32, 64, 128}.
+// 16-byte aligned; dtype 0 (float32, the only one); D in {8, 16, 32, 64,
+// 128, 160, 256}.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
                                      float scale, int causal, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      static_cast<long long>(B) * Hq > 65535 || (causal && Sq > Sk))
+  if (bad_args(B, Hq, Hkv, Sq, Sk, causal) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_d<float, true, true>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale,
+                                                      causal != 0,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// As repro_flash_attention for dtype 1 (bfloat16) or 2 (float16), D in {8,
+// 160, 256}.
+extern "C" int repro_flash_attention_core(const void* q, const void* k, const void* v, void* o,
+                                          int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                                          int dtype, float scale, int causal, void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_d(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_d<__nv_bfloat16, true, false>(D, q, k, v, o, B, Hq, Hkv, Sq,
+                                                                 Sk, scale, causal != 0, s));
+  if (dtype == 2)
+    return static_cast<int>(launch_d<__half, true, false>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                                          scale, causal != 0, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q, k, v at any address their type allows, o contiguous; dtype 0, 1 or 2;
+// D in {8, 16, 32, 64, 128, 160, 256}.
+extern "C" int repro_flash_attention_unaligned(const void* q, const void* k, const void* v,
+                                               void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                                               int D, int dtype, float scale, int causal,
+                                               void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_d<float, false, true>(D, q, k, v, o, B, Hq, Hkv, Sq,
+                                                                 Sk, scale, causal != 0, s));
+    case 1: return static_cast<int>(launch_d<__nv_bfloat16, false, true>(
+        D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0, s));
+    case 2: return static_cast<int>(launch_d<__half, false, true>(D, q, k, v, o, B, Hq, Hkv, Sq,
+                                                                  Sk, scale, causal != 0, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

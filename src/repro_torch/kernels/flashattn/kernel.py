@@ -7,12 +7,21 @@ keys and values in one launch, reading K/V head ``h // (Hq // Hkv)`` in place
 ``attention_ref``, and every Sq and Sk (the ragged edges are masked).
 
 * ``FLASH`` (``csrc/flashattn.cu``, ``repro_flash_attention``): float32, on
-  the CUDA cores, the products in full float32.
+  the CUDA cores, the products in full float32, D in ``HEAD_DIMS``.
 * ``FLASH_TC`` (``csrc/flashattn_wgmma.cu``, ``repro_flash_attention_tc``):
-  bfloat16 and float16, on the tensor cores (``wgmma``, TMA-fed K/V tiles),
-  float32 accumulation and softmax, P rounded to the input type for P·V.
+  bfloat16 and float16 at D in ``TC_HEAD_DIMS``, on the tensor cores
+  (``wgmma``, TMA-fed K/V tiles), float32 accumulation and softmax, P
+  rounded to the input type for P·V.
+* ``FLASH_CORE`` (``csrc/flashattn.cu``, ``repro_flash_attention_core``):
+  bfloat16 and float16 at the other head dims (8, 160, 256), on the CUDA
+  cores, widened to float32 as they load.
+* ``FLASH_UNALIGNED`` (``csrc/flashattn.cu``,
+  ``repro_flash_attention_unaligned``): all three types and head dims when
+  q, k or v does not start on a 16-byte boundary (a view into a larger
+  tensor), with scalar loads, on the CUDA cores; no copy is made.
 
-Both take D in ``HEAD_DIMS``. Each source is compiled with nvcc into
+:func:`cuda_kernel` is the route. ``HEAD_DIMS`` holds every head dim of the
+reference's model configs. Each source is compiled with nvcc into
 ``build/repro_torch/`` on first use (:mod:`repro_torch.kernels.cudalib`).
 There is no fallback: a CUDA tensor that reaches a wrapper launches its
 kernel or raises. ``launches`` counts each kernel's launches;
@@ -30,26 +39,44 @@ from repro_torch.kernels.cudalib import CudaKernel, CudaLibrary, check_cuda_tens
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flashattn.cu"
 TC_SOURCE = CSRC / "flashattn_wgmma.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)     # every head dim in src/repro/configs
+TC_HEAD_DIMS = (16, 32, 64, 128)                # FLASH_TC's
+CORE_HEAD_DIMS = (8, 160, 256)                  # FLASH_CORE's: the others
 DTYPES = {torch.float32: 0}                            # FLASH
-TC_DTYPES = {torch.bfloat16: 1, torch.float16: 2}      # FLASH_TC
+TC_DTYPES = {torch.bfloat16: 1, torch.float16: 2}      # FLASH_TC, FLASH_CORE
+ALL_DTYPES = {**DTYPES, **TC_DTYPES}                   # FLASH_UNALIGNED
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, stream
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
-LIBRARY = CudaLibrary(SOURCE, {"repro_flash_attention": _ARGS})
+LIBRARY = CudaLibrary(SOURCE, {"repro_flash_attention": _ARGS,
+                               "repro_flash_attention_core": _ARGS,
+                               "repro_flash_attention_unaligned": _ARGS})
 TC_LIBRARY = CudaLibrary(TC_SOURCE, {"repro_flash_attention_tc": _ARGS})
 
 
+def aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor starts on a 16-byte boundary (TMA tiles and
+    16-byte vector loads need it)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 class FlashAttentionKernel(CudaKernel):
-    def __init__(self, library: CudaLibrary, entry: str, dtypes: dict):
+    """One flash attention entry: the dtypes and head dims it takes, and
+    whether q, k and v must start on a 16-byte boundary."""
+
+    def __init__(self, library: CudaLibrary, entry: str, dtypes: dict,
+                 head_dims: tuple = HEAD_DIMS, needs_alignment: bool = True):
         super().__init__(library, entry)
         self.dtypes = dict(dtypes)
+        self.head_dims = tuple(head_dims)
+        self.needs_alignment = needs_alignment
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                  scale: float) -> torch.Tensor:
         """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), one dtype of
-        ``self.dtypes``, CUDA, contiguous and 16-byte aligned, D in
-        HEAD_DIMS; returns (B, Hq, Sq, D) in q's dtype."""
+        ``self.dtypes``, CUDA and contiguous (and 16-byte aligned where
+        ``self.needs_alignment``), D in ``self.head_dims``; returns (B, Hq,
+        Sq, D) in q's dtype."""
         if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
             raise ValueError(f"{self.entry}: q must be (B, Hq, Sq, D) and k, v "
                              f"(B, Hkv, Sk, D), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -65,12 +92,13 @@ class FlashAttentionKernel(CudaKernel):
         check_cuda_tensors(self.entry, ("q", q, q.dtype), ("k", k, q.dtype),
                            ("v", v, q.dtype))
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
+            if self.needs_alignment and not aligned(t):
                 raise ValueError(f"{self.entry}: {name} must start on a 16-byte boundary "
-                                 "(the kernels read 16-byte vectors or TMA tiles); pass a "
-                                 "tensor of its own, not a view that starts inside one")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"{self.entry}: head dim must be one of {HEAD_DIMS}, "
+                                 "(this kernel reads 16-byte vectors or TMA tiles); "
+                                 "flash_attention routes a view that starts inside a "
+                                 "tensor to FLASH_UNALIGNED")
+        if d not in self.head_dims:
+            raise ValueError(f"{self.entry}: head dim must be one of {self.head_dims}, "
                              f"got {d}")
         if hq % hkv:
             raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
@@ -88,5 +116,23 @@ class FlashAttentionKernel(CudaKernel):
 
 
 FLASH = FlashAttentionKernel(LIBRARY, "repro_flash_attention", DTYPES)
-FLASH_TC = FlashAttentionKernel(TC_LIBRARY, "repro_flash_attention_tc", TC_DTYPES)
+FLASH_TC = FlashAttentionKernel(TC_LIBRARY, "repro_flash_attention_tc", TC_DTYPES,
+                                TC_HEAD_DIMS)
+FLASH_CORE = FlashAttentionKernel(LIBRARY, "repro_flash_attention_core", TC_DTYPES,
+                                  CORE_HEAD_DIMS)
+FLASH_UNALIGNED = FlashAttentionKernel(LIBRARY, "repro_flash_attention_unaligned", ALL_DTYPES,
+                                       needs_alignment=False)
+KERNELS = (FLASH, FLASH_TC, FLASH_CORE, FLASH_UNALIGNED)
+
+
+def cuda_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FlashAttentionKernel:
+    """The card's kernel for these inputs, a fixed route, not a fallback: a
+    view that starts off a 16-byte boundary to ``FLASH_UNALIGNED``; float32
+    to ``FLASH``; bfloat16 and float16 to ``FLASH_TC`` at its head dims,
+    else to ``FLASH_CORE``."""
+    if not aligned(q, k, v):
+        return FLASH_UNALIGNED
+    if q.dtype in DTYPES:
+        return FLASH
+    return FLASH_TC if q.shape[-1] in TC_HEAD_DIMS else FLASH_CORE
 

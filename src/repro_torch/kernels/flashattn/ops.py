@@ -1,9 +1,13 @@
 """Multi-head attention with GQA (port of ``repro.kernels.flashattn.ops``).
 
 :func:`flash_attention` launches one flash attention kernel on CUDA tensors,
-chosen by dtype: float32 goes to ``FLASH`` (CUDA cores), bfloat16 and
-float16 to ``FLASH_TC`` (tensor cores); any other dtype raises. Both read
-each K/V head in place for its group of query heads. On CPU tensors, of any
+chosen by dtype (``CUDA_KERNELS``): float32 goes to ``FLASH`` (CUDA cores),
+bfloat16 and float16 to ``FLASH_TC`` (tensor cores); any other dtype raises.
+Two more routes (:func:`~repro_torch.kernels.flashattn.kernel.cuda_kernel`)
+take what those two do not: 16-bit inputs at head dims 8, 160 and 256 go to
+``FLASH_CORE``, and q, k or v that start off a 16-byte boundary (views into
+larger tensors) to ``FLASH_UNALIGNED``, both on the CUDA cores. Every kernel
+reads each K/V head in place for its group of query heads. On CPU tensors, of any
 float dtype, it repeats K/V across the groups and runs the plain version
 (:func:`attention_plain`), as the reference does off the TPU.
 
@@ -18,10 +22,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flashattn.kernel import FLASH, FLASH_TC
+from repro_torch.kernels.flashattn.kernel import FLASH, FLASH_TC, cuda_kernel
 from repro_torch.kernels.flashattn.ref import attention_ref
 
-# The card's kernel for each dtype: a fixed route, not a fallback.
+# The card's kernel for each dtype (aligned inputs, FLASH_TC's head dims): a
+# fixed route, not a fallback; cuda_kernel refines it by alignment and D.
 CUDA_KERNELS = {dtype: kernel for kernel in (FLASH, FLASH_TC) for dtype in kernel.dtypes}
 
 
@@ -56,10 +61,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D) with Hq % Hkv == 0. Returns
-    (B, Hq, Sq, D) in q's dtype; ``scale`` defaults to 1/√D. On the card,
-    float32 runs on ``FLASH`` and bfloat16 and float16 on ``FLASH_TC``, for
-    D in {16, 32, 64, 128} and q, k, v that start on a 16-byte boundary; it
-    raises for anything else."""
+    (B, Hq, Sq, D) in q's dtype; ``scale`` defaults to 1/√D. On the card
+    it takes float32, bfloat16 and float16 at D in {8, 16, 32, 64, 128, 160,
+    256} (the route: :func:`~repro_torch.kernels.flashattn.kernel.cuda_kernel`)
+    and raises for anything else."""
     _check(q, k, v, causal)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -67,6 +72,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         if q.dtype not in CUDA_KERNELS:
             raise TypeError(f"flash_attention: the card's kernels take "
                             f"{tuple(CUDA_KERNELS)}, got {q.dtype}")
-        return CUDA_KERNELS[q.dtype](q.contiguous(), k.contiguous(), v.contiguous(), causal,
-                                     scale)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return cuda_kernel(q, k, v)(q, k, v, causal, scale)
     return attention_plain(q, k, v, causal=causal, scale=scale)

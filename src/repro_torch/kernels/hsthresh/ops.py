@@ -1,25 +1,20 @@
 """Streaming H_s through histogram, select and mask (port of
 ``repro.kernels.hsthresh.ops``).
 
-:func:`hsthresh` takes a real vector or a (B, N) batch and works on each row:
-one launch of the ``hist`` kernel and one of the ``mask`` kernel for the
-whole batch on a CUDA tensor, their plain versions on a CPU tensor. The
-threshold pick (:func:`select_threshold`) and the tie fill
-(:func:`fill_threshold_bin`) stay plain torch, as they stay jnp in the
-reference. There is no padding: the kernels mask the ragged edge.
+:func:`hsthresh` takes a real vector or a (B, N) batch and works on each row.
+On a CUDA tensor it launches the fused kernel once for the whole batch
+(``HSTHRESH``, ``csrc/hsthresh_fused.cu``: histogram, pick, mask and tie
+fill in one launch); on a CPU tensor it runs the plain chain
+:func:`~repro_torch.kernels.hsthresh.ref.hsthresh_ref` (histogram, select,
+mask, fill), as the reference runs jnp off the TPU. There is no padding:
+the kernel masks the ragged edge.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.hsthresh.kernel import hist_cuda, mask_cuda
-from repro_torch.kernels.hsthresh.ref import (
-    fill_threshold_bin,
-    hist_ref,
-    mask_ref,
-    row_vmax,
-    select_threshold,
-)
+from repro_torch.kernels.hsthresh.kernel import hsthresh_cuda
+from repro_torch.kernels.hsthresh.ref import hsthresh_ref
 
 
 def hsthresh(x: torch.Tensor, s: int, *, nbins: int = 2048) -> torch.Tensor:
@@ -31,10 +26,6 @@ def hsthresh(x: torch.Tensor, s: int, *, nbins: int = 2048) -> torch.Tensor:
         raise TypeError("hsthresh is the real-signal H_s; got a complex tensor")
     single = x.ndim == 1
     xb = (x[None, :] if single else x).to(torch.float32).contiguous()
-    mag = xb.abs()
-    vmax = row_vmax(mag)
-    h = hist_cuda(xb, vmax, nbins) if xb.is_cuda else hist_ref(mag, vmax, nbins)
-    t = select_threshold(h, vmax, s)
-    y = mask_cuda(xb, t) if xb.is_cuda else mask_ref(xb, t)
-    out = fill_threshold_bin(xb, y, t, vmax / nbins, s).to(x.dtype)
+    y = hsthresh_cuda(xb, s, nbins) if xb.is_cuda else hsthresh_ref(xb, s, nbins)
+    out = y.to(x.dtype)
     return out[0] if single else out

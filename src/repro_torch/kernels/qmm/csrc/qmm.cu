@@ -1,6 +1,12 @@
-// Block-scaled packed low-precision matmul on the CUDA cores of NVIDIA
-// Hopper, sm_90a: the row walk for the group sizes the tensor-core kernel
-// (qmm_wgmma.cu) does not take.
+// Packed low-precision matmul on the CUDA cores of NVIDIA Hopper, sm_90a:
+// the row walk for what the tensor-core kernel (qmm_wgmma.cu) does not take,
+// group sizes that are no multiple of 16 codes and code arrays that do not
+// start on a 16-byte boundary (a row-slice view: the tensor-core kernel
+// reads codes by TMA and in aligned 16-byte chunks; this one reads bytes).
+//
+// repro_qmm replaces repro/kernels/qmm/kernel.py::qmm_pallas (_qmm_kernel)
+// for codes off a 16-byte boundary: one scale per row (per_tensor and
+// per_channel), the group kernel below with one group of the whole row.
 //
 // repro_qmm_group replaces repro/kernels/qmm/kernel.py::qmm_group_pallas
 // (_qmm_group_kernel) for g not a multiple of 16 codes (g a multiple of the
@@ -293,6 +299,13 @@ bool bad_shape(int M, int N, int K, int Kp, int bits) {
 }
 
 }  // namespace
+
+// scale is (N,), one per row of c; c may start at any byte.
+extern "C" int repro_qmm(const float* x, const unsigned char* c, const float* scale, float* y,
+                         int M, int N, int K, int Kp, int bits, void* stream) {
+  if (bad_shape(M, N, K, Kp, bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(x, c, scale, y, M, N, K, Kp, bits, 1, Kp > 0 ? Kp : 1, stream);
+}
 
 // scale is (N, ceil(K / group_size)); group_size a positive multiple of 8 / bits.
 extern "C" int repro_qmm_group(const float* x, const unsigned char* c, const float* scale,

@@ -33,6 +33,26 @@
 //     bf16. An f32 x is exactly hi + mid + lo, three bf16 pieces (hi =
 //     bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); exact for
 //     2^-110 <= |x| < 2^128 - 2^119), and a bf16 product is exact in f32.
+//   * Every f32 x gets there. The block takes the largest |x| of each x row
+//     over each work item's range of K: one read of that range, for its
+//     first four ranges by the consumer warps while the producer starts its
+//     copies (they are idle until the first stage lands), for any later one
+//     by the producer (in a call of its own, so that its registers do not
+//     crowd the loop). A row whose largest |x| lies in [2^-40, 2^64) is
+//     split as it is: every x down to 2^-70 of the largest is in the exact
+//     range, and sums stay below 2^101. Any other row is scaled by a power
+//     of two, 2^E with E = 64 - floor(log2 max|x|), which puts its largest
+//     |x| in [2^64, 2^65): scaling by a power of two is exact, every x down
+//     to 2^-174 of the largest splits exactly, and the sums keep the same
+//     headroom. (Smaller x count below f32's own rounding of the sum.) The
+//     epilogue scales the f32 result back by 2^-(E + log2 K_h) (ldexpf,
+//     exact unless the result itself overflows or falls below the normal
+//     range, as the reference's own sum would) before the row scale, so
+//     rows of ordinary x compute exactly what they did without the
+//     prescale. One power of two per row cannot cover f32's whole range:
+//     an x more than 2^70 (scaled rows: 2^174) below its row's largest
+//     rounds in the lo piece, by at most 2^-134 of the scaled row, which
+//     only shows where every larger x of the row meets a zero code.
 //     The three pieces of x row m are three B columns; the epilogue sums
 //     them in f32 as hi + (mid + lo). A row with one nonzero code c thus
 //     gives fl(c * x) exactly, as the f32 reference does: mid + lo = x - hi
@@ -129,12 +149,14 @@ constexpr int kSmemBudget = 212 * 1024;    // the rings of one block
 constexpr int kSmallBudget = 110 * 1024;   // ... of one of two blocks on an SM
 constexpr long long kWatchdogCycles = 1ll << 34;  // ~10 s: a wait this long is a fault
 constexpr int kMaxDevices = 64;
+constexpr int kPre = 4;                    // x ranges whose row maxima a block takes up front
 
 template <int BITS>
 struct Fmt {
   static constexpr int kVpb = 8 / BITS;
   static constexpr int kShift = BITS == 2 ? 2 : (BITS == 4 ? 1 : 0);  // log2(vpb)
   static constexpr int kHalf = (1 << (BITS - 1)) / 2;
+  static constexpr int kLog2Half = BITS == 2 ? 0 : (BITS == 4 ? 2 : 6);
   static constexpr int kCodes = kRowBytes * kVpb;       // codes of a row per stage
   static constexpr int kSteps = kCodes / 16;            // k16 steps per stage: 16, 8, 4
 };
@@ -184,7 +206,16 @@ struct Layout {
   static constexpr int kS = kC + kStages * kCodeStage;
   static constexpr int kP = kS + kStages * kSStage;
   static constexpr int kBars = kP + kStages * kPStage;
-  static constexpr int kBytes = kBars + 16 * kStages + 16 + 1024;  // + alignment slack
+  // per stage, the exponent E of each x row of its work item; the
+  // producers' row maxima, exponents and scale factors of the current range
+  static constexpr int kMt = Cols<NB>::kMt;
+  static constexpr int kE = kBars + 16 * kStages + 16;
+  static constexpr int kRow = kE + 4 * kStages * kMt;
+  // the block's first kPre x ranges: (m-tile, split) keys, their number,
+  // their rows' largest |x|
+  static constexpr int kPreKey = kRow + 16 * kMt + 16;
+  static constexpr int kPreMax = kPreKey + 8 * kPre + 16;
+  static constexpr int kBytes = kPreMax + 4 * kPre * kMt + 1024;  // + alignment slack
   static_assert(kStages >= 2, "ring");
   static_assert(kUnits % 2 == 0, "units go in pairs");
   static_assert(kBStage % 1024 == 0 && kSStage % 512 == 0, "alignment");
@@ -493,6 +524,19 @@ __device__ __forceinline__ uint4 realign16(const uint32_t (&w)[5], uint32_t sh, 
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// E for a row whose largest |x| has the bits u (sign cleared): 0 when that
+// |x| lies in [2^-40, 2^64) (or the row is zero, or holds inf or nan), else
+// the power of two that puts it in [2^64, 2^65), in [-63, 213].
+__device__ __forceinline__ int row_exponent(uint32_t u) {
+  if (u == 0u || u >= 0x7f800000u) return 0;
+  const int be = static_cast<int>(u >> 23);
+  const int e = be ? be - 127 : (31 - __clz(static_cast<int>(u))) - 149;  // floor(log2)
+  return (e >= -40 && e < 64) ? 0 : 64 - e;
+}
+
+// 2^k as a float, k in [-126, 127].
+__device__ __forceinline__ float pow2(int k) { return __int_as_float((k + 127) << 23); }
+
 struct Args {
   const float* x;
   const uint8_t* c;
@@ -505,6 +549,62 @@ struct Args {
   int G, group_size;       // group kernel: scale is (N, G)
   int tma, xvec;           // codes by TMA; x rows read as float4
 };
+
+// The largest |x| (its bits, sign cleared) of each of the rows m0 .. m0 + mv
+// - 1 of x over the columns [k_lo, k_hi), atomicMax-ed into rmax (zeroed by
+// the caller), by warp wid of nw: rows are dealt to warps (a row to several
+// warps, in slices, when rows are fewer than warps); the lanes of a warp
+// read neighbouring units (UNIT = 4: float4, where x rows are 16-byte aligned
+// and k_lo, k_hi are multiples of 4; else single floats), eight each in
+// flight, and one lane adds the warp's maximum.
+template <int UNIT>
+__device__ __noinline__ void range_max_units(const float* x, int K, int m0, int mv, int k_lo,
+                                             int k_hi, int wid, int nw, uint32_t* rmax) {
+  const int lane = threadIdx.x & 31;
+  const int nq = (k_hi - k_lo) / UNIT;
+  const int slices = mv < nw ? nw / mv : 1;
+#pragma unroll 1
+  for (int task = wid; task < mv * slices; task += nw) {
+    const int ml = task / slices, sl = task - ml * slices;
+    const int u0 = nq * sl / slices, u1 = nq * (sl + 1) / slices;
+    const float* row = x + static_cast<size_t>(m0 + ml) * K + k_lo;
+    uint32_t cur = 0u;
+#pragma unroll 1
+    for (int base = u0; base < u1; base += 8 * 32) {
+      float f[8][UNIT];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int u = base + 32 * v + lane;
+        if (u < u1) {
+          if constexpr (UNIT == 4) {
+            const float4 q = __ldg(reinterpret_cast<const float4*>(row) + u);
+            f[v][0] = q.x;
+            f[v][1] = q.y;
+            f[v][2] = q.z;
+            f[v][3] = q.w;
+          } else {
+            f[v][0] = __ldg(row + u);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < UNIT; ++e) f[v][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+#pragma unroll
+        for (int e = 0; e < UNIT; ++e) cur = max(cur, __float_as_uint(f[v][e]) & 0x7fffffffu);
+    }
+    cur = __reduce_max_sync(0xffffffffu, cur);
+    if (lane == 0 && cur) atomicMax(rmax + ml, cur);
+  }
+}
+
+__device__ __forceinline__ void range_max(const Args& a, int m0, int mv, int k_lo, int k_hi,
+                                          int wid, int nw, uint32_t* rmax) {
+  if (a.xvec) range_max_units<4>(a.x, a.K, m0, mv, k_lo, k_hi, wid, nw, rmax);
+  else range_max_units<1>(a.x, a.K, m0, mv, k_lo, k_hi, wid, nw, rmax);
+}
 
 // Work item w = mt + m_tiles * (split + S * tile): m-tile mt of x, split-K
 // part `split` of 128-row tile `tile` of Φ̂. A block walks items w =
@@ -553,6 +653,16 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
   }
   __syncthreads();
 
+  // The block's first kPre x ranges (m-tile, split) and their rows'
+  // maxima: taken by the consumer warps, idle until the first stage lands,
+  // while the producer starts its copies; barrier 3 hands them over (the
+  // consumers arrive, the data threads wait once, at their first range).
+  // The producer takes any later range itself.
+  int2* pre_key = reinterpret_cast<int2*>(smem + L::kPreKey);
+  int* pre_n = reinterpret_cast<int*>(pre_key + kPre);
+  const uint32_t* pre_max = reinterpret_cast<const uint32_t*>(smem + L::kPreMax);
+  constexpr int kHandOver = kData + kConsumers;
+
   if (threadIdx.x < kProducers) {
     // ---- producer warpgroup. Warp 0 (one thread) starts each stage's TMA
     // box of codes as soon as the slot is free. Warps 1-3 copy, a whole ring
@@ -594,6 +704,14 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
       return;
     }
     const int dt = tid - 32;                       // data thread 0 .. 95
+    uint32_t* rmax = reinterpret_cast<uint32_t*>(smem + L::kRow);   // the range's row maxima
+    int* rexp = reinterpret_cast<int*>(rmax + kMt);                  // ... their exponents E
+    float* rf1 = reinterpret_cast<float*>(rexp + kMt);               // 2^min(E, 127)
+    float* rf2 = rf1 + kMt;                                          // 2^(E - min(E, 127))
+    int* eslot = reinterpret_cast<int*>(smem + L::kE);               // E per stage and row
+    int e_mt = -1, e_split = -1;                   // the x range the factors are for
+    bool scaled = false;                           // some row of that range has E != 0
+    bool handed = false;                           // the consumers' maxima have arrived
     // the 64-byte window of code row r of a stage starts at byte `at`; its
     // aligned 16-byte chunks j = 0..4 are staged at (5 r + j) * 16
     Cursor pf = out;
@@ -605,6 +723,47 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
         const int n0 = wk.tile * kRows, m0 = wk.mt * kMt;
         const int mv = min(kMt, args.M - m0);
         const int chunk = wk.c_begin + out.it;
+        if (out.it == 0 && (wk.mt != e_mt || wk.split != e_split)) {
+          // a new x range (m-tile, split): the largest |x| of each of its
+          // rows (taken up front, or now), then the power of two that
+          // scales the row
+          e_mt = wk.mt;
+          e_split = wk.split;
+          if (!handed) {
+            asm volatile("bar.sync 3, %0;\n" ::"n"(kHandOver) : "memory");
+            handed = true;
+          }
+          int pre = -1;
+          for (int p = 0; p < *pre_n; ++p)
+            if (pre_key[p].x == wk.mt && pre_key[p].y == wk.split) pre = p;
+          asm volatile("bar.sync 2, %0;\n" ::"n"(kData) : "memory");   // old factors are read
+          const uint32_t* maxima = rmax;
+          if (pre >= 0) {
+            maxima = pre_max + pre * kMt;
+          } else {
+            if (dt < kMt) rmax[dt] = 0u;
+            asm volatile("bar.sync 2, %0;\n" ::"n"(kData) : "memory");
+            range_max(args, m0, mv, wk.c_begin * F::kCodes,
+                      min(args.K, (wk.c_begin + wk.n_iter) * F::kCodes), dt / 32, kData / 32,
+                      rmax);
+            asm volatile("bar.sync 2, %0;\n" ::"n"(kData) : "memory");
+          }
+          int e = 0;
+          if (dt < kMt) {
+            e = row_exponent(maxima[dt]);
+            const int e1 = min(e, 127);
+            rexp[dt] = e;
+            rf1[dt] = pow2(e1);
+            rf2[dt] = pow2(e - e1);
+          }
+          // every data thread learns whether any row is scaled; the factors
+          // are visible past this barrier
+          uint32_t any;
+          asm volatile("{\n.reg .pred p, q;\nsetp.ne.s32 q, %1, 0;\n"
+                       "bar.red.or.pred p, 2, %2, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+                       : "=r"(any) : "r"(e), "n"(kData) : "memory");
+          scaled = any != 0;
+        }
         cp_async_wait<L::kStages - 1>();          // this thread's copies of stage j
         mbar_wait(empty + slot, ((j / L::kStages) & 1) ^ 1);
         const uint8_t* pst = smem + L::kP + slot * L::kPStage;
@@ -639,8 +798,13 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
           const int item = dt + kData * q;
           if (item >= mv * kQuads) break;
           const int ml = item / kQuads, qd = item - ml * kQuads;
-          const float4 v = *reinterpret_cast<const float4*>(pst + St::kX + item * 16);
+          float4 v = *reinterpret_cast<const float4*>(pst + St::kX + item * 16);
           const int kl0 = x_col0<BITS, kWord>(qd);       // (c0, c2) columns; (c1, c3) at + 8
+          if (scaled) {                                  // x · 2^E, exactly
+            const float f1 = rf1[ml], f2 = rf2[ml];
+            v = make_float4(__fmul_rn(__fmul_rn(v.x, f1), f2), __fmul_rn(__fmul_rn(v.y, f1), f2),
+                            __fmul_rn(__fmul_rn(v.z, f1), f2), __fmul_rn(__fmul_rn(v.w, f1), f2));
+          }
           uint32_t p0[3], p1[3];
           split3(v.x, v.z, p0[0], p0[1], p0[2]);
           split3(v.y, v.w, p1[0], p1[1], p1[2]);
@@ -651,6 +815,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
             *reinterpret_cast<uint32_t*>(bst + b_off<NB>(col, kl0 + 8)) = p1[p];
           }
         }
+        if (dt < kMt) eslot[slot * kMt + dt] = rexp[dt];
         if constexpr (GROUP) {
           float* sst = reinterpret_cast<float*>(smem + L::kS + slot * L::kSStage);
 #pragma unroll 1
@@ -720,6 +885,34 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
     return;
   }
 
+  // ---- consumer warpgroups. First, the row maxima of the block's first
+  // x ranges (see above), handed to the producer through barrier 3.
+  {
+    const int ct = threadIdx.x - kProducers;
+    uint32_t* maxima = reinterpret_cast<uint32_t*>(smem + L::kPreMax);
+    if (ct == 0) {
+      int n = 0;
+      for (int w = blockIdx.x; w < n_work && n < kPre; w += gridDim.x) {
+        const Work wk = work_item(args, w);
+        bool seen = false;
+        for (int p = 0; p < n; ++p) seen |= pre_key[p].x == wk.mt && pre_key[p].y == wk.split;
+        if (!seen) pre_key[n++] = make_int2(wk.mt, wk.split);
+      }
+      *pre_n = n;
+    }
+    for (int i = ct; i < kPre * kMt; i += kConsumers) maxima[i] = 0u;
+    asm volatile("bar.sync 4, %0;\n" ::"n"(kConsumers) : "memory");
+    const int q = args.chunks / args.S, r = args.chunks - q * args.S;
+    for (int p = 0; p < *pre_n; ++p) {
+      const int mt = pre_key[p].x, split = pre_key[p].y;
+      const int m0 = mt * kMt, c_begin = split * q + min(split, r);
+      const int c_end = c_begin + q + (split < r ? 1 : 0);
+      range_max(args, m0, min(kMt, args.M - m0), c_begin * F::kCodes,
+                min(args.K, c_end * F::kCodes), ct / 32, kConsumers / 32, maxima + p * kMt);
+    }
+    asm volatile("bar.arrive 3, %0;\n" ::"n"(kHandOver) : "memory");
+  }
+
   // ---- consumer warpgroups: rows 64 cw .. 64 cw + 63 of a tile
   const int cw = threadIdx.x / 128 - 1;
   const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -767,13 +960,25 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
     wgmma_commit();
   };
 
+  const int* eslot = reinterpret_cast<const int*>(smem + L::kE);
   int g = 0;                                         // ring position, across work items
   for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x) {
     const Work wk = work_item(args, wi);
     const int n0 = wk.tile * kRows, m0 = wk.mt * kMt;
     float part[kMpt][2];                             // per x row and row half
+    int ex[kMpt];                                    // E of each x row, from the item's last stage
 #pragma unroll
-    for (int i = 0; i < kMpt; ++i) part[i][0] = part[i][1] = 0.f;
+    for (int i = 0; i < kMpt; ++i) {
+      part[i][0] = part[i][1] = 0.f;
+      ex[i] = 0;
+    }
+    // the x rows' exponents (the same in every stage of an item), read from
+    // the last stage before it is released, so that they hold no register
+    // while wgmma runs
+    auto read_exponents = [&](int slot) {
+#pragma unroll
+      for (int i = 0; i < kMpt; ++i) ex[i] = eslot[slot * kMt + t * kMpt + i];
+    };
     // Units go in pairs: both A sets are filled, then both units issued, then
     // waited for. No register a wgmma reads is written while one is in flight
     // (ptxas serializes every wgmma otherwise); the two consumer warpgroups,
@@ -810,6 +1015,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
           fence_regs(aa);
           fence_regs(ab);
         }
+        if (it == wk.n_iter - 1) read_exponents(slot);
         mbar_arrive(empty + slot);
       }
       if constexpr (kTwo) {
@@ -859,18 +1065,27 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
           fence_regs(ab);
           combine(tb, sst, u + 1);
         }
+        if (it == wk.n_iter - 1) read_exponents(slot);
         mbar_arrive(empty + slot);
       }
     }
 
-    // ---- epilogue: y = part * mult, or the split-K partials and their sum
+    // ---- epilogue: part / K_h (for a scaled row, part · 2^-(E + log2 K_h)),
+    // times the row scale; or those split-K partials and their sum. Both
+    // are exact scalings, so an unscaled row rounds once, at the row scale,
+    // as without the prescale.
     float mult[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + r0 + 8 * h;
-      mult[h] = GROUP ? 1.0f / static_cast<float>(F::kHalf)
-                      : (n < args.N ? __ldg(args.scale + n) / static_cast<float>(F::kHalf) : 0.f);
+      mult[h] = GROUP ? 1.0f : (n < args.N ? __ldg(args.scale + n) : 0.f);
     }
+#pragma unroll
+    for (int i = 0; i < kMpt; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        part[i][h] = ex[i] == 0 ? part[i][h] * (1.0f / static_cast<float>(F::kHalf))
+                                : ldexpf(part[i][h], -(ex[i] + F::kLog2Half));
     if (args.S == 1) {
 #pragma unroll
       for (int i = 0; i < kMpt; ++i)

@@ -9,10 +9,15 @@ Two libraries:
   ``repro_qmm_group_tc`` (:data:`QMM_GROUP`) replaces ``qmm_group_pallas``:
   an (N, ⌈K/g⌉) slab of scales, one per g contiguous codes along K
   (``per_block``), for g a multiple of 16 codes.
-* ``csrc/qmm.cu`` (:data:`CORE_LIBRARY`), the CUDA-core row walk, keeps
-  ``repro_qmm_group`` (:data:`QMM_GROUP_CORE`) for the group sizes the
-  tensor-core kernel does not take (g not a multiple of 16).
-  :func:`repro_torch.kernels.qmm.ops.group_kernel` routes by g.
+* ``csrc/qmm.cu`` (:data:`CORE_LIBRARY`), the CUDA-core row walk, which
+  reads the codes byte by byte: ``repro_qmm_group`` (:data:`QMM_GROUP_CORE`)
+  for the group sizes the tensor-core kernel does not take (g not a multiple
+  of 16), and for any g when the codes do not start on a 16-byte boundary;
+  ``repro_qmm`` (:data:`QMM_CORE`), per-row scales for such codes (a
+  row-slice view of a packed operand). :func:`qmm_cuda` and
+  :func:`qmm_group_cuda` route by the codes' alignment,
+  :func:`repro_torch.kernels.qmm.ops.group_kernel` by g and alignment. No
+  view is copied into an aligned buffer.
 
 Each source is compiled with nvcc into ``build/repro_torch/`` on first use
 (:mod:`repro_torch.kernels.cudalib`). There is no fallback: a CUDA tensor that
@@ -38,8 +43,8 @@ from repro_torch.quant.formats import BY_BITS
 from repro_torch.quant.pack import packed_len
 
 __all__ = ["NVCC_FLAGS", "SOURCE", "CORE_SOURCE", "LIBRARY", "CORE_LIBRARY", "QMM",
-           "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE", "build_dir", "qmm_cuda",
-           "qmm_group_cuda"]
+           "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE", "build_dir",
+           "qmm_cuda", "qmm_group_cuda", "tc_aligned"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm_wgmma.cu"
 CORE_SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
@@ -54,6 +59,8 @@ LIBRARY = CudaLibrary(SOURCE, {
     "repro_qmm_group_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 })
 CORE_LIBRARY = CudaLibrary(CORE_SOURCE, {
+    # x, codes, scale, y, M, N, K, Kp, bits, stream
+    "repro_qmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, codes, scale, y, M, N, K, Kp, bits, group_size, stream
     "repro_qmm_group": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 })
@@ -80,11 +87,17 @@ def _check(who, x, w_packed, scale, bits, k_dim):
     return m, k, n, kp
 
 
+def tc_aligned(w_packed: torch.Tensor) -> bool:
+    """Whether the codes start on a 16-byte boundary, as the tensor-core
+    kernel needs (it reads them by TMA and in 16-byte copies aligned to the
+    array's start)."""
+    return w_packed.data_ptr() % 16 == 0
+
+
 def _check_aligned(who, w_packed):
-    """The tensor-core kernel reads codes by TMA and by 16-byte copies aligned
-    to the array's start."""
-    if w_packed.data_ptr() % 16:
-        raise ValueError(f"{who}: w_packed must start on a 16-byte boundary")
+    if not tc_aligned(w_packed):
+        raise ValueError(f"{who}: w_packed must start on a 16-byte boundary (codes "
+                         "that do not take the byte-load route of qmm_cuda)")
 
 
 def _scratch(device, m, n, kp, lib):
@@ -130,6 +143,25 @@ class QmmKernel(CudaKernel):
         return y
 
 
+class QmmCoreKernel(CudaKernel):
+    """``repro_qmm``: y = x @ dequant(w)ᵀ with one scale per row of w, on the
+    CUDA-core row walk, which reads the codes bytewise: any start address."""
+
+    def __call__(self, x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+                 bits: int, k_dim: int) -> torch.Tensor:
+        """x (M, K) f32, w_packed (N, Kp) uint8, scale (1, N) or (N,) f32, all
+        CUDA and contiguous."""
+        m, k, n, kp = _check("qmm_cuda", x, w_packed, scale, bits, k_dim)
+        if scale.numel() != n:
+            raise ValueError(f"qmm_cuda: scale has {scale.numel()} entries, N={n}")
+        y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        if m == 0 or n == 0:
+            return y
+        self.launch(x.device, (n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+                    y.data_ptr(), m, n, k, kp, bits)
+        return y
+
+
 class QmmGroupKernel(CudaKernel):
     """A group-scaled entry: y = x @ dequant(w)ᵀ with scale (N, ⌈K/g⌉).
 
@@ -170,18 +202,23 @@ class QmmGroupKernel(CudaKernel):
 
 
 QMM = QmmKernel(LIBRARY, "repro_qmm_tc")
+QMM_CORE = QmmCoreKernel(CORE_LIBRARY, "repro_qmm")
 QMM_GROUP = QmmGroupKernel(LIBRARY, "repro_qmm_group_tc", TC_GROUP_MULTIPLE, split_k=True)
 QMM_GROUP_CORE = QmmGroupKernel(CORE_LIBRARY, "repro_qmm_group", 1, split_k=False)
 
 
 def qmm_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
              k_dim: int) -> torch.Tensor:
-    """Launch the Hopper per-row-scale kernel (see :class:`QmmKernel`)."""
-    return QMM(x, w_packed, scale, bits, k_dim)
+    """Launch the per-row-scale kernel the codes' alignment routes to: the
+    tensor-core ``QMM`` (:class:`QmmKernel`) for codes on a 16-byte
+    boundary, the byte-load ``QMM_CORE`` (:class:`QmmCoreKernel`) otherwise."""
+    return (QMM if tc_aligned(w_packed) else QMM_CORE)(x, w_packed, scale, bits, k_dim)
 
 
 def qmm_group_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
                    k_dim: int, group_size: int) -> torch.Tensor:
     """Launch the tensor-core group-scaled kernel (g a multiple of 16; see
-    :class:`QmmGroupKernel`)."""
-    return QMM_GROUP(x, w_packed, scale, bits, k_dim, group_size)
+    :class:`QmmGroupKernel`), or, for codes off a 16-byte boundary, the
+    byte-load ``QMM_GROUP_CORE``."""
+    kernel = QMM_GROUP if tc_aligned(w_packed) else QMM_GROUP_CORE
+    return kernel(x, w_packed, scale, bits, k_dim, group_size)

@@ -6,9 +6,11 @@
   weights (``per_block``) go to a group kernel or :func:`qmm_group_ref`.
   There is no padding: the kernels mask the ragged edges themselves.
 * :func:`cuda_kernel` / :func:`group_kernel` — the card's kernel for a packed
-  operand, a fixed route by group size: per-row scales and g = 16·j run on
-  the tensor cores (``QMM``, ``QMM_GROUP``, ``csrc/qmm_wgmma.cu``), other g
-  on the CUDA-core row walk (``QMM_GROUP_CORE``, ``csrc/qmm.cu``).
+  operand, a fixed route by group size and the codes' alignment: per-row
+  scales and g = 16·j run on the tensor cores (``QMM``, ``QMM_GROUP``,
+  ``csrc/qmm_wgmma.cu``) when the codes start on a 16-byte boundary; other
+  g, and codes that do not (a row-slice view), on the CUDA-core row walk,
+  which reads bytes (``QMM_CORE``, ``QMM_GROUP_CORE``, ``csrc/qmm.cu``).
 * :class:`PackedOperator` / :func:`pack_operator` — Φ̂ in both orientations,
   the pair QNIHT streams every iteration; ``shared=True`` packs one
   quantization in both (the ``requantize="fixed"`` deployment mode).
@@ -29,10 +31,12 @@ import torch
 from repro_torch.kernels.cudalib import CudaKernel
 from repro_torch.kernels.qmm.kernel import (
     QMM,
+    QMM_CORE,
     QMM_GROUP,
     QMM_GROUP_CORE,
     TC_GROUP_MULTIPLE,
     qmm_cuda,
+    tc_aligned,
 )
 from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
 from repro_torch.quant.formats import (
@@ -113,24 +117,28 @@ def pack_weights(
     )
 
 
-def group_kernel(group_size: int) -> CudaKernel:
+def group_kernel(group_size: int, w_packed: Optional[torch.Tensor] = None) -> CudaKernel:
     """The card's group-scaled kernel for g: a fixed route, not a fallback.
-    g = 16·j runs on the tensor cores (``QMM_GROUP``), any other g on the
-    CUDA-core row walk (``QMM_GROUP_CORE``)."""
-    return QMM_GROUP if group_size % TC_GROUP_MULTIPLE == 0 else QMM_GROUP_CORE
+    g = 16·j runs on the tensor cores (``QMM_GROUP``), any other g, and codes
+    ``w_packed`` that do not start on a 16-byte boundary, on the CUDA-core row
+    walk (``QMM_GROUP_CORE``)."""
+    if group_size % TC_GROUP_MULTIPLE or (w_packed is not None and not tc_aligned(w_packed)):
+        return QMM_GROUP_CORE
+    return QMM_GROUP
 
 
 def cuda_kernel(w: PackedWeights) -> CudaKernel:
     """The kernel :func:`qmm` launches for ``w`` on the card."""
     if w.granularity.kind == "per_block":
-        return group_kernel(w.granularity.group_size)
-    return QMM
+        return group_kernel(w.granularity.group_size, w.packed)
+    return QMM if tc_aligned(w.packed) else QMM_CORE
 
 
 def qmm_group_cuda(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
                    k_dim: int, group_size: int) -> torch.Tensor:
-    """Launch the group-scaled kernel that :func:`group_kernel` routes g to."""
-    return group_kernel(group_size)(x, w_packed, scale, bits, k_dim, group_size)
+    """Launch the group-scaled kernel that :func:`group_kernel` routes g and
+    the codes to."""
+    return group_kernel(group_size, w_packed)(x, w_packed, scale, bits, k_dim, group_size)
 
 
 def qmm(x: torch.Tensor, w: PackedWeights, *, w_t: Optional[PackedWeights] = None) -> torch.Tensor:

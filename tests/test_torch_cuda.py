@@ -9,8 +9,11 @@ Tolerance for qmm and qmm_group, as in the CPU tests: |Δ| ≤ 1e-5·|ref| +
 tensor-core kernel (``qmm_wgmma.cu``) is held to what a tolerance cannot
 show: integer x equals the plain version bit for bit, rows of Φ̂ with one
 nonzero code give fl(c·x) (bit for bit; 2 ulp grouped), and row b of an
-M = 8 call equals the M = 1 call on row b. hist, mask and
-sqround equal their plain versions bit for bit. Flash attention: |Δ| ≤ 2e-4
+M = 8 call equals the M = 1 call on row b. x at the edges of f32 (every |x|
+below 2⁻¹¹⁰, the largest f32, rows spanning the whole range) is held to the
+same rule, computed in float64, and where the plain version overflows the
+kernel must give inf or nan in the same places. hist, mask, the fused H_s
+and sqround equal their plain versions bit for bit. Flash attention: |Δ| ≤ 2e-4
 (abs and rel) for float32 inputs (the CUDA-core kernel FLASH), 2e-2 for
 bfloat16 and float16 (the tensor-core kernel FLASH_TC), the reference's
 kernel-vs-oracle bounds; for the 16-bit types also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for
@@ -32,9 +35,16 @@ from repro_torch.kernels.flashattn import kernel as fa_kernel
 from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
 from repro_torch.kernels.hsthresh import kernel as hs_kernel
 from repro_torch.kernels.hsthresh.ops import hsthresh
-from repro_torch.kernels.hsthresh.ref import hist_ref, mask_ref, row_vmax
+from repro_torch.kernels.hsthresh.ref import hist_ref, hsthresh_ref, mask_ref, row_vmax
 from repro_torch.kernels.qmm import kernel as qmm_kernel
-from repro_torch.kernels.qmm.ops import cuda_kernel, group_kernel, pack_operator, pack_weights, qmm
+from repro_torch.kernels.qmm.ops import (
+    PackedWeights,
+    cuda_kernel,
+    group_kernel,
+    pack_operator,
+    pack_weights,
+    qmm,
+)
 from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
 from repro_torch.kernels.sqround import kernel as sq_kernel
 from repro_torch.kernels.sqround.ops import sqround
@@ -226,6 +236,148 @@ def test_batch_rows_equal_single_rows(cuda, bits, nk, g):
     assert torch.equal(y, torch.cat([qmm(x[b:b + 1].contiguous(), w) for b in range(8)]))
 
 
+FLT_MAX = torch.finfo(torch.float32).max
+
+
+def _edge_x(kind, m, k, gen, device):
+    """x at the edges of the three-piece split: every |x| in [2⁻¹²⁵, 2⁻¹¹⁰)
+    ("tiny"); rows whose largest |x| is the largest f32 over x near 2⁸⁰
+    ("top"); rows spanning the whole range, 2⁻¹²⁶ to the largest f32
+    ("mixed"); rows with two entries of the largest f32, whose sums overflow
+    where their codes agree in sign and add up past 1 ("overflow")."""
+    sign = torch.where(torch.rand(m, k, generator=gen, device=device) < 0.5, -1.0, 1.0)
+    mant = 1.0 + torch.rand(m, k, generator=gen, device=device)
+
+    def pick(lo, hi):
+        e = torch.randint(lo, hi, (m, k), generator=gen, device=device).float()
+        return sign * mant * torch.exp2(e)
+    rows = torch.arange(m, device=device)
+    cols = lambda: torch.randint(0, k, (m,), generator=gen, device=device)  # noqa: E731
+    if kind == "tiny":
+        return pick(-125, -110)
+    if kind == "top":
+        x = torch.randn(m, k, generator=gen, device=device) * 2.0 ** 80
+        x[rows, cols()] = FLT_MAX * sign[:, 0]
+        return x
+    if kind == "mixed":
+        x = pick(-126, 80)
+        x[rows, cols()] = FLT_MAX * sign[:, 1]
+        x[rows, cols()] = 2.0 ** -126
+        return x
+    x = torch.randn(m, k, generator=gen, device=device)
+    c0 = cols()
+    x[rows, c0] = FLT_MAX
+    x[rows, (c0 + 1 + cols() % (k - 1)) % k] = FLT_MAX
+    return x
+
+
+def _hold_edges(y, ref, x, wabs):
+    """The 1e-5 rule, computed in float64 (so that |x|@|w| does not overflow
+    to an infinite tolerance), where the plain version is finite; inf or nan
+    in the same places where it is not."""
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(y), fin), int((torch.isfinite(y) != fin).sum())
+    tol = 1e-5 * ref.double().abs() + 1e-5 * (x.double().abs() @ wabs.double().T)
+    err = (y.double() - ref.double()).abs()
+    assert bool((err[fin] <= tol[fin]).all()), float((err - tol)[fin].max())
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("nk", LOFAR_SHAPES)
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("kind", ["tiny", "top", "mixed", "overflow"])
+def test_split_edges_follow_the_plain_version(cuda, bits, nk, m, kind):
+    """x at both edges of the three-piece split, through QMM and QMM_GROUP
+    (g = 64), at the LOFAR shapes: the per-row power-of-two prescale keeps
+    every finite x exact where it counts (rows of tiny x no longer lose their
+    lo piece, the largest f32 no longer splits into inf)."""
+    n, k = nk
+    kh = 2 ** (bits - 1) // 2
+    gen = torch.Generator(device=cuda).manual_seed(bits + n + m)
+    codes = torch.randint(-kh, kh + 1, (n, k), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.int8)
+    packed = pack_codes(codes, bits)
+    scale = torch.rand(n, generator=gen, device=cuda) * 0.25 + 0.5
+    gscale = torch.rand(n, (k + 63) // 64, generator=gen, device=cuda) * 0.25 + 0.5
+    x = _edge_x(kind, m, k, gen, cuda)
+    wabs = codes.float().abs() * (scale[:, None] / kh)
+    before = qmm_kernel.QMM.launches
+    _hold_edges(qmm_kernel.qmm_cuda(x, packed, scale, bits, k),
+                qmm_ref(x, packed, scale, bits, k), x, wabs)
+    assert qmm_kernel.QMM.launches == before + 1
+    gabs = codes.float().abs() * expand_block_scale(gscale, 64, k) / kh
+    _hold_edges(qmm_kernel.QMM_GROUP(x, packed, gscale, bits, k, 64),
+                qmm_group_ref(x, packed, gscale, bits, k, 64), x, gabs)
+    if kind == "overflow":            # the case is real: some outputs overflow, not all
+        ref = qmm_ref(x, packed, scale, bits, k)
+        assert 0 < int((~torch.isfinite(ref)).sum()) < ref.numel()
+
+
+@pytest.mark.parametrize("kind", ["tiny", "mixed", "top"])
+def test_split_edges_past_the_first_ranges_of_a_block(cuda, kind):
+    """M = 200 at the LOFAR forward shape gives a block more than four x
+    ranges (m-tile, split): the consumers take the first four ranges' row
+    maxima up front and the producer takes the later ones itself. Both
+    must scale the edge rows."""
+    n, k = LOFAR_SHAPES[0]
+    gen = torch.Generator(device=cuda).manual_seed(200)
+    codes = torch.randint(-1, 2, (n, k), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.int8)
+    packed = pack_codes(codes, 2)
+    scale = torch.rand(n, generator=gen, device=cuda) * 0.25 + 0.5
+    x = _edge_x(kind, 200, k, gen, cuda)
+    _hold_edges(qmm_kernel.QMM(x, packed, scale, 2, k), qmm_ref(x, packed, scale, 2, k), x,
+                codes.float().abs() * scale[:, None])
+
+
+def _codes_at(packed, offset):
+    """The same codes as a contiguous view that starts ``offset`` bytes into a
+    larger buffer (the start of a row slice of a bigger packed operand)."""
+    buf = torch.zeros(offset + packed.numel() + 16, dtype=torch.uint8, device=packed.device)
+    view = buf[offset:offset + packed.numel()].view(packed.shape)
+    view.copy_(packed)
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 2, 8])
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("shape", [(1, 870, 65536), (8, 65536, 870), (5, 333, 1001)])
+@pytest.mark.parametrize("g", [None, 64])
+def test_misaligned_codes_take_the_byte_load_route(cuda, offset, bits, shape, g):
+    """Codes that start off a 16-byte boundary compute on the CUDA-core row
+    walk (QMM_CORE per row, QMM_GROUP_CORE grouped), launched once, never
+    the tensor-core kernel, and agree with the plain version."""
+    m, n, k = shape
+    gen = torch.Generator(device=cuda).manual_seed(offset + bits + n)
+    gran = "per_channel" if g is None else f"per_block:{g}"
+    w0 = pack_weights(torch.randn(n, k, generator=gen, device=cuda), bits, prng.PRNGKey(bits),
+                      granularity=gran)
+    w = PackedWeights(_codes_at(w0.packed, offset), w0.scale, bits, k, w0.granularity)
+    assert w.packed.data_ptr() % 16
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    routed = qmm_kernel.QMM_CORE if g is None else qmm_kernel.QMM_GROUP_CORE
+    assert cuda_kernel(w) is routed
+    kernels = (qmm_kernel.QMM, qmm_kernel.QMM_GROUP, qmm_kernel.QMM_CORE,
+               qmm_kernel.QMM_GROUP_CORE)
+    before = [kk.launches for kk in kernels]
+    y = qmm(x, w)
+    assert [kk.launches for kk in kernels] == [b + (kk is routed) for kk, b in
+                                               zip(kernels, before)]
+    kh = 2 ** (bits - 1) // 2
+    if g is None:
+        ref = qmm_ref(x, w.packed, w.scale, bits, k)
+        wabs = unpack_codes(w.packed, bits, k).float().abs() * (w.scale.reshape(-1, 1) / kh)
+    else:
+        ref = qmm_group_ref(x, w.packed, w.scale, bits, k, g)
+        wabs = (unpack_codes(w.packed, bits, k).float().abs()
+                * expand_block_scale(w.scale, g, k) / kh)
+    assert bool(((y - ref).abs() <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wabs.T)).all())
+    # the kernel-level entry points route the same way
+    direct = (qmm_kernel.qmm_cuda(x, w.packed, w.scale, bits, k) if g is None else
+              qmm_kernel.qmm_group_cuda(x, w.packed, w.scale, bits, k, g))
+    assert torch.equal(direct, y)
+
+
 def test_group_size_8_runs_on_the_cuda_core_kernel(cuda):
     """g = 8 is no multiple of 16: the route sends it to qmm.cu's kernel,
     whose counter alone moves."""
@@ -261,12 +413,74 @@ def test_hist_and_mask_equal_plain_versions(cuda, shape, kind):
 
 
 def test_hsthresh_on_card_equals_cpu(cuda):
+    """hsthresh on a CUDA tensor is one launch of the fused kernel, and no
+    hist or mask launch; its output equals the CPU's plain chain."""
     x = torch.randn(5, 3000, generator=torch.Generator().manual_seed(1))
-    before = (hs_kernel.HIST.launches, hs_kernel.MASK.launches)
+    before = (hs_kernel.HSTHRESH.launches, hs_kernel.HIST.launches, hs_kernel.MASK.launches)
     out = hsthresh(x.to(cuda), 17)
-    assert (hs_kernel.HIST.launches, hs_kernel.MASK.launches) == (before[0] + 1,
-                                                                   before[1] + 1)
+    assert (hs_kernel.HSTHRESH.launches, hs_kernel.HIST.launches,
+            hs_kernel.MASK.launches) == (before[0] + 1, before[1], before[2])
     assert torch.equal(out.cpu(), hsthresh(x, 17))
+
+
+def _hs_rows(kind, b, n, gen, device):
+    """Rows for the fused H_s: generic, the projected iterate's nonnegative
+    half-zero rows, threshold-bin ties straddling the cluster's chunk
+    boundaries (8,192 elements apart), a flat row, an all-zero row."""
+    x = torch.randn(b, n, generator=gen, device=device)
+    if kind == "sparse":
+        x = torch.clamp_min(x, 0.0)
+    elif kind == "straddle":
+        x = x * 0.1
+        for edge in range(0, n, 8192):
+            a, e = max(0, edge - 6), min(n, edge + 6)
+            x[:, a:e] = torch.where(torch.rand(b, e - a, generator=gen, device=device) < 0.5,
+                                    1.0, -1.0)
+    elif kind == "flat":
+        x = torch.full((b, n), -0.75, device=device)
+    elif kind == "zeros":
+        x = torch.zeros(b, n, device=device)
+    return x
+
+
+@pytest.mark.parametrize("shape", [(1, 65536), (8, 65536), (3, 1001), (2, 2 ** 22), (4, 20)])
+@pytest.mark.parametrize("kind", ["generic", "sparse", "straddle", "flat", "zeros"])
+@pytest.mark.parametrize("s", [30, 1001])
+def test_fused_hsthresh_equals_plain_version(cuda, shape, kind, s):
+    """The fused kernel equals hsthresh_ref bit for bit (nbins 2,048) in one
+    launch per call: one-chunk and eight-chunk clusters, rows resident in
+    shared memory and a 2²² row streamed from global memory, ties across
+    chunk edges, flat and all-zero rows, and N <= s."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] + shape[1] + s)
+    x = _hs_rows(kind, *shape, gen, cuda)
+    before = hs_kernel.HSTHRESH.launches
+    y = hs_kernel.hsthresh_cuda(x, s, 2048)
+    assert hs_kernel.HSTHRESH.launches == before + 1
+    want = hsthresh_ref(x, s, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want), int((y != want).sum())
+    assert int((y != 0).sum(dim=1).max()) <= s
+
+
+@pytest.mark.parametrize("nbins", [1, 12288])
+@pytest.mark.parametrize("shape", [(2, 65536), (3, 1001)])
+@pytest.mark.parametrize("s", [0, 30])
+def test_fused_hsthresh_at_the_bin_counts_it_takes(cuda, nbins, shape, s):
+    """The fewest and the most bins the kernel takes (12,288: 48 KB of
+    counters in each CTA beside its chunk), and s = 0."""
+    gen = torch.Generator(device=cuda).manual_seed(nbins + shape[1] + s)
+    x = torch.randn(*shape, generator=gen, device=cuda)
+    assert torch.equal(hs_kernel.hsthresh_cuda(x, s, nbins), hsthresh_ref(x, s, nbins))
+
+
+def test_fused_hsthresh_off_the_vector_boundary(cuda):
+    """A batch whose rows start anywhere (N odd, and a view one element into
+    its storage): the bulk copy takes each chunk's aligned middle, plain
+    loads the ends."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    flat = torch.randn(1 + 3 * 65537, generator=gen, device=cuda)
+    x = flat[1:].view(3, 65537)
+    assert torch.equal(hs_kernel.hsthresh_cuda(x, 30, 2048), hsthresh_ref(x, 30, 2048))
 
 
 @pytest.mark.parametrize("kw", [dict(threshold="hsthresh"),
@@ -362,34 +576,99 @@ def test_flash_attention_tensor_cores_at_starcoder2_width(cuda, dtype):
     _flash_held(q, k, v, True, 2e-2)
 
 
+def _launched_once(kernel, fn):
+    """fn() launches ``kernel`` once and no other flash attention kernel."""
+    before = [kk.launches for kk in fa_kernel.KERNELS]
+    out = fn()
+    assert [kk.launches for kk in fa_kernel.KERNELS] == [
+        b + (kk is kernel) for kk, b in zip(fa_kernel.KERNELS, before)]
+    return out
+
+
+def _flash_view(t, offset):
+    """t as a contiguous view that starts ``offset`` elements into a larger
+    tensor (no copy of it is ever made by the route)."""
+    flat = torch.zeros(offset + t.numel(), dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_flash_attention_refuses_a_misaligned_view(cuda, which):
-    """The kernel reads 16-byte vectors: a view that starts one element into
-    its storage is refused, not copied, and nothing is launched."""
-    q = torch.randn(1, 4, 64, 32, device=cuda)
-    kv = {n: torch.randn(1, 2, 64, 32, device=cuda) for n in "kv"}
-    flat = torch.randn(1 + q.numel(), device=cuda)
-    inputs = {"q": q, **kv}
-    inputs[which] = flat[1:1 + inputs[which].numel()].view(inputs[which].shape)
-    before = fa_kernel.FLASH.launches
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention(inputs["q"], inputs["k"], inputs["v"], causal=True)
-    assert fa_kernel.FLASH.launches == before
+    """A float32 view that starts one element (4 bytes) into its storage is
+    not refused any more, nor copied: it goes to FLASH_UNALIGNED (scalar
+    loads), launched once, and agrees with the plain version."""
+    inputs = {"q": torch.randn(1, 4, 64, 32, device=cuda),
+              **{n: torch.randn(1, 2, 64, 32, device=cuda) for n in "kv"}}
+    inputs[which] = _flash_view(inputs[which], 1)
+    out = _launched_once(fa_kernel.FLASH_UNALIGNED, lambda: flash_attention(
+        inputs["q"], inputs["k"], inputs["v"], causal=True))
+    ref = attention_plain(inputs["q"], inputs["k"], inputs["v"], causal=True,
+                          scale=32 ** -0.5)
+    assert bool(((out - ref).abs() <= 2e-4 + 2e-4 * ref.abs()).all())
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_flash_attention_tc_refuses_a_misaligned_view(cuda, which):
-    """The tensor-core kernel's TMA needs 16-byte aligned tensors: a bfloat16
-    view that starts one element into its storage is refused, not copied."""
+    """A bfloat16 view that starts one element into its storage cannot feed
+    the tensor-core kernel's TMA: it goes to FLASH_UNALIGNED, is not copied,
+    and agrees with the plain version under the 16-bit rules."""
     shapes = {"q": (1, 4, 64, 32), "k": (1, 2, 64, 32), "v": (1, 2, 64, 32)}
     inputs = {n: torch.randn(*shape, device=cuda).to(torch.bfloat16)
               for n, shape in shapes.items()}
-    flat = torch.randn(1 + inputs[which].numel(), device=cuda).to(torch.bfloat16)
-    inputs[which] = flat[1:].view(shapes[which])
-    before = fa_kernel.FLASH_TC.launches
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention(inputs["q"], inputs["k"], inputs["v"], causal=True)
-    assert fa_kernel.FLASH_TC.launches == before
+    inputs[which] = _flash_view(inputs[which], 1)
+    _flash_held_on(fa_kernel.FLASH_UNALIGNED, inputs["q"], inputs["k"], inputs["v"], True,
+                   2e-2)
+
+
+def _flash_held_on(kernel, q, k, v, causal, tol):
+    """flash_attention launched once on ``kernel`` and held to the plain
+    version: |Δ| ≤ tol (abs and rel), and 16-bit rows ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂."""
+    out = _launched_once(kernel, lambda: flash_attention(q, k, v, causal=causal))
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = attention_plain(q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= tol + tol * ref.float().abs()).all()), float(err.max())
+    if q.dtype != torch.float32:
+        row_rel = err.norm(dim=-1) / ref.float().norm(dim=-1)
+        assert float(row_rel.max()) <= 2.0 ** -7, float(row_rel.max())
+
+
+FLASH_TOLS = [(torch.float32, 2e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)]
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOLS)
+@pytest.mark.parametrize("d", [8, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_head_dims_of_the_reference_configs(cuda, dtype, tol, d, causal):
+    """D = 8 (qwen3_moe_235b smoke), 160 (stablelm_12b) and 256
+    (recurrentgemma_2b): float32 on FLASH, 16-bit on FLASH_CORE (CUDA cores),
+    ragged lengths and GQA, held under the flash rules."""
+    gen = torch.Generator(device=cuda).manual_seed(d + causal)
+    q = torch.randn(2, 4, 200, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 2, 333, d, generator=gen, device=cuda).to(dtype) for _ in "kv")
+    kernel = fa_kernel.FLASH if dtype == torch.float32 else fa_kernel.FLASH_CORE
+    _flash_held_on(kernel, q, k, v, causal, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOLS)
+@pytest.mark.parametrize("offset", [2, 4])
+@pytest.mark.parametrize("d", [32, 128, 160])
+def test_flash_attention_views_off_the_16_byte_boundary(cuda, dtype, tol, offset, d):
+    """q, k and v as views 2 or 4 elements into larger tensors: off a 16-byte
+    boundary they run on FLASH_UNALIGNED; a float32 view 4 elements in (16
+    bytes) is aligned and keeps its usual route."""
+    gen = torch.Generator(device=cuda).manual_seed(offset + d)
+    q = _flash_view(torch.randn(1, 4, 130, d, generator=gen, device=cuda).to(dtype), offset)
+    k, v = (_flash_view(torch.randn(1, 2, 130, d, generator=gen, device=cuda).to(dtype),
+                        offset) for _ in "kv")
+    if (offset * q.element_size()) % 16:
+        kernel = fa_kernel.FLASH_UNALIGNED
+    else:
+        kernel = fa_kernel.cuda_kernel(q, k, v)
+        assert kernel is not fa_kernel.FLASH_UNALIGNED
+    _flash_held_on(kernel, q, k, v, True, tol)
 
 
 @pytest.mark.parametrize("which", ["sqround", "flash_attention", "flash_attention_tc"])

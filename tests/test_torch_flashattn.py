@@ -183,3 +183,62 @@ def test_tensor_core_wrapper_refuses_before_launching(dtype, error, match):
     with pytest.raises(error, match=match):
         fa_kernel.FLASH_TC(q, k, v, True, 0.1)
     assert fa_kernel.FLASH_TC.launches == before
+
+
+@pytest.mark.parametrize("d", [8, 160, 256])
+@pytest.mark.parametrize("dtype,tol", [((torch.float32, jnp.float32), F32_TOL),
+                                       ((torch.bfloat16, jnp.bfloat16), BF16_TOL)])
+def test_head_dims_of_the_reference_configs(d, dtype, tol):
+    """The head dims the reference's model configs use besides 16-128:
+    qwen3_moe_235b's smoke D = 8, stablelm_12b's 160, recurrentgemma_2b's 256."""
+    _hold(_qkv(1, 4, 2, 64, 64, d, seed=d), True, tol=tol, dtype=dtype)
+
+
+def _view(t, offset):
+    """t's values as a contiguous view that starts ``offset`` elements into a
+    larger tensor."""
+    flat = torch.zeros(offset + t.numel(), dtype=t.dtype)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype,d,want", [(torch.float32, 64, "FLASH"),
+                                          (torch.float32, 8, "FLASH"),
+                                          (torch.float32, 256, "FLASH"),
+                                          (torch.bfloat16, 64, "FLASH_TC"),
+                                          (torch.float16, 128, "FLASH_TC"),
+                                          (torch.bfloat16, 8, "FLASH_CORE"),
+                                          (torch.float16, 160, "FLASH_CORE"),
+                                          (torch.bfloat16, 256, "FLASH_CORE")])
+@pytest.mark.parametrize("offset", [0, 2, 4])
+def test_card_route_by_dtype_head_dim_and_alignment(dtype, d, want, offset):
+    """The fixed route on the card: by alignment (a view off a 16-byte
+    boundary to FLASH_UNALIGNED, never a copy), then dtype, then head dim."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 2, 1, 8, 8, d))
+    if offset:
+        q = _view(q, offset)
+    aligned = offset * q.element_size() % 16 == 0
+    got = fa_kernel.cuda_kernel(q, k, v)
+    assert got is (getattr(fa_kernel, want) if aligned else fa_kernel.FLASH_UNALIGNED)
+    assert d in got.head_dims and dtype in got.dtypes
+    assert got.library.source.name == ("flashattn_wgmma.cu" if got is fa_kernel.FLASH_TC
+                                       else "flashattn.cu")
+    # the CPU runs the plain version whatever the route would be
+    ref = attention_plain(q, k, v, causal=True, scale=d ** -0.5)
+    assert torch.equal(flash_attention(q, k, v, causal=True), ref)
+
+
+@pytest.mark.parametrize("kernel,dtype,d", [("FLASH_CORE", torch.bfloat16, 64),
+                                            ("FLASH_CORE", torch.float32, 8),
+                                            ("FLASH_TC", torch.bfloat16, 160),
+                                            ("FLASH_UNALIGNED", torch.float16, 96)])
+def test_wrappers_refuse_what_their_kernel_does_not_take(kernel, dtype, d):
+    """Each route's wrapper raises before any build or launch for a dtype or
+    head dim its kernel has no instantiation of, and counts nothing."""
+    k_obj = getattr(fa_kernel, kernel)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 2, 1, 8, 8, d))
+    before = k_obj.launches
+    with pytest.raises((TypeError, ValueError)):
+        k_obj(q, k, v, True, 0.1)
+    assert k_obj.launches == before and k_obj._lib is None

@@ -201,6 +201,119 @@ def test_cpu_hsthresh_never_launches_a_kernel():
         hs_kernel.mask_cuda(torch.randn(2, 10), torch.ones(2))
 
 
+def _fused_model(x: torch.Tensor, s: int, nbins: int, clusters: int,
+                 warps: int = 16) -> torch.Tensor:
+    """A plain torch model of ``csrc/hsthresh_fused.cu``'s decomposition of
+    each row into ``clusters`` chunks (the CTAs of a cluster) of ``warps``
+    segments each: per-chunk maxima and histograms summed, the same pick in
+    every chunk (idx = the number of bins whose suffix sum exceeds s), strict
+    and tied counts per chunk and warp, and a tie's row rank from the
+    exclusive prefix of the tied counts of the lower chunks and warps plus
+    its rank inside its warp."""
+    b, n = x.shape
+    per = -(-n // clusters)
+    L = -(-per // 4) * 4
+    bounds = [(min(n, r * L), min(n, (r + 1) * L)) for r in range(clusters)]
+    mags = [x[:, a:e].abs() for a, e in bounds]
+    cmax = torch.stack([m.amax(dim=1) if m.shape[1] else torch.zeros(b) for m in mags], dim=1)
+    vmax = torch.clamp_min(cmax.amax(dim=1), 1e-30)
+    hist = torch.zeros(b, nbins, dtype=torch.int32)
+    for m in mags:
+        hist += hist_ref(m, vmax, nbins)
+    picks = []
+    for _ in bounds:                      # every chunk picks from the same counts
+        tail = hist.flip(-1).cumsum(-1).flip(-1)
+        idx = (tail > s).sum(dim=-1)
+        picks.append(idx.to(torch.float32) * vmax / nbins)
+    assert all(torch.equal(p, picks[0]) for p in picks)
+    t = picks[0]
+    lo = (t - vmax / nbins).unsqueeze(-1)
+    y = torch.zeros_like(x)
+    # per chunk and warp segment: strict survivors and ties
+    segs, strict_total = [], torch.zeros(b, dtype=torch.int64)
+    for a, e in bounds:
+        seg = -(-(-(-(e - a) // warps)) // 32) * 32
+        for w in range(warps):
+            wa, we = min(e, a + w * seg), min(e, a + (w + 1) * seg)
+            mag = x[:, wa:we].abs()
+            st = mag > t.unsqueeze(-1)
+            ti = (mag >= lo) & ~st & (mag > 0)
+            segs.append((wa, we, st, ti))
+            strict_total += st.sum(dim=1)
+    room = (s - strict_total).unsqueeze(-1)
+    before = torch.zeros(b, 1, dtype=torch.int64)          # ties of lower chunks and warps
+    for wa, we, st, ti in segs:
+        rank = before + torch.cumsum(ti.to(torch.int64), dim=1) - ti.to(torch.int64)
+        keep = st | (ti & (rank < room))
+        y[:, wa:we] = torch.where(keep, x[:, wa:we], torch.zeros_like(x[:, wa:we]))
+        before = before + ti.sum(dim=1, keepdim=True)
+    return y
+
+
+def _fused_rows(kind: str, n: int, clusters: int) -> np.ndarray:
+    """Rows for the decomposition: generic, threshold-bin ties that straddle
+    the chunk boundaries, a flat row, an all-zero row."""
+    rng = np.random.default_rng(n + clusters)
+    if kind == "generic":
+        x = rng.standard_normal((2, n))
+    elif kind == "straddle":
+        # a plateau of equal magnitudes around every chunk boundary, above a
+        # generic floor: the plateau is the threshold bin
+        x = rng.standard_normal((2, n)) * 0.1
+        L = -(-(-(-n // clusters)) // 4) * 4
+        for r in range(1, clusters):
+            a, e = min(n, max(0, r * L - 5)), min(n, r * L + 5)
+            x[:, a:e] = np.where(rng.random((2, e - a)) < 0.5, 1.0, -1.0)
+        x[:, :3] = 1.0
+    elif kind == "flat":
+        x = np.full((2, n), 0.75)
+        x[1] *= -1.0
+    else:
+        x = np.zeros((2, n))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("clusters", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("kind", ["generic", "straddle", "flat", "zeros"])
+@pytest.mark.parametrize("n,s", [(4096, 30), (1001, 30), (20, 30), (30, 30), (1001, 7)])
+def test_fused_decomposition_is_bitwise(clusters, kind, n, s):
+    """The fused kernel's chunked algorithm, modelled in plain torch, equals
+    hsthresh_ref and the reference's hsthresh_ref (nbins 2,048) bit for bit,
+    for any number of chunks: ties straddling chunk edges, flat and all-zero
+    rows, N <= s and the ragged N = 1,001."""
+    x = _fused_rows(kind, n, clusters)
+    xt = torch.from_numpy(x)
+    got = _fused_model(xt, s, NBINS, clusters)
+    torch.testing.assert_close(got, hsthresh_ref(xt, s, NBINS), rtol=0, atol=0)
+    for b in range(x.shape[0]):
+        _eq(got[b], jref.hsthresh_ref(_j(x[b]), s, NBINS))
+        assert int((got[b] != 0).sum()) <= max(s, 0)
+
+
+def test_fused_decomposition_fills_ties_across_chunks_in_index_order():
+    """More ties than room, spread over every chunk: exactly s entries
+    survive, the first s tied ones by index, whichever chunk holds them."""
+    n, s = 4096, 30
+    x = np.zeros((1, n), np.float32)
+    x[0, ::100] = 2.0                       # 41 equal magnitudes over the row
+    for clusters in (2, 3, 8, 16):
+        got = _fused_model(torch.from_numpy(x), s, NBINS, clusters)
+        kept = torch.nonzero(got[0]).flatten()
+        assert kept.tolist() == list(range(0, 100 * s, 100))
+        _eq(got[0], jref.hsthresh_ref(_j(x[0]), s, NBINS))
+
+
+def test_cpu_hsthresh_launches_no_fused_kernel():
+    before = hs_kernel.HSTHRESH.launches
+    out = hsthresh(torch.randn(3, 500), 9)
+    assert out.shape == (3, 500) and hs_kernel.HSTHRESH.launches == before == 0
+    assert hs_kernel.HSTHRESH._lib is None
+    with pytest.raises(ValueError, match="CUDA"):
+        hs_kernel.hsthresh_cuda(torch.randn(2, 10), 3, NBINS)
+    assert hs_kernel.HSTHRESH.library.source.name == "hsthresh_fused.cu"
+    assert hs_kernel.HSTHRESH.library.source.is_file()
+
+
 def test_hsthresh_refuses_complex():
     with pytest.raises(TypeError):
         hsthresh(torch.ones(8, dtype=torch.complex64), 2)
