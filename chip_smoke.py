@@ -120,6 +120,42 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     replaces and the plain version, with each call's device launches
     counted.
 
+14. the rest of the solver on LOFAR CS302 at full size (per_tensor packed,
+    60 iterations), single and batch 8: ``early_exit=True`` (lossless) and
+    segments of 7 + 23 + 30 (``solver_init``/``solver_segment``/
+    ``solver_result``) must give the one-shot run's x and trace bit for bit;
+    ``exit_tol=1e-4`` at batch 8 must give each row the bits of its single
+    solve, and so must the same rows three times over (24 rows, past the
+    ``ROW_LOCAL_ROWS`` = 16 rows a ``qmm`` call keeps row-local, so Φ̂ goes
+    in blocks). Every run must launch ``qmm`` 14 times per iteration run
+    plus 2 per backtracking step, per block, and the solver's own loop must
+    stop where the rows' exits say (a witness on its step records each
+    row's raw update; it changes no arithmetic). The single solve's host
+    syncs (torch's sync debug mode) and device launches are counted with
+    and without the early exit;
+15. the MRI path at 256×256, ``mri`` (P_Ω F, s = 2,000) and ``mri-wavelet``
+    (P_Ω F W†, s = 8,000, per-band ŷ), single and batch 8, through
+    ``recover_mri``: PSNR, rel_error, the wall (median of 5), device
+    launches per iteration and busy time, and the single PSNR within 0.1 dB
+    of the JAX reference's (``MRI_REFERENCE_PSNR``). The same inputs (the
+    CPU's instance: mask, y and ŷ; ŷ is a stochastic rounding of y, which
+    the card's FFT can tip the other way in a few places: the card's own y
+    must be within 1e-5 of the CPU's per row and its own ŷ at most one step
+    away at no more than 1e-3 of the positions) solved on the
+    card and by the port on the CPU are held per row: ‖Δx_b‖ ≤ 1e-3‖x_b‖,
+    or a knife-edge split as in 4 (seen here as the first iteration whose
+    top-s support differs) with rel_error within 0.01; PSNR within 0.1 dB. Then
+    ``threshold="hsthresh"`` on the same instances: one fused ``HSTHRESH``
+    launch per proposal and x and trace bit for bit equal to the same solve
+    with ``hsthresh_ref`` standing in; and the fused H_s against
+    ``hsthresh_ref`` at N = 65,536, s = 2,000 and 8,000, B = 1 and 8, timed;
+16. ``python -m repro_torch.launch.recover --checkpoint-dir D --ckpt-every 10``
+    (LOFAR packed 2-bit, batch 8; and ``mri-wavelet``) in a subprocess,
+    SIGTERM after its second checkpoint, then ``--resume``: the final
+    checkpoint (the whole SolverState: x, the trace ...) must equal the
+    uninterrupted checkpointed run's bit for bit, and so must the
+    ``[recover]`` lines but for the wall.
+
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
 
@@ -174,6 +210,19 @@ STABLELM_12B_ATTN, RECURRENTGEMMA_2B_ATTN = (32, 8, 160), (10, 1, 256)
 QWEN3_MOE_SMOKE_ATTN = (8, 2, 8)
 PREFILL_TAIL_ROWS = 256        # rows of the 32k output held against a causal Sq = 256 call
 PLAIN_CHUNK_ROWS = 1024        # query rows per plain-version call at 32k
+SOLVER_SEGMENTS = (7, 23, 30)  # a split of the LOFAR solve's 60 iterations
+EXIT_TOL = 1e-4                # the freeze rule's tolerance in the solver phase
+FREEZE_TILES = 3               # the batch-8 rows 3 times over: 24 rows, past ROW_LOCAL_ROWS
+MRI_CONFIGS = ("mri", "mri-wavelet")
+# The JAX reference's PSNR (dB) on the same instance (seed 0, 8-bit y, the
+# config's own observation scales): repro.launch.recover.recover_mri, as
+# `python -m repro.launch.recover --config mri[-wavelet]` runs it, with JAX
+# 0.9.0 on the CPU (the value the CLI prints to 4 decimals, unrounded here)
+MRI_REFERENCE_PSNR = {"mri": 32.77187728881836, "mri-wavelet": 35.199073791503906}
+RESUME_EVERY = 10
+RESUME_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-phi", "2",
+                          "--requantize", "fixed", "--batch", "8"]),
+               ("mri-wavelet", ["--config", "mri-wavelet"]))
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
 # Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
@@ -1776,13 +1825,593 @@ def flash_mutants(torch, mods):
             "results": results}
 
 
+@contextlib.contextmanager
+def record_iterations(mods):
+    """The solver with a witness on its step (it changes no arithmetic; the
+    solver's own loop runs): for every iteration, each row's raw backtracking
+    steps (before the freeze rule masks them) and what the early exit reads
+    of the raw update x → x⁺: whether x⁺ = x bit for bit, ‖x⁺ − x‖² and
+    ‖x⁺‖² (summed per row as the solver sums them)."""
+    niht = mods["niht"]
+    real_setup = niht._solver_setup
+    log = {"bt": [], "still": [], "dx2": [], "x2": []}
+
+    def setup(*args, **kw):
+        x0, iteration = real_setup(*args, **kw)
+
+        def step(X, i):
+            X_new, outs = iteration(X, i)
+            log["bt"].append(outs[4])
+            log["still"].append((X_new == X).all(dim=-1))
+            log["dx2"].append(niht._rowwise_sqnorm(X_new - X))
+            log["x2"].append(niht._rowwise_sqnorm(X_new))
+            return X_new, outs
+        return x0, step
+
+    with stand_in(niht, _solver_setup=setup):
+        yield log
+
+
+def row_of(res, b):
+    """Row b of a batch result, as a single solve's result."""
+    return type(res)(x=res.x[b], trace=type(res.trace)(*(t[:, b] for t in res.trace)))
+
+
+def same_bits(torch, a, b):
+    """x and every trace field equal bit for bit (a, b as batches)."""
+    a, b = as_batch(a), as_batch(b)
+    return torch.equal(a.x, b.x) and all(torch.equal(u, v) for u, v in zip(a.trace, b.trace))
+
+
+def iterations_per_row(torch, mods, log, n_iters, exit_tol):
+    """The iterations each row runs before the early exit marks it done,
+    worked out from the witness's raw updates by the reference's rule
+    (lossless: the first x⁺ = x; freeze: the first ``_EXIT_PATIENCE``
+    consecutive ‖x⁺ − x‖² ≤ exit_tol²·‖x⁺‖²); n_iters for a row never done."""
+    if exit_tol == 0.0:
+        hit = torch.stack(log["still"]).cpu()
+    else:
+        small = (torch.stack(log["dx2"]) <= (exit_tol * exit_tol) * torch.stack(log["x2"])).cpu()
+        hit = torch.zeros_like(small)
+        streak = torch.zeros(small.shape[1], dtype=torch.int64)
+        for t in range(small.shape[0]):
+            streak = torch.where(small[t], streak + 1, torch.zeros_like(streak))
+            hit[t] = streak >= mods["niht"]._EXIT_PATIENCE
+    out = []
+    for b in range(hit.shape[1]):
+        when = torch.nonzero(hit[:, b]).flatten()
+        out.append(int(when[0]) + 1 if when.numel() else n_iters)
+    return out
+
+
+def syncs_and_launches(torch, fn):
+    """Host syncs of one call of fn (torch's sync debug mode warns once per
+    synchronizing call) and its device launches (torch.profiler: kernels,
+    memsets, copies; None when the profiler sees none)."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return syncs, launches or None
+
+
+def phase_solver(torch, mods):
+    """The rest of the solver on LOFAR CS302 at full size (per_tensor packed,
+    60 iterations), single and batch 8, through qniht/qniht_batch and the
+    segment API: the lossless early exit and segments of 7 + 23 + 30 give
+    the one-shot run's bits, the freeze rule (exit_tol = 1e-4) gives each
+    row of the batch the bits of its single solve (also the rows three times
+    over, 24, past ROW_LOCAL_ROWS), and qmm launches 14 times per iteration
+    run plus 2 per backtracking step, per block of rows under the freeze
+    rule."""
+    QMM, cs = mods["QMM"], mods["LOFAR"]
+    dev = torch.device(mods["device"])
+    kw = dict(bits_phi=cs.bits_phi, bits_y=cs.bits_y, key=mods["prng"].PRNGKey(0),
+              requantize="fixed", backend="packed", real_signal=True, nonneg=True)
+    seg_kw = {k: v for k, v in kw.items() if k != "key"}
+    out = {"qmm_launches": 0}
+
+    def run(label, fn, batch, early_exit=False, exit_tol=0.0):
+        """fn() under the step witness: the loop must stop where the rows'
+        exits say (all n_iters without the exit), and qmm launch 14 times per
+        iteration run plus 2 per backtracking step, for each block of up to
+        ROW_LOCAL_ROWS rows the freeze rule applies Φ̂ in."""
+        reset_counts(mods)
+        with record_iterations(mods) as log:
+            res = fn()
+        torch.cuda.synchronize()
+        launches = QMM.launches
+        others = {k.entry: k.launches for k in mods["KERNELS"] if k is not QMM and k.launches}
+        iters = len(log["bt"])
+        blocks = -(-batch // mods["ROW_LOCAL_ROWS"]) if exit_tol > 0.0 else 1
+        want = blocks * (14 * iters + 2 * sum(int(bt.max()) for bt in log["bt"]))
+        rows = (iterations_per_row(torch, mods, log, cs.n_iters, exit_tol) if early_exit
+                else [cs.n_iters] * batch)
+        if iters != min(cs.n_iters, max(rows)):
+            raise AssertionError(f"{label}: the loop ran {iters} iterations, the rows' exits "
+                                 f"say {min(cs.n_iters, max(rows))} (per row {rows})")
+        if launches == 0 or launches != want or others:
+            raise AssertionError(f"{label}: qmm launched {launches} times (predicted {want} "
+                                 f"for {iters} iterations), others {others}")
+        out["qmm_launches"] += launches
+        return res, {"iterations": iters, "iterations_per_row": rows, "qmm_launches": launches,
+                     "qmm_launches_predicted": want}
+
+    for batch in (0, 8):
+        phi, y, x_true = mods["lofar_instance"](cs, 0, batch, dev)
+        Y, X_true = (y, x_true) if batch else (y[None], x_true[None])
+        single = mods["qniht"] if not batch else mods["qniht_batch"]
+
+        def solve(**extra):
+            return single(phi, y, cs.n_sources, cs.n_iters, **kw, **extra)
+
+        def segments():
+            st = mods["solver_init"](phi, Y, cs.n_sources, cs.n_iters, **kw)
+            for n in SOLVER_SEGMENTS:
+                st = mods["solver_segment"](phi, st, n, s=cs.n_sources, **seg_kw)
+            return mods["solver_result"](st)
+
+        tag = f"batch={batch}" if batch else "single"
+        base, i_base = run(f"solver {tag} one-shot", solve, max(batch, 1))
+        early, i_early = run(f"solver {tag} early_exit", lambda: solve(early_exit=True),
+                             max(batch, 1), early_exit=True)
+        seg, i_seg = run(f"solver {tag} segments", segments, max(batch, 1))
+        rel = row_dx(torch, as_batch(base).x, X_true)
+        checks = {"early_exit": same_bits(torch, early, base),
+                  "segments": same_bits(torch, seg, base)}
+        print(f"[chip_smoke]   solver {tag}: rel_error {' '.join(f'{v:.4f}' for v in rel)} | "
+              f"one-shot {i_base['iterations']} iterations, qmm {i_base['qmm_launches']} | "
+              f"early_exit ran {i_early['iterations']} iterations (per row "
+              f"{i_early['iterations_per_row']}), qmm {i_early['qmm_launches']} (predicted "
+              f"{i_early['qmm_launches_predicted']}), "
+              f"{'bitwise identical' if checks['early_exit'] else 'DIFFERS'} | segments "
+              f"{'+'.join(map(str, SOLVER_SEGMENTS))}: qmm {i_seg['qmm_launches']}, "
+              f"{'bitwise identical' if checks['segments'] else 'DIFFERS'}", flush=True)
+        entry = {"rel_error_rows": rel, "one_shot": i_base, "early_exit": i_early,
+                 "segments": i_seg, **{f"{k}_bitwise": v for k, v in checks.items()}}
+        for name, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"solver {tag}: {name} differs from the one-shot run")
+        if batch:
+            frozen, i_frozen = run(f"solver {tag} exit_tol", lambda: solve(
+                early_exit=True, exit_tol=EXIT_TOL), batch, early_exit=True, exit_tol=EXIT_TOL)
+            alone, singles = [], []
+            for b in range(batch):
+                r, i_b = run(f"solver row {b} alone, exit_tol", lambda: mods["qniht"](
+                    phi, y[b], cs.n_sources, cs.n_iters, early_exit=True, exit_tol=EXIT_TOL,
+                    **kw), 1, early_exit=True, exit_tol=EXIT_TOL)
+                singles.append(r)
+                alone.append({"bitwise": same_bits(torch, r, row_of(frozen, b)),
+                              "iterations": i_b["iterations"]})
+            # past ROW_LOCAL_ROWS rows: the batch three times over, in blocks
+            tall = FREEZE_TILES * batch
+            tiled, i_tiled = run(f"solver batch={tall} exit_tol", lambda: mods["qniht_batch"](
+                phi, y.repeat(FREEZE_TILES, 1), cs.n_sources, cs.n_iters, early_exit=True,
+                exit_tol=EXIT_TOL, **kw), tall, early_exit=True, exit_tol=EXIT_TOL)
+            tiled_ok = [same_bits(torch, singles[b % batch], row_of(tiled, b))
+                        for b in range(tall)]
+            rel_f = row_dx(torch, frozen.x, X_true)
+            print(f"[chip_smoke]   solver {tag} exit_tol={EXIT_TOL}: rows frozen after "
+                  f"{i_frozen['iterations_per_row']} iterations, the loop ran "
+                  f"{i_frozen['iterations']}, qmm {i_frozen['qmm_launches']} (predicted "
+                  f"{i_frozen['qmm_launches_predicted']}) | rel_error "
+                  f"{' '.join(f'{v:.4f}' for v in rel_f)} | each row against its single "
+                  f"solve: {['bitwise' if a['bitwise'] else 'DIFFERS' for a in alone]} "
+                  f"(single solves ran {[a['iterations'] for a in alone]} iterations) | "
+                  f"batch={tall} (the rows {FREEZE_TILES} times over, blocks of "
+                  f"{mods['ROW_LOCAL_ROWS']}): qmm {i_tiled['qmm_launches']} (predicted "
+                  f"{i_tiled['qmm_launches_predicted']}), {sum(tiled_ok)} of {tall} rows "
+                  "bitwise against their single solve", flush=True)
+            entry["exit_tol"] = {"tol": EXIT_TOL, **i_frozen, "rel_error_rows": rel_f,
+                                 "rows_alone": alone,
+                                 f"batch={tall}": {**i_tiled, "rows_bitwise": tiled_ok}}
+            if not all(a["bitwise"] for a in alone):
+                raise AssertionError(f"solver {tag} exit_tol: a row differs from its single "
+                                     "solve")
+            if not all(tiled_ok):
+                raise AssertionError(f"solver batch={tall} exit_tol: rows "
+                                     f"{[b for b, ok in enumerate(tiled_ok) if not ok]} differ "
+                                     "from their single solve")
+        else:
+            sync = {}
+            for label, extra in (("one_shot", {}), ("early_exit", dict(early_exit=True))):
+                syncs, launches = syncs_and_launches(torch, lambda: solve(**extra))
+                iters = entry[label]["iterations"]
+                sync[label] = {"host_syncs": syncs, "device_launches": launches,
+                               "iterations": iters}
+            print(f"[chip_smoke]   solver single, host syncs and device launches: one-shot "
+                  f"{sync['one_shot']['host_syncs']} syncs, "
+                  f"{sync['one_shot']['device_launches']} launches over "
+                  f"{sync['one_shot']['iterations']} iterations | early_exit "
+                  f"{sync['early_exit']['host_syncs']} syncs, "
+                  f"{sync['early_exit']['device_launches']} launches over "
+                  f"{sync['early_exit']['iterations']} iterations", flush=True)
+            entry["syncs_and_launches"] = sync
+        out[f"lofar {tag}"] = entry
+    return out
+
+
+def profile_solve(torch, fn):
+    """(wall ms, device busy ms, device launches) of one call of fn under
+    torch.profiler; busy and launches None when it sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in evs) / 1e3
+    launches = sum(e.count for e in evs)
+    return wall, (busy if launches else None), (launches or None)
+
+
+def mri_truth_in_basis(prob, truth):
+    """The truth in the solver's basis: W·image for a wavelet basis."""
+    return prob.synthesis.rmv(truth) if prob.synthesis is not None else truth
+
+
+def mri_psnr_rows(torch, mods, prob, x, truth, r):
+    img = prob.to_image(x if x.ndim == 2 else x[None])
+    truth = truth if truth.ndim == 2 else truth[None]
+    return [float(mods["psnr"](img[b].reshape(r, r), truth[b].reshape(r, r)))
+            for b in range(img.shape[0])]
+
+
+def mri_trajectory(torch, mods, op, Y, cfg, kw):
+    """The support and ‖ŷ − Φ̂x‖ after each iteration of an MRI solve
+    (n_iters, B, N) and (n_iters, B), on the host, through the solver's own
+    set-up and iteration."""
+    X, iteration = mods["solver_setup"](
+        op, Y, cfg.n_sparse, None, kw.get("bits_y"), kw.get("key"), "pair", "dense", "topk",
+        0.01, 2.0, 30, True, kw["nonneg"], True)
+    supports, resid = [], []
+    for i in range(cfg.n_iters):
+        X, row = iteration(X, i)
+        supports.append((X != 0).cpu())
+        resid.append(row[0].cpu())
+    return torch.stack(supports), torch.stack(resid)
+
+
+def hold_mri_rows(torch, mods, tag, cfg, card, cpu, x_card, x_cpu, truth_basis):
+    """Per row b: ‖Δx_b‖ ≤ 1e-3‖x_b‖ between the card and the CPU solve of
+    the same inputs, or a knife-edge split: the first iteration whose top-s
+    support differs (the discrete decision of the approximately sparse
+    wavelet signal, which the trace's flags do not show) comes after
+    trajectories that agreed to ≤ 1e-4 in ‖ŷ − Φ̂x‖, and the rows then end
+    within 0.01 in rel_error. ``card``/``cpu`` are (op, Y, kw) of each run."""
+    truth_basis = truth_basis if truth_basis.ndim == 2 else truth_basis[None]
+    rows = row_dx(torch, x_card, x_cpu)
+    rel_k = row_dx(torch, x_card, truth_basis)
+    rel_w = row_dx(torch, x_cpu, truth_basis)
+    far = [b for b, dx in enumerate(rows) if dx > 1e-3]
+    splits = {}
+    if far:
+        sup_k, rq_k = mri_trajectory(torch, mods, *card[:2], cfg, card[2])
+        sup_w, rq_w = mri_trajectory(torch, mods, *cpu[:2], cfg, cpu[2])
+        for b in far:
+            differs = torch.nonzero((sup_k[:, b] != sup_w[:, b]).any(dim=-1)).flatten()
+            rq = ((rq_k[:, b] - rq_w[:, b]).abs() / rq_w[:, b].abs().clamp_min(1e-30))
+            t = int(differs[0]) if differs.numel() else None
+            before = float(rq[:t].max()) if t else 0.0
+            d_rel = abs(rel_k[b] - rel_w[b])
+            print(f"[chip_smoke]     {tag} row {b}: ‖Δx_b‖/‖x_b‖={rows[b]:.2e}; supports first "
+                  f"differ after iteration {t} ({int((sup_k[-1, b] != sup_w[-1, b]).sum())} of "
+                  f"{cfg.n_sparse} entries at the end), ‖ŷ − Φ̂x‖ agreeing to {before:.1e} "
+                  f"before; rel_error card {rel_k[b]:.4f} CPU {rel_w[b]:.4f}", flush=True)
+            splits[b] = {"dx_rel": rows[b], "support_split_iteration": t,
+                         "agree_before": before, "rel_error": [rel_k[b], rel_w[b]]}
+            if t is None or before > 1e-4:
+                raise AssertionError(f"{tag} row {b}: ‖Δx_b‖/‖x_b‖ = {rows[b]} > 1e-3 without "
+                                     "a split at a top-s pick")
+            if d_rel > 0.01:
+                raise AssertionError(f"{tag} row {b}: rel_error differs from the CPU run's by "
+                                     f"{d_rel} > 0.01 after the split")
+    return {"dx_rows": rows, "rel_error_rows": rel_k, "cpu_rel_error_rows": rel_w,
+            "splits": splits}
+
+
+def hold_mri_observations(torch, mods, tag, cfg, batch, dev, gran, prob_c, y, y_c, kw):
+    """The observations the card builds itself against the CPU's: raw y per
+    row within 1e-5 relative (FFT rounding), and ŷ, the stochastic rounding
+    of y (the instance's for per_band, the solver's own draw for per_tensor),
+    at most one step apart, at no more than 1e-3 of the positions: where the
+    two y fall on either side of a rounding point."""
+    raw_k = mods["mri_instance"](cfg, 0, batch, dev, None, gran)[1]
+    raw_c = mods["mri_instance"](cfg, 0, batch, "cpu", None, gran)[1]
+    raw_k, raw_c = (raw_k, raw_c) if batch else (raw_k[None], raw_c[None])
+    if gran == "per_band":
+        q_k, q_c = (y, y_c) if batch else (y[None], y_c[None])
+        n_bands = cfg.n_bands
+        bands = mods["kspace_radial_bands"](prob_c.op, n_bands=n_bands).to(torch.int64)
+    else:
+        ky = mods["prng"].split(kw["key"])[0]
+        q_k = mods["niht"]._quantize_rows(raw_k, cfg.bits_y, ky)
+        q_c = mods["niht"]._quantize_rows(raw_c, cfg.bits_y, ky)
+        n_bands, bands = 1, torch.zeros(raw_c.shape[-1], dtype=torch.int64)
+    scales = mods["kspace_band_scales"](raw_c, bands, n_bands)
+    step = scales[:, bands] / mods["BY_BITS"][cfg.bits_y].half_steps
+    q_k = q_k.cpu()
+    steps = torch.maximum((q_k.real - q_c.real).abs(), (q_k.imag - q_c.imag).abs()) / step
+    dy = row_dx(torch, raw_k.cpu(), raw_c)
+    flips, worst = int((steps > 0.5).sum()), float(steps.max())
+    print(f"[chip_smoke]     {tag}: the card's own observations against the CPU's: y per row "
+          f"‖Δy‖/‖y‖ ≤ {max(dy):.1e} | ŷ differs at {flips} of {steps.numel()} positions "
+          f"(real or imaginary part), by at most {worst:.4f} steps", flush=True)
+    if max(dy) > 1e-5:
+        raise AssertionError(f"{tag}: the card's y differs from the CPU's by {max(dy)} > 1e-5")
+    if worst > 1.0 + 1e-3 or flips > 1e-3 * steps.numel():
+        raise AssertionError(f"{tag}: the card's ŷ differs from the CPU's at {flips} positions, "
+                             f"by up to {worst} steps")
+    return {"y_dx_rows": dy, "yhat_flips": flips, "yhat_positions": steps.numel(),
+            "yhat_max_steps": worst}
+
+
+def phase_mri(torch, mods):
+    """The MRI path at 256×256 (``mri``: Φ = P_Ω F, s = 2,000; ``mri-wavelet``:
+    Φ = P_Ω F W†, s = 8,000, per-band ŷ), single and batch 8: through
+    recover_mri, PSNR, rel_error, the wall (median of 5), device launches per
+    iteration and the device's busy time, the single solve's PSNR within
+    0.1 dB of the JAX reference's; the card's own y and ŷ against the CPU's;
+    then the same inputs (the CPU's instance: the same mask, y and ŷ) solved
+    on the card and by the port on the CPU,
+    held per row (‖Δx_b‖ ≤ 1e-3‖x_b‖ or a knife-edge split, PSNR within
+    0.1 dB). Then threshold="hsthresh" on the card instance, bit for bit
+    against hsthresh_ref standing in, one fused launch per proposal; and the
+    fused H_s timed at s = 2,000 and 8,000."""
+    HS, ref = mods["HSTHRESH"], mods["hsthresh_ref_mod"]
+    dev = torch.device(mods["device"])
+    out = {"hs_launches": {}}
+    for name in MRI_CONFIGS:
+        cfg = mods["CONFIGS"][name]
+        gran, r = cfg.scale_granularity, cfg.resolution
+        for batch in (0, 8):
+            tag = f"{name} batch={batch}" if batch else f"{name} single"
+            reset_counts(mods)
+            walls = []
+            for _ in range(5):
+                m, res, truth = mods["recover_mri"](cfg, cfg.bits_y, 0, batch, dev, gran)
+                walls.append(m["wall_s"])
+            launched = {k.entry: k.launches for k in mods["KERNELS"] if k.launches}
+            prob, y, _, kw = mods["mri_instance"](cfg, 0, batch, dev, cfg.bits_y, gran)
+            ps = mri_psnr_rows(torch, mods, prob, res.x, truth, r)
+            solve = mods["qniht_batch"] if batch else mods["qniht"]
+            wall_ms, busy_ms, launches = profile_solve(
+                torch, lambda: solve(prob.op, y, cfg.n_sparse, cfg.n_iters, **kw))
+
+            # the same inputs on both devices: the CPU's instance, moved
+            prob_c, y_c, truth_c, kw_c = mods["mri_instance"](cfg, 0, batch, "cpu", cfg.bits_y,
+                                                              gran)
+            observed = hold_mri_observations(torch, mods, tag, cfg, batch, dev, gran, prob_c, y,
+                                             y_c, kw)
+            t0 = time.perf_counter()
+            res_c = solve(prob_c.op, y_c, cfg.n_sparse, cfg.n_iters, **kw_c)
+            cpu_s = time.perf_counter() - t0
+            res_k = solve(prob.op, y_c.to(dev), cfg.n_sparse, cfg.n_iters, **kw)
+            x_k, x_c = as_batch(res_k).x, as_batch(res_c).x.to(dev)
+            Y_c = y_c if batch else y_c[None]
+            held = hold_mri_rows(torch, mods, tag, cfg, (prob.op, Y_c.to(dev), kw),
+                                 (prob_c.op, Y_c, kw_c), x_k, x_c,
+                                 mri_truth_in_basis(prob, truth_c.to(dev)))
+            ps_k = mri_psnr_rows(torch, mods, prob, x_k, truth_c.to(dev), r)
+            ps_c = mri_psnr_rows(torch, mods, prob, x_c, truth_c.to(dev), r)
+            d_ps = max(abs(a - b) for a, b in zip(ps_k, ps_c))
+            wall = sorted(walls)[2]
+            print(f"[chip_smoke]   {tag}: psnr {' '.join(f'{v:.4f}' for v in ps)} rel_error "
+                  f"{m.get('rel_error', m.get('rel_error_mean')):.4f} | wall median of 5 "
+                  f"{wall:.3f} s | profiled solve {wall_ms:.1f} ms, device busy {busy_ms} ms, "
+                  f"{launches} device launches ({(launches or 0) / cfg.n_iters:.1f} per "
+                  f"iteration) | kernels launched {launched or 'none'} | the CPU's inputs on "
+                  f"both: psnr card {' '.join(f'{v:.4f}' for v in ps_k)} CPU "
+                  f"{' '.join(f'{v:.4f}' for v in ps_c)} (max |Δ| {d_ps:.2e} dB; CPU solve "
+                  f"{cpu_s:.2f} s), ‖Δx_b‖/‖x_b‖ "
+                  + " ".join(f"{v:.1e}" for v in held["dx_rows"]), flush=True)
+            if d_ps > 0.1:
+                raise AssertionError(f"{tag}: PSNR differs from the CPU run's by {d_ps} dB")
+            entry = {"metrics": m, "psnr_rows": ps, "walls_s": walls, "wall_median_s": wall,
+                     "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "device_launches": launches,
+                     "launches_per_iteration": (launches or 0) / cfg.n_iters,
+                     "kernels_launched": launched, "cpu_solve_s": cpu_s,
+                     "same_inputs_psnr_rows": ps_k, "cpu_psnr_rows": ps_c,
+                     "observations": observed, **held}
+            if not batch:
+                want = MRI_REFERENCE_PSNR[name]
+                print(f"[chip_smoke]     {name} single: psnr {ps[0]:.4f} against the JAX "
+                      f"reference's {want:.4f} (|Δ| {abs(ps[0] - want):.2e} dB)", flush=True)
+                entry["reference_psnr"] = want
+                if abs(ps[0] - want) > 0.1:
+                    raise AssertionError(f"{tag}: PSNR {ps[0]} is more than 0.1 dB from the "
+                                         f"JAX reference's {want}")
+            out[tag] = entry
+
+            # the streaming H_s on the card instance, held bit for bit
+            reset_counts(mods)
+            res_h = solve(prob.op, y, cfg.n_sparse, cfg.n_iters, threshold="hsthresh", **kw)
+            torch.cuda.synchronize()
+            hs_launches = HS.launches
+            others = {k.entry: k.launches for k in mods["KERNELS"] if k is not HS and k.launches}
+            want_hs = cfg.n_iters + backtrack_steps(res_h)
+            with stand_in(mods["hs_ops"], hsthresh_cuda=ref.hsthresh_ref):
+                reset_counts(mods)
+                res_w = solve(prob.op, y, cfg.n_sparse, cfg.n_iters, threshold="hsthresh", **kw)
+                if HS.launches:
+                    raise AssertionError("the witness run launched the fused H_s")
+            same = same_bits(torch, res_h, res_w)
+            ps_h = mri_psnr_rows(torch, mods, prob, res_h.x, truth, r)
+            print(f"[chip_smoke]   {tag} hsthresh (s={cfg.n_sparse}): psnr "
+                  f"{' '.join(f'{v:.4f}' for v in ps_h)} | fused H_s {hs_launches} launches "
+                  f"(predicted {want_hs}) | witness (hsthresh_ref on the card) "
+                  f"{'bitwise identical' if same else 'DIFFERS'}", flush=True)
+            out[f"{tag} hsthresh"] = {"psnr_rows": ps_h, "hs_launches": hs_launches,
+                                      "hs_launches_predicted": want_hs, "witness_bitwise": same}
+            out["hs_launches"][name] = out["hs_launches"].get(name, 0) + hs_launches
+            if hs_launches != want_hs or others:
+                raise AssertionError(f"{tag} hsthresh: the fused H_s launched {hs_launches} "
+                                     f"times (predicted {want_hs}), others {others}")
+            if not same:
+                raise AssertionError(f"{tag} hsthresh: kernel and plain-version solves differ")
+    out["hs_rows"] = mri_hs_rows(torch, mods)
+    return out
+
+
+def mri_hs_rows(torch, mods):
+    """The fused H_s at the MRI sizes (N = 65,536, s = 2,000 and 8,000, B = 1
+    and 8) against hsthresh_ref, bit for bit, timed beside its bytes bound."""
+    dev = torch.device("cuda")
+    ref = mods["hsthresh_ref_mod"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name in MRI_CONFIGS:
+        s = mods["CONFIGS"][name].n_sparse
+        for b in (1, 8):
+            n = mods["CONFIGS"][name].resolution ** 2
+            x = torch.randn(b, n, generator=gen, device=dev)
+            y = mods["hsthresh_cuda"](x, s, NBINS)
+            if not torch.equal(y, ref.hsthresh_ref(x, s, NBINS)):
+                raise AssertionError(f"fused H_s ({b}, {n}) s={s}: differs from hsthresh_ref")
+            row = {"config": name, "B": b, "N": n, "s": s, "max_abs_err": 0.0,
+                   "ms": time_ms(torch, lambda: mods["hsthresh_cuda"](x, s, NBINS), 50, flush),
+                   "plain_ms": time_ms(torch, lambda: ref.hsthresh_ref(x, s, NBINS), 20, flush),
+                   "library_ms": None,
+                   "bound_ms": 8 * b * n / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "device_ms": device_ms(torch, lambda: mods["hsthresh_cuda"](x, s, NBINS), 50,
+                                          flush, "hsthresh_kernel")}
+            rows.append(row)
+            print(f"[chip_smoke]   fused H_s B={b} N={n} s={s}: bitwise equal; kernel "
+                  f"{row['ms']:.4f} ms (device {row['device_ms']}) | plain {row['plain_ms']:.4f} "
+                  f"ms | bound {row['bound_ms']:.5f} ms (bytes)", flush=True)
+    del flush
+    return rows
+
+
+def final_leaves(directory):
+    """{leaf path: array} of the newest complete checkpoint in directory."""
+    import numpy as np
+
+    steps = sorted(int(d.name.split("_")[1]) for d in Path(directory).glob("step_*")
+                   if not d.name.endswith(".tmp"))
+    final = Path(directory) / f"step_{steps[-1]:08d}"
+    manifest = json.loads((final / "manifest.json").read_text())
+    return steps[-1], {e["path"]: np.load(final / e["file"]) for e in manifest["leaves"]}
+
+
+def phase_resume(torch, mods):
+    """recover --checkpoint-dir in a subprocess, SIGTERM after its second
+    checkpoint, then --resume: the final checkpoint (x, the trace, the whole
+    SolverState) bit for bit equal to the uninterrupted checkpointed run's,
+    for the LOFAR packed batch and for mri-wavelet."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    out = {}
+    for name, argv in RESUME_RUNS:
+        argv = [*argv, "--ckpt-every", str(RESUME_EVERY)]
+        cmd = [sys.executable, "-m", "repro_torch.launch.recover", *argv]
+        n_iters = mods["CONFIGS"][argv[1]].n_iters
+        mods["out_dir"].mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=mods["out_dir"]) as tmp:
+            whole, killed = Path(tmp) / "whole", Path(tmp) / "killed"
+            reset_counts(mods)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(__import__("io").StringIO()) as buf:
+                mods["recover_main"]([*argv, "--checkpoint-dir", str(whole)])
+            whole_line = buf.getvalue().strip().splitlines()[-1]
+            whole_s = time.perf_counter() - t0
+            qmm = mods["QMM"].launches
+            lines = []
+            with open(Path(tmp) / "stderr.txt", "w") as err:
+                proc = subprocess.Popen([*cmd, "--checkpoint-dir", str(killed)],
+                                        stdout=subprocess.PIPE, stderr=err, text=True,
+                                        env=env, cwd=ROOT)
+                try:
+                    for line in proc.stdout:
+                        lines.append(line.rstrip())
+                        if f"k={2 * RESUME_EVERY}/" in line:
+                            proc.send_signal(signal.SIGTERM)
+                    code = proc.wait(timeout=600)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            stopped = next((ln for ln in lines if "preempted at iteration" in ln), None)
+            if code != 0 or stopped is None:
+                raise AssertionError(f"resume {name}: the killed run exited {code} without a "
+                                     f"preemption checkpoint: {lines[-3:]} "
+                                     f"{(Path(tmp) / 'stderr.txt').read_text()[-2000:]}")
+            step_killed, _ = final_leaves(killed)
+            done = subprocess.run([*cmd, "--checkpoint-dir", str(killed), "--resume"],
+                                  capture_output=True, text=True, env=env, cwd=ROOT,
+                                  timeout=600)
+            if done.returncode != 0 or "resumed from step" not in done.stdout:
+                raise AssertionError(f"resume {name}: --resume exited {done.returncode}: "
+                                     f"{done.stdout[-1000:]} {done.stderr[-2000:]}")
+            step_a, a = final_leaves(whole)
+            step_b, b = final_leaves(killed)
+            differ = [p for p in a if not np.array_equal(a[p], b[p], equal_nan=True)]
+            resumed_line = done.stdout.strip().splitlines()[-1]
+            print(f"[chip_smoke]   resume {name}: SIGTERM after the checkpoint at k="
+                  f"{2 * RESUME_EVERY}, stopped with a checkpoint at k={step_killed} "
+                  f"(\"{stopped}\"), resumed to k={step_b}; final state against the "
+                  f"uninterrupted run (k={step_a}, {whole_s:.1f} s in-process, qmm {qmm}): "
+                  f"{'bitwise identical' if not differ else f'DIFFERS in {differ}'}", flush=True)
+            print(f"[chip_smoke]     uninterrupted {whole_line}", flush=True)
+            print(f"[chip_smoke]     resumed       {resumed_line}", flush=True)
+            out[name] = {"killed_at": step_killed, "final_step": step_b, "differ": differ,
+                         "uninterrupted": whole_line, "resumed": resumed_line,
+                         "uninterrupted_qmm_launches": qmm}
+            if step_a != n_iters or step_b != n_iters or not 2 * RESUME_EVERY <= step_killed \
+                    < n_iters:
+                raise AssertionError(f"resume {name}: checkpoints at k={step_a}/{step_b}, "
+                                     f"killed at {step_killed}")
+            if differ:
+                raise AssertionError(f"resume {name}: the resumed state differs in {differ}")
+            if whole_line.split(" wall_s=")[0] != resumed_line.split(" wall_s=")[0]:
+                raise AssertionError(f"resume {name}: the [recover] lines differ")
+    return out
+
+
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
     sys.path.insert(0, str(SRC))
     from repro_torch import random as prng
     from repro_torch.configs.gaussian_toy import CONFIG as GAUSS
     from repro_torch.configs.lofar_cs302 import BENCH as LOFAR_BENCH, CONFIG as LOFAR
-    from repro_torch.core.niht import _solver_setup, qniht_batch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core import niht
+    from repro_torch.core.niht import (
+        _solver_setup,
+        qniht_batch,
+        solver_init,
+        solver_result,
+        solver_segment,
+    )
+    from repro_torch.core.recovery import psnr
     from repro_torch.kernels.cudalib import CudaLibrary
     from repro_torch.kernels.hsthresh import kernel as hs_kernel, ops as hs_ops
     from repro_torch.kernels.hsthresh import ref as hsthresh_ref_mod
@@ -1807,11 +2436,16 @@ def load_port() -> dict:
     from repro_torch.launch.recover import (
         gaussian_batch_instance,
         lofar_instance,
+        main as recover_main,
+        mri_instance,
         recover_gaussian,
         recover_lofar,
+        recover_mri,
     )
     from repro_torch.quant.pack import pack_codes, unpack_codes
+    from repro_torch.quant.formats import BY_BITS
     from repro_torch.core.niht import qniht
+    from repro_torch.sensing import kspace_band_scales, kspace_radial_bands
     from repro_torch.sensing.sky import make_sky
     from repro_torch.sensing.telescope import Station, measurement_matrix, visibilities
 
@@ -1834,6 +2468,11 @@ def load_port() -> dict:
                 flash_attention=flash_attention, attention_plain=attention_plain,
                 CudaLibrary=CudaLibrary, QMM_GROUP_CORE=QMM_GROUP_CORE, qmm=qmm,
                 cuda_kernel=cuda_kernel, group_kernel=group_kernel, pack_codes=pack_codes,
+                niht=niht, solver_init=solver_init, solver_segment=solver_segment,
+                solver_result=solver_result, psnr=psnr, CONFIGS=CONFIGS,
+                ROW_LOCAL_ROWS=qmm_kernel.ROW_LOCAL_ROWS, BY_BITS=BY_BITS,
+                kspace_band_scales=kspace_band_scales, kspace_radial_bands=kspace_radial_bands,
+                recover_mri=recover_mri, mri_instance=mri_instance, recover_main=recover_main,
                 KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
                          hs_kernel.HSTHRESH, sq_kernel.SQROUND, fa_kernel.FLASH,
                          fa_kernel.FLASH_TC, fa_kernel.FLASH_CORE, fa_kernel.FLASH_UNALIGNED),
@@ -1898,6 +2537,9 @@ def main(argv=None) -> int:
     report["sqround"] = phases.run("sqround", phase_sqround, torch, mods)
     report["flash"] = phases.run("flash-attention", phase_flash, torch, mods)
     report["profile"] = phases.run("profile", phase_profile, torch, mods)
+    report["solver"] = phases.run("solver", phase_solver, torch, mods)
+    report["mri"] = phases.run("mri", phase_mri, torch, mods)
+    report["resume"] = phases.run("resume", phase_resume, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
@@ -2062,6 +2704,44 @@ def main(argv=None) -> int:
             "f32_core_bound_ms": row["f32_core_bound_ms"],
             "shape": f"B=1 Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} "
                      f"{row['dtype']} causal",
+        })
+    row = next(r for r in report["kernel"]["rows"]
+               if r["shape"] == "lofar_fwd" and r["bits"] == LOFAR.bits_phi and r["M"] == 1)
+    kernels.append({
+        "name": "qmm[lofar solver phase: early exit, segments, freeze]",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/qmm/csrc/{report['kernel']['source']}",
+        "entry": report["kernel"]["entry"],
+        "replaces": "src/repro/kernels/qmm/kernel.py:265",
+        "launches": report["solver"]["qmm_launches"],
+        "max_abs_err": report["kernel"]["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": f"lofar_fwd bits={row['bits']} M=1 N={row['N']} K={row['K']} (timed in the "
+                 "kernel phase); launches: both orientations over the solver phase",
+    })
+    for name in MRI_CONFIGS:
+        row = next(r for r in report["mri"]["hs_rows"] if r["config"] == name and r["B"] == 1)
+        kernels.append({
+            "name": f"hsthresh[{name} s={row['s']}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/hsthresh/csrc/hsthresh_fused.cu",
+            "entry": "repro_hsthresh",
+            "replaces": "src/repro/kernels/hsthresh/kernel.py:48 and :69 (hist_pallas, "
+                        "mask_pallas and the jnp pick and fill between them)",
+            "launches": report["mri"]["hs_launches"][name],
+            "max_abs_err": 0.0,
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "device_ms": row["device_ms"],
+            "shape": f"B=1 N={row['N']} s={row['s']} nbins={NBINS}; launches: the {name} "
+                     "hsthresh solves, single and batch 8",
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

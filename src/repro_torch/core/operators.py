@@ -10,19 +10,35 @@ and ``rmv(r)`` (Φ̂†r), so one loop runs on:
   Φ̂_{2n}) per iteration (``requantize="pair"``).
 * :class:`PackedStreamingOperator` — packed uint8 codes streamed through the
   ``qmm`` kernel: 4/8/16× fewer operator bytes per application at 8/4/2 bits.
+* :class:`SubsampledFourierOperator` — matrix-free Φ = P_Ω F: an orthonormal
+  2D FFT (``torch.fft``) and a k-space sampling mask, the MRI workload
+  (paper §5); only the sample indices are stored.
+* :class:`WaveletSynthesisOperator` — the orthonormal synthesis W†
+  (:mod:`repro_torch.transforms.wavelet`).
+* :class:`ComposedOperator` — ``B ∘ A`` with the exact adjoint ``A† ∘ B†``;
+  the CS-MRI model Φ = P_Ω F W† is the Fourier factor composed with W†.
+
+Every operator has ``mv``/``rmv`` (batched over a leading axis, one
+application for the whole batch), ``shape`` (m, n), ``dtype`` (what ``mv``
+returns) and ``nbytes`` (operator bytes one application reads), as in the
+reference.
 
 :func:`make_iteration_operators` maps Φ and the quantization knobs onto the
 per-iteration (gradient, residual) operator pair, with the reference's key
-folding, so that the port draws the same Φ̂ as the reference key for key.
-The matrix-free MRI operators are not yet ported.
+folding, so that the port draws the same Φ̂ as the reference key for key; a
+matrix-free operator passes through as its own pair.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import random as prng
+from repro_torch.device import resolve_device
+from repro_torch.kernels.qmm.kernel import ROW_LOCAL_ROWS
 from repro_torch.kernels.qmm.ops import (
     PackedOperator,
     pack_operator,
@@ -31,6 +47,12 @@ from repro_torch.kernels.qmm.ops import (
 )
 from repro_torch.quant.formats import Granularity, as_granularity
 from repro_torch.quant.quantize import fake_quantize
+from repro_torch.transforms.wavelet import (
+    dwt2,
+    idwt2,
+    resolve_levels,
+    wavelet_filters,
+)
 
 
 class DenseOperator:
@@ -143,11 +165,162 @@ class PackedStreamingOperator:
             n += self.packed.fwd_im.nbytes
         return n
 
+    @property
+    def independent_rows(self) -> int:
+        """The most rows of a batch that ``mv``/``rmv`` compute each alone, so
+        that row b has the bits of a batch of one: on the card
+        :data:`~repro_torch.kernels.qmm.kernel.ROW_LOCAL_ROWS` (``chip_smoke.py``
+        holds the kernels to that), on the CPU 1 (the plain version is a
+        torch.matmul, which does not promise it)."""
+        return ROW_LOCAL_ROWS if self.packed.fwd_re.packed.is_cuda else 1
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         return packed_matvec(self.packed, x)
 
     def rmv(self, r: torch.Tensor) -> torch.Tensor:
         return packed_rmatvec(self.packed, r)
+
+
+class SubsampledFourierOperator:
+    """Matrix-free Φ = P_Ω F: the orthonormal 2D DFT of an r×r image, taken
+    at the flat k-space positions Ω (DC at [0, 0]).
+
+    ``mv`` is ``torch.fft.fft2(norm="ortho")`` and a gather; ``rmv`` its exact
+    adjoint, a zero-filled scatter and ``ifft2(norm="ortho")``. ``nbytes``
+    counts the stored sampling pattern: int32 indices and the 1-bit mask."""
+
+    def __init__(self, indices: torch.Tensor, resolution: int):
+        self.indices = indices.to(torch.int32)      # (M,), flat positions in the r×r grid
+        self._gather = self.indices.to(torch.int64)
+        self.resolution = int(resolution)
+
+    @classmethod
+    def from_mask(cls, mask, device=None) -> "SubsampledFourierOperator":
+        """From an (r, r) boolean numpy mask; the indices go to ``device``."""
+        m = np.asarray(mask, bool)
+        if m.ndim != 2 or m.shape[0] != m.shape[1]:
+            raise ValueError(f"mask must be a square (r, r) boolean array, got {m.shape}")
+        if not m.any():
+            raise ValueError("empty sampling mask: no k-space positions selected")
+        idx = torch.from_numpy(np.flatnonzero(m.ravel()).astype(np.int32))
+        return cls(idx.to(resolve_device(device)), m.shape[0])
+
+    @property
+    def shape(self):
+        return (int(self.indices.shape[0]), self.resolution * self.resolution)
+
+    @property
+    def dtype(self):
+        return torch.complex64
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.indices.shape[0]) * 4 + math.ceil(self.resolution ** 2 / 8)
+
+    def mask(self) -> torch.Tensor:
+        """(r, r) boolean k-space sampling mask (from the indices)."""
+        r = self.resolution
+        out = torch.zeros(r * r, dtype=torch.bool, device=self.indices.device)
+        return out.index_fill_(0, self._gather, True).reshape(r, r)
+
+    @property
+    def kspace_op(self) -> "SubsampledFourierOperator":
+        """The factor owning the k-space geometry (itself)."""
+        return self
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        r = self.resolution
+        k = torch.fft.fft2(x.reshape(*x.shape[:-1], r, r), norm="ortho").to(self.dtype)
+        return k.reshape(*x.shape[:-1], r * r).index_select(-1, self._gather)
+
+    def rmv(self, v: torch.Tensor) -> torch.Tensor:
+        r = self.resolution
+        full = torch.zeros((*v.shape[:-1], r * r), dtype=self.dtype, device=v.device)
+        full.index_copy_(-1, self._gather, v.to(self.dtype))
+        img = torch.fft.ifft2(full.reshape(*v.shape[:-1], r, r), norm="ortho")
+        return img.reshape(*v.shape[:-1], r * r).to(self.dtype)
+
+
+class WaveletSynthesisOperator:
+    """Matrix-free orthonormal wavelet synthesis W†: coefficients → image.
+
+    ``mv`` is :func:`~repro_torch.transforms.wavelet.idwt2` on the (r²,)
+    coefficient vector, ``rmv`` (its exact adjoint, W) the forward
+    :func:`~repro_torch.transforms.wavelet.dwt2`; both take complex input
+    component-wise. ``nbytes`` counts the 2·L float32 filter taps."""
+
+    def __init__(self, resolution: int, wavelet: str = "haar",
+                 levels: Optional[int] = None):
+        self.resolution = int(resolution)
+        self.wavelet = str(wavelet)
+        wavelet_filters(self.wavelet)          # validates the spelling
+        self.levels = resolve_levels(self.resolution, self.wavelet, levels)
+
+    @property
+    def shape(self):
+        n = self.resolution * self.resolution
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+    @property
+    def nbytes(self) -> int:
+        lo, hi = wavelet_filters(self.wavelet)
+        return 4 * (len(lo) + len(hi))
+
+    def mv(self, c: torch.Tensor) -> torch.Tensor:
+        r = self.resolution
+        img = idwt2(c.reshape(*c.shape[:-1], r, r), self.wavelet, self.levels)
+        return img.reshape(*c.shape[:-1], r * r)
+
+    def rmv(self, x: torch.Tensor) -> torch.Tensor:
+        r = self.resolution
+        co = dwt2(x.reshape(*x.shape[:-1], r, r), self.wavelet, self.levels)
+        return co.reshape(*x.shape[:-1], r * r)
+
+
+class ComposedOperator:
+    """``ComposedOperator(B, A)`` applies x ↦ B(A x), with the exact adjoint
+    r ↦ A†(B† r). ``shape`` is (B.shape[0], A.shape[1]), ``dtype`` the outer
+    factor's, ``nbytes`` the sum of the factors'; ``kspace_op`` surfaces the
+    factor that owns the k-space geometry (per-band observation scales)."""
+
+    def __init__(self, outer, inner):
+        if outer.shape[1] != inner.shape[0]:
+            raise ValueError(
+                f"cannot compose: outer expects inputs of size {outer.shape[1]}, "
+                f"inner produces size {inner.shape[0]}")
+        self.outer = outer
+        self.inner = inner
+
+    @property
+    def shape(self):
+        return (self.outer.shape[0], self.inner.shape[1])
+
+    @property
+    def dtype(self):
+        return self.outer.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.outer.nbytes + self.inner.nbytes
+
+    @property
+    def kspace_op(self):
+        """The factor exposing k-space geometry, through nested compositions."""
+        for f in (self.outer, self.inner):
+            op = getattr(f, "kspace_op", None)
+            if op is not None:
+                return op
+        raise AttributeError("no factor of this composition owns k-space geometry")
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.outer.mv(self.inner.mv(x))
+
+    def rmv(self, r: torch.Tensor) -> torch.Tensor:
+        return self.inner.rmv(self.outer.rmv(r))
 
 
 def is_linear_operator(phi) -> bool:

@@ -44,11 +44,17 @@ from repro_torch.quant.pack import packed_len
 
 __all__ = ["NVCC_FLAGS", "SOURCE", "CORE_SOURCE", "LIBRARY", "CORE_LIBRARY", "QMM",
            "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE", "build_dir",
-           "qmm_cuda", "qmm_group_cuda", "tc_aligned"]
+           "ROW_LOCAL_ROWS", "qmm_cuda", "qmm_group_cuda", "tc_aligned"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm_wgmma.cu"
 CORE_SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
 TC_GROUP_MULTIPLE = 16          # the tensor-core group kernel takes g = 16·j
+# The most x rows of one call for which every qmm kernel gives row b the bits
+# of a call on row b alone. Up to 16 rows the tensor-core kernels sum each row
+# in one order (B tiles of 16, 24 or 48 columns, the two units of a pair in
+# two accumulators); past 16 rows the per-row-scale kernel takes 96 columns
+# and one accumulator, which rounds the sums in another order.
+ROW_LOCAL_ROWS = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(SOURCE, {
     # N, Kp -> split-K parts S of a call (the workspace is S·M·N floats)

@@ -26,11 +26,28 @@ its own, and ``per_block`` streams through the group kernel. It needs
 versions on the CPU. Problem instances come from a ``torch.Generator`` seeded
 with ``--seed``; the quantization draws from ``repro_torch.random.PRNGKey(seed)``.
 
+``--config mri`` (also ``mri-bench``/``mri-smoke``) runs the paper's §5 MRI
+workload: a brain phantom recovered from quantized variable-density k-space
+samples through the matrix-free Φ = P_Ω F (``torch.fft``), so the backend
+knobs do not apply; ``--bits-y`` is the precision under study and the line
+reports PSNR in image space. ``--sparsity-basis haar|db4`` recovers the whole
+phantom's wavelet coefficients through Φ = P_Ω F W†; ``--config mri-wavelet``
+(also ``-bench``/``-smoke``) preselects Haar with per-band scaling.
+``--scale-granularity per_band`` quantizes the observations with one scale
+per radial k-space band, ``--group-size`` of them. With ``--batch B``, B
+randomized brain phantoms share one mask. The MRI instance is the
+reference's for the same ``--seed`` (mask and phantoms bit for bit).
+
+``--checkpoint-dir D`` runs the solve in segments of ``--ckpt-every``
+iterations with a checkpoint after each
+(:func:`repro_torch.launch.resilience.recover_resilient`); SIGTERM or SIGINT
+writes a last checkpoint and exits cleanly, and ``--resume`` goes on from
+the newest complete checkpoint, to the bits of the uninterrupted run.
+
 The streaming H_s (``threshold="hsthresh"``) has no flag here, as in the
 reference's CLI; it is reached through ``qniht``/``qniht_batch``.
 
-Not yet ported: the ``mri*`` configs, ``--devices``, ``--checkpoint-dir`` and
-``--scale-granularity per_band`` (the MRI observation scales).
+Not yet ported: ``--devices`` (the sharded batch).
 """
 from __future__ import annotations
 
@@ -41,23 +58,25 @@ import time
 import torch
 
 from repro_torch import random as prng
-from repro_torch.configs.gaussian_toy import CONFIG as GAUSS_CONFIG, SMOKE as GAUSS_SMOKE
-from repro_torch.configs.lofar_cs302 import (
-    BENCH as LOFAR_BENCH,
-    CONFIG as LOFAR_CONFIG,
-    SMOKE as LOFAR_SMOKE,
+from repro_torch.configs import CONFIGS
+from repro_torch.core.niht import IHTResult, IHTTrace, niht, qniht, qniht_batch
+from repro_torch.core.recovery import (
+    psnr,
+    relative_error,
+    source_recovery,
+    support_recovery,
 )
-from repro_torch.core.niht import niht, qniht, qniht_batch
-from repro_torch.core.recovery import relative_error, source_recovery, support_recovery
 from repro_torch.device import resolve_device
 from repro_torch.sensing.gaussian import make_gaussian_problem
+from repro_torch.sensing.mri import (
+    brain_phantom,
+    make_mri_problem,
+    mri_observations,
+    quantize_observations,
+    sparsify_image,
+)
 from repro_torch.sensing.sky import make_sky
 from repro_torch.sensing.telescope import Station, measurement_matrix, visibilities
-
-CONFIGS = {"lofar": LOFAR_CONFIG, "lofar-bench": LOFAR_BENCH, "lofar-smoke": LOFAR_SMOKE,
-           "gaussian": GAUSS_CONFIG, "gaussian-smoke": GAUSS_SMOKE}
-NOT_PORTED = ("mri", "mri-bench", "mri-smoke", "mri-wavelet", "mri-wavelet-bench",
-              "mri-wavelet-smoke")
 
 
 def _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity="per_tensor",
@@ -81,6 +100,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _batch_solver(ckpt):
+    """qniht_batch, or with ``ckpt`` (``--checkpoint-dir``) the segmented
+    checkpointed runner: the same arguments and the same bits."""
+    if not ckpt:
+        return qniht_batch
+    from repro_torch.launch.resilience import recover_resilient
+
+    def run(phi, Y, s, n_iters, **kw):
+        return recover_resilient(phi, Y, s, n_iters, verbose=True, **ckpt, **kw)
+    return run
+
+
+def _single_via_ckpt(ckpt, phi, y, s, n_iters, **kw) -> IHTResult:
+    """One problem through the checkpointed runner, as a batch of one row."""
+    res = _batch_solver(ckpt)(phi, y[None, :], s, n_iters, **kw)
+    return IHTResult(x=res.x[0], trace=IHTTrace(*(t[:, 0] for t in res.trace)))
+
+
 def lofar_instance(cs, seed, batch, device):
     """The LOFAR station's Φ and B skies with their visibilities (one sky
     when ``batch`` is 0). Returns (phi, Y, X_true); Y and X_true lose the
@@ -97,8 +134,9 @@ def lofar_instance(cs, seed, batch, device):
 
 
 def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batch=0,
-                  device=None, granularity="per_tensor", group_size=None):
-    """LOFAR sky recovery. Returns (metrics dict, IHTResult, x_true)."""
+                  device=None, granularity="per_tensor", group_size=None, ckpt=None):
+    """LOFAR sky recovery. Returns (metrics dict, IHTResult, x_true). ``ckpt``
+    (``checkpoint_dir``, ``ckpt_every``, ``resume``) runs it checkpointed."""
     dev = resolve_device(device)
     key = prng.PRNGKey(seed)
     kw = _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity, group_size)
@@ -107,8 +145,8 @@ def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batc
         Y, X_true = y, x
         _sync(dev)
         t0 = time.perf_counter()
-        res = qniht_batch(phi, Y, cs.n_sources, cs.n_iters, real_signal=True,
-                          nonneg=True, **kw)
+        res = _batch_solver(ckpt)(phi, Y, cs.n_sources, cs.n_iters, real_signal=True,
+                                  nonneg=True, **kw)
         _sync(dev)
         wall = time.perf_counter() - t0
         rel = [float(relative_error(res.x[b], X_true[b])) for b in range(batch)]
@@ -116,7 +154,10 @@ def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batc
                  "rel_error_max": max(rel), "wall_s": wall}, res, X_true)
     _sync(dev)
     t0 = time.perf_counter()
-    if backend == "dense":
+    if ckpt:
+        res = _single_via_ckpt(ckpt, phi, y, cs.n_sources, cs.n_iters, real_signal=True,
+                               nonneg=True, **kw)
+    elif backend == "dense":
         res = niht(phi, y, cs.n_sources, cs.n_iters, real_signal=True, nonneg=True)
     else:
         res = qniht(phi, y, cs.n_sources, cs.n_iters, real_signal=True, nonneg=True, **kw)
@@ -145,7 +186,7 @@ def gaussian_batch_instance(g, seed, batch, device):
 
 
 def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", batch=0,
-                     device=None, granularity="per_tensor", group_size=None):
+                     device=None, granularity="per_tensor", group_size=None, ckpt=None):
     """Gaussian toy recovery. Returns (metrics dict, IHTResult, x_true)."""
     dev = resolve_device(device)
     key = prng.PRNGKey(seed)
@@ -154,7 +195,7 @@ def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", ba
         phi, Y, X_true = gaussian_batch_instance(g, seed, batch, dev)
         _sync(dev)
         t0 = time.perf_counter()
-        res = qniht_batch(phi, Y, g.s, g.n_iters, **kw)
+        res = _batch_solver(ckpt)(phi, Y, g.s, g.n_iters, **kw)
         _sync(dev)
         wall = time.perf_counter() - t0
         rel = [float(relative_error(res.x[b], X_true[b])) for b in range(batch)]
@@ -164,13 +205,105 @@ def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", ba
                                  generator=torch.Generator().manual_seed(seed), device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    res = (niht(prob.phi, prob.y, g.s, g.n_iters) if backend == "dense" else
-           qniht(prob.phi, prob.y, g.s, g.n_iters, **kw))
+    if ckpt:
+        res = _single_via_ckpt(ckpt, prob.phi, prob.y, g.s, g.n_iters, **kw)
+    else:
+        res = (niht(prob.phi, prob.y, g.s, g.n_iters) if backend == "dense" else
+               qniht(prob.phi, prob.y, g.s, g.n_iters, **kw))
     _sync(dev)
     wall = time.perf_counter() - t0
     return ({"rel_error": float(relative_error(res.x, prob.x_true)),
              "support_recovery": float(support_recovery(res.x, prob.x_true, g.s)),
              "wall_s": wall}, res, prob.x_true)
+
+
+def mri_batch_truth(cfg, key, batch, basis, device):
+    """The ``--batch`` MRI truth: B randomized brain phantoms, (B, r²) in
+    image space (s-sparsified, with a 1e-3 jitter that breaks the skull
+    ring's exact top-s ties, for the pixel basis), as the reference draws
+    them."""
+    r = cfg.resolution
+
+    def truth(b):
+        img = brain_phantom(r, prng.fold_in(key, b), device=device)
+        if basis != "pixel":
+            return img.reshape(-1)
+        jitter = 1e-3 * prng.uniform(prng.fold_in(key, 100 + b), tuple(img.shape),
+                                     device=device)
+        return sparsify_image(img + jitter, cfg.n_sparse)
+
+    return torch.stack([truth(b) for b in range(batch)])
+
+
+def mri_instance(cfg, seed, batch, device, bits_y=8, granularity="per_tensor",
+                 n_bands=None, sparsity_basis=None):
+    """The MRI problem ``recover_mri`` solves: (prob, Y, image truth, solver
+    kwargs). ``Y`` is (B, M) for ``batch`` (else prob.y) and already
+    quantized for ``per_band``; the kwargs carry ``bits_y``/``key`` for the
+    solver's own per_tensor draw."""
+    dev = resolve_device(device)
+    key = prng.PRNGKey(seed)
+    basis = sparsity_basis if sparsity_basis is not None else cfg.sparsity_basis
+    prob = make_mri_problem(cfg.resolution, cfg.n_sparse, cfg.fraction, key,
+                            density=cfg.density, center_fraction=cfg.center_fraction,
+                            snr_db=cfg.snr_db, phantom=cfg.phantom, sparsity_basis=basis,
+                            wavelet_levels=cfg.wavelet_levels, device=dev)
+    n_bands = n_bands if n_bands is not None else cfg.n_bands
+    # wavelet coefficients are signed; only the pixel basis is a nonneg image
+    kw = dict(real_signal=True, nonneg=basis == "pixel")
+    if batch:
+        truth = mri_batch_truth(cfg, key, batch, basis, dev)
+        y, _ = mri_observations(getattr(prob.op, "kspace_op", prob.op), truth, cfg.snr_db,
+                                prng.fold_in(key, batch))
+    else:
+        truth, y = prob.image_true, prob.y
+    if bits_y and granularity == "per_band":
+        y = quantize_observations(y, bits_y, key, granularity="per_band", op=prob.op,
+                                  n_bands=n_bands)
+    elif bits_y:
+        kw.update(bits_y=bits_y, key=key)
+    return prob, y, truth, kw
+
+
+def recover_mri(cfg, bits_y, seed=0, batch=0, device=None, granularity="per_tensor",
+                n_bands=None, sparsity_basis=None, ckpt=None):
+    """The matrix-free §5 workload: image-space PSNR and relative error of the
+    recovered phantom(s). ``bits_y=None`` keeps full-precision observations;
+    ``per_band`` quantizes them with one scale per radial k-space band
+    (``n_bands``, default the config's). Returns (metrics dict, IHTResult,
+    image truth)."""
+    dev = resolve_device(device)
+    basis = sparsity_basis if sparsity_basis is not None else cfg.sparsity_basis
+    prob, y, truth, kw = mri_instance(cfg, seed, batch, dev, bits_y, granularity, n_bands,
+                                      basis)
+    r = cfg.resolution
+    n_bands = n_bands if n_bands is not None else cfg.n_bands
+    _sync(dev)
+    t0 = time.perf_counter()
+    if batch:
+        res = _batch_solver(ckpt)(prob.op, y, cfg.n_sparse, cfg.n_iters, **kw)
+    elif ckpt:
+        res = _single_via_ckpt(ckpt, prob.op, y, cfg.n_sparse, cfg.n_iters, **kw)
+    else:
+        res = qniht(prob.op, y, cfg.n_sparse, cfg.n_iters, **kw)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    img_hat = prob.to_image(res.x)
+    if batch:
+        ps = [float(psnr(img_hat[b].reshape(r, r), truth[b].reshape(r, r)))
+              for b in range(batch)]
+        rel = [float(relative_error(img_hat[b], truth[b])) for b in range(batch)]
+        return ({"basis": basis, "batch": batch, "m": prob.op.shape[0],
+                 "psnr_mean": sum(ps) / batch, "psnr_min": min(ps),
+                 "rel_error_mean": sum(rel) / batch, "rel_error_max": max(rel),
+                 "wall_s": wall}, res, truth)
+    out = {"basis": basis, "m": prob.op.shape[0],
+           "psnr": float(psnr(img_hat.reshape(r, r), truth.reshape(r, r))),
+           "rel_error": float(relative_error(img_hat, truth)),
+           "wall_s": wall, "phi_nbytes": prob.op.nbytes}
+    if bits_y and granularity == "per_band":
+        out["y_scale_bytes"] = 4 * n_bands
+    return out, res, truth
 
 
 def format_line(config: str, label: str, out: dict) -> str:
@@ -181,7 +314,7 @@ def format_line(config: str, label: str, out: dict) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--config", default="lofar-bench", choices=[*CONFIGS, *NOT_PORTED])
+    ap.add_argument("--config", default="lofar-bench", choices=list(CONFIGS))
     ap.add_argument("--backend", default="fake", choices=["dense", "fake", "packed"])
     ap.add_argument("--bits-phi", type=int, default=2)
     ap.add_argument("--bits-y", type=int, default=8)
@@ -190,34 +323,72 @@ def main(argv=None):
                     help="recover B observations of one Φ̂ at once (qniht_batch)")
     ap.add_argument("--scale-granularity", default=None,
                     choices=["per_tensor", "per_channel", "per_block", "per_band"],
-                    help="scale layout of the packed Φ̂ (--backend packed): one per "
-                         "tensor, per row, or per --group-size codes along the "
-                         "contraction")
+                    help="quantizer scale layout: per_channel/per_block for the packed "
+                         "Φ̂ (--backend packed), per_band for the MRI observations "
+                         "(default: the MRI config's, else per_tensor)")
     ap.add_argument("--group-size", type=int, default=None,
-                    help="per_block group size along the contraction axis (a "
-                         "multiple of 8 / --bits-phi)")
+                    help="per_block group size along the contraction axis (a multiple "
+                         "of 8 / --bits-phi), or the number of radial k-space bands "
+                         "for per_band (default: the MRI config's n_bands)")
+    ap.add_argument("--sparsity-basis", default=None, choices=["pixel", "haar", "db4"],
+                    help="MRI recovery model: the s-sparse phantom in pixels, or the "
+                         "whole phantom's wavelet coefficients through Φ = P_Ω F W† "
+                         "(default: the config's)")
     ap.add_argument("--devices", type=int, default=None)
-    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="run the solve in checkpointed segments saved to this "
+                         "directory (SIGTERM/SIGINT writes a last checkpoint and exits "
+                         "cleanly; the result has the bits of an unsegmented run)")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="iterations per segment and checkpoint (with --checkpoint-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="go on from the newest complete checkpoint in --checkpoint-dir "
+                         "(a fresh start when there is none)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
-    if args.config in NOT_PORTED:
-        ap.exit(2, f"recover: --config {args.config} is not yet ported\n")
     if args.devices is not None:
         ap.exit(2, "recover: --devices is not yet ported\n")
-    if args.checkpoint_dir is not None:
-        ap.exit(2, "recover: --checkpoint-dir is not yet ported\n")
-    if args.scale_granularity == "per_band":
-        ap.exit(2, "recover: --scale-granularity per_band is not yet ported\n")
-    gran = args.scale_granularity or "per_tensor"
-    if gran == "per_block" and args.group_size is None:
-        ap.error("--scale-granularity per_block needs --group-size")
+    if (args.resume or args.ckpt_every != 10) and not args.checkpoint_dir:
+        ap.error("--resume/--ckpt-every need --checkpoint-dir")
+    if args.ckpt_every < 1:
+        ap.error("--ckpt-every must be >= 1")
+    ckpt = (dict(checkpoint_dir=args.checkpoint_dir, ckpt_every=args.ckpt_every,
+                 resume=args.resume) if args.checkpoint_dir else None)
+    if args.sparsity_basis and not args.config.startswith("mri"):
+        ap.error("--sparsity-basis selects the MRI recovery model; use an mri config")
     backend = args.backend
-    run = recover_lofar if args.config.startswith("lofar") else recover_gaussian
-    out, _, _ = run(CONFIGS[args.config], backend, args.bits_phi, args.bits_y, args.seed,
-                    args.requantize, args.batch, args.device, gran, args.group_size)
-    label = "32bit" if backend == "dense" else f"{args.bits_phi}&{args.bits_y}bit[{backend}]"
+    cfg = CONFIGS[args.config]
+    from repro_torch.launch.resilience import Preempted
+
+    try:
+        if args.config.startswith("mri"):
+            if args.scale_granularity in ("per_channel", "per_block"):
+                ap.error("the MRI Φ is matrix-free (nothing packed to scale); "
+                         "use --scale-granularity per_band for the observations")
+            bits_y = None if backend == "dense" else args.bits_y
+            gran = args.scale_granularity or cfg.scale_granularity
+            out, _, _ = recover_mri(cfg, bits_y, args.seed, args.batch, args.device, gran,
+                                    args.group_size, args.sparsity_basis, ckpt)
+            basis = args.sparsity_basis or cfg.sparsity_basis
+            label = ("32bit[matrix-free]" if bits_y is None
+                     else f"y@{bits_y}bit[{gran},matrix-free]") + f"[{basis}]"
+        else:
+            gran = args.scale_granularity or "per_tensor"
+            if gran == "per_band":
+                ap.error("per_band is the MRI observation granularity; use an mri config")
+            if gran == "per_block" and args.group_size is None:
+                ap.error("--scale-granularity per_block needs --group-size")
+            run = recover_lofar if args.config.startswith("lofar") else recover_gaussian
+            out, _, _ = run(cfg, backend, args.bits_phi, args.bits_y, args.seed,
+                            args.requantize, args.batch, args.device, gran, args.group_size,
+                            ckpt)
+            label = ("32bit" if backend == "dense"
+                     else f"{args.bits_phi}&{args.bits_y}bit[{backend}]")
+    except Preempted as e:
+        print(f"[recover] {e}; restart with --resume to continue", flush=True)
+        return
     print(format_line(args.config, label, out), flush=True)
 
 

@@ -11,7 +11,14 @@ uniforms as the reference, key for key:
 * ``bits(key, shape)`` hashes the 64-bit flat index ``(hi, lo)`` of each
   element and returns ``out1 ^ out2``;
 * ``uniform(key, shape)`` puts the top 23 bits of ``bits`` into the mantissa
-  of a float in [1, 2) and subtracts 1 (the float32 path of ``jax.random``).
+  of a float in [1, 2) and subtracts 1 (the float32 path of ``jax.random``);
+* ``randint(key, shape, minval, maxval)`` splits the key, draws two words per
+  element and folds them into the span with uint32 remainders (the int32
+  path of ``jax.random.randint`` in JAX 0.9), bit for bit;
+* ``normal(key, shape)`` is √2·erfinv(u) of a uniform u on (−1, 1), as
+  ``jax.random.normal``, with XLA's float32 erfinv polynomial; the values
+  agree with JAX's to within 1e-6 (the order of the polynomial's float
+  operations is the only difference).
 
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``. Large draws are
 made in chunks of ``_CHUNK`` elements on the requested device, which bounds
@@ -116,3 +123,60 @@ def uniform(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
         mant = ((b >> 9) | 0x3F800000).to(torch.int32)
         out[s:s + _CHUNK] = mant.view(torch.float32) - 1.0
     return out.view(shp)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """int32 integers in [minval, maxval), as ``jax.random.randint(key, shape,
+    minval, maxval)`` (int32, integer bounds): words ``hi`` and ``lo`` from the
+    two halves of ``split(key)``, then ``((hi % span)·m + lo % span) % span``
+    with m = ((2¹⁶ % span)² mod 2³²) % span, all in wrapping uint32
+    arithmetic as JAX computes it."""
+    minval, maxval = int(minval), int(maxval)
+    for v in (minval, maxval):
+        if not -(1 << 31) <= v < (1 << 31):
+            raise OverflowError(f"randint bounds must fit int32, got {v}")
+    span = (maxval - minval) if maxval > minval else 1
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape, device), bits(k2, shape, device)
+    # (2¹⁶ % span)² wraps in uint32, as in JAX (to 0 for span > 2¹⁶)
+    multiplier = ((((1 << 16) % span) ** 2) & _M32) % span
+    offset = ((((higher % span) * multiplier) & _M32) + lower % span) & _M32
+    offset = offset % span
+    # uint32 → int32 is a reinterpretation, and the int32 add wraps
+    value = (minval + offset) & _M32
+    return torch.where(value >= (1 << 31), value - (1 << 32), value).to(torch.int32)
+
+
+# XLA's float32 erfinv (M. Giles, "Approximating the erfinv function"): the
+# polynomial in w = −log1p(−x²), one set of coefficients below w = 5, one above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv as XLA computes it; log1p is taken in float64 and
+    rounded, so the branch and w do not depend on the device's log1p."""
+    w = (-torch.log1p(-(x * x).to(torch.float64))).to(torch.float32)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return p * x
+
+
+def normal(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
+    """float32 standard normals, as ``jax.random.normal(key, shape)``:
+    √2·erfinv(u), u uniform on [nextafter(−1, 0), 1)."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    u = uniform(key, shape, device=device)
+    u = torch.clamp_min(u * (1.0 - lo) + lo, lo)
+    return math.sqrt(2.0) * _erfinv_f32(u)

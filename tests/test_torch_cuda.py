@@ -690,3 +690,116 @@ def test_missing_library_raises_on_a_cuda_tensor(cuda, which, monkeypatch, tmp_p
         else:
             flash_attention(x, x[:, :1], x[:, :1])
     assert kernel.launches == before
+
+
+# --- the rest of the solver and the MRI path on the card ------------------------------
+
+@pytest.mark.parametrize("granularity", ["per_channel", "per_block:64", "per_block:8"])
+@pytest.mark.parametrize("m", [8, qmm_kernel.ROW_LOCAL_ROWS])
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("shape", [(870, 65536), (65536, 870), (256, 512)])
+def test_qmm_rows_are_independent_of_the_batch(cuda, bits, shape, m, granularity):
+    """Dense codes, full-mantissa x: row b of a call of up to ROW_LOCAL_ROWS
+    rows equals the M = 1 call on row b bit for bit, on the tensor-core and
+    the CUDA-core routes (PackedStreamingOperator.independent_rows; the
+    freeze rule's grouping contract rests on it)."""
+    n, k = shape
+    gen = torch.Generator(device=cuda).manual_seed(n + k + bits)
+    w = torch.randn(n, k, generator=gen, device=cuda)
+    pw = pack_weights(w, bits, prng.PRNGKey(bits), granularity=granularity)
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    y = qmm(x, pw)
+    rows = torch.cat([qmm(x[b:b + 1].clone(), pw) for b in range(m)])
+    assert torch.equal(rows, y)
+
+
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel", "per_block:64"])
+@pytest.mark.parametrize("batch", [17, 32, 64])
+def test_row_local_packed_operator_past_the_kernel_rows(cuda, batch, granularity):
+    """Past ROW_LOCAL_ROWS rows the freeze rule applies the packed operator in
+    blocks of ROW_LOCAL_ROWS, and every row keeps the bits of a batch of one
+    (both orientations, complex Φ̂ as LOFAR's)."""
+    from repro_torch.core.niht import _row_local
+    from repro_torch.core.operators import PackedStreamingOperator
+
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    phi = torch.complex(torch.randn(870, 4096, generator=gen, device=cuda),
+                        torch.randn(870, 4096, generator=gen, device=cuda))
+    op = PackedStreamingOperator.pack(phi, 2, prng.PRNGKey(5), granularity=granularity)
+    assert op.independent_rows == qmm_kernel.ROW_LOCAL_ROWS
+    local = _row_local(op)
+    x = torch.randn(batch, 4096, generator=gen, device=cuda)
+    r = torch.complex(torch.randn(batch, 870, generator=gen, device=cuda),
+                      torch.randn(batch, 870, generator=gen, device=cuda))
+    fwd, adj = local.mv(x), local.rmv(r)
+    for b in range(batch):
+        assert torch.equal(fwd[b:b + 1], op.mv(x[b:b + 1].clone()))
+        assert torch.equal(adj[b:b + 1], op.rmv(r[b:b + 1].clone()))
+
+
+def _gaussian(cuda, batch, seed):
+    gen = torch.Generator().manual_seed(seed)
+    phi = torch.randn(128, 256, generator=gen)
+    X = torch.zeros(batch, 256)
+    for b in range(batch):
+        X[b, torch.randperm(256, generator=gen)[:8]] = torch.randn(8, generator=gen)
+    Y = X @ phi.T + 0.05 * torch.randn(batch, 128, generator=gen)
+    return phi.to(cuda), Y.to(cuda)
+
+
+@pytest.mark.parametrize("batch", [4, 20])
+@pytest.mark.parametrize("exit_tol", [0.0, 1e-4])
+def test_early_exit_contracts_on_the_card(cuda, exit_tol, batch):
+    """Lossless exit = no exit, bit for bit; the freeze rule gives each row
+    the bits of its single solve, also past ROW_LOCAL_ROWS rows; segments
+    give the one-shot bits."""
+    from repro_torch.core.niht import solver_init, solver_result, solver_segment
+
+    phi, Y = _gaussian(cuda, batch, 3)
+    kw = dict(bits_phi=8, bits_y=8, key=prng.PRNGKey(1), requantize="fixed",
+              backend="packed")
+    full = qniht_batch(phi, Y, 8, 30, early_exit=exit_tol > 0, exit_tol=exit_tol, **kw)
+    if exit_tol == 0.0:
+        early = qniht_batch(phi, Y, 8, 30, early_exit=True, **kw)
+        assert torch.equal(early.x, full.x)
+        assert all(torch.equal(a, b) for a, b in zip(early.trace, full.trace))
+    else:
+        for b in range(batch):
+            one = qniht(phi, Y[b], 8, 30, early_exit=True, exit_tol=exit_tol, **kw)
+            assert torch.equal(one.x, full.x[b])
+            assert all(torch.equal(a, c[:, b]) for a, c in zip(one.trace, full.trace))
+    st = solver_init(phi, Y, 8, 30, early_exit=exit_tol > 0, exit_tol=exit_tol, **kw)
+    seg_kw = {k: v for k, v in kw.items() if k != "key"}
+    for n in (4, 11, 15):
+        st = solver_segment(phi, st, n, s=8, early_exit=exit_tol > 0, exit_tol=exit_tol,
+                            **seg_kw)
+    seg = solver_result(st)
+    assert torch.equal(seg.x, full.x)
+    assert all(torch.equal(a, b) for a, b in zip(seg.trace, full.trace))
+
+
+@pytest.mark.parametrize("basis", ["pixel", "haar", "db4"])
+def test_mri_operators_on_the_card_match_the_cpu(cuda, basis):
+    from repro_torch.sensing.mri import make_mri_problem
+
+    p_cpu = make_mri_problem(64, 300, 0.35, prng.PRNGKey(2), sparsity_basis=basis,
+                             device="cpu")
+    p_gpu = make_mri_problem(64, 300, 0.35, prng.PRNGKey(2), sparsity_basis=basis,
+                             device=cuda)
+    torch.testing.assert_close(p_gpu.y.cpu(), p_cpu.y, rtol=0, atol=1e-5)
+    torch.testing.assert_close(p_gpu.x_true.cpu(), p_cpu.x_true, rtol=0, atol=1e-5)
+    r = torch.randn(3, p_cpu.op.shape[0], dtype=torch.complex64)
+    torch.testing.assert_close(p_gpu.op.rmv(r.to(cuda)).cpu(), p_cpu.op.rmv(r), rtol=0,
+                               atol=1e-5)
+
+
+def test_mri_hsthresh_solve_launches_the_fused_kernel(cuda):
+    from repro_torch.configs import CONFIGS
+    from repro_torch.launch.recover import mri_instance
+
+    cfg = CONFIGS["mri-wavelet-smoke"]
+    prob, y, _, kw = mri_instance(cfg, 0, 2, cuda, cfg.bits_y, "per_band")
+    before = hs_kernel.HSTHRESH.launches
+    res = qniht_batch(prob.op, y, cfg.n_sparse, cfg.n_iters, threshold="hsthresh", **kw)
+    steps = int(res.trace.backtracks.max(dim=1).values.sum())
+    assert hs_kernel.HSTHRESH.launches - before == cfg.n_iters + steps

@@ -153,11 +153,15 @@ def test_hsthresh_and_per_channel_match_reference(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(early_exit=True), dict(unroll=2)])
-def test_unported_options_are_rejected(kw):
+def test_early_exit_and_unroll_match_reference(kw):
+    """Options the earlier slices refused, now ported (tests/test_torch_solver.py
+    holds them in depth): the same solve as the reference's."""
     phi, Y, _ = gaussian_case(16, 32, 2, 1, seed=3)
-    key = convert.key_from_numpy(np.asarray(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        qniht(torch.from_numpy(phi), torch.from_numpy(Y[0]), 2, 3, key=key, **kw)
+    jkey = jax.random.PRNGKey(0)
+    res_j = jax_qniht(_j(phi), _j(Y[0]), 2, 3, key=jkey, **kw)
+    res_t = qniht(torch.from_numpy(phi), torch.from_numpy(Y[0]), 2, 3,
+                  key=convert.key_from_numpy(np.asarray(jkey)), **kw)
+    assert_solve_close(res_t, res_j)
 
 
 @pytest.mark.parametrize("kw", [dict(backend="packed"),

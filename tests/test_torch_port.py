@@ -102,9 +102,7 @@ def test_recover_cli_default_device_fails_without_gpu():
     assert "[recover]" not in out.stdout
 
 
-@pytest.mark.parametrize("argv", [["--config", "mri-smoke"], ["--devices", "2"],
-                                  ["--checkpoint-dir", "ck"],
-                                  ["--scale-granularity", "per_band"]])
+@pytest.mark.parametrize("argv", [["--devices", "2"]])
 def test_recover_rejects_unported_options(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         recover.main(["--device", "cpu", *argv])
