@@ -155,6 +155,42 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     checkpoint (the whole SolverState: x, the trace ...) must equal the
     uninterrupted checkpointed run's bit for bit, and so must the
     ``[recover]`` lines but for the wall.
+17. serving (``repro_torch.launch.serve``'s ``serve_scheduled`` and ``serve``,
+    ``repro_torch.parallel``): ``serve-continuous-packed`` (512×1,024 Φ packed
+    once at 4 bits, 8-bit y, s = 64, 64 bursty requests, 8 slots, segments of
+    8, exit_tol = 0) under ``continuous`` and ``lockstep`` with ``verify``:
+    every answer bit for bit its ``reference_solve``, the two policies' answers
+    bit for bit equal, the decision log the same when the run is repeated,
+    each request's rel_error within 1e-3 of the JAX reference's
+    (``SERVE_REFERENCE_REL_ERRORS``) or split from it at a knife edge shown
+    by ``knife_edge_witness`` (the card's steps within the error bound of
+    exact float64 arithmetic throughout, and the first step at which the
+    CPU, from the card's own state, keeps another support parts at entries
+    that rounding cannot separate), at most ``SERVE_MAX_SPLITS`` splits, and
+    the easy and hard means over the requests that did not split within
+    1e-3 of the reference's; items/s, p50/p99 latency, slot occupancy and the
+    speed-up of continuous over lockstep from a repeat without the checks,
+    whose qmm launches must equal the checked run's segments'; one full
+    segment profiled (device launches, device busy) and the ŷ redraw that
+    starts every segment timed. ``serve-gaussian-packed`` (4 chunks × 64
+    rows, the freeze rule at 1e-5, 96 iterations): each chunk bit for bit the
+    packed solve with its key, a chunk under the construction key the
+    user-level ``backend="packed"`` solve, rows 0, 7 and 63 their single
+    solves; the set-up and steady chunk walls. LOFAR CS302 through the
+    scheduler (16 skies of ``lofar_instance``, eight at tick 0 and eight at
+    tick 2, odd ones with budget 30; 8 slots, segments of 10, 60
+    iterations): every sky bit for bit its ``reference_solve``. ``python -m
+    repro_torch.launch.serve --config serve-gaussian-fault-packed
+    --checkpoint-dir D`` sent SIGTERM after its first chunk, then
+    ``--resume``: both exit 0, the first run preempted before its last
+    chunk, the second draining exactly the chunks the first journaled, and
+    every digest the uninterrupted run's. qmm launches of every solve and
+    segment equal ``qmm_per_step``'s count (4 per iteration + 1 per
+    backtracking round on the real Φ̂, 12 + 2 on LOFAR's complex Φ̂, per
+    block of 16 rows under the freeze rule), checked against a witness on
+    the solver's step; the kernels line counts the path's own launches
+    (segments and chunks) and the verify solves' apart; qmm held to phase
+    2's tolerance and timed at the serve Φ̂'s shapes, M = 8 and 16.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -179,6 +215,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -220,6 +257,48 @@ MRI_CONFIGS = ("mri", "mri-wavelet")
 # 0.9.0 on the CPU (the value the CLI prints to 4 decimals, unrounded here)
 MRI_REFERENCE_PSNR = {"mri": 32.77187728881836, "mri-wavelet": 35.199073791503906}
 RESUME_EVERY = 10
+SERVE_CONTINUOUS = "serve-continuous-packed"
+SERVE_CHUNKED = "serve-gaussian-packed"
+SERVE_FAULT = "serve-gaussian-fault-packed"
+SERVE_FREEZE_ROWS = (0, 7, 63)  # rows of each 64-row chunk held to their single solves
+SERVE_LOFAR_SKIES, SERVE_LOFAR_SLOTS, SERVE_LOFAR_SEG_LEN = 16, 8, 10
+# The JAX reference's rel_error of each request of serve-continuous-packed
+# (seed 0, continuous policy; request 0 first): repro.launch.serve's
+# build_requests and ContinuousScheduler as `python -m repro.launch.serve
+# --config serve-continuous-packed --scheduler continuous` runs them (it
+# prints their means rounded, easy 0.3897 and hard 0.4646), unrounded, with
+# JAX 0.9.0 on the CPU
+SERVE_REFERENCE_REL_ERRORS = (
+    0.4575880765914917, 0.26073184609413147, 0.40797924995422363,
+    0.342720627784729, 0.5495187640190125, 0.3280124068260193,
+    0.49756723642349243, 0.4400739371776581, 0.4794386327266693,
+    0.28591039776802063, 0.2969803512096405, 0.5311799049377441,
+    0.47635337710380554, 0.5980750918388367, 0.2590450644493103,
+    0.4512850344181061, 0.44912204146385193, 0.29188627004623413,
+    0.34016671776771545, 0.45117321610450745, 0.24496601521968842,
+    0.379495769739151, 0.3854626417160034, 0.39339232444763184,
+    0.48452028632164, 0.2877635657787323, 0.3266245722770691,
+    0.26077890396118164, 0.23331831395626068, 0.334056556224823,
+    0.35369542241096497, 0.29672273993492126, 0.43382787704467773,
+    0.46015483140945435, 0.4460308849811554, 0.3429233133792877,
+    0.4366537928581238, 0.37689632177352905, 0.5141383409500122,
+    0.49138346314430237, 0.4881192445755005, 0.3283310830593109,
+    0.375007688999176, 0.35017111897468567, 0.3478301465511322,
+    0.4925219416618347, 0.5489323735237122, 0.3040693998336792,
+    0.4646320939064026, 0.4978274703025818, 0.4530014991760254,
+    0.39654409885406494, 0.2949027121067047, 0.37114638090133667,
+    0.40004563331604004, 0.2536390721797943, 0.45985573530197144,
+    0.5379812121391296, 0.4530322551727295, 0.39108702540397644,
+    0.42444726824760437, 0.2704310715198517, 0.40181925892829895,
+    0.559690535068512,
+)
+SERVE_REL_TOL = 1e-3
+SERVE_MAX_SPLITS = 8           # requests (of 64) that may split from the reference, each at a
+                               # knife edge: the reference's own inputs split 3 between the JAX
+                               # reference and the port's CPU run
+SERVE_PRODUCT_TOL = 2e-5       # a product by Φ̂ against exact arithmetic, as a share of
+                               # |Φ̂v| + |Φ̂||v|: phase 2's qmm tolerance against the float32
+                               # plain version (1e-5), and as much again for that against exact
 RESUME_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-phi", "2",
                           "--requantize", "fixed", "--batch", "8"]),
                ("mri-wavelet", ["--config", "mri-wavelet"]))
@@ -2396,6 +2475,636 @@ def phase_resume(torch, mods):
     return out
 
 
+@contextlib.contextmanager
+def record_solves(mods):
+    """A witness on the solver's step for every solve or segment the serving
+    path runs (it changes no arithmetic): the qmm launch count when the solve
+    starts, its rows, whether it applies Φ̂ in row blocks (the freeze rule),
+    and each iteration's backtracking rounds (the largest n_bt of the rows:
+    the round loop runs while any row is active)."""
+    niht, QMM = mods["niht"], mods["QMM"]
+    real_setup = niht._solver_setup
+    calls = []
+
+    def setup(*args, **kw):
+        x0, iteration = real_setup(*args, **kw)
+        call = {"start": QMM.launches, "rows": int(args[1].shape[0]),
+                "row_local": bool(kw.get("row_local", False)), "rounds": []}
+        calls.append(call)
+
+        def step(X, i):
+            X_new, outs = iteration(X, i)
+            call["rounds"].append(outs[4].max())
+            return X_new, outs
+        return x0, step
+
+    with stand_in(niht, _solver_setup=setup):
+        yield calls
+
+
+@contextlib.contextmanager
+def record_instances(module, name, submits=False):
+    """``module.name`` (a class) replaced by a subclass that records each
+    instance, and with ``submits`` each ``submit``'s (Y, key, result): a
+    witness of what the entry point built (no arithmetic changes)."""
+    real = getattr(module, name)
+    made = []
+
+    class Recorded(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.user_phi, self.recorded = a[0], []
+            made.append(self)
+
+        if submits:
+            def submit(self, Y, key=None, row_mask=None):
+                res = super().submit(Y, key, row_mask)
+                self.recorded.append((Y, key, res))
+                return res
+
+    with stand_in(module, **{name: Recorded}):
+        yield made
+
+
+def qmm_per_step(op):
+    """qmm launches of one NIHT iteration and of one backtracking round on a
+    packed operator, worked out from ``core/niht.py`` and
+    ``kernels/qmm/ops.py`` with ``with_trace=False``: one qmm per real part
+    of Φ̂ for Φ̂x of a real x (the residual and the acceptance test: 1 real,
+    2 complex), four for Φ̂†r or Φ̂g of a complex r or g when Φ̂ is complex
+    (the gradient and the step size; 1 real); a backtracking round repeats
+    the acceptance test."""
+    parts = 2 if op.packed.is_complex else 1
+    return parts + parts * parts + parts * parts + parts, parts
+
+
+def hold_launches(torch, label, calls, end, per_iter, per_bt, block_rows):
+    """Each recorded solve launched qmm blocks·Σ(per_iter + per_bt·rounds)
+    times, blocks = ⌈rows/block_rows⌉ under the freeze rule's row blocks, 1
+    otherwise. Returns (launches, predicted, iterations) summed."""
+    total = want_total = iters = 0
+    for i, call in enumerate(calls):
+        got = (calls[i + 1]["start"] if i + 1 < len(calls) else end) - call["start"]
+        blocks = -(-call["rows"] // block_rows) if call["row_local"] else 1
+        rounds = [int(r) for r in call["rounds"]]
+        want = blocks * sum(per_iter + per_bt * r for r in rounds)
+        if got != want:
+            raise AssertionError(f"{label}: solve {i} ({call['rows']} rows, {len(rounds)} "
+                                 f"iterations) launched qmm {got} times, predicted {want}")
+        total, want_total, iters = total + got, want_total + want, iters + len(rounds)
+    return total, want_total, iters
+
+
+def serve_qmm_rows(torch, mods, op, flush):
+    """qmm at the serving shapes: the 4-bit Φ̂ of the serve configs, both
+    orientations, M = 8 (the slot table) and 16 (a row block of the freeze
+    rule), held to phase 2's tolerance and timed as there."""
+    QMM, qmm_ref = mods["QMM"], mods["qmm_ref"]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = []
+    for name, w in (("serve_fwd", op.packed.fwd_re), ("serve_adj", op.packed.adj_re)):
+        k, (n, kp), bits = w.k_dim, w.packed.shape, w.bits
+        wdeq = mods["unpack_codes"](w.packed, bits, k).to(torch.float32) * (
+            w.scale.reshape(-1, 1) / (2 ** (bits - 1) // 2))
+        for m in (8, 16):
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            y = QMM(x, w.packed, w.scale, bits, k)
+            ref = qmm_ref(x, w.packed, w.scale, bits, k)
+            err = (y - ref).abs()
+            tol = 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wdeq.abs().T)
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"qmm {name} M={m}: max |Δ| {float(err.max())} exceeds "
+                                     "the tolerance")
+            b_ms, b_by, bb_ms = bound_ms(m, n, k, kp)
+            rows.append({
+                "shape": name, "bits": bits, "M": m, "N": n, "K": k,
+                "max_abs_err": float(err.max()),
+                "ms": time_ms(torch, lambda: QMM(x, w.packed, w.scale, bits, k), 20, flush),
+                "plain_ms": time_ms(torch, lambda: qmm_ref(x, w.packed, w.scale, bits, k), 5,
+                                    flush),
+                "library_ms": time_ms(torch, lambda: torch.matmul(x, wdeq.T), 20, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms})
+            r = rows[-1]
+            print(f"[chip_smoke]   qmm {name} bits={bits} M={m:2d}: max|Δ|="
+                  f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+                  f"  matmul(f32 Φ̂) {r['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    return rows
+
+
+def profiled_segment(torch, mods, sch, ys):
+    """One full segment of ``sch``'s slot table (``ys`` spliced into every
+    slot) under torch.profiler: its wall, device launches and device busy
+    share (kernel time over the wall); and, on the host clock, the share of
+    it that re-derives ŷ from (Y, key), which every segment does first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = mods["parallel"].refill_rows(sch._state, list(range(sch.slots)),
+                                         torch.stack(ys[:sch.slots]), [True] * sch.slots)
+
+    def segment():
+        return mods["parallel"].segment_step(sch.phi, state, sch.seg_len, **sch._statics)
+
+    segment()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        segment()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    ky = mods["prng"].split(sch.key)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        mods["niht"]._quantize_rows(state.Y, sch._statics["bits_y"], ky)
+    torch.cuda.synchronize()
+    return {"wall_ms": wall * 1e3, "device_launches": sum(e.count for e in events),
+            "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
+            "yhat_redraw_ms": (time.perf_counter() - t0) / 5 * 1e3}
+
+
+def knife_edge_witness(torch, mods, sch, y, n_iters):
+    """Positive evidence that float32 rounding alone parts a request's
+    answer from the reference's, or its absence. The request is solved on
+    the card as ``reference_solve`` solves it (row 0 of the slot table), one
+    iteration at a time. From each of the card's states the port's CPU takes
+    the same step, and the step is also computed exactly: float64 on Φ̂'s
+    codes times their scale, Φ̂ packed on the CPU from the scheduler's key.
+
+    Every product by Φ̂ may be off its exact value by ``SERVE_PRODUCT_TOL``·
+    (|Φ̂v| + |Φ̂||v|), every elementwise float32 operation by its unit
+    roundoff. Propagated through the residual, the gradient g, the step size
+    μ (on the side's own Γ, after each backtracking round; a Rayleigh
+    quotient of Φ̂_Γ, so never outside [1/λ_max, 1/λ_min] of Φ̂_ΓᵀΦ̂_Γ) and
+    x + μg, that bounds each entry of each proposal (the input of H_s). At
+    every iteration up to the witness each of the card's proposals must lie
+    within its bound of the exact one: a fault of the card's path (a wrong
+    code, scale, tile or order of rows) breaks the bound whatever the other
+    paths compute.
+
+    The witness is the first iteration at which the CPU, from the card's own
+    state, keeps another support, and in it the first backtracking round at
+    which the two sides' proposals keep other supports. There the CPU's
+    proposals must lie within their bounds too, and the exact magnitudes of
+    the contested entries (the card's weakest pick that the CPU drops, the
+    CPU's strongest pick that the card drops) must lie no further apart than
+    the bounds let float32 move them. At the first iteration (x = 0) that is
+    a tie of the integer sums Cᵀq. With no such round (the sides part at the
+    acceptance test), no such iteration, or a bound broken, there is no
+    knife edge."""
+    niht, prng = mods["niht"], mods["prng"]
+    st, T, u = sch._statics, SERVE_PRODUCT_TOL, 2.0 ** -24
+    if st["exit_tol"] or sch._ref_statics["backend"] != "packed":
+        raise ValueError("the witness follows the lossless exit on a packed Φ̂")
+    seen = {"proposals": [], "gamma": None}
+    real_make_hs, real_top_s = niht._make_hs, niht.top_s_mask
+
+    def make_hs(threshold, s):
+        inner = real_make_hs(threshold, s)
+
+        def hs(v):
+            seen["proposals"].append(v[0].detach().to("cpu", torch.float64))
+            return inner(v)
+        return hs
+
+    def top_s_mask(v, s):
+        mask = real_top_s(v, s)
+        seen["gamma"] = mask[0].cpu()   # Γ of the first iteration
+        return mask
+
+    def setup(phi, Y, kw):
+        return niht._solver_setup(
+            phi, Y, sch.s, kw["bits_phi"], kw["bits_y"], sch.key, kw["requantize"],
+            kw["backend"], kw["threshold"], kw["c"], kw["shrink_k"], kw["max_backtracks"],
+            kw["real_signal"], kw["nonneg"], False, kw["scale_granularity"], kw["group_size"])
+
+    ref = sch._ref_statics
+    w = mods["PackedStreamingOperator"].pack(
+        sch._ref_phi.cpu(), ref["bits_phi"], prng.fold_in(prng.split(sch.key)[1], 0),
+        granularity=ref["scale_granularity"]).packed.fwd_re
+    W = mods["unpack_codes"](w.packed, w.bits, w.k_dim).to(torch.float64) * (
+        w.scale.to(torch.float64).reshape(-1, 1) / mods["BY_BITS"][w.bits].half_steps)
+    Wa = W.abs()
+    M = W.shape[0]
+    Y = torch.zeros((sch.slots, sch._m), dtype=sch._y_dtype, device=sch.device)
+    Y[0] = torch.as_tensor(y).to(sch.device)
+    yhat = niht._quantize_rows(Y[:1], st["bits_y"], prng.split(sch.key)[0])[0]
+    yhat = yhat.to("cpu", torch.float64)
+    shrink = st["shrink_k"] * (1.0 - st["c"])
+
+    def exact_proposal(x, g, e_g, on, n_bt):
+        """x + μg in float64 on support Γ = ``on`` after ``n_bt`` rounds, the
+        bound of a float32 computation of it, μ and μ's relative bound."""
+        gg, eg = torch.where(on, g, 0.0), torch.where(on, e_g, 0.0)
+        num = float(gg @ gg)
+        if num == 0.0:
+            mu, rel = 0.0, 0.0
+        else:
+            e_num = float(2 * gg.abs() @ eg + eg @ eg) + (sch.s + 1) * u * num
+            v = W @ gg
+            e_v = T * (v.abs() + Wa @ gg.abs()) + Wa @ eg
+            den = float(v @ v)
+            e_den = float(2 * v.abs() @ e_v + e_v @ e_v) + (M + 1) * u * den
+            mu0 = num / den
+            lam = torch.linalg.eigvalsh(W[:, on].T @ W[:, on])
+            spread = max(mu0 - 1 / float(lam[-1]), 1 / float(lam[0]) - mu0) / mu0
+            first = e_num / num + e_den / (den - e_den) if den > e_den else float("inf")
+            mu = mu0 / shrink ** n_bt
+            rel = min(first, (1 + 4 * T) * spread) + (3 + 2 * n_bt) * u
+        exact = niht._project(x + mu * g, st["real_signal"], st["nonneg"])
+        bound = (mu * e_g + rel * mu * g.abs() + 2 * u * (x.abs() + mu * g.abs())).clamp_min(
+            1e-300)
+        return exact, bound, mu, rel
+
+    worst, out = 0.0, {}
+    with stand_in(niht, _make_hs=make_hs, top_s_mask=top_s_mask):
+        X, step_card = setup(sch.phi, Y, st)
+        _, step_cpu = setup(sch._ref_phi.cpu(), Y.cpu(), ref)
+        for t in range(n_iters):
+            x = X[0].to("cpu", torch.float64)
+            Wx = W @ x
+            r = yhat - Wx
+            g = W.T @ r
+            e_r = T * (Wx.abs() + Wa @ x.abs()) + u * (yhat.abs() + Wx.abs())
+            e_g = T * (g.abs() + Wa.T @ r.abs()) + Wa.T @ e_r
+            sides = {}
+            for name, step, state in (("card", step_card, X), ("cpu", step_cpu, X.cpu())):
+                seen["proposals"].clear()
+                X_new, (*_, n_bt) = step(state, t)
+                nb = int(n_bt[0])
+                on = seen["gamma"] if bool((x == 0).all()) else x != 0
+                rounds = [exact_proposal(x, g, e_g, on, k) for k in range(nb + 1)]
+                props = seen["proposals"][:nb + 1]
+                sides[name] = dict(
+                    X=X_new, n_bt=nb, rounds=rounds, proposals=props,
+                    support=(X_new[0] != 0).cpu(),
+                    ratio=max(float(((p - e).abs() / bd).max())
+                              for p, (e, bd, *_) in zip(props, rounds)))
+            card, cpu = sides["card"], sides["cpu"]
+            worst = max(worst, card["ratio"])
+            out = {"iteration": t, "card_bound_ratio": worst, "cpu_bound_ratio": cpu["ratio"],
+                   "backtracks": (card["n_bt"], cpu["n_bt"])}
+            if card["ratio"] > 1.0:
+                return dict(out, knife_edge=False,
+                            reason="the card's step leaves the bound of exact arithmetic")
+            if not torch.equal(card["support"], cpu["support"]):
+                break
+            X = card["X"]
+        else:
+            return dict(out, knife_edge=False,
+                        reason="from the card's states the CPU keeps the card's support")
+    keeps = {name: [real_top_s(p[None], sch.s)[0] for p in sd["proposals"]]
+             for name, sd in sides.items()}
+    k = next((k for k in range(min(card["n_bt"], cpu["n_bt"]) + 1)
+              if not torch.equal(keeps["card"][k], keeps["cpu"][k])), None)
+    if k is None:
+        return dict(out, knife_edge=False,
+                    reason="the sides part at the acceptance test, where no witness is taken")
+    picked = (keeps["card"][k] & ~keeps["cpu"][k]).nonzero().flatten()
+    kept = (keeps["cpu"][k] & ~keeps["card"][k]).nonzero().flatten()
+    (exact, _, mu_card, mu_rel), (_, _, mu_cpu, _) = card["rounds"][k], cpu["rounds"][k]
+    mag = exact.abs()
+    i, j = int(picked[mag[picked].argmin()]), int(kept[mag[kept].argmax()])
+    gap = float((mag[i] - mag[j]).abs())
+    allow = float(max(sd["rounds"][k][1][i] + sd["rounds"][k][1][j] for sd in (card, cpu))
+                  + abs(mu_card - mu_cpu) * (g[i].abs() + g[j].abs()))
+    knife = cpu["ratio"] <= 1.0 and gap <= allow
+    return dict(out, knife_edge=knife, round=k, contested=(i, j), exact_gap=gap,
+                allowed_gap=allow, magnitude=float(mag[i]), mu_rel_bound=mu_rel,
+                reason=("rounding cannot separate the contested entries" if knife else
+                        "the supports part further from a tie than rounding reaches"))
+
+
+def hold_serve_quality(torch, mods, cfg, sch, workload):
+    """Each request's rel_error against the JAX reference's
+    (``SERVE_REFERENCE_REL_ERRORS``): within ``SERVE_REL_TOL``, or split from
+    it with :func:`knife_edge_witness`'s positive evidence that rounding
+    alone decides it. At most ``SERVE_MAX_SPLITS`` requests split, and the
+    easy and hard means over the requests that did not split are held within
+    ``SERVE_REL_TOL`` of the reference's over the same requests; the means
+    over all requests are printed beside the reference's. ``workload`` is
+    ``build_requests``'s (phi, arrivals, truths, hard_rids)."""
+    _, arrivals, truths, hard = workload
+    requests = {req.rid: req for _, req in arrivals}
+    card = {rid: float(mods["relative_error"](torch.as_tensor(rep.x).cpu(), truths[rid].cpu()))
+            for rid, rep in sch.reports.items()}
+    ref = SERVE_REFERENCE_REL_ERRORS
+    split = sorted(r for r in card if abs(card[r] - ref[r]) > SERVE_REL_TOL)
+    evidence = {} if len(split) > SERVE_MAX_SPLITS else {
+        rid: dict(knife_edge_witness(torch, mods, sch, requests[rid].y,
+                                     requests[rid].n_iters or sch.n_iters),
+                  card=card[rid], reference=ref[rid]) for rid in split}
+    means = {}
+    for kind, members in (("easy", [r for r in card if r not in hard]), ("hard", sorted(hard))):
+        kept = [r for r in members if r not in split]
+        means[kind] = {
+            "card": sum(card[r] for r in members) / len(members),
+            "reference": sum(ref[r] for r in members) / len(members),
+            "card_unsplit": sum(card[r] for r in kept) / max(len(kept), 1),
+            "reference_unsplit": sum(ref[r] for r in kept) / max(len(kept), 1)}
+    agree = [abs(card[r] - ref[r]) for r in card if r not in split]
+    print(f"[chip_smoke]   serve {cfg.name} rel_error against the JAX reference: "
+          f"{len(agree)} of {len(card)} requests within {SERVE_REL_TOL} (largest gap "
+          f"{max(agree):.2e}) | means easy {means['easy']['card']:.6f} (reference "
+          f"{means['easy']['reference']:.6f}), hard {means['hard']['card']:.6f} (reference "
+          f"{means['hard']['reference']:.6f}); without the split requests easy "
+          f"{means['easy']['card_unsplit']:.6f} / {means['easy']['reference_unsplit']:.6f}, "
+          f"hard {means['hard']['card_unsplit']:.6f} / "
+          f"{means['hard']['reference_unsplit']:.6f}", flush=True)
+    for rid, e in evidence.items():
+        where = (f"round {e['round']}, entries {e['contested']} of magnitude "
+                 f"{e['magnitude']:.4g}: exact gap {e['exact_gap']:.3g} against "
+                 f"{e['allowed_gap']:.3g} allowed, μ known to {e['mu_rel_bound']:.2g}, "
+                 if "exact_gap" in e else "")
+        print(f"[chip_smoke]     request {rid}: rel_error {e['card']:.4f} against the "
+              f"reference's {e['reference']:.4f}; iteration {e['iteration']}: {e['reason']} "
+              f"({where}card |Δ|/bound ≤ {e['card_bound_ratio']:.3g}, CPU "
+              f"{e['cpu_bound_ratio']:.3g}, backtracks {e['backtracks']})"
+              + (" (knife edge)" if e["knife_edge"] else " (NOT a knife edge)"), flush=True)
+    if len(split) > SERVE_MAX_SPLITS:
+        raise AssertionError(f"serve: {len(split)} requests split from the JAX reference's "
+                             f"rel_error, more than {SERVE_MAX_SPLITS}")
+    bad = [rid for rid, e in evidence.items() if not e["knife_edge"]]
+    if bad:
+        raise AssertionError(f"serve: requests {bad} differ from the JAX reference's rel_error "
+                             f"by more than {SERVE_REL_TOL} without a knife edge")
+    off = {k: abs(m["card_unsplit"] - m["reference_unsplit"]) for k, m in means.items()}
+    if max(off.values()) > SERVE_REL_TOL:
+        raise AssertionError(f"serve: the means of the requests that did not split are off the "
+                             f"reference's by {off}, more than {SERVE_REL_TOL}")
+    return {"rel_error_requests": card, "split_requests": evidence, "rel_error_means": means,
+            "largest_unsplit_gap": max(agree)}
+
+
+def phase_serve(torch, mods):
+    """The serving path on the card: the continuous-batching scheduler on
+    serve-continuous-packed (continuous and lockstep, every answer bitwise
+    against its reference_solve, the decision log repeated), the chunked
+    BatchServer on serve-gaussian-packed (freeze rule, blocks of 16), LOFAR
+    CS302 skies through the scheduler, and the CLI killed and resumed from
+    its journal; qmm launches held to qmm_per_step's formula."""
+    import numpy as np
+
+    serve, cfgs, prng = mods["serve"], mods["SERVE_CONFIGS"], mods["prng"]
+    QMM, dev, block = mods["QMM"], mods["device"], mods["ROW_LOCAL_ROWS"]
+    out = {"qmm_launches": 0, "reference_qmm_launches": 0}
+
+    # 1. serve-continuous-packed: continuous and lockstep
+    t_part = time.perf_counter()
+    cfg = cfgs[SERVE_CONTINUOUS]
+    runs = {}
+    for label, policy, checked in (("continuous", "continuous", True),
+                                   ("lockstep", "lockstep", True),
+                                   ("continuous_timed", "continuous", False),
+                                   ("lockstep_timed", "lockstep", False)):
+        reset_counts(mods)
+        witness = record_solves(mods) if checked else contextlib.nullcontext([])
+        with record_instances(mods["parallel"], "ContinuousScheduler") as made, \
+                witness as calls, contextlib.redirect_stdout(io.StringIO()) as buf:
+            metrics = serve.serve_scheduled(cfg, policy, verify=checked, device=dev)
+        torch.cuda.synchronize()
+        sch, end = made[0], QMM.launches
+        entry = {"metrics": metrics, "qmm_launches": end}
+        if checked:
+            if f"verified {metrics['completed']} requests bitwise" not in buf.getvalue():
+                raise AssertionError(f"serve {label}: no bitwise verification: {buf.getvalue()}")
+            per_iter, per_bt = qmm_per_step(sch.phi)
+            n_seg = sch.segments_run
+            seg = hold_launches(torch, f"serve {label} segments", calls[:n_seg],
+                                calls[n_seg]["start"], per_iter, per_bt, block)
+            ref = hold_launches(torch, f"serve {label} reference solves", calls[n_seg:], end,
+                                per_iter, per_bt, block)
+            entry.update(segments=n_seg, segment_qmm=seg[0], segment_iterations=seg[2],
+                         reference_solves=len(calls) - n_seg, reference_qmm=ref[0],
+                         reference_iterations=ref[2], per_iteration=per_iter,
+                         per_backtrack_round=per_bt)
+            # the path's own launches: its segments, not the verify step's solves
+            out["qmm_launches"] += seg[0]
+            out["reference_qmm_launches"] += ref[0]
+        elif end != runs[policy][0]["segment_qmm"]:
+            raise AssertionError(f"serve {label}: {end} qmm launches with verify off, "
+                                 f"{runs[policy][0]['segment_qmm']} in the checked run's "
+                                 "segments")
+        runs[label] = (entry, sch)
+        out[f"continuous_packed {label}"] = entry
+    (c, c_sch), (lk, l_sch) = runs["continuous"], runs["lockstep"]
+    differ = [rid for rid, rep in c_sch.reports.items()
+              if not np.array_equal(rep.x, l_sch.reports[rid].x)]
+    if differ:
+        raise AssertionError(f"serve: continuous and lockstep answers differ for {differ}")
+    if c_sch.log != runs["continuous_timed"][1].log:
+        raise AssertionError("serve: the continuous decision log changed when repeated")
+    ct, lt = runs["continuous_timed"][0]["metrics"], runs["lockstep_timed"][0]["metrics"]
+    speedup = ct["items_per_s"] / lt["items_per_s"]
+    rel = {k: c["metrics"][f"rel_error_{k}_mean"] for k in ("easy", "hard")}
+    workload = serve.build_requests(cfg, prng.PRNGKey(cfg.seed), dev)
+    quality = hold_serve_quality(torch, mods, cfg, c_sch, workload)
+    seg_prof = profiled_segment(torch, mods, c_sch, [req.y for _, req in workload[1]])
+    print(f"[chip_smoke]   serve {SERVE_CONTINUOUS}: {c['metrics']['completed']} requests "
+          f"bitwise against reference_solve under both policies, continuous = lockstep "
+          f"bitwise, decision log repeated | qmm per segment: {c['segment_qmm']} launches over "
+          f"{c['segments']} segments ({c['segment_iterations']} iterations; predicted "
+          f"{c['per_iteration']}/iteration + {c['per_backtrack_round']}/backtracking round, "
+          f"exact), reference solves {c['reference_qmm']} | continuous items/s "
+          f"{ct['items_per_s']} p50 {ct['latency_p50_s']} s p99 {ct['latency_p99_s']} s "
+          f"occupancy {ct['slot_occupancy']} | lockstep items/s {lt['items_per_s']} p50 "
+          f"{lt['latency_p50_s']} s p99 {lt['latency_p99_s']} s occupancy "
+          f"{lt['slot_occupancy']} | speedup_vs_lockstep {speedup:.3f} | one full segment "
+          f"profiled: {seg_prof['wall_ms']:.1f} ms, {seg_prof['device_launches']} device "
+          f"launches, device busy {seg_prof['device_busy_ms']:.2f} ms "
+          f"({100 * seg_prof['device_busy_share']:.1f}%), ŷ redraw "
+          f"{seg_prof['yhat_redraw_ms']:.2f} ms | {time.perf_counter() - t_part:.1f} s",
+          flush=True)
+    out["continuous_packed"] = {"speedup_vs_lockstep": speedup, "rel_error_metrics": rel,
+                                "profiled_segment": seg_prof, **quality}
+
+    # 2. serve-gaussian-packed: the chunked BatchServer under the freeze rule
+    t_part = time.perf_counter()
+    cfg = cfgs[SERVE_CHUNKED]
+    reset_counts(mods)
+    with record_instances(mods["parallel"], "BatchServer", submits=True) as made, \
+            record_solves(mods) as calls, contextlib.redirect_stdout(io.StringIO()) as buf:
+        metrics = serve.serve(cfg, device=dev)
+    torch.cuda.synchronize()
+    end = QMM.launches
+    srv = made[0]
+    per_iter, per_bt = qmm_per_step(srv.phi)
+    chunk_qmm = hold_launches(torch, "serve chunks", calls, end, per_iter, per_bt, block)
+    out["qmm_launches"] += end
+    kw = dict(bits_y=cfg.bits_y, early_exit=True, exit_tol=cfg.exit_tol, with_trace=False)
+    n_chunks = len(srv.recorded)
+    whole, rows_ok = [], []
+    for ci, (Y, key, res) in enumerate(srv.recorded):
+        want = mods["qniht_batch"](srv.phi, Y, cfg.s, cfg.n_iters, key=key, **kw)
+        whole.append(bool(torch.equal(want.x, res.x)))
+        for b in SERVE_FREEZE_ROWS:
+            single = mods["qniht"](srv.phi, Y[b], cfg.s, cfg.n_iters, key=key, **kw)
+            rows_ok.append((ci, b, bool(torch.equal(single.x, res.x[b]))))
+    # the pack-once construction: a chunk under the construction key is the
+    # user-level packed solve (Φ̂ packed from that key) bit for bit
+    Y0 = srv.recorded[0][0]
+    user = mods["qniht_batch"](srv.user_phi, Y0, cfg.s, cfg.n_iters, key=srv.key,
+                               bits_phi=cfg.bits_phi, backend="packed", requantize="fixed",
+                               **kw)
+    user_ok = bool(torch.equal(user.x, srv.submit(Y0, srv.key).x))
+    timed = metrics
+    print(f"[chip_smoke]   serve {SERVE_CHUNKED}: {n_chunks} chunks of "
+          f"{cfg.chunk} rows, each bitwise the packed solve with its key: {whole}; under the "
+          f"construction key bitwise the user-level backend=\"packed\" solve: {user_ok}; rows "
+          f"{SERVE_FREEZE_ROWS} against their single solves: "
+          f"{sum(ok for *_, ok in rows_ok)} of {len(rows_ok)} bitwise | qmm {chunk_qmm[0]} over "
+          f"{chunk_qmm[2]} iterations (predicted {chunk_qmm[1]}: blocks of {block} rows) | "
+          f"compile_chunk_s {timed['compile_chunk_s']} steady_chunk_s "
+          f"{timed['steady_chunk_s']} items/s {timed['items_per_s']} | "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+    out["gaussian_packed"] = {"metrics": timed,
+                              "chunks_bitwise": whole, "rows_bitwise": rows_ok,
+                              "user_level_bitwise": user_ok,
+                              "qmm_launches": chunk_qmm[0], "qmm_predicted": chunk_qmm[1],
+                              "iterations": chunk_qmm[2]}
+    if not all(whole) or not user_ok or not all(ok for *_, ok in rows_ok):
+        raise AssertionError(f"serve {SERVE_CHUNKED}: chunks {whole}, user-level {user_ok}, "
+                             f"rows {rows_ok}")
+
+    # 3. LOFAR CS302 skies through the scheduler (the paper's deployment)
+    t_part = time.perf_counter()
+    cs = mods["LOFAR"]
+    phi, Y, X = mods["lofar_instance"](cs, 0, SERVE_LOFAR_SKIES, dev)
+    Request = mods["Request"]
+    budgets = [cs.n_iters // 2 if i % 2 else None for i in range(SERVE_LOFAR_SKIES)]
+    arrivals = [(0 if i < SERVE_LOFAR_SKIES // 2 else 2, Request(rid=i, y=Y[i],
+                                                                n_iters=budgets[i]))
+                for i in range(SERVE_LOFAR_SKIES)]
+    reset_counts(mods)
+    with record_solves(mods) as calls:
+        t0 = time.perf_counter()
+        sch = mods["parallel"].ContinuousScheduler(
+            phi, cs.n_sources, cs.n_iters, slots=SERVE_LOFAR_SLOTS, seg_len=SERVE_LOFAR_SEG_LEN,
+            key=prng.PRNGKey(0), bits_phi=cs.bits_phi, bits_y=cs.bits_y, backend="packed",
+            real_signal=True, nonneg=True, exit_tol=0.0)
+        reports = sch.run(arrivals)
+        wall = time.perf_counter() - t0
+        n_seg, seg_end = sch.segments_run, QMM.launches
+        refs = {i: sch.reference_solve(Y[i], budgets[i]) for i in range(SERVE_LOFAR_SKIES)}
+        torch.cuda.synchronize()
+    end = QMM.launches
+    per_iter, per_bt = qmm_per_step(sch.phi)
+    seg = hold_launches(torch, "serve lofar segments", calls[:n_seg], seg_end, per_iter, per_bt,
+                        block)
+    ref_calls = calls[n_seg:]
+    ref_launches = [(ref_calls[i + 1]["start"] if i + 1 < len(ref_calls) else end)
+                    - ref_calls[i]["start"] for i in range(len(ref_calls))]
+    out["reference_qmm_launches"] += hold_launches(
+        torch, "serve lofar reference solves", ref_calls, end, per_iter, per_bt, block)[0]
+    out["qmm_launches"] += seg_end
+    rows = []
+    for i in range(SERVE_LOFAR_SKIES):
+        rep = reports[i]
+        rows.append({"rid": i, "budget": budgets[i] or cs.n_iters,
+                     "iters_used": rep.iters_used, "start_tick": rep.start_tick,
+                     "rel_error": float(mods["relative_error"](torch.from_numpy(rep.x),
+                                                                X[i].cpu())),
+                     "bitwise": bool(np.array_equal(rep.x, refs[i].cpu().numpy())),
+                     "reference_qmm": ref_launches[i]})
+    print(f"[chip_smoke]   serve lofar: {SERVE_LOFAR_SKIES} skies, {SERVE_LOFAR_SLOTS} slots, "
+          f"seg_len {SERVE_LOFAR_SEG_LEN}: {sum(r['bitwise'] for r in rows)} of "
+          f"{len(rows)} bitwise against reference_solve | {n_seg} segments, qmm {seg[0]} "
+          f"(predicted {seg[1]}: {per_iter}/iteration + {per_bt}/backtracking round) | wall "
+          f"{wall:.3f} s, {SERVE_LOFAR_SKIES / wall:.2f} skies/s, occupancy "
+          f"{sch.stats()['slot_occupancy']} | {time.perf_counter() - t_part:.1f} s", flush=True)
+    for r in rows:
+        print(f"[chip_smoke]     sky {r['rid']:2d}: budget {r['budget']} start tick "
+              f"{r['start_tick']} iters {r['iters_used']} rel_error {r['rel_error']:.4f} "
+              f"reference solve qmm {r['reference_qmm']} "
+              f"{'bitwise' if r['bitwise'] else 'DIFFERS'}", flush=True)
+    out["lofar"] = {"rows": rows, "segments": n_seg, "qmm_launches": seg[0],
+                    "qmm_predicted": seg[1], "wall_s": wall, "stats": sch.stats()}
+    if not all(r["bitwise"] for r in rows):
+        raise AssertionError(f"serve lofar: skies {[r['rid'] for r in rows if not r['bitwise']]}"
+                             " differ from their reference_solve")
+    del phi, Y, X, sch, refs
+    torch.cuda.empty_cache()
+
+    # 4. the CLI killed after its first chunk and resumed from its journal
+    out["kill_resume"] = serve_kill_resume(mods)
+
+    # qmm at the serving shapes, off the path (launches not counted)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out["qmm_rows"] = serve_qmm_rows(torch, mods, c_sch.phi, flush)
+    del flush
+    return out
+
+
+def serve_kill_resume(mods):
+    """python -m repro_torch.launch.serve --config serve-gaussian-fault-packed
+    --checkpoint-dir D, SIGTERM after its first x_digest line, then --resume:
+    both exit 0, at least one chunk drained, every digest the uninterrupted
+    run's."""
+    import re
+    import signal
+    import tempfile
+
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    base = ["--config", SERVE_FAULT, "--device", mods["device"]]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *base]
+
+    def digests(text):
+        return re.findall(r"chunk (\d+) x_digest=([0-9a-f]+)", text)
+
+    t0 = time.perf_counter()
+    mods["out_dir"].mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=mods["out_dir"]) as tmp:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            mods["serve"].main([*base, "--checkpoint-dir", str(Path(tmp) / "whole")])
+        want = digests(buf.getvalue())
+        lines = []
+        with open(Path(tmp) / "stderr.txt", "w") as err:
+            proc = subprocess.Popen([*cmd, "--checkpoint-dir", str(Path(tmp) / "killed")],
+                                    stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                                    cwd=ROOT)
+            try:
+                for line in proc.stdout:
+                    lines.append(line)
+                    if "x_digest=" in line and len(digests("".join(lines))) == 1:
+                        proc.send_signal(signal.SIGTERM)
+                code = proc.wait(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        killed = "".join(lines)
+        done = subprocess.run([*cmd, "--checkpoint-dir", str(Path(tmp) / "killed"), "--resume"],
+                              capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        stderr = (Path(tmp) / "stderr.txt").read_text()[-2000:]
+    drained = re.search(r"chunks_drained=(\d+)", done.stdout)
+    drained = int(drained.group(1)) if drained else None
+    got = digests(done.stdout)
+    print(f"[chip_smoke]   serve kill/resume {SERVE_FAULT}: SIGTERM after chunk 0, the run "
+          f"exited {code} after {len(digests(killed))} chunks "
+          f"({'preempted' if 'preempted after chunk' in killed else 'not preempted'}); "
+          f"--resume exited {done.returncode}, chunks_drained={drained}; digests "
+          f"{'identical' if got == want else 'DIFFER'} to the uninterrupted run's "
+          f"({len(want)} chunks) | {time.perf_counter() - t0:.1f} s", flush=True)
+    if code != 0 or done.returncode != 0:
+        raise AssertionError(f"serve kill/resume: exit codes {code}, {done.returncode}: "
+                             f"{stderr} {done.stderr[-2000:]}")
+    n_chunks, before = mods["SERVE_CONFIGS"][SERVE_FAULT].n_chunks, len(digests(killed))
+    preempted = "preempted after chunk" in killed
+    # a resume took place: the killed run stopped early on the signal, the
+    # resumed run drained exactly what it had journaled and solved the rest
+    if not preempted or not 1 <= before < n_chunks or drained != before:
+        raise AssertionError(f"serve kill/resume: preempted {preempted}, {before} of "
+                             f"{n_chunks} chunks before the kill, {drained} drained")
+    if got != want or len(want) != n_chunks:
+        raise AssertionError(f"serve kill/resume: digests {got} against {want}")
+    return {"killed_exit": code, "chunks_before_kill": before, "preempted": preempted,
+            "resume_exit": done.returncode, "chunks_drained": drained,
+            "digests_identical": got == want}
+
+
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
     sys.path.insert(0, str(SRC))
@@ -2411,7 +3120,11 @@ def load_port() -> dict:
         solver_result,
         solver_segment,
     )
-    from repro_torch.core.recovery import psnr
+    from repro_torch.core.recovery import psnr, relative_error
+    from repro_torch import parallel
+    from repro_torch.configs import SERVE_CONFIGS
+    from repro_torch.launch import serve
+    from repro_torch.parallel import Request
     from repro_torch.kernels.cudalib import CudaLibrary
     from repro_torch.kernels.hsthresh import kernel as hs_kernel, ops as hs_ops
     from repro_torch.kernels.hsthresh import ref as hsthresh_ref_mod
@@ -2445,6 +3158,7 @@ def load_port() -> dict:
     from repro_torch.quant.pack import pack_codes, unpack_codes
     from repro_torch.quant.formats import BY_BITS
     from repro_torch.core.niht import qniht
+    from repro_torch.core.operators import PackedStreamingOperator
     from repro_torch.sensing import kspace_band_scales, kspace_radial_bands
     from repro_torch.sensing.sky import make_sky
     from repro_torch.sensing.telescope import Station, measurement_matrix, visibilities
@@ -2473,6 +3187,8 @@ def load_port() -> dict:
                 ROW_LOCAL_ROWS=qmm_kernel.ROW_LOCAL_ROWS, BY_BITS=BY_BITS,
                 kspace_band_scales=kspace_band_scales, kspace_radial_bands=kspace_radial_bands,
                 recover_mri=recover_mri, mri_instance=mri_instance, recover_main=recover_main,
+                relative_error=relative_error, parallel=parallel, SERVE_CONFIGS=SERVE_CONFIGS,
+                serve=serve, Request=Request, PackedStreamingOperator=PackedStreamingOperator,
                 KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
                          hs_kernel.HSTHRESH, sq_kernel.SQROUND, fa_kernel.FLASH,
                          fa_kernel.FLASH_TC, fa_kernel.FLASH_CORE, fa_kernel.FLASH_UNALIGNED),
@@ -2540,6 +3256,7 @@ def main(argv=None) -> int:
     report["solver"] = phases.run("solver", phase_solver, torch, mods)
     report["mri"] = phases.run("mri", phase_mri, torch, mods)
     report["resume"] = phases.run("resume", phase_resume, torch, mods)
+    report["serve"] = phases.run("serve", phase_serve, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
@@ -2722,6 +3439,27 @@ def main(argv=None) -> int:
         "library_ms": row["library_ms"],
         "shape": f"lofar_fwd bits={row['bits']} M=1 N={row['N']} K={row['K']} (timed in the "
                  "kernel phase); launches: both orientations over the solver phase",
+    })
+    serve_rows = report["serve"]["qmm_rows"]
+    row = next(r for r in serve_rows if r["shape"] == "serve_fwd" and r["M"] == 8)
+    kernels.append({
+        "name": "qmm[serve phase: 8-slot scheduler, 64-row chunks in blocks of 16, LOFAR slots]",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/qmm/csrc/{report['kernel']['source']}",
+        "entry": report["kernel"]["entry"],
+        "replaces": "src/repro/kernels/qmm/kernel.py:265",
+        "launches": report["serve"]["qmm_launches"],
+        "reference_solve_launches": report["serve"]["reference_qmm_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in serve_rows),
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "shape": f"serve_fwd bits={row['bits']} M=8 N={row['N']} K={row['K']} (the 4-bit "
+                 "serve Φ̂, timed in the serve phase); launches: the serve phase's path "
+                 "(scheduler segments of both policies, the chunks, the LOFAR segments); "
+                 "reference_solve_launches: its verify solves, each held to the formula",
     })
     for name in MRI_CONFIGS:
         row = next(r for r in report["mri"]["hs_rows"] if r["config"] == name and r["B"] == 1)

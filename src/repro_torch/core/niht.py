@@ -44,7 +44,8 @@ and applies each operator one row at a time (:class:`_RowBlocks`), or in
 blocks of up to 16 rows for the packed operator on the card, whose ``qmm``
 kernels give row b of such a block the bits of a batch of one.
 
-Not yet ported: sharding (``qniht_batch_sharded``).
+Not yet ported: sharding (``qniht_batch_sharded``); the single-device serving
+layer on these segments is :mod:`repro_torch.parallel`.
 """
 from __future__ import annotations
 

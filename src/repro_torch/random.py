@@ -18,7 +18,12 @@ uniforms as the reference, key for key:
 * ``normal(key, shape)`` is √2·erfinv(u) of a uniform u on (−1, 1), as
   ``jax.random.normal``, with XLA's float32 erfinv polynomial; the values
   agree with JAX's to within 1e-6 (the order of the polynomial's float
-  operations is the only difference).
+  operations is the only difference);
+* ``bernoulli(key, p, shape)`` is ``uniform < p`` and ``rademacher(key,
+  shape)`` is ``2·bernoulli(key, 0.5) − 1``, as in ``jax.random``;
+* ``permutation(key, n)`` shuffles ``arange(n)`` as ``jax.random``'s
+  ``_shuffle`` does: ⌈3·ln n / ln(2³² − 1)⌉ rounds, each splitting the key
+  and sorting stably by fresh 32-bit words, bit for bit.
 
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``. Large draws are
 made in chunks of ``_CHUNK`` elements on the requested device, which bounds
@@ -180,3 +185,28 @@ def normal(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
     u = uniform(key, shape, device=device)
     u = torch.clamp_min(u * (1.0 - lo) + lo, lo)
     return math.sqrt(2.0) * _erfinv_f32(u)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = (), device=None) -> torch.Tensor:
+    """bool samples, True with probability p, as ``jax.random.bernoulli(key,
+    p, shape)``: a float32 uniform below p."""
+    return uniform(key, shape, device=device) < p
+
+
+def rademacher(key: torch.Tensor, shape: Shape = (), dtype=torch.int32,
+               device=None) -> torch.Tensor:
+    """±1 samples, as ``jax.random.rademacher(key, shape, dtype)``."""
+    b = bernoulli(key, 0.5, shape, device=device).to(dtype)
+    return (2 * b - 1).to(dtype)
+
+
+def permutation(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """A shuffle of ``arange(n)`` (int32), as ``jax.random.permutation(key,
+    n)``: each round splits the key, draws one uint32 sort key per element
+    and sorts stably by it."""
+    x = torch.arange(n, dtype=torch.int32, device=device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_M32))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.sort(bits(sub, (n,), device), stable=True).indices]
+    return x

@@ -19,7 +19,11 @@ bfloat16 and float16 (the tensor-core kernel FLASH_TC), the reference's
 kernel-vs-oracle bounds; for the 16-bit types also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for
 every output row (one bfloat16 ulp, relative: the most that rounding both
 results to bfloat16 can set them apart), which scales with the output where
-2e-2 does not.
+2e-2 does not. Serving (``repro_torch.parallel``), bit for bit: a request's
+row is the same in any slot of a table of co-tenants (dense f32 and packed
+Φ̂ at 8 slots, packed at 24), ``serve_scheduled(verify=True)`` holds every
+request to its ``reference_solve``, a splice leaves its input state and the
+other rows alone, and pad rows stay zero through a segment.
 """
 import math
 import shutil
@@ -30,7 +34,7 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.core.niht import qniht_batch
-from repro_torch.core.niht import qniht
+from repro_torch.core.niht import qniht, solver_init, solver_segment
 from repro_torch.kernels.flashattn import kernel as fa_kernel
 from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
 from repro_torch.kernels.hsthresh import kernel as hs_kernel
@@ -803,3 +807,99 @@ def test_mri_hsthresh_solve_launches_the_fused_kernel(cuda):
     res = qniht_batch(prob.op, y, cfg.n_sparse, cfg.n_iters, threshold="hsthresh", **kw)
     steps = int(res.trace.backtracks.max(dim=1).values.sum())
     assert hs_kernel.HSTHRESH.launches - before == cfg.n_iters + steps
+
+
+# --- serving (repro_torch.parallel) on the card ---------------------------------------------
+
+def _serve_workload(cuda, name, n_requests):
+    """Φ and the first requests' y of a serve-continuous config, on the card."""
+    import dataclasses
+
+    from repro_torch.configs import SERVE_CONFIGS
+    from repro_torch.launch.serve import build_requests
+
+    cfg = dataclasses.replace(SERVE_CONFIGS[name], n_requests=n_requests)
+    phi, arrivals, _, _ = build_requests(cfg, prng.PRNGKey(cfg.seed), cuda)
+    return cfg, phi, [req.y for _, req in arrivals]
+
+
+def _serve_kw(packed):
+    return dict(bits_phi=4, bits_y=8, backend="packed", requantize="fixed") if packed else {}
+
+
+@pytest.mark.parametrize("slots,packed", [(8, False), (8, True), (24, True)])
+def test_a_row_keeps_its_bits_in_any_slot(cuda, slots, packed):
+    """The scheduler's contract at the solver: y in slot b of a table of
+    co-tenants gives row 0 of [y; 0; ...] at the same width, bit for bit:
+    on the dense f32 Φ (cuBLAS, torch.sort, the row sums) and on the 4-bit
+    packed Φ̂ (qmm) at 8 slots, and on the packed Φ̂ at 24, past the 16 rows
+    a qmm call keeps row-local."""
+    cfg, phi, ys = _serve_workload(cuda, "serve-continuous-packed", slots + 1)
+    kw = dict(_serve_kw(packed), key=prng.PRNGKey(cfg.seed), early_exit=True,
+              with_trace=False)
+    y, others = ys[0], torch.stack(ys[1:])
+    alone = torch.zeros_like(others)
+    alone[0] = y
+    want = qniht_batch(phi, alone, cfg.s, cfg.n_iters_easy, **kw).x[0]
+    for b in sorted({0, slots // 2 - 1, slots - 1, min(16, slots - 1)}):
+        Y = others.clone()
+        Y[b] = y
+        got = qniht_batch(phi, Y, cfg.s, cfg.n_iters_easy, **kw).x[b]
+        assert torch.equal(got, want), f"slot {b} of {slots}"
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_scheduler_answers_are_their_reference_solves_on_the_card(cuda, packed):
+    """serve_scheduled(verify=True) on the card: every request of the smoke
+    trace bitwise its reference_solve (dense f32 and 4-bit packed)."""
+    import dataclasses
+
+    from repro_torch.configs import SERVE_CONFIGS
+    from repro_torch.launch.serve import serve_scheduled
+
+    cfg = SERVE_CONFIGS["serve-continuous-smoke"]
+    if packed:
+        cfg = dataclasses.replace(cfg, bits_phi=4, bits_y=8, backend="packed")
+    out = serve_scheduled(cfg, "continuous", verify=True, device=cuda)
+    assert out["completed"] == cfg.n_requests
+
+
+def test_splice_purity_on_the_card(cuda):
+    """refill_rows on CUDA tensors writes into clones: the input state keeps
+    every bit (its Y is the one the segment shares), the other rows too, and
+    their next segment is the same."""
+    from repro_torch.parallel import refill_rows
+
+    cfg, phi, ys = _serve_workload(cuda, "serve-continuous-packed", 5)
+    kw = dict(_serve_kw(True), early_exit=True, with_trace=True)
+    st = solver_init(phi, torch.stack(ys[:4]), cfg.s, 24, key=prng.PRNGKey(0), **kw)
+    st = solver_segment(phi, st, 8, s=cfg.s, **kw)
+    before = [t.clone() for t in (st.X, st.done, st.streak, st.Y, *st.last, *st.trace)]
+    spliced = refill_rows(st, [2], ys[4][None], [True])
+    after = (st.X, st.done, st.streak, st.Y, *st.last, *st.trace)
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) if a.is_floating_point()
+               else torch.equal(a, b) for a, b in zip(before, after))
+    a = solver_segment(phi, st, 8, s=cfg.s, **kw)
+    b = solver_segment(phi, spliced, 8, s=cfg.s, **kw)
+    keep = [0, 1, 3]
+    assert torch.equal(a.X[keep], b.X[keep]) and torch.equal(a.done[keep], b.done[keep])
+    for u, v in zip(a.trace, b.trace):
+        assert torch.equal(u[:, keep].nan_to_num(), v[:, keep].nan_to_num())
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_pad_rows_stay_zero_on_the_card(cuda, packed):
+    """Pad rows (Y = 0, X = 0, done) stay bitwise zero through a segment,
+    no NaN from a 0/0 in the step size or a zero scale."""
+    from repro_torch.parallel import ContinuousScheduler, refill_rows, segment_step
+
+    cfg, phi, ys = _serve_workload(cuda, "serve-continuous-packed", 1)
+    kw = _serve_kw(packed)
+    kw.setdefault("bits_y", 8)
+    sch = ContinuousScheduler(phi, cfg.s, 24, slots=8, seg_len=8, key=prng.PRNGKey(0), **kw)
+    st = refill_rows(sch._state, [3], ys[0][None], [True])
+    out = segment_step(sch.phi, st, 8, **sch._statics)
+    pads = [b for b in range(8) if b != 3]
+    assert torch.equal(out.X[pads], torch.zeros_like(out.X[pads]))
+    assert bool(out.done[pads].all()) and not torch.isnan(out.X).any()
+    assert out.X[3].abs().sum() > 0
