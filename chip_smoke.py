@@ -72,8 +72,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    launches ``qmm`` takes on the per_tensor path and ``qmm`` none; the same
    solves with ``qmm_group_ref`` standing in on the card are the witness,
    held per row as in 4. One ``per_channel`` single solve goes through
-   ``qmm``. The per_block instances go to ``lofar_block.npz`` (full size,
-   no Φ) and ``lofar_bench_block.npz`` (with Φ) for
+   ``qmm``. The per_block instances go to ``lofar_block.npz`` (full size)
+   and ``lofar_bench_block.npz``, both with Φ, for
    ``scripts/reference_replay.py lofar-block``;
 9. LOFAR CS302 at full size with ``threshold="hsthresh"`` (per_tensor
    packed), single and batch 8: the fused ``HSTHRESH`` launches once per
@@ -191,6 +191,38 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     the solver's step; the kernels line counts the path's own launches
     (segments and chunks) and the verify solves' apart; qmm held to phase
     2's tolerance and timed at the serve Φ̂'s shapes, M = 8 and 16.
+18. theory (``repro_torch.core.rip``) on the LOFAR CS302 Φ, on the card and
+    on the port's CPU, on the same Φ: ``gamma_full`` (singular values within
+    ``SV_TOL``·σ_max, γ within what that allows), the Fig. 7 sweep
+    ``tune_extent_for_gamma`` over ``THEORY_EXTENTS`` (the same best extent),
+    ``rics_sampled`` at s = 60 over 32 supports (supports bit for bit, α̂ and
+    β̂ within 1e-4 relative), ``min_bits_lemma1`` and Eqn. 48's γ̂ bound for
+    the per-tensor scale and the port's per_channel and per_block (g = 64)
+    scales, and Theorem 3's ε_s, ε_q, Corollary 1's coefficients and the
+    bound beside the LOFAR phase's packed solve (reported, not gated: the
+    theorem assumes γ̂_2s ≤ 1/16);
+19. baselines (``repro_torch.core.baselines``): paper Fig. 4 at LOFAR CS302,
+    dense NIHT, QNIHT 2&8 packed, IHT, CoSaMP and FISTA-ℓ1 with the counts of
+    ``benchmarks/fig4_methods.py`` (``BASELINE_ITERS``): rel_error, support
+    recovery, µs per iteration; Fig. 9 at r = 256: the dirty image and beam
+    and Högbom CLEAN (300 iterations, gain 0.1). On LOFAR-bench (r = 64) the
+    card against the port's CPU on the same inputs: IHT, CoSaMP and CLEAN at
+    the same positions with values within 1e-4 of the largest, or parted at
+    a top-s or argmax pick (reported with the first call at which it parts,
+    after traces that agreed to 1e-4, rel_error within 0.01); FISTA's x
+    within 1e-4; host syncs the same at n and 2n iterations. The instance and
+    the card's answers go to ``baselines_bench.npz`` for
+    ``scripts/reference_replay.py baselines``;
+20. sanitize (``repro_torch.analysis.sanitize``): ``recover --sanitize`` on
+    LOFAR CS302 packed 2-bit and ``mri-wavelet-bench``, ``serve --config
+    serve-gaussian-fault-packed`` (which sanitizes), each with the
+    reference's ``[sanitize] ok ...`` line, the serve run's with
+    ``compiles_after_warmup=0``; a NaN planted in y must raise
+    ``FloatingPointError`` naming an aten op, a finite x of 3e38 through the
+    LOFAR Φ̂ must raise naming ``repro_qmm_tc`` (its sums overflow only inside
+    the kernel, whose non-finite outputs are the plain version's); and
+    ``recover --profile-dir`` (LOFAR-bench packed) writes a trace with
+    ``repro_qmm_tc`` spans and device kernels.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -215,6 +247,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import io
 import json
 import subprocess
@@ -299,6 +332,18 @@ SERVE_MAX_SPLITS = 8           # requests (of 64) that may split from the refere
 SERVE_PRODUCT_TOL = 2e-5       # a product by Φ̂ against exact arithmetic, as a share of
                                # |Φ̂v| + |Φ̂||v|: phase 2's qmm tolerance against the float32
                                # plain version (1e-5), and as much again for that against exact
+THEORY_EXTENTS = (0.25, 0.5, 1.0, 1.5, 2.0, 3.0)   # benchmarks/fig7_rip_bits.py, full
+RIC_SAMPLES = 32
+SV_TOL = 1e-4                  # singular values, card against CPU, as a share of σ_max
+# benchmarks/fig4_methods.py:38-47 at the LOFAR CS302 config's 60 iterations
+BASELINE_ITERS = {"niht": 60, "qniht": 60, "iht": 120, "cosamp": 20, "fista_l1": 180}
+CLEAN_ITERS, CLEAN_GAIN = 300, 0.1   # benchmarks/fig9_clean.py, full
+BASELINE_TOL = 1e-4            # baselines, card against CPU, relative to the largest value
+OVERFLOW_X = 3.0e38            # finite x whose products with the LOFAR Φ̂ overflow float32
+SANITIZE_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-phi", "2",
+                            "--requantize", "fixed"]),
+                 ("mri-wavelet-bench", ["--config", "mri-wavelet-bench"]),
+                 ("serve", ["--config", "serve-gaussian-fault-packed"]))
 RESUME_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-phi", "2",
                           "--requantize", "fixed", "--batch", "8"]),
                ("mri-wavelet", ["--config", "mri-wavelet"]))
@@ -940,11 +985,7 @@ def phase_profile(torch, mods):
     from torch.profiler import ProfilerActivity, profile
 
     cs, dev = mods["LOFAR"], torch.device(mods["device"])
-    gen = torch.Generator().manual_seed(0)
-    phi = mods["measurement_matrix"](mods["Station"](n_antennas=cs.n_antennas, seed=cs.seed),
-                                     cs.resolution, cs.extent, device=dev)
-    x = mods["make_sky"](cs.resolution, cs.n_sources, gen, min_sep=cs.min_sep, device=dev)
-    y, _ = mods["visibilities"](phi, x, cs.snr_db, gen)
+    phi, y, x = mods["lofar_instance"](cs, 0, 0, dev)
     base = dict(bits_phi=cs.bits_phi, bits_y=cs.bits_y, key=mods["prng"].PRNGKey(0),
                 requantize="fixed", backend="packed", real_signal=True, nonneg=True)
     out_dir = mods["out_dir"]
@@ -1369,8 +1410,9 @@ def phase_lofar_block(torch, mods, per_tensor):
         raise AssertionError(f"lofar per_channel: {QMM.launches} qmm launches (predicted "
                              f"{want}), {QG.launches} qmm_group launches")
     out["lofar per_channel single"] = {"packed": m_c, "launches": QMM.launches}
-    out["saved"] = [save_lofar_block(torch, mods, c, with_phi) for c, with_phi in
-                    ((cs, False), (mods["LOFAR_BENCH"], True))]
+    # both with Φ: at full size the per_block solve parts from the reference's
+    # on a Φ rebuilt there (1e-4 away), so the replay needs the card's own
+    out["saved"] = [save_lofar_block(torch, mods, c, True) for c in (cs, mods["LOFAR_BENCH"])]
     return out
 
 
@@ -3105,6 +3147,441 @@ def serve_kill_resume(mods):
             "digests_identical": got == want}
 
 
+def sv_gate(torch, label, sv_card, sv_cpu):
+    """Singular values of the card against the CPU's, relative to σ_max:
+    ≤ SV_TOL (the float32 Gram method's own error on an ill-conditioned Φ
+    is ~3e-5·σ_max in either package). Returns the gap."""
+    sv_card = sv_card.cpu()
+    gap = float((sv_card - sv_cpu).abs().max() / sv_cpu[0])
+    if not gap <= SV_TOL:
+        raise AssertionError(f"{label}: singular values on the card and the CPU differ by "
+                             f"{gap:.2e}·σ_max > {SV_TOL}")
+    return gap
+
+
+def gamma_gate(label, g_card, g_cpu):
+    """γ = σ_max/σ_min − 1 of the card against the CPU's, within what an error
+    of SV_TOL·σ_max in each of σ_max and σ_min allows: 2·SV_TOL·(γ + 1)²."""
+    tol = 2 * SV_TOL * (g_cpu + 1.0) ** 2
+    if not abs(g_card - g_cpu) <= tol:
+        raise AssertionError(f"{label}: γ {g_card} on the card and {g_cpu} on the CPU differ "
+                             f"by more than {tol:.3g}")
+    return tol
+
+
+def phase_theory(torch, mods, lofar):
+    """The paper's RIP machinery on the LOFAR CS302 Φ (870×65,536 complex64),
+    on the card and on the port's CPU, on the same Φ: γ over the full
+    spectrum (``gamma_full``), the Fig. 7 extent sweep
+    (``tune_extent_for_gamma``, each extent's Φ built and freed in turn),
+    the sampled RICs at s = 2·30 over 32 supports (supports bit for bit,
+    α̂ and β̂ within 1e-4 relative), Lemma 1's minimum bit width for the
+    per-tensor scale and the port's own per_channel and per_block (g = 64)
+    scales, and Theorem 3's error terms beside the LOFAR phase's packed
+    solve."""
+    rip, cs, dev = mods["rip"], mods["LOFAR"], torch.device(mods["device"])
+    prng = mods["prng"]
+    station = mods["Station"](n_antennas=cs.n_antennas, seed=cs.seed)
+    phi, y, x_true = mods["lofar_instance"](cs, 0, 0, dev)
+    phi_cpu = phi.cpu()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    sv_k, sv_c = rip.singular_values(phi), rip.singular_values(phi_cpu)
+    g_k, g_c = float(rip.gamma_full(phi)), float(rip.gamma_full(phi_cpu))
+    out["gamma_full"] = {"card": g_k, "cpu": g_c, "sv_gap": sv_gate(torch, "gamma_full", sv_k,
+                                                                     sv_c),
+                         "tol": gamma_gate("gamma_full", g_k, g_c),
+                         "sigma_max": float(sv_c[0]), "sigma_min": float(sv_c[-1]),
+                         "card_ms": time_ms(torch, lambda: rip.gamma_full(phi), 3, flush)}
+    print(f"[chip_smoke]   gamma_full (LOFAR CS302 Φ): card {g_k:.6g}, CPU {g_c:.6g} "
+          f"(σ_max {float(sv_c[0]):.4f}, σ_min {float(sv_c[-1]):.4g}; singular values "
+          f"within {out['gamma_full']['sv_gap']:.1e}·σ_max); "
+          f"{out['gamma_full']['card_ms']:.2f} ms on the card", flush=True)
+    t0 = time.perf_counter()
+    sweep_k, best_k = mods["tune_extent_for_gamma"](station, cs.resolution, THEORY_EXTENTS,
+                                                    device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep_c, best_c = mods["tune_extent_for_gamma"](station, cs.resolution, THEORY_EXTENTS,
+                                                    device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for (d, gk), (_, gc) in zip(sweep_k, sweep_c):
+        gamma_gate(f"extent {d}", gk, gc)
+    if best_k != best_c:
+        raise AssertionError(f"extent sweep: best extent {best_k} on the card, {best_c} on the CPU")
+    out["extent_sweep"] = {"card": sweep_k, "cpu": sweep_c, "best": best_k,
+                           "card_s": card_s, "cpu_s": cpu_s}
+    print("[chip_smoke]   Fig. 7 sweep γ(d), card / CPU: " + ", ".join(
+        f"d={d}: {gk:.4g} / {gc:.4g}" for (d, gk), (_, gc) in zip(sweep_k, sweep_c))
+        + f"; best d for γ ≤ 1/16: {best_k} ({card_s:.1f} s on the card, {cpu_s:.1f} s on the "
+        "CPU)", flush=True)
+
+    s2 = 2 * cs.n_sources
+    sup_k = rip.sampled_supports(phi.shape[1], s2, RIC_SAMPLES, device=dev)
+    sup_c = rip.sampled_supports(phi.shape[1], s2, RIC_SAMPLES)
+    if not torch.equal(sup_k.cpu(), sup_c):
+        raise AssertionError("rics_sampled: the card drew other supports than the CPU")
+    a_k, b_k = (float(v) for v in rip.rics_sampled(phi, s2, RIC_SAMPLES))
+    a_c, b_c = (float(v) for v in rip.rics_sampled(phi_cpu, s2, RIC_SAMPLES))
+    gaps = (abs(a_k - a_c) / a_c, abs(b_k - b_c) / b_c)
+    if not max(gaps) <= SV_TOL:
+        raise AssertionError(f"rics_sampled: α̂, β̂ differ by {gaps} relative > {SV_TOL}")
+    g2s = float(rip.gamma_from_rics(a_c, b_c))
+    out["rics"] = {"s": s2, "samples": RIC_SAMPLES, "alpha": [a_k, a_c], "beta": [b_k, b_c],
+                   "gamma_2s": [float(rip.gamma_from_rics(a_k, b_k)), g2s],
+                   "rel_gaps": gaps, "supports_bitwise": True,
+                   "card_ms": time_ms(torch, lambda: rip.rics_sampled(phi, s2, RIC_SAMPLES), 3,
+                                      flush)}
+    print(f"[chip_smoke]   rics_sampled s={s2}, {RIC_SAMPLES} supports (bitwise card = CPU): "
+          f"α̂ {a_k:.6g} / {a_c:.6g}, β̂ {b_k:.6g} / {b_c:.6g} (card / CPU), γ_2s = {g2s:.5g}; "
+          f"{out['rics']['card_ms']:.1f} ms on the card", flush=True)
+
+    key = prng.PRNGKey(0)
+    kphi = prng.fold_in(prng.split(key)[1], 0)        # the solver's fixed Φ̂ key
+    q = mods["quantize"](phi, cs.bits_phi, kphi)
+    scales = {"per_tensor": float(q.scale)}
+    for gran in ("per_channel", f"per_block:{GROUP}"):
+        w = mods["pack_weights"](phi.real.contiguous(), cs.bits_phi, kphi, granularity=gran)
+        scales[gran.split(":")[0]] = w.scale.reshape(-1).cpu()
+    out["lemma1"] = {}
+    for name, scale in scales.items():
+        bits = rip.min_bits_lemma1(g2s, a_c, s2, scale=scale)
+        bounds = {b: rip.gamma_hat_bound(g2s, a_c, s2, b, scale=scale) for b in (2, 8)}
+        out["lemma1"][name] = {"c_phi": rip.effective_scale(scale), "min_bits": bits,
+                               "gamma_hat_bound": bounds}
+    print("[chip_smoke]   Lemma 1 (γ_2s, α̂_2s, |Γ| = 2s): " + "; ".join(
+        f"{k}: c_Φ={v['c_phi']:.4f} min bits {v['min_bits']}, γ̂ ≤ "
+        f"{v['gamma_hat_bound'][2]:.4g} at 2 bits, {v['gamma_hat_bound'][8]:.4g} at 8"
+        for k, v in out["lemma1"].items()), flush=True)
+
+    phi_hat = mods["fake_quantize"](phi, cs.bits_phi, kphi)
+    _, b_hat = (float(v) for v in rip.rics_sampled(phi_hat, s2, RIC_SAMPLES))
+    del phi_hat
+    _, e = mods["visibilities"](phi, x_true, cs.snr_db, key)
+    e_norm = float(torch.linalg.vector_norm(e))
+    xs_norm = float(torch.linalg.vector_norm(x_true))
+    c_y = float(torch.maximum(y.real.abs(), y.imag.abs()).max())
+    eps_s = float(rip.eps_s(x_true, cs.n_sources, e_norm, b_c))
+    eps_q = rip.eps_q(phi.shape[0], b_hat, xs_norm, cs.bits_phi, cs.bits_y,
+                      scales["per_tensor"], c_y)
+    bound = rip.theorem3_bound(cs.n_iters, xs_norm, eps_s, eps_q)
+    solved = lofar["lofar single"]["packed"]["rel_error"] * xs_norm
+    out["theorem3"] = {"beta_2s": b_c, "beta_2s_hat": b_hat, "e_norm": e_norm,
+                       "xs_norm": xs_norm, "c_y": c_y, "eps_s": eps_s, "eps_q": eps_q,
+                       "corollary1": rip.corollary1_coeffs(cs.n_antennas, b_c, b_hat),
+                       "bound": bound, "packed_solve_error": solved,
+                       "within_bound": solved <= bound,
+                       "hypothesis_gamma_2s_le_1_16": g2s <= 1.0 / 16.0,
+                       "stopping_iterations": mods["stopping_iterations"](xs_norm, eps_s)}
+    print(f"[chip_smoke]   Theorem 3 (LOFAR packed {cs.bits_phi}&{cs.bits_y}): ε_s={eps_s:.4g} "
+          f"ε_q={eps_q:.4g} (β_2s {b_c:.4g}, β̂_2s {b_hat:.4g}, ‖e‖ {e_norm:.4g}), "
+          f"Corollary 1 coefficients {out['theorem3']['corollary1'][0]:.4g}, "
+          f"{out['theorem3']['corollary1'][1]:.4g}; bound after {cs.n_iters} iterations "
+          f"{bound:.4g} against the packed solve's ‖x̂ − x‖ = {solved:.4g}; n* = "
+          f"{out['theorem3']['stopping_iterations']} (the theorem assumes γ̂_2s ≤ 1/16: "
+          f"γ_2s = {g2s:.4g})", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def record_picks(mods):
+    """A witness on the baselines' discrete decisions (it changes no
+    arithmetic): the support each H_s of ``iht``/``cosamp`` keeps and each
+    pixel CLEAN picks, in call order, on the host."""
+    module = mods["baselines"]
+    log = []
+    hard, peak = module.hard_threshold, module._peak_index
+
+    def hard_threshold(x, s):
+        out = hard(x, s)
+        log.append((out != 0).cpu())
+        return out
+
+    def peak_index(resid):
+        p = peak(resid)
+        log.append(int(p))
+        return p
+
+    with stand_in(module, hard_threshold=hard_threshold, _peak_index=peak_index):
+        yield log
+
+
+def first_parting(log_card, log_cpu):
+    """The first call at which the two logs of picks differ, or None."""
+    for i, (a, b) in enumerate(zip(log_card, log_cpu)):
+        same = a == b if isinstance(a, int) else bool((a == b).all())
+        if not same:
+            return i
+    return None
+
+
+def hold_baseline(torch, name, card, cpu, log_card, log_cpu, x_true, resid_key):
+    """The card's answer against the CPU's on the same inputs: the same
+    support (positions) and values within BASELINE_TOL of the largest; or,
+    where a top-s or argmax pick parts, the first iteration at which it
+    does, after traces that agreed to BASELINE_TOL, and rel_error within
+    0.01 at the end."""
+    x_k, x_c = card[0].cpu(), cpu[0]
+    same = bool(torch.equal(x_k != 0, x_c != 0))
+    gap = float((x_k - x_c).abs().max() / x_c.abs().max())
+    t = first_parting(log_card, log_cpu)
+    rel = [float(torch.linalg.vector_norm(x - x_true) / torch.linalg.vector_norm(x_true))
+           for x in (x_k.real if x_k.is_complex() else x_k, x_c.real if x_c.is_complex() else x_c)]
+    row = {"same_positions": same, "max_rel_gap": gap, "parted_at": t, "rel_error": rel}
+    if same and gap <= BASELINE_TOL:
+        return row
+    if t is None:
+        raise AssertionError(f"{name}: card and CPU differ ({gap:.2e}, same positions {same}) "
+                             "with every pick the same")
+    tr_k, tr_c = card[resid_key].cpu(), cpu[resid_key]
+    before = float(((tr_k[:t] - tr_c[:t]).abs() / tr_c[:t].abs().clamp_min(1e-30)).max()) \
+        if t else 0.0
+    row["agree_before"] = before
+    print(f"[chip_smoke]     {name}: the picks part at call {t}; traces agreed to {before:.1e} "
+          f"before; rel_error card {rel[0]:.4f} CPU {rel[1]:.4f}", flush=True)
+    if before > BASELINE_TOL or abs(rel[0] - rel[1]) > 0.01:
+        raise AssertionError(f"{name}: a split at call {t} after traces {before} apart, "
+                             f"rel_error {rel}")
+    return row
+
+
+def baseline_syncs(torch, mods, fn_of_n, n):
+    """Host syncs of a baseline at n and 2n iterations (torch's sync debug
+    mode): they must not grow with the iteration count."""
+    few, _ = syncs_and_launches(torch, lambda: fn_of_n(n))
+    more, _ = syncs_and_launches(torch, lambda: fn_of_n(2 * n))
+    return few, more
+
+
+def phase_baselines(torch, mods):
+    """Paper Fig. 4 and Fig. 9 on the card at LOFAR CS302 size: dense NIHT
+    (60 iterations), QNIHT 2&8 packed (60), IHT (120), CoSaMP (20), FISTA-ℓ1
+    (180) with rel_error, support recovery and µs per iteration; the dirty
+    image and beam at r = 256 and Högbom CLEAN (300 iterations, gain 0.1).
+    Then on LOFAR-bench (r = 64) the card against the port's CPU on the same
+    inputs (``hold_baseline``): IHT, CoSaMP and CLEAN by positions and
+    values, FISTA by x; no baseline's host syncs grow with its iterations.
+    The bench instance and the card's answers go to ``baselines_bench.npz``
+    for ``scripts/reference_replay.py baselines``."""
+    import numpy as np
+
+    bl, cs, dev = mods["baselines"], mods["LOFAR"], torch.device(mods["device"])
+    prng, s = mods["prng"], cs.n_sources
+    phi, y, x_true = mods["lofar_instance"](cs, 0, 0, dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    r = cs.resolution
+    key = prng.PRNGKey(0)
+    kw = dict(real_signal=True, nonneg=True)
+    runs = (
+        ("niht_32bit", BASELINE_ITERS["niht"],
+         lambda n: mods["niht"].niht(phi, y, s, n, **kw)),
+        (f"qniht_{cs.bits_phi}&{cs.bits_y}bit_packed", BASELINE_ITERS["qniht"],
+         lambda n: mods["qniht"](phi, y, s, n, bits_phi=cs.bits_phi, bits_y=cs.bits_y, key=key,
+                                 requantize="fixed", backend="packed", **kw)),
+        ("iht", BASELINE_ITERS["iht"], lambda n: bl.iht(phi, y, s, n, real_signal=True)),
+        ("cosamp", BASELINE_ITERS["cosamp"], lambda n: bl.cosamp(phi, y, s, n, real_signal=True)),
+        ("fista_l1", BASELINE_ITERS["fista_l1"],
+         lambda n: bl.fista_l1(phi, y, n_iters=n, real_signal=True)),
+    )
+    out = {"fig4": {}}
+    for name, n, run in runs:
+        run(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        x = res[0]
+        x = x.real if x.is_complex() else x
+        row = {"n_iters": n, "us_per_iter": wall * 1e6 / n, "wall_s": wall,
+               "rel_error": float(mods["relative_error"](x, x_true)),
+               "support_recovery": float(mods["support_recovery"](x, x_true, s)),
+               "source_recovery": float(mods["source_recovery"](x.reshape(r, r),
+                                                                x_true.reshape(r, r), s, 1))}
+        out["fig4"][name] = row
+        print(f"[chip_smoke]   Fig. 4 {name}: rel_error={row['rel_error']:.4f} "
+              f"support_recovery={row['support_recovery']:.3f} "
+              f"{row['us_per_iter']:.1f} µs per iteration ({n})", flush=True)
+        if not np.isfinite(row["rel_error"]):
+            raise AssertionError(f"{name}: rel_error {row['rel_error']}")
+    img = mods["dirty_image"](phi, y, r)
+    beam = mods["dirty_beam"](phi, r)
+    bl.clean(img, beam, CLEAN_GAIN, 2)                 # warm-up, as for each method above
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps, resid, peaks = bl.clean(img, beam, CLEAN_GAIN, CLEAN_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    src = float(mods["source_recovery"](comps, x_true.reshape(r, r), s, 1))
+    out["fig9"] = {"clean_s": wall, "us_per_iter": wall * 1e6 / CLEAN_ITERS,
+                   "source_recovery": src, "components": int((comps != 0).sum()),
+                   "last_peak": float(peaks[-1]), "dirty_peak": float(img.abs().max()),
+                   "dirty_ms": time_ms(torch, lambda: mods["dirty_image"](phi, y, r), 3, flush),
+                   "beam_ms": time_ms(torch, lambda: mods["dirty_beam"](phi, r), 3, flush),
+                   "niht_source_recovery": out["fig4"]["niht_32bit"]["source_recovery"]}
+    print(f"[chip_smoke]   Fig. 9 CLEAN r={r}, {CLEAN_ITERS} iterations, gain {CLEAN_GAIN}: "
+          f"source_recovery={src:.3f} ({out['fig9']['components']} components; NIHT "
+          f"{out['fig9']['niht_source_recovery']:.3f}), {wall * 1e3:.1f} ms; dirty image "
+          f"{out['fig9']['dirty_ms']:.2f} ms, beam {out['fig9']['beam_ms']:.2f} ms", flush=True)
+    del phi, img, beam
+
+    bench = mods["LOFAR_BENCH"]
+    rb, sb = bench.resolution, bench.n_sources
+    phi, y, x_true = mods["lofar_instance"](bench, 0, 0, dev)
+    img, beam = mods["dirty_image"](phi, y, rb), mods["dirty_beam"](phi, rb)
+    cpu = {"phi": phi.cpu(), "y": y.cpu(), "img": img.cpu(), "beam": beam.cpu()}
+    calls = {
+        "iht": lambda p, v, n: bl.iht(p, v, sb, n, real_signal=True),
+        "cosamp": lambda p, v, n: bl.cosamp(p, v, sb, n, real_signal=True),
+        "fista_l1": lambda p, v, n: bl.fista_l1(p, v, n_iters=n, real_signal=True),
+    }
+    held, saved = {}, {"phi": cpu["phi"].numpy(), "y": cpu["y"].numpy(),
+                       "x_true": x_true.cpu().numpy(), "s": sb,
+                       "dirty_image": cpu["img"].numpy(), "dirty_beam": cpu["beam"].numpy(),
+                       "clean_gain": CLEAN_GAIN, "n_iters_clean": CLEAN_ITERS,
+                       "gamma_full": float(mods["rip"].gamma_full(phi))}
+    for name, call in calls.items():
+        n = BASELINE_ITERS[name]
+        with record_picks(mods) as log_k:
+            card = call(phi, y, n)
+        with record_picks(mods) as log_c:
+            host = call(cpu["phi"], cpu["y"], n)
+        if name == "fista_l1":
+            gap = float((card[0].cpu() - host[0]).abs().max() / host[0].abs().max())
+            held[name] = {"max_rel_gap": gap}
+            if not gap <= BASELINE_TOL:
+                raise AssertionError(f"fista_l1: x on the card and the CPU differ by {gap:.2e}")
+        else:
+            held[name] = hold_baseline(torch, name, card, host, log_k, log_c, x_true.cpu(), 1)
+        saved.update({f"n_iters_{name}": n, f"x_{name}": card[0].cpu().numpy(),
+                      f"resid_{name}": card[1].cpu().numpy()})
+    with record_picks(mods) as log_k:
+        card = bl.clean(img, beam, CLEAN_GAIN, CLEAN_ITERS)
+    with record_picks(mods) as log_c:
+        host = bl.clean(cpu["img"], cpu["beam"], CLEAN_GAIN, CLEAN_ITERS)
+    held["clean"] = hold_baseline(torch, "clean", card, host, log_k, log_c,
+                                  x_true.cpu().reshape(rb, rb), 2)
+    saved.update({"comps_clean": card[0].cpu().numpy(), "peaks_clean": card[2].cpu().numpy()})
+    held["syncs"] = {name: baseline_syncs(torch, mods, lambda n, c=call: c(phi, y, n), 4)
+                     for name, call in calls.items()}
+    held["syncs"]["clean"] = baseline_syncs(
+        torch, mods, lambda n: bl.clean(img, beam, CLEAN_GAIN, n), 4)
+    grew = {k: v for k, v in held["syncs"].items() if v[1] != v[0]}
+    print("[chip_smoke]   LOFAR-bench, card against CPU: " + "; ".join(
+        f"{k}: max gap {v['max_rel_gap']:.1e}" + (f", parted at {v['parted_at']}"
+                                                   if v.get("parted_at") is not None else "")
+        for k, v in held.items() if k != "syncs") + "; host syncs at n / 2n iterations: "
+        + ", ".join(f"{k} {a}/{b}" for k, (a, b) in held["syncs"].items()), flush=True)
+    if grew:
+        raise AssertionError(f"host syncs grow with the iterations: {grew}")
+    path = mods["out_dir"] / "baselines_bench.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **saved)
+    out["bench_held"] = held
+    out["saved"] = path.name
+    return out
+
+
+def run_main(main, argv):
+    """The lines a CLI's main prints, run in this process."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue().strip().splitlines()
+
+
+def sanitize_line(label, lines):
+    line = next((ln for ln in lines if ln.startswith("[sanitize] ok ")), None)
+    if line is None or not line.endswith("debug_nans=on debug_infs=on"):
+        raise AssertionError(f"{label}: no [sanitize] ok line in {lines[-3:]}")
+    return line
+
+
+def phase_sanitize(torch, mods):
+    """The NaN/Inf sanitizer on the card: ``recover --sanitize`` on LOFAR
+    CS302 packed 2-bit and on ``mri-wavelet-bench``, and ``serve --config
+    serve-gaussian-fault-packed`` (the config sanitizes), each ending with the
+    reference's ``[sanitize] ok ...`` line, the serve run's with
+    ``compiles_after_warmup=0``. Two planted faults must raise
+    ``FloatingPointError`` naming where: a NaN in y (an aten op of the
+    packed solve) and a finite x near the float32 maximum whose product with
+    the LOFAR Φ̂ overflows only inside ``repro_qmm_tc`` (the kernel's
+    entry). ``recover --profile-dir`` (LOFAR-bench, packed) writes a trace
+    that names ``repro_qmm_tc``."""
+    cs, dev, prng = mods["LOFAR"], torch.device(mods["device"]), mods["prng"]
+    out = {}
+    for label, argv in SANITIZE_RUNS:
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        lines = run_main(mods["recover_main"] if label != "serve" else mods["serve"].main,
+                         [*argv, "--sanitize"] if label != "serve" else argv)
+        wall = time.perf_counter() - t0
+        line = sanitize_line(label, lines)
+        if label == "serve" and "compiles_after_warmup=0 " not in line:
+            raise AssertionError(f"serve: kernel libraries built after warm-up: {line}")
+        out[label] = {"sanitize": line, "result": lines[-1], "s": wall,
+                      "qmm_launches": mods["QMM"].launches}
+        print(f"[chip_smoke]   {label} sanitized ({wall:.1f} s, qmm {mods['QMM'].launches}): "
+              f"{line}", flush=True)
+        print(f"[chip_smoke]     {lines[-1][:200]}", flush=True)
+
+    phi, y, _ = mods["lofar_instance"](cs, 0, 0, dev)
+    bad = y.clone()
+    bad[5] = float("nan")
+    with mods["sanitize"]():
+        try:
+            mods["qniht"](phi, bad, cs.n_sources, 3, bits_phi=cs.bits_phi, bits_y=cs.bits_y,
+                          key=prng.PRNGKey(0), requantize="fixed", backend="packed",
+                          real_signal=True, nonneg=True)
+        except FloatingPointError as e:
+            out["nan_in_y"] = str(e)
+        else:
+            raise AssertionError("a NaN planted in y did not trip the sanitizer")
+    if "aten." not in out["nan_in_y"]:
+        raise AssertionError(f"the NaN in y tripped without naming an op: {out['nan_in_y']}")
+    w = mods["pack_operator"](phi, cs.bits_phi, prng.PRNGKey(0), shared=True).fwd_re
+    x = torch.full((1, phi.shape[1]), OVERFLOW_X, device=dev)
+    plain = mods["qmm_ref"](x, w.packed, w.scale, w.bits, w.k_dim)
+    kernel = mods["qmm"](x, w)
+    if torch.isfinite(plain).all() or not torch.equal(torch.isfinite(kernel),
+                                                      torch.isfinite(plain)):
+        raise AssertionError("x near the float32 maximum: the kernel's non-finite outputs "
+                             "are not the plain version's")
+    reset_counts(mods)
+    with mods["sanitize"]():
+        try:
+            mods["qmm"](x, w)
+        except FloatingPointError as e:
+            out["overflow_in_qmm"] = str(e)
+        else:
+            raise AssertionError("an overflow inside repro_qmm_tc did not trip the sanitizer")
+    if "kernel repro_qmm_tc" not in out["overflow_in_qmm"] or mods["QMM"].launches != 1:
+        raise AssertionError(f"the overflow tripped elsewhere: {out['overflow_in_qmm']}")
+    out["overflow_nonfinite"] = int((~torch.isfinite(kernel)).sum())
+    print(f"[chip_smoke]   planted NaN in y: {out['nan_in_y']}", flush=True)
+    print(f"[chip_smoke]   planted x = {OVERFLOW_X:g} ({out['overflow_nonfinite']} of "
+          f"{kernel.numel()} outputs non-finite, as the plain version's): "
+          f"{out['overflow_in_qmm']}", flush=True)
+    del phi, w, x, plain, kernel
+
+    import json as _json
+
+    trace_dir = mods["out_dir"] / "profile_lofar_bench"
+    run_main(mods["recover_main"], ["--config", "lofar-bench", "--backend", "packed",
+                                    "--requantize", "fixed", "--profile-dir", str(trace_dir)])
+    events = _json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    spans = sum(e.get("name") == "repro_qmm_tc" for e in events)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    out["profile"] = {"trace": str(trace_dir / "trace.json"), "repro_qmm_tc_spans": spans,
+                      "device_kernels": kernels}
+    print(f"[chip_smoke]   recover --profile-dir (lofar-bench packed): {spans} repro_qmm_tc "
+          f"spans, {kernels} device kernel events", flush=True)
+    if not spans or not kernels:
+        raise AssertionError("the profile names no repro_qmm_tc span or holds no device kernel")
+    return out
+
+
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
     sys.path.insert(0, str(SRC))
@@ -3112,7 +3589,7 @@ def load_port() -> dict:
     from repro_torch.configs.gaussian_toy import CONFIG as GAUSS
     from repro_torch.configs.lofar_cs302 import BENCH as LOFAR_BENCH, CONFIG as LOFAR
     from repro_torch.configs import CONFIGS
-    from repro_torch.core import niht
+    niht = importlib.import_module("repro_torch.core.niht")   # the module, not the function
     from repro_torch.core.niht import (
         _solver_setup,
         qniht_batch,
@@ -3161,7 +3638,19 @@ def load_port() -> dict:
     from repro_torch.core.operators import PackedStreamingOperator
     from repro_torch.sensing import kspace_band_scales, kspace_radial_bands
     from repro_torch.sensing.sky import make_sky
-    from repro_torch.sensing.telescope import Station, measurement_matrix, visibilities
+    from repro_torch.sensing.telescope import (
+        Station,
+        dirty_beam,
+        dirty_image,
+        measurement_matrix,
+        tune_extent_for_gamma,
+        visibilities,
+    )
+    from repro_torch.analysis.sanitize import sanitize
+    from repro_torch.core import baselines, rip
+    from repro_torch.core.niht import stopping_iterations
+    from repro_torch.core.recovery import source_recovery, support_recovery
+    from repro_torch.quant.quantize import fake_quantize, quantize
 
     mods = dict(prng=prng, GAUSS=GAUSS, LOFAR=LOFAR, QMM=QMM, pack_operator=pack_operator,
                 pack_weights=pack_weights, qmm_ref=qmm_ref, recover_gaussian=recover_gaussian,
@@ -3187,6 +3676,11 @@ def load_port() -> dict:
                 ROW_LOCAL_ROWS=qmm_kernel.ROW_LOCAL_ROWS, BY_BITS=BY_BITS,
                 kspace_band_scales=kspace_band_scales, kspace_radial_bands=kspace_radial_bands,
                 recover_mri=recover_mri, mri_instance=mri_instance, recover_main=recover_main,
+                rip=rip, baselines=baselines, sanitize=sanitize, dirty_image=dirty_image,
+                dirty_beam=dirty_beam, tune_extent_for_gamma=tune_extent_for_gamma,
+                stopping_iterations=stopping_iterations, quantize=quantize,
+                fake_quantize=fake_quantize, support_recovery=support_recovery,
+                source_recovery=source_recovery,
                 relative_error=relative_error, parallel=parallel, SERVE_CONFIGS=SERVE_CONFIGS,
                 serve=serve, Request=Request, PackedStreamingOperator=PackedStreamingOperator,
                 KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
@@ -3257,6 +3751,9 @@ def main(argv=None) -> int:
     report["mri"] = phases.run("mri", phase_mri, torch, mods)
     report["resume"] = phases.run("resume", phase_resume, torch, mods)
     report["serve"] = phases.run("serve", phase_serve, torch, mods)
+    report["theory"] = phases.run("theory", phase_theory, torch, mods, report["lofar"])
+    report["baselines"] = phases.run("baselines", phase_baselines, torch, mods)
+    report["sanitize"] = phases.run("sanitize", phase_sanitize, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0

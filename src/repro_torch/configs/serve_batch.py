@@ -36,8 +36,8 @@ class ServeConfig:
     bits_y: Optional[int] = None
     backend: str = "dense"              # "dense" | "packed"
     seed: int = 0
-    # the reference runs these under its NaN/Inf tripwire; the port has none
-    # yet and runs them with_trace=True, as the reference's sanitized run does
+    # run under repro_torch.analysis.sanitize (NaN/Inf tripwires and the
+    # kernel-build counter), with the real residual trace (with_trace=True)
     sanitize: bool = False
 
     @property
@@ -115,8 +115,8 @@ SMOKE = ServeConfig(name="serve-gaussian-smoke", m=64, n=128, s=8, chunk=8,
 # kill -TERM reliably lands mid-stream (the kill/resume tests kill after the
 # first chunk's progress line and the restarted run must drain the journaled
 # prefix and replay the rest bit-identically).
-# sanitize=True: the reference NaN-checks resumed runs; the port runs them
-# with the real residual trace, as the reference's sanitized run computes.
+# sanitize=True: resumed runs are NaN-checked too (a restart that drains a
+# torn or garbage journal entry should trip the sanitizer, not serve it).
 FAULT = ServeConfig(name="serve-gaussian-fault", m=48, n=96, s=5, chunk=8,
                     n_chunks=5, n_iters=30, sanitize=True)
 

@@ -49,8 +49,10 @@ layer on these segments is :mod:`repro_torch.parallel`.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -189,6 +191,26 @@ def _niht_iteration_batch(X, Yhat, op1, op2, s, c, shrink_k, max_backtracks,
     return Xp, mu, changed, n_bt
 
 
+def niht_iteration(x: torch.Tensor, y_hat: torch.Tensor, op1, op2, s: int, c: float,
+                   shrink_k: float, max_backtracks: int, real_signal: bool, nonneg: bool,
+                   threshold: str = "topk"):
+    """One NIHT step on a single problem. ``op1``/``op2`` follow the
+    :mod:`repro_torch.core.operators` protocol (``mv``/``rmv`` over a batch
+    axis): ``op1`` is Φ̂_{2n-1} (gradient, step size, acceptance), ``op2``
+    Φ̂_{2n} (residual). Returns (x_new, mu, changed, n_backtracks)."""
+    X, mu, ch, nbt = _niht_iteration_batch(
+        x[None, :], y_hat[None, :], op1, op2, s, c, shrink_k, max_backtracks,
+        real_signal, nonneg, _make_hs(threshold, s))
+    return X[0], mu[0], ch[0], nbt[0]
+
+
+def _nan_rows(B: int, device) -> torch.Tensor:
+    """(B,) float32 NaN markers, built on the host and transferred: a
+    transfer, not an operation that produces a NaN, so it passes the
+    sanitizer (:mod:`repro_torch.analysis.sanitize`), as in the reference."""
+    return torch.from_numpy(np.full((B,), np.nan, np.float32)).to(device)
+
+
 def _validate(phi, bits_phi, bits_y, key, requantize, backend, threshold, real_signal,
               scale_granularity="per_tensor", group_size=None, early_exit=False,
               exit_tol=0.0, unroll=1):
@@ -270,6 +292,8 @@ def _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend, thresho
         granularity=as_granularity(scale_granularity, group_size))
     if row_local:
         phi_true = _row_local(phi_true)
+    # the skipped residuals' markers, one transfer per setup
+    nan_row = None if with_trace else _nan_rows(Y.shape[0], Y.device)
 
     def iteration(X, i):
         op1, op2 = get_ops(i)
@@ -283,7 +307,7 @@ def _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend, thresho
             rt = torch.sqrt(sqnorm(Y - phi_true.mv(X_new)))
         else:
             # skip the two residual products (one of them streams dense Φ)
-            rq = rt = torch.full((X.shape[0],), float("nan"), device=X.device)
+            rq = rt = nan_row
         return X_new, (rq, rt, mu, changed, n_bt)
 
     return X0, iteration
@@ -291,8 +315,7 @@ def _solver_setup(phi, Y, s, bits_phi, bits_y, key, requantize, backend, thresho
 
 def _first_trace_row(B: int, device) -> IHTTrace:
     """What a row re-emits before its first iteration: NaN residuals, µ 0."""
-    nan = torch.full((B,), float("nan"), device=device)
-    return IHTTrace(resid_q=nan, resid_true=nan.clone(),
+    return IHTTrace(resid_q=_nan_rows(B, device), resid_true=_nan_rows(B, device),
                     mu=torch.zeros((B,), device=device),
                     support_changed=torch.zeros((B,), dtype=torch.bool, device=device),
                     backtracks=torch.zeros((B,), dtype=torch.int32, device=device))
@@ -535,3 +558,10 @@ def qniht_batch(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
 def niht(phi, y, s, n_iters=50, **kw) -> IHTResult:
     """Full-precision NIHT (the paper's baseline)."""
     return qniht(phi, y, s, n_iters, bits_phi=None, bits_y=None, **kw)
+
+
+def stopping_iterations(xs_norm: float, eps_s: float) -> int:
+    """The paper's natural stopping criterion n* = ⌈log₂(‖xˢ‖ / ε_s)⌉."""
+    if eps_s <= 0 or xs_norm <= 0:
+        return 1
+    return max(1, math.ceil(math.log2(xs_norm / eps_s)))

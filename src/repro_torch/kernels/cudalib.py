@@ -10,11 +10,15 @@ fallback: a build that fails raises.
 :class:`CudaKernel` is one entry point of such a library with its launch
 counter: ``launches`` grows by one for every launch of the kernel and nowhere
 else, and ``launches_by_shape`` splits the same count by a shape key the
-wrapper chooses.
+wrapper chooses. Under :func:`repro_torch.analysis.sanitize.sanitize` a launch
+checks the output it was given for NaN and Inf, naming its entry, and every
+build or load counts on the active ``CompileCounter``; under
+``torch.profiler`` a launch is a span named by its entry.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +30,8 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.analysis.sanitize import check_kernel_output, record_compile
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -71,13 +77,16 @@ class CudaLibrary:
             out.parent.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
             os.close(fd)
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                                  capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed to build {self.source}:\n{self.build_log}")
-            os.replace(tmp, out)   # atomic: a concurrent process never loads half a file
+            try:
+                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                                      capture_output=True, text=True)
+                self.build_log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed to build {self.source}:\n{self.build_log}")
+                os.replace(tmp, out)   # atomic: a concurrent process never loads half a file
+            finally:
+                if os.path.exists(tmp):    # a failed build (or no nvcc) leaves no file behind
+                    os.unlink(tmp)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in self.entries.items():
             fn = getattr(lib, name)
@@ -85,6 +94,7 @@ class CudaLibrary:
             fn.restype = ctypes.c_int
         self.build_seconds = time.perf_counter() - t0
         self._lib = lib
+        record_compile(self.build_seconds)
         return lib
 
 
@@ -121,17 +131,22 @@ class CudaKernel:
         self.launches = 0
         self.launches_by_shape.clear()
 
-    def launch(self, device, shape_key, *args) -> None:
+    def launch(self, device, shape_key, *args, out: Optional[torch.Tensor] = None) -> None:
         """Call the entry on ``device``'s current stream (the last argument)
-        and count the launch; raises if the launch was refused."""
+        and count the launch; raises if the launch was refused. ``out`` is
+        the tensor the kernel writes, which the sanitizer checks."""
         lib = self.build()
         stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
+        span = (torch.profiler.record_function(self.entry) if torch.autograd._profiler_enabled()
+                else contextlib.nullcontext())
+        with span, torch.cuda.device(device):
             err = getattr(lib, self.entry)(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.entry}: kernel launch failed with cudaError {err}")
         self.launches += 1
         self.launches_by_shape[shape_key] += 1
+        if out is not None:
+            check_kernel_output(self.entry, out)
 
 
 def check_cuda_tensors(who: str, *specs) -> None:

@@ -111,7 +111,7 @@ class FlashAttentionKernel(CudaKernel):
             return out
         self.launch(q.device, (b, hq, hkv, sq, sk, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), b, hq, hkv, sq, sk, d, self.dtypes[q.dtype], float(scale),
-                    int(bool(causal)))
+                    int(bool(causal)), out=out)
         return out
 
 

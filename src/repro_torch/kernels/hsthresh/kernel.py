@@ -63,7 +63,7 @@ class HistKernel(CudaKernel):
         if b == 0 or n == 0:
             return out
         self.launch(x.device, (b, n), x.data_ptr(), vmax.data_ptr(), out.data_ptr(),
-                    b, n, nbins)
+                    b, n, nbins, out=out)
         return out
 
 
@@ -75,7 +75,7 @@ class MaskKernel(CudaKernel):
         y = torch.empty_like(x)
         if b == 0 or n == 0:
             return y
-        self.launch(x.device, (b, n), x.data_ptr(), t.data_ptr(), y.data_ptr(), b, n)
+        self.launch(x.device, (b, n), x.data_ptr(), t.data_ptr(), y.data_ptr(), b, n, out=y)
         return y
 
 
@@ -96,7 +96,7 @@ class HsthreshKernel(CudaKernel):
             return y
         # s past N keeps what N keeps, and any s < 0 what -1 keeps: a 32-bit int
         self.launch(x.device, (b, n), x.data_ptr(), y.data_ptr(), b, n,
-                    max(-1, min(int(s), n)), nbins)
+                    max(-1, min(int(s), n)), nbins, out=y)
         return y
 
 

@@ -145,7 +145,7 @@ class QmmKernel(CudaKernel):
             return y
         ws, counters = _scratch(x.device, m, n, kp, self.build())
         self.launch(x.device, (n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-                    y.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, n, k, kp, bits)
+                    y.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, n, k, kp, bits, out=y)
         return y
 
 
@@ -164,7 +164,7 @@ class QmmCoreKernel(CudaKernel):
         if m == 0 or n == 0:
             return y
         self.launch(x.device, (n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-                    y.data_ptr(), m, n, k, kp, bits)
+                    y.data_ptr(), m, n, k, kp, bits, out=y)
         return y
 
 
@@ -203,7 +203,7 @@ class QmmGroupKernel(CudaKernel):
             _check_aligned("qmm_group_cuda", w_packed)
             ws, counters = _scratch(x.device, m, n, kp, self.build())
             ptrs += [ws.data_ptr(), counters.data_ptr()]
-        self.launch(x.device, (n, k), *ptrs, m, n, k, kp, bits, group_size)
+        self.launch(x.device, (n, k), *ptrs, m, n, k, kp, bits, group_size, out=y)
         return y
 
 

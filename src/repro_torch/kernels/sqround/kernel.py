@@ -55,7 +55,7 @@ class SqroundKernel(CudaKernel):
         if v.numel() == 0:
             return out
         self.launch(v.device, tuple(v.shape), v.data_ptr(), words.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), v.numel(), BY_BITS[bits].half_steps)
+                    out.data_ptr(), v.numel(), BY_BITS[bits].half_steps, out=out)
         return out
 
 

@@ -23,8 +23,12 @@ its own, and ``per_block`` streams through the group kernel. It needs
 
 ``--batch B`` recovers B observations of one Φ̂ at once (``qniht_batch``).
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions on the CPU. Problem instances come from a ``torch.Generator`` seeded
-with ``--seed``; the quantization draws from ``repro_torch.random.PRNGKey(seed)``.
+versions on the CPU. Everything random draws from
+``repro_torch.random.PRNGKey(seed)`` as the reference draws from its key: the
+LOFAR sky and its noise from the key (row b of a batch from ``fold_in(key,
+b)``), the Gaussian instance from the key (row b from ``fold_in(key, b + 1)``
+sharing its Φ), so ``--seed`` solves the reference's instance: positions and
+supports bit for bit, y to the tolerance of ``random.normal``.
 
 ``--config mri`` (also ``mri-bench``/``mri-smoke``) runs the paper's §5 MRI
 workload: a brain phantom recovered from quantized variable-density k-space
@@ -44,6 +48,13 @@ iterations with a checkpoint after each
 writes a last checkpoint and exits cleanly, and ``--resume`` goes on from
 the newest complete checkpoint, to the bits of the uninterrupted run.
 
+``--sanitize`` runs the solve under :func:`repro_torch.analysis.sanitize.sanitize`:
+a NaN or Inf produced by any operation or kernel raises ``FloatingPointError``
+naming it, and a ``[sanitize] ok ...`` line reports the kernel-library builds.
+``--profile-dir D`` writes a ``torch.profiler`` trace (CPU and CUDA activity,
+Chrome/Perfetto JSON) of the whole solve to ``D``. ``--full-precision`` is
+``--backend dense``.
+
 The streaming H_s (``threshold="hsthresh"``) has no flag here, as in the
 reference's CLI; it is reached through ``qniht``/``qniht_batch``.
 
@@ -52,6 +63,8 @@ Not yet ported: ``--devices`` (the sharded batch).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -120,14 +133,17 @@ def _single_via_ckpt(ckpt, phi, y, s, n_iters, **kw) -> IHTResult:
 
 def lofar_instance(cs, seed, batch, device):
     """The LOFAR station's Φ and B skies with their visibilities (one sky
-    when ``batch`` is 0). Returns (phi, Y, X_true); Y and X_true lose the
-    batch axis when ``batch`` is 0."""
-    gen = torch.Generator().manual_seed(seed)
+    when ``batch`` is 0), as the reference draws them: the sky and its noise
+    from ``PRNGKey(seed)``, row b of a batch from ``fold_in(key, b)``.
+    Returns (phi, Y, X_true); Y and X_true lose the batch axis when
+    ``batch`` is 0."""
+    key = prng.PRNGKey(seed)
     phi = measurement_matrix(Station(n_antennas=cs.n_antennas, seed=cs.seed),
                              cs.resolution, cs.extent, device=device)
-    skies = [make_sky(cs.resolution, cs.n_sources, gen, min_sep=cs.min_sep, device=device)
-             for _ in range(max(batch, 1))]
-    vis = [visibilities(phi, x, cs.snr_db, gen)[0] for x in skies]
+    keys = [prng.fold_in(key, b) for b in range(batch)] if batch else [key]
+    skies = [make_sky(cs.resolution, cs.n_sources, k, min_sep=cs.min_sep, device=device)
+             for k in keys]
+    vis = [visibilities(phi, x, cs.snr_db, k)[0] for x, k in zip(skies, keys)]
     if not batch:
         return phi, vis[0], skies[0]
     return phi, torch.stack(vis), torch.stack(skies)
@@ -176,12 +192,13 @@ def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batc
 
 
 def gaussian_batch_instance(g, seed, batch, device):
-    """The ``--batch`` Gaussian instance: Φ, then B problems sharing it (fresh
-    sparse signals and noise per row). Returns (phi, Y, X_true)."""
-    gen = torch.Generator().manual_seed(seed)
-    prob = make_gaussian_problem(g.m, g.n, g.s, 20.0, generator=gen, device=device)
-    probs = [make_gaussian_problem(g.m, g.n, g.s, 20.0, generator=gen, phi=prob.phi,
-                                   device=device) for _ in range(batch)]
+    """The ``--batch`` Gaussian instance: Φ from ``PRNGKey(seed)``, then B
+    problems sharing it, row b's sparse signal and noise from ``fold_in(key,
+    b + 1)``, as the reference draws them. Returns (phi, Y, X_true)."""
+    key = prng.PRNGKey(seed)
+    prob = make_gaussian_problem(g.m, g.n, g.s, 20.0, key, device=device)
+    probs = [make_gaussian_problem(g.m, g.n, g.s, 20.0, prng.fold_in(key, b + 1),
+                                   phi=prob.phi, device=device) for b in range(batch)]
     return prob.phi, torch.stack([p.y for p in probs]), torch.stack([p.x_true for p in probs])
 
 
@@ -201,8 +218,7 @@ def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", ba
         rel = [float(relative_error(res.x[b], X_true[b])) for b in range(batch)]
         return ({"batch": batch, "rel_error_mean": sum(rel) / batch,
                  "rel_error_max": max(rel), "wall_s": wall}, res, X_true)
-    prob = make_gaussian_problem(g.m, g.n, g.s, 20.0,
-                                 generator=torch.Generator().manual_seed(seed), device=dev)
+    prob = make_gaussian_problem(g.m, g.n, g.s, 20.0, key, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
     if ckpt:
@@ -318,6 +334,7 @@ def main(argv=None):
     ap.add_argument("--backend", default="fake", choices=["dense", "fake", "packed"])
     ap.add_argument("--bits-phi", type=int, default=2)
     ap.add_argument("--bits-y", type=int, default=8)
+    ap.add_argument("--full-precision", action="store_true", help="alias for --backend dense")
     ap.add_argument("--requantize", default="pair", choices=["pair", "fixed"])
     ap.add_argument("--batch", type=int, default=0,
                     help="recover B observations of one Φ̂ at once (qniht_batch)")
@@ -344,6 +361,13 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="go on from the newest complete checkpoint in --checkpoint-dir "
                          "(a fresh start when there is none)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run the solve under repro_torch.analysis.sanitize: any NaN/Inf "
+                         "raises at the producing op or kernel, and a [sanitize] line "
+                         "reports the kernel-library builds")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace (CPU and CUDA activity, "
+                         "Chrome/Perfetto JSON) of the whole solve to this directory")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
@@ -358,38 +382,73 @@ def main(argv=None):
                  resume=args.resume) if args.checkpoint_dir else None)
     if args.sparsity_basis and not args.config.startswith("mri"):
         ap.error("--sparsity-basis selects the MRI recovery model; use an mri config")
-    backend = args.backend
+    backend = "dense" if args.full_precision else args.backend
     cfg = CONFIGS[args.config]
     from repro_torch.launch.resilience import Preempted
 
+    if args.sanitize:
+        from repro_torch.analysis.sanitize import sanitize
+
+        ctx = sanitize()
+    else:
+        ctx = contextlib.nullcontext()
+    counter = None
     try:
-        if args.config.startswith("mri"):
-            if args.scale_granularity in ("per_channel", "per_block"):
-                ap.error("the MRI Φ is matrix-free (nothing packed to scale); "
-                         "use --scale-granularity per_band for the observations")
-            bits_y = None if backend == "dense" else args.bits_y
-            gran = args.scale_granularity or cfg.scale_granularity
-            out, _, _ = recover_mri(cfg, bits_y, args.seed, args.batch, args.device, gran,
-                                    args.group_size, args.sparsity_basis, ckpt)
-            basis = args.sparsity_basis or cfg.sparsity_basis
-            label = ("32bit[matrix-free]" if bits_y is None
-                     else f"y@{bits_y}bit[{gran},matrix-free]") + f"[{basis}]"
-        else:
-            gran = args.scale_granularity or "per_tensor"
-            if gran == "per_band":
-                ap.error("per_band is the MRI observation granularity; use an mri config")
-            if gran == "per_block" and args.group_size is None:
-                ap.error("--scale-granularity per_block needs --group-size")
-            run = recover_lofar if args.config.startswith("lofar") else recover_gaussian
-            out, _, _ = run(cfg, backend, args.bits_phi, args.bits_y, args.seed,
-                            args.requantize, args.batch, args.device, gran, args.group_size,
-                            ckpt)
-            label = ("32bit" if backend == "dense"
-                     else f"{args.bits_phi}&{args.bits_y}bit[{backend}]")
+        with profiled(args.profile_dir, args.device), ctx as counter:
+            out, label = _run(ap, args, cfg, backend, ckpt)
     except Preempted as e:
         print(f"[recover] {e}; restart with --resume to continue", flush=True)
         return
+    if counter is not None:
+        print(f"[sanitize] ok {counter.summary()} debug_nans=on debug_infs=on", flush=True)
     print(format_line(args.config, label, out), flush=True)
+
+
+@contextlib.contextmanager
+def profiled(profile_dir, device):
+    """A ``torch.profiler`` trace of the enclosed block, CPU and (on a CUDA
+    device) CUDA activity, exported as Chrome/Perfetto JSON to
+    ``profile_dir/trace.json``; nothing when ``profile_dir`` is None."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def _run(ap, args, cfg, backend, ckpt):
+    """The solve the arguments ask for: (metrics dict, label)."""
+    if args.config.startswith("mri"):
+        if args.scale_granularity in ("per_channel", "per_block"):
+            ap.error("the MRI Φ is matrix-free (nothing packed to scale); "
+                     "use --scale-granularity per_band for the observations")
+        bits_y = None if backend == "dense" else args.bits_y
+        gran = args.scale_granularity or cfg.scale_granularity
+        out, _, _ = recover_mri(cfg, bits_y, args.seed, args.batch, args.device, gran,
+                                args.group_size, args.sparsity_basis, ckpt)
+        basis = args.sparsity_basis or cfg.sparsity_basis
+        label = ("32bit[matrix-free]" if bits_y is None
+                 else f"y@{bits_y}bit[{gran},matrix-free]") + f"[{basis}]"
+    else:
+        gran = args.scale_granularity or "per_tensor"
+        if gran == "per_band":
+            ap.error("per_band is the MRI observation granularity; use an mri config")
+        if gran == "per_block" and args.group_size is None:
+            ap.error("--scale-granularity per_block needs --group-size")
+        run = recover_lofar if args.config.startswith("lofar") else recover_gaussian
+        out, _, _ = run(cfg, backend, args.bits_phi, args.bits_y, args.seed,
+                        args.requantize, args.batch, args.device, gran, args.group_size,
+                        ckpt)
+        label = ("32bit" if backend == "dense"
+                 else f"{args.bits_phi}&{args.bits_y}bit[{backend}]")
+    return out, label
 
 
 if __name__ == "__main__":

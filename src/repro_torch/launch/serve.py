@@ -28,13 +28,19 @@ its result after; SIGTERM/SIGINT stops cleanly at a chunk boundary, and
 uninterrupted run's bits. ``--device`` defaults to ``cuda``; ``--device cpu``
 runs the plain versions.
 
-Not yet ported: ``--devices N`` for N > 1 (sharding, ROADMAP queue 1 item 5),
-``--sanitize`` (the NaN/Inf tripwire, item 7) and ``--profile-dir`` (item 5).
-The configs that the reference sanitizes (``serve-gaussian-fault*``) run with
-the real residual trace (``with_trace=True``), as the reference's sanitized
-run computes them.
+``--sanitize`` (default: the config's ``sanitize``, on for
+``serve-gaussian-fault*``) runs the loop under
+:func:`repro_torch.analysis.sanitize.sanitize` with the real residual trace
+(``with_trace=True``): a NaN or Inf produced by any operation or kernel
+raises, and a ``[sanitize] ok ...`` line reports the kernel-library builds,
+with ``compiles_after_warmup`` counted after the first chunk (chunked) or
+after the whole run (scheduler). ``--profile-dir D`` writes a
+``torch.profiler`` trace (CPU and CUDA activity, Chrome/Perfetto JSON) of the
+chunked serving loop to ``D``.
 
-Workloads are the reference's: Φ from ``repro_torch.random.normal`` and each
+Not yet ported: ``--devices N`` for N > 1 (sharding, ROADMAP queue 1 item 5).
+
+Workloads are the reference's: Φ from ``make_gaussian_problem`` and each
 signal's support and signs from ``permutation`` and ``rademacher`` under the
 same keys, so supports, signs, arrival ticks, priorities and budgets equal the
 reference's bit for bit, and y agrees to 1e-6 relative.
@@ -42,6 +48,7 @@ reference's bit for bit, and y agrees to 1e-6 relative.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import statistics
@@ -58,10 +65,6 @@ from repro_torch.device import resolve_device
 NOT_PORTED = {
     "--devices": "--devices N > 1 (sharding the batch) is not yet ported: ROADMAP queue 1 "
                  "item 5, over torch.distributed",
-    "--sanitize": "--sanitize (the NaN/Inf tripwire) is not yet ported: ROADMAP queue 1 "
-                  "item 7",
-    "--profile-dir": "--profile-dir (a profiler trace of the serving loop) is not yet "
-                     "ported: ROADMAP queue 1 item 5",
 }
 
 
@@ -71,9 +74,10 @@ def _sync(device: torch.device) -> None:
 
 
 def _stream_phi(cfg, key, device) -> torch.Tensor:
-    """Φ as the reference's ``make_gaussian_problem(m, n, s, None, key)``
-    draws it: N(0, 1) from the first of four split keys."""
-    return prng.normal(prng.split(key, 4)[0], (cfg.m, cfg.n), device=device)
+    """Φ of the reference's ``make_gaussian_problem(m, n, s, None, key)``."""
+    from repro_torch.sensing.gaussian import make_gaussian_problem
+
+    return make_gaussian_problem(cfg.m, cfg.n, cfg.s, None, key, device=device).phi
 
 
 def _signal(cfg, k, decay, device) -> torch.Tensor:
@@ -163,17 +167,34 @@ def build_requests(cfg, key, device=None):
     return phi, arrivals, truths, hard_rids
 
 
-def _solver_kwargs(cfg) -> dict:
+def _solver_kwargs(cfg, sanitize=None) -> dict:
+    """The solver keywords of a serving config (``sanitize`` defaults to
+    ``cfg.sanitize``)."""
+    if sanitize is None:
+        sanitize = cfg.sanitize
     kw = {}
     if cfg.backend == "packed":
         kw = dict(bits_phi=cfg.bits_phi, bits_y=cfg.bits_y, backend="packed")
     elif cfg.bits_y:
         kw = dict(bits_y=cfg.bits_y)
-    if cfg.sanitize:
-        # the reference's sanitized run pays for the real residual trace (its
-        # NaN markers would trip the tripwire); the port computes the same
+    if sanitize:
+        # a trace of NaN markers would (rightly) trip the tripwire's stacking:
+        # sanitized runs pay for the real residual trace, as in the reference
         kw["with_trace"] = True
     return kw
+
+
+def _sanitizer(sanitize):
+    if not sanitize:
+        return contextlib.nullcontext()
+    from repro_torch.analysis.sanitize import sanitize as sanitize_ctx
+
+    return sanitize_ctx()
+
+
+def _sanitize_line(counter) -> None:
+    if counter is not None:
+        print(f"[sanitize] ok {counter.summary()} debug_nans=on debug_infs=on", flush=True)
 
 
 def _mean(xs, digits):
@@ -181,7 +202,7 @@ def _mean(xs, digits):
 
 
 def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
-                    verify=False, device=None):
+                    verify=False, device=None, sanitize=None):
     """Run the bursty request trace through a
     :class:`~repro_torch.parallel.scheduler.ContinuousScheduler`; returns
     metrics: p50/p99 request latency, items/s, slot occupancy, queue-wait
@@ -191,23 +212,31 @@ def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
     ``verify=True`` recomputes every completed request's standalone reference
     (:meth:`~repro_torch.parallel.scheduler.ContinuousScheduler.reference_solve`)
     and asserts bitwise equality. ``journal_dir``/``resume`` journal each
-    request under its rid and drain completed results on restart."""
+    request under its rid and drain completed results on restart.
+    ``sanitize`` (default: ``cfg.sanitize``) runs the scheduler under the
+    NaN/Inf tripwires, its counter marked warm after the run."""
     import numpy as np
 
     from repro_torch.parallel import ContinuousScheduler
 
     dev = resolve_device(device)
+    if sanitize is None:
+        sanitize = cfg.sanitize
     key = prng.PRNGKey(cfg.seed)
     phi, arrivals, truths, hard_rids = build_requests(cfg, key, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    sch = ContinuousScheduler(
-        phi, cfg.s, cfg.n_iters, slots=cfg.slots, seg_len=cfg.seg_len,
-        policy=policy, queue_depth=cfg.queue_depth, age_every=cfg.age_every,
-        n_devices=devices, key=key, exit_tol=cfg.exit_tol, journal_dir=journal_dir,
-        resume=resume, **_solver_kwargs(cfg))
-    reports = sch.run(arrivals)
+    with _sanitizer(sanitize) as counter:
+        sch = ContinuousScheduler(
+            phi, cfg.s, cfg.n_iters, slots=cfg.slots, seg_len=cfg.seg_len,
+            policy=policy, queue_depth=cfg.queue_depth, age_every=cfg.age_every,
+            n_devices=devices, key=key, exit_tol=cfg.exit_tol, journal_dir=journal_dir,
+            resume=resume, **_solver_kwargs(cfg, sanitize))
+        reports = sch.run(arrivals)
+        if counter is not None:
+            counter.mark_warm()
     wall = time.perf_counter() - t0
+    _sanitize_line(counter)
 
     done = [r for r in reports.values() if r.status == "done"]
     if verify:
@@ -237,7 +266,9 @@ def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
             return None
         return round(xs[min(len(xs) - 1, int(q * (len(xs) - 1) + 0.999999))], 4)
 
+    sanitize_fields = {} if counter is None else {"sanitize_compiles": counter.compiles}
     return {
+        **sanitize_fields,
         "scheduler": policy,
         "requests": len(reports),
         "completed": len(done),
@@ -262,7 +293,8 @@ def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
     }
 
 
-def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device=None):
+def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device=None,
+          sanitize=None, profile_dir=None):
     """Run the stream through a BatchServer; returns a metrics dict.
 
     The loop runs under a :class:`~repro_torch.train.fault.PreemptionGuard`:
@@ -270,21 +302,32 @@ def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device
     cleanly. With ``journal_dir``, each chunk is write-ahead journaled; a
     restarted run with ``resume=True`` re-presents the same stream, drains
     journaled results and solves the rest — its per-chunk ``x_digest`` lines
-    equal an uninterrupted run's."""
+    equal an uninterrupted run's.
+
+    ``sanitize`` (default: ``cfg.sanitize``) runs the whole loop under the
+    NaN/Inf tripwires with a kernel-build counter marked warm after the
+    first chunk, its metrics included: the ``[sanitize]`` line and the
+    ``sanitize_compiles*`` fields say whether later chunks built or loaded
+    anything. ``profile_dir`` writes a ``torch.profiler`` trace of the whole
+    loop (set-up chunk included)."""
+    from repro_torch.launch.recover import profiled
     from repro_torch.parallel import BatchServer
     from repro_torch.train.fault import PreemptionGuard
 
     dev = resolve_device(device)
+    if sanitize is None:
+        sanitize = cfg.sanitize
     key = prng.PRNGKey(cfg.seed)
     if chunks is not None:
         cfg = dataclasses.replace(cfg, n_chunks=chunks)
     phi, stream, truths = build_stream(cfg, key, dev)
     walls, rels_easy, rels_hard = [], [], []
     preempted = None
-    with PreemptionGuard() as guard:
+    with profiled(profile_dir, dev), _sanitizer(sanitize) as counter, \
+            PreemptionGuard() as guard:
         srv = BatchServer(phi, cfg.s, cfg.n_iters, n_devices=devices, key=key,
                           exit_tol=cfg.exit_tol, journal_dir=journal_dir,
-                          resume=resume, **_solver_kwargs(cfg))
+                          resume=resume, **_solver_kwargs(cfg, sanitize))
         for ci, Y in enumerate(stream):
             _sync(dev)
             t0 = time.perf_counter()
@@ -298,13 +341,22 @@ def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device
             for b in range(cfg.chunk):
                 r = float(relative_error(x[b], truth[b]))
                 (rels_hard if b < cfg.n_hard else rels_easy).append(r)
+            if counter is not None and ci == 0:
+                # warm-up = chunk 0 end to end, metrics included
+                counter.mark_warm()
             if guard.requested and ci + 1 < len(stream):
                 preempted = ci + 1
                 print(f"[serve] preempted after chunk {ci} "
                       f"(journal has {ci + 1}/{len(stream)} chunks)", flush=True)
                 break
+    _sanitize_line(counter)
     steady = walls[1:] if len(walls) > 1 else walls
+    sanitize_fields = {} if counter is None else {
+        "sanitize_compiles": counter.compiles,
+        "sanitize_compiles_after_warmup": counter.compiles_since_warm,
+    }
     return {
+        **sanitize_fields,
         "devices": srv.n_shards,
         "chunks": len(stream),
         "chunks_served": srv.n_chunks,
@@ -349,18 +401,18 @@ def main(argv=None):
                     help="drain already-journaled chunk results from "
                          "--checkpoint-dir instead of re-solving them")
     ap.add_argument("--sanitize", action="store_true", default=None,
-                    help="not yet ported (exits with code 2)")
+                    help="run under repro_torch.analysis.sanitize: raise on any NaN/Inf "
+                         "and report kernel-library builds after warm-up (default: the "
+                         "config's sanitize flag)")
     ap.add_argument("--profile-dir", default=None,
-                    help="not yet ported (exits with code 2)")
+                    help="write a torch.profiler trace (CPU and CUDA activity, "
+                         "Chrome/Perfetto JSON) of the chunked serving loop to this "
+                         "directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
     if args.devices is not None and args.devices > 1:
         ap.exit(2, f"serve: {NOT_PORTED['--devices']}\n")
-    if args.sanitize:
-        ap.exit(2, f"serve: {NOT_PORTED['--sanitize']}\n")
-    if args.profile_dir:
-        ap.exit(2, f"serve: {NOT_PORTED['--profile-dir']}\n")
     if args.devices is not None and args.devices < 1:
         ap.error("--devices must be >= 1")
     if args.chunks is not None and args.chunks < 1:
@@ -376,11 +428,15 @@ def main(argv=None):
                  "ones")
     if args.scheduler == "chunked":
         out = serve(cfg, args.devices, args.chunks, journal_dir=args.checkpoint_dir,
-                    resume=args.resume, device=args.device)
+                    resume=args.resume, device=args.device, sanitize=args.sanitize,
+                    profile_dir=args.profile_dir)
     else:
+        if args.profile_dir:
+            ap.error("--profile-dir is a chunked-path flag")
         out = serve_scheduled(cfg, args.scheduler, devices=args.devices,
                               journal_dir=args.checkpoint_dir, resume=args.resume,
-                              verify=args.verify, device=args.device)
+                              verify=args.verify, device=args.device,
+                              sanitize=args.sanitize)
     if args.metrics_json:
         from repro_torch.parallel.journal import write_json_durable
 

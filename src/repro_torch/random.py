@@ -10,8 +10,11 @@ uniforms as the reference, key for key:
 * ``split(key, n)`` hashes the counts ``(0, i)``, i < n, and returns (n, 2);
 * ``bits(key, shape)`` hashes the 64-bit flat index ``(hi, lo)`` of each
   element and returns ``out1 ^ out2``;
-* ``uniform(key, shape)`` puts the top 23 bits of ``bits`` into the mantissa
-  of a float in [1, 2) and subtracts 1 (the float32 path of ``jax.random``);
+* ``uniform(key, shape, minval, maxval)`` puts the top 23 bits of ``bits``
+  into the mantissa of a float in [1, 2), subtracts 1 and maps [0, 1) onto
+  [minval, maxval) as ``max(minval, u·(maxval − minval) + minval)``, the
+  multiply-add rounded once, as XLA computes it (the float32 path of
+  ``jax.random``);
 * ``randint(key, shape, minval, maxval)`` splits the key, draws two words per
   element and folds them into the span with uint32 remainders (the int32
   path of ``jax.random.randint`` in JAX 0.9), bit for bit;
@@ -23,7 +26,9 @@ uniforms as the reference, key for key:
   shape)`` is ``2·bernoulli(key, 0.5) − 1``, as in ``jax.random``;
 * ``permutation(key, n)`` shuffles ``arange(n)`` as ``jax.random``'s
   ``_shuffle`` does: ⌈3·ln n / ln(2³² − 1)⌉ rounds, each splitting the key
-  and sorting stably by fresh 32-bit words, bit for bit.
+  and sorting stably by fresh 32-bit words, bit for bit;
+* ``choice(key, n, size)`` without replacement is ``permutation(key, n)[:size]``,
+  as ``jax.random.choice(key, n, (size,), replace=False)`` computes it.
 
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``. Large draws are
 made in chunks of ``_CHUNK`` elements on the requested device, which bounds
@@ -118,8 +123,10 @@ def bits(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
     return out.view(shp)
 
 
-def uniform(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
-    """float32 uniforms in [0, 1), as ``jax.random.uniform(key, shape)``."""
+def uniform(key: torch.Tensor, shape: Shape, device=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval), as ``jax.random.uniform(key,
+    shape, minval=minval, maxval=maxval)``."""
     shp = _shape(shape)
     n = math.prod(shp)
     out = torch.empty(n, dtype=torch.float32, device=device)
@@ -127,6 +134,13 @@ def uniform(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
         b = _bits_flat(key, s, min(n, s + _CHUNK), device)
         mant = ((b >> 9) | 0x3F800000).to(torch.int32)
         out[s:s + _CHUNK] = mant.view(torch.float32) - 1.0
+    if (minval, maxval) != (0.0, 1.0):
+        # u·span + lo with one rounding, as XLA fuses it (a multiply-add):
+        # the product of two float32 values is exact in float64
+        lo = torch.tensor(minval, dtype=torch.float32, device=device)
+        span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+        fused = (out.to(torch.float64) * span.to(torch.float64) + lo.to(torch.float64))
+        out = torch.maximum(lo, fused.to(torch.float32))
     return out.view(shp)
 
 
@@ -210,3 +224,12 @@ def permutation(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
         key, sub = split(key)
         x = x[torch.sort(bits(sub, (n,), device), stable=True).indices]
     return x
+
+
+def choice(key: torch.Tensor, n: int, size: int, device=None) -> torch.Tensor:
+    """``size`` distinct integers of ``arange(n)`` (int32), as
+    ``jax.random.choice(key, n, (size,), replace=False)``: the first ``size``
+    entries of :func:`permutation`."""
+    if not 0 <= size <= n:
+        raise ValueError(f"cannot take {size} distinct samples of {n} without replacement")
+    return permutation(key, n, device)[:size]

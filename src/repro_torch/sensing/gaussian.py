@@ -1,9 +1,9 @@
 """Gaussian toy problem (paper supplementary §10; port of ``repro.sensing.gaussian``).
 
-Φ and e are i.i.d. Gaussian and x is s-sparse. Instances come from a
-``torch.Generator`` (drawn on the CPU, then moved to ``device``), so they do
-not match the reference's ``jax.random`` draws; tests hand the reference's
-instances across with :mod:`repro_torch.convert` instead.
+Φ and e are i.i.d. Gaussian and x is s-sparse. Instances are the
+reference's, key for key: :mod:`repro_torch.random` draws them under the
+same ``split(key, 4)``, so the support equals the reference's bit for bit and
+Φ, x and e agree to 1e-6 relative (``normal``'s erfinv polynomial).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import random as prng
 from repro_torch.device import resolve_device
 
 
@@ -29,7 +30,7 @@ def make_gaussian_problem(
     n: int = 512,
     s: int = 16,
     snr_db: Optional[float] = 10.0,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     x_dist: str = "gaussian",
     phi: Optional[torch.Tensor] = None,
     device=None,
@@ -37,31 +38,32 @@ def make_gaussian_problem(
     """Random dense-Gaussian CS instance (Φ_ij ~ N(0, 1)).
 
     Pass ``phi`` to reuse one measurement matrix across problems (many
-    observations of one Φ); only the sparse signal and the noise are drawn then.
-    ``device`` defaults to ``cuda``."""
+    observations of one Φ); only the sparse signal and the noise are drawn
+    from ``key`` then. ``key`` defaults to ``PRNGKey(0)``, ``device`` to
+    ``cuda``."""
     dev = resolve_device(device)
-    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    key = key if key is not None else prng.PRNGKey(0)
+    kphi, kx, kflux, ke = prng.split(key, 4)
     if phi is None:
-        phi = torch.randn((m, n), generator=gen, dtype=torch.float32).to(dev)
+        phi = prng.normal(kphi, (m, n), device=dev)
     elif tuple(phi.shape) != (m, n):
         raise ValueError(f"shared phi shape {tuple(phi.shape)} != ({m}, {n})")
     else:
         phi = phi.to(dev)
-    idx = torch.randperm(n, generator=gen)[:s]
+    idx = prng.choice(kx, n, s, device=dev).to(torch.int64)
     if x_dist == "gaussian":
-        vals = torch.randn((s,), generator=gen, dtype=torch.float32)
+        vals = prng.normal(kflux, (s,), device=dev)
     elif x_dist == "signs":
-        vals = torch.sign(torch.randn((s,), generator=gen, dtype=torch.float32))
+        vals = torch.sign(prng.normal(kflux, (s,), device=dev))
     else:
         raise ValueError(x_dist)
-    x = torch.zeros((n,), dtype=torch.float32)
+    x = torch.zeros((n,), dtype=torch.float32, device=dev)
     x[idx] = vals
-    x = x.to(dev)
     clean_y = phi @ x
     if snr_db is None:
         e = torch.zeros((m,), dtype=torch.float32, device=dev)
     else:
         sig_pow = torch.dot(clean_y, clean_y)
         sigma = torch.sqrt(sig_pow / (10.0 ** (snr_db / 10.0)) / m)
-        e = sigma * torch.randn((m,), generator=gen, dtype=torch.float32).to(dev)
+        e = sigma * prng.normal(ke, (m,), device=dev)
     return CSProblem(phi=phi, y=clean_y + e, x_true=x, e=e, s=s)

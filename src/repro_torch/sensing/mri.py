@@ -183,8 +183,9 @@ def kspace_band_scales(y: torch.Tensor, bands: torch.Tensor, n_bands: int) -> to
     empty or all-zero band at scale 1."""
     mag = torch.maximum(y.real.abs(), y.imag.abs()) if y.is_complex() else y.abs()
     flat = mag.reshape(-1, mag.shape[-1])
-    s = torch.full((flat.shape[0], n_bands), float("-inf"), dtype=mag.dtype,
-                   device=mag.device)
+    # magnitudes are >= 0, so a zero start gives each non-empty band its max
+    # (and an empty one 0, then 1) without an -inf fill
+    s = torch.zeros((flat.shape[0], n_bands), dtype=mag.dtype, device=mag.device)
     s = s.scatter_reduce(-1, bands.to(torch.int64).expand(flat.shape[0], -1), flat,
                          reduce="amax", include_self=True)
     s = torch.where(s > 0, s, torch.ones_like(s))

@@ -6,10 +6,13 @@ Port of ``repro.sensing.telescope`` (paper supplementary §7):
   baselines u_ik = (p_i − p_k)/λ₀ (M = L(L−1)),
 * the sky is an r×r grid of direction cosines (l, m) ∈ [−d, d]² (N = r²),
 * Φ_{z,w} = exp(−j2π ⟨u_z, r_w⟩),
-* visibilities y = Φx + e with e ~ CN(0, σ² I).
+* visibilities y = Φx + e with e ~ CN(0, σ² I),
+* the radio astronomer's own products: the dirty image Re(Φ†y)/M and the
+  dirty beam, and the extent sweep of supplementary §7.3 (Fig. 7).
 
 :class:`Station` stays numpy and copies the reference's seeded antenna layout,
-so Φ is the same matrix in both packages.
+so Φ is the same matrix in both packages; the noise is drawn from
+:mod:`repro_torch.random` under the reference's keys.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import random as prng
 from repro_torch.device import resolve_device
 
 C_LIGHT = 299_792_458.0  # m/s
@@ -84,16 +88,55 @@ def measurement_matrix(station: Station, resolution: int, extent: float = 0.4,
 
 
 def visibilities(phi: torch.Tensor, x: torch.Tensor, snr_db: Optional[float],
-                 generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+                 key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """y = Φx + e with circularly-symmetric complex Gaussian noise at the given
-    antenna-level SNR. Returns (y, e)."""
+    antenna-level SNR (paper §4 uses 0 dB): the real and imaginary parts from
+    the two halves of ``split(key)``. Returns (y, e)."""
     clean_y = phi @ x.to(phi.dtype)
     if snr_db is None:
         return clean_y, torch.zeros_like(clean_y)
     m = clean_y.shape[0]
     sig_pow = torch.vdot(clean_y, clean_y).real
     sigma = torch.sqrt(sig_pow / (10.0 ** (snr_db / 10.0)) / m / 2.0)
-    re = torch.randn((m,), generator=generator, dtype=torch.float32)
-    im = torch.randn((m,), generator=generator, dtype=torch.float32)
-    e = sigma * torch.complex(re, im).to(device=phi.device, dtype=phi.dtype)
+    kr, ki = prng.split(key)
+    re = prng.normal(kr, (m,), device=phi.device)
+    im = prng.normal(ki, (m,), device=phi.device)
+    e = (sigma * torch.complex(re, im)).to(phi.dtype)
     return clean_y + e, e
+
+
+def dirty_image(phi: torch.Tensor, y: torch.Tensor, resolution: int) -> torch.Tensor:
+    """The back-projection Re(Φ†y)/M as an (r, r) image (the 'dirty image')."""
+    x = (phi.conj().T @ y).real / phi.shape[0]
+    return x.reshape(resolution, resolution)
+
+
+def dirty_beam(phi: torch.Tensor, resolution: int) -> torch.Tensor:
+    """The point-spread function: the dirty image of a unit source at the
+    grid centre."""
+    n = resolution * resolution
+    center = (resolution // 2) * resolution + resolution // 2
+    delta = torch.zeros((n,), dtype=phi.dtype, device=phi.device)
+    delta[center] = 1.0
+    return dirty_image(phi, phi @ delta, resolution)
+
+
+def tune_extent_for_gamma(station: Station, resolution: int, extents,
+                          target: float = 1.0 / 16.0, device=None):
+    """Supplementary §7.3 / Fig. 7: sweep the grid extent d and report γ(d).
+
+    Returns a list of (d, gamma) and the largest d meeting γ ≤ target (or
+    None). Each extent's Φ is freed before the next one is built (at LOFAR
+    size each is 456 MB)."""
+    from repro_torch.core.rip import gamma_full
+
+    results = []
+    best = None
+    for d in extents:
+        phi = measurement_matrix(station, resolution, float(d), device=device)
+        g = float(gamma_full(phi))
+        del phi
+        results.append((float(d), g))
+        if g <= target:
+            best = float(d) if best is None else max(best, float(d))
+    return results, best

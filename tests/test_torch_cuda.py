@@ -903,3 +903,68 @@ def test_pad_rows_stay_zero_on_the_card(cuda, packed):
     assert torch.equal(out.X[pads], torch.zeros_like(out.X[pads]))
     assert bool(out.done[pads].all()) and not torch.isnan(out.X).any()
     assert out.X[3].abs().sum() > 0
+
+
+def _lofar_smoke_dirty(device):
+    from repro_torch.configs.lofar_cs302 import SMOKE
+    from repro_torch.launch.recover import lofar_instance
+    from repro_torch.sensing.telescope import dirty_beam, dirty_image
+
+    phi, y, _ = lofar_instance(SMOKE, 0, 0, device)
+    return (phi, dirty_image(phi, y, SMOKE.resolution),
+            dirty_beam(phi, SMOKE.resolution))
+
+
+def test_clean_on_the_card(cuda):
+    """Högbom CLEAN on the card against the port on the CPU, same dirty
+    image and beam: components at the same positions, values within 1e-5,
+    and no host sync inside the loop (the shift is a gather on the device)."""
+    from repro_torch.core.baselines import clean
+
+    _, img, beam = _lofar_smoke_dirty(cuda)
+    comps, resid, peaks = clean(img, beam, 0.1, 120)
+    c_cpu, r_cpu, p_cpu = clean(img.cpu(), beam.cpu(), 0.1, 120)
+    assert torch.equal(comps.cpu() != 0, c_cpu != 0)
+    for got, want in ((comps, c_cpu), (resid, r_cpu), (peaks, p_cpu)):
+        assert (got.cpu() - want).abs().max() <= 1e-5
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        clean(img, beam, 0.1, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_rics_sampled_on_the_card(cuda):
+    """The sampled supports are drawn on the card bit for bit as on the CPU,
+    and α̂, β̂ agree with the CPU's to 1e-5 relative."""
+    from repro_torch.core.rip import rics_sampled, sampled_supports
+
+    phi, _, _ = _lofar_smoke_dirty(cuda)
+    key = prng.PRNGKey(3)
+    assert torch.equal(sampled_supports(phi.shape[1], 16, 32, key, device=cuda).cpu(),
+                       sampled_supports(phi.shape[1], 16, 32, key))
+    a, b = rics_sampled(phi, 16)
+    a_cpu, b_cpu = rics_sampled(phi.cpu(), 16)
+    assert abs(float(a) - float(a_cpu)) <= 1e-5 * float(a_cpu)
+    assert abs(float(b) - float(b_cpu)) <= 1e-5 * float(b_cpu)
+
+
+def test_kernel_output_tripwire_names_the_kernel(cuda):
+    """A finite x near the float32 maximum whose product with Φ̂ overflows
+    only inside ``repro_qmm_tc``: the sanitizer names the kernel's entry
+    (no eager op around it sees an Inf), and outside it the kernel gives
+    inf, as ``qmm_ref`` does."""
+    from repro_torch.analysis.sanitize import sanitize
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    # positive weights: the sums overflow to +inf, never inf − inf
+    w = pack_weights(torch.rand(64, 512, generator=gen, device=cuda) + 0.5, 8, prng.PRNGKey(8))
+    x = torch.full((1, 512), 3.0e38, device=cuda)
+    assert cuda_kernel(w) is qmm_kernel.QMM
+    y = qmm(x, w)
+    assert torch.isinf(y).any() and torch.isinf(qmm_ref(x, w.packed, w.scale, 8, 512)).any()
+    with sanitize():
+        with pytest.raises(FloatingPointError, match="kernel repro_qmm_tc"):
+            qmm(x, w)
+        qmm(torch.ones((1, 512), device=cuda), w)

@@ -10,6 +10,7 @@ product) parts from the CPU at an exact tie of Cᵀq at the first pick of
 """
 import copy
 import dataclasses
+import importlib
 import runpy
 from pathlib import Path
 
@@ -19,11 +20,12 @@ import torch
 from repro_torch import parallel
 from repro_torch import random as prng
 from repro_torch.configs import SERVE_CONFIGS
-from repro_torch.core import niht
 from repro_torch.core.operators import PackedStreamingOperator
 from repro_torch.launch import serve
 from repro_torch.quant.formats import BY_BITS
 from repro_torch.quant.pack import unpack_codes
+
+niht = importlib.import_module("repro_torch.core.niht")   # the module: the package exports the function niht
 
 SMOKE = runpy.run_path(str(Path(__file__).resolve().parents[1] / "chip_smoke.py"),
                        run_name="chip_smoke_witness")

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +19,16 @@ from repro_torch.launch import recover
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 SMOKE = REPO / "chip_smoke.py"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables the reference draws below compiled: an eager
+    primitive cached with jax_debug_nans off would keep later tests in the
+    process (tests/test_sanitize.py) from tripping."""
+    yield
+    if "jax" in sys.modules:
+        sys.modules["jax"].clear_caches()
 
 
 def _env():
@@ -38,6 +49,8 @@ def _forbidden(name: str) -> bool:
 def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = _port_modules()
     assert "repro_torch.kernels.qmm.kernel" in mods and "repro_torch.launch.recover" in mods
+    assert {"repro_torch.core.rip", "repro_torch.core.baselines",
+            "repro_torch.analysis.sanitize"} <= set(mods)
     code = (
         "import sys, importlib, runpy\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -119,6 +132,56 @@ def test_recover_lofar_smoke_batch_on_cpu():
     assert out["rel_error_max"] < 0.5 and res.trace.resid_q.shape == (LOFAR_SMOKE.n_iters, 2)
 
 
+def _reference_lofar_instance(cs, seed, batch):
+    """(Y, X) as ``repro.launch.recover.recover_lofar`` draws them: the sky
+    and its noise from ``PRNGKey(seed)``, row b from ``fold_in(key, b)``."""
+    import jax
+
+    from repro.sensing.sky import make_sky
+    from repro.sensing.telescope import Station, measurement_matrix, visibilities
+
+    with jax.threefry_partitionable(True):
+        key = jax.random.PRNGKey(seed)
+        phi = measurement_matrix(Station(n_antennas=cs.n_antennas, seed=cs.seed),
+                                 cs.resolution, cs.extent)
+        keys = [jax.random.fold_in(key, b) for b in range(batch)] if batch else [key]
+        xs = [make_sky(cs.resolution, cs.n_sources, k, min_sep=cs.min_sep) for k in keys]
+        ys = [visibilities(phi, x, cs.snr_db, k)[0] for x, k in zip(xs, keys)]
+    Y, X = np.stack([np.asarray(y) for y in ys]), np.stack([np.asarray(x) for x in xs])
+    return (Y, X) if batch else (Y[0], X[0])
+
+
+def _reference_gaussian_instance(g, seed, batch):
+    """(Y, X) as ``repro.launch.recover.recover_gaussian`` draws them: the
+    problem from ``PRNGKey(seed)``, row b from ``fold_in(key, b + 1)`` on its Φ."""
+    import jax
+
+    from repro.sensing.gaussian import make_gaussian_problem
+
+    with jax.threefry_partitionable(True):
+        key = jax.random.PRNGKey(seed)
+        prob = make_gaussian_problem(g.m, g.n, g.s, 20.0, key)
+        if not batch:
+            return np.asarray(prob.y), np.asarray(prob.x_true)
+        probs = [make_gaussian_problem(g.m, g.n, g.s, 20.0, jax.random.fold_in(key, b + 1),
+                                       phi=prob.phi) for b in range(batch)]
+    return (np.stack([np.asarray(p.y) for p in probs]),
+            np.stack([np.asarray(p.x_true) for p in probs]))
+
+
+def _hold_instance(y, x, y_ref, x_ref, exact_values):
+    """Supports (sky positions) bit for bit; the values bit for bit for a sky
+    (uniform fluxes) and within 1e-5 relative for Gaussian ones (``normal``);
+    y within 1e-4 of its largest entry (Φ's own 1e-4 gap and ``normal``)."""
+    x, y = x.numpy(), y.numpy()
+    np.testing.assert_array_equal(x != 0, x_ref != 0)
+    if exact_values:
+        np.testing.assert_array_equal(x, x_ref)
+    else:
+        np.testing.assert_allclose(x, x_ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-4 * float(np.abs(y_ref).max()))
+
+
 @pytest.mark.parametrize("batch", [0, 2])
 def test_lofar_instance_is_the_sky_recover_solves(batch):
     from repro_torch.configs.lofar_cs302 import SMOKE as LOFAR_SMOKE
@@ -128,6 +191,7 @@ def test_lofar_instance_is_the_sky_recover_solves(batch):
                                            batch=batch, device="cpu")
     assert torch.equal(x, x_true) and phi.shape == (870, 1024)
     assert y.shape == ((batch, 870) if batch else (870,)) and res.x.shape == x.shape
+    _hold_instance(y, x, *_reference_lofar_instance(LOFAR_SMOKE, 3, batch), exact_values=True)
 
 
 def test_gaussian_batch_instance_is_the_batch_recover_solves():
@@ -138,6 +202,36 @@ def test_gaussian_batch_instance_is_the_batch_recover_solves():
                                               requantize="fixed", batch=3, device="cpu")
     assert torch.equal(X, x_true) and Y.shape == (3, GAUSS_SMOKE.m)
     assert phi.shape == (GAUSS_SMOKE.m, GAUSS_SMOKE.n) and res.x.shape == X.shape
+    _hold_instance(Y, X, *_reference_gaussian_instance(GAUSS_SMOKE, 2, 3), exact_values=False)
+
+
+@pytest.mark.parametrize("config", ["lofar-smoke", "gaussian-smoke"])
+@pytest.mark.parametrize("batch", [0, 4])
+def test_recover_draws_the_reference_instance(config, batch):
+    """For one ``--seed`` the recover CLI's solve sees the reference's
+    instance (``recover_lofar``/``recover_gaussian`` return the truth they
+    solved; the Gaussian y is the instance function's)."""
+    from repro_torch.configs import CONFIGS
+
+    cfg = CONFIGS[config]
+    if config.startswith("lofar"):
+        _, y, _ = recover.lofar_instance(cfg, 5, batch, "cpu")
+        _, _, x = recover.recover_lofar(cfg, "dense", None, None, seed=5, batch=batch,
+                                        device="cpu")
+        _hold_instance(y, x, *_reference_lofar_instance(cfg, 5, batch), exact_values=True)
+        return
+    _, _, x = recover.recover_gaussian(cfg, "dense", None, None, seed=5, batch=batch,
+                                       device="cpu")
+    if batch:
+        _, y, x_inst = recover.gaussian_batch_instance(cfg, 5, batch, "cpu")
+    else:
+        from repro_torch import random as prng
+        from repro_torch.sensing.gaussian import make_gaussian_problem
+
+        prob = make_gaussian_problem(cfg.m, cfg.n, cfg.s, 20.0, prng.PRNGKey(5), device="cpu")
+        y, x_inst = prob.y, prob.x_true
+    assert torch.equal(x, x_inst)
+    _hold_instance(y, x, *_reference_gaussian_instance(cfg, 5, batch), exact_values=False)
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

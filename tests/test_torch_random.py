@@ -104,3 +104,21 @@ def test_bad_key_and_seed_raise():
         prng.PRNGKey(2**40)
     with pytest.raises(ValueError):
         convert.key_from_numpy(np.zeros(2, np.int32))
+
+
+@pytest.mark.parametrize("seed", KEYS)
+@pytest.mark.parametrize("n,size", [(1, 1), (10, 3), (1024, 8), (4624, 30), (65536, 60)])
+def test_choice_without_replacement_matches(seed, n, size):
+    jk, tk = _pair(seed)
+    np.testing.assert_array_equal(
+        prng.choice(tk, n, size).numpy(),
+        np.asarray(jax.random.choice(jk, n, (size,), replace=False)))
+
+
+@pytest.mark.parametrize("seed", KEYS)
+@pytest.mark.parametrize("lo,hi", [(0.5, 1.0), (-2.0, 3.0), (0.1, 0.7)])
+def test_bounded_uniform_matches(seed, lo, hi):
+    jk, tk = _pair(seed)
+    np.testing.assert_array_equal(
+        prng.uniform(tk, (257,), minval=lo, maxval=hi).numpy(),
+        np.asarray(jax.random.uniform(jk, (257,), minval=lo, maxval=hi)))

@@ -17,15 +17,27 @@ import torch
 
 from repro.configs.lofar_cs302 import SMOKE as JAX_LOFAR_SMOKE
 from repro.core.niht import qniht as jax_qniht
+from repro.sensing.gaussian import make_gaussian_problem as jax_make_gaussian_problem
+from repro.sensing.sky import make_sky as jax_make_sky
 from repro.sensing.telescope import Station as JaxStation
 from repro.sensing.telescope import measurement_matrix as jax_measurement_matrix
 from repro.sensing.telescope import sky_grid as jax_sky_grid
+from repro.sensing.telescope import visibilities as jax_visibilities
 from repro_torch import convert
 from repro_torch.configs.lofar_cs302 import SMOKE
 from repro_torch.core.niht import qniht
 from repro_torch.sensing.gaussian import make_gaussian_problem
 from repro_torch.sensing.sky import make_sky
 from repro_torch.sensing.telescope import Station, measurement_matrix, sky_grid, visibilities
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
 
 
 @pytest.fixture(autouse=True)
@@ -68,25 +80,48 @@ def test_measurement_matrix_close():
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-4)
 
 
-def test_sky_and_visibilities():
-    gen = torch.Generator().manual_seed(0)
-    x = make_sky(32, 8, gen, min_sep=4, device="cpu")
+@pytest.mark.parametrize("seed", [0, 7])
+def test_sky_and_visibilities(seed):
+    """The sky from a key is the reference's: positions bit for bit, fluxes
+    (uniforms) bit for bit; the noise within 1e-5 relative (``normal``)."""
+    jk = jax.random.PRNGKey(seed)
+    key = convert.key_from_numpy(np.asarray(jk))
+    x = make_sky(32, 8, key, min_sep=4, device="cpu")
     assert x.shape == (1024,) and int((x > 0).sum()) == 8 and float(x.min()) >= 0
+    x_ref = np.asarray(jax_make_sky(32, 8, jk, min_sep=4))
+    np.testing.assert_array_equal(x.numpy(), x_ref)
     phi = measurement_matrix(Station(n_antennas=4), 32, 1.5, device="cpu")
-    y, e = visibilities(phi, x, 0.0, gen)
+    y, e = visibilities(phi, x, 0.0, key)
     clean = phi @ x.to(phi.dtype)
     np.testing.assert_allclose(float(torch.vdot(e, e).real), float(torch.vdot(clean, clean).real),
                                rtol=1.0)   # 0 dB: noise power of the signal's order
     assert torch.allclose(y - e, clean)
+    _, e_ref = jax_visibilities(_j(phi.numpy()), _j(x_ref), 0.0, jk)
+    np.testing.assert_allclose(e.numpy(), np.asarray(e_ref), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(e_ref)).max()))
 
 
 def test_gaussian_problem_shapes_and_sharing():
-    gen = torch.Generator().manual_seed(1)
-    p = make_gaussian_problem(16, 32, 3, 20.0, generator=gen, device="cpu")
+    """Support bit for bit, Φ, x and y within 1e-5 relative of the
+    reference's ``make_gaussian_problem`` for the same key; a shared Φ is
+    reused as it is."""
+    jk = jax.random.PRNGKey(1)
+    key = convert.key_from_numpy(np.asarray(jk))
+    p = make_gaussian_problem(16, 32, 3, 20.0, key, device="cpu")
     assert p.phi.shape == (16, 32) and int((p.x_true != 0).sum()) == 3
-    q = make_gaussian_problem(16, 32, 3, None, generator=gen, phi=p.phi, device="cpu")
+    ref = jax_make_gaussian_problem(16, 32, 3, 20.0, jk)
+    np.testing.assert_array_equal(p.x_true.numpy() != 0, np.asarray(ref.x_true) != 0)
+    for ours, theirs in ((p.phi, ref.phi), (p.x_true, ref.x_true), (p.y, ref.y)):
+        theirs = np.asarray(theirs)
+        np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(theirs).max()))
+    k2 = jax.random.fold_in(jk, 2)
+    q = make_gaussian_problem(16, 32, 3, None, convert.key_from_numpy(np.asarray(k2)),
+                              phi=p.phi, device="cpu")
     assert q.phi is p.phi or torch.equal(q.phi, p.phi)
     assert torch.equal(q.y, q.phi @ q.x_true)
+    q_ref = jax_make_gaussian_problem(16, 32, 3, None, k2, phi=ref.phi)
+    np.testing.assert_array_equal(q.x_true.numpy() != 0, np.asarray(q_ref.x_true) != 0)
 
 
 def test_lofar_smoke_packed_solve_matches_reference():

@@ -288,14 +288,32 @@ def test_cli_defaults_to_the_gpu():
 
 @pytest.mark.parametrize("argv,says", [
     (["--devices", "2"], "item 5"),
-    (["--sanitize"], "item 7"),
-    (["--profile-dir", "p"], "item 5"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, says, capsys):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--device", "cpu", "--config", "serve-gaussian-smoke", *argv])
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err and says
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and says in err
+
+
+@pytest.mark.parametrize("flag", ["--sanitize", "--profile-dir"])
+def test_cli_sanitize_and_profile_dir_on_the_cpu(flag, tmp_path, capsys):
+    """The two flags the port once refused: ``--sanitize`` ends with the
+    reference's ``[sanitize] ok ...`` line and puts the counter's fields in
+    the metrics; ``--profile-dir`` writes a Chrome trace of the loop."""
+    argv = [flag] if flag == "--sanitize" else [flag, str(tmp_path / "prof")]
+    serve.main(["--device", "cpu", "--config", "serve-gaussian-smoke", *argv])
+    lines = _last_line(capsys)
+    assert "devices=1 chunks=2 chunks_served=2 chunks_drained=0" in lines[-1]
+    if flag == "--sanitize":
+        assert lines[-2] == ("[sanitize] ok compiles=0 compiles_after_warmup=0 "
+                             "compile_s=0.00 debug_nans=on debug_infs=on")
+        assert "sanitize_compiles=0 sanitize_compiles_after_warmup=0" in lines[-1]
+    else:
+        trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+        names = {e.get("name") for e in trace["traceEvents"]}
+        assert "aten::mm" in names or "aten::matmul" in names
 
 
 @pytest.mark.parametrize("argv", [["--resume"], ["--chunks", "0"],

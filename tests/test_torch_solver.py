@@ -21,9 +21,9 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import niht as tn
 from test_torch_niht import gaussian_case
 
+tn = importlib.import_module("repro_torch.core.niht")   # the module: the package exports the function niht
 jn = importlib.import_module("repro.core.niht")   # repro.core re-exports niht the function
 
 S, N_ITERS, BATCH = 6, 40, 4
