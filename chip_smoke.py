@@ -223,6 +223,38 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     the kernel, whose non-finite outputs are the plain version's); and
     ``recover --profile-dir`` (LOFAR-bench packed) writes a trace with
     ``repro_qmm_tc`` spans and device kernels.
+21. the dense LM (``repro_torch.models``, phase ``lm``): starcoder2-3b at
+    full width, all 30 layers, ``init_params`` from PRNGKey(0) on the card
+    and ``quantize_params(params, 4)`` (nearest); 8 prompts of 1,024 tokens
+    (``randint`` of PRNGKey(1)) through ``generate`` (a prefill and 32
+    greedy decode steps, cache 1,024 + 33 + 8), under W4KV8 on the kernel
+    routes and at full precision (bf16 over the f32 weights). Gated per
+    step: the prefill launches ``FLASH_TC`` once per layer and no ``qmm``,
+    each W4KV8 decode step ``QMM`` 6 per layer (180) and nothing else, full
+    precision none; the plain versions (``chunked_attention_plain``,
+    ``qmm_ref``, ``attention_plain``) run 0 times and ``materialize`` only
+    where the route says (the prefill's products, the unembedding, the full
+    precision casts). The plain routes on the card, teacher-forced on the
+    kernel run's tokens, hold the logits of the prefill and every step within
+    2e-2·max|logits| (``LM_TOL``, the reference's own bound in
+    tests/test_models_smoke.py), and so does ``forward`` over prompt +
+    generated tokens at full precision; under W4KV8, whose serving reads an
+    int8 cache where ``forward`` has exact K/V, that pair is held to 3.5e-2
+    (``LM_KV8_FORWARD_TOL``). The kernel routes must be no farther than
+    1.25× the plain routes from the float32 truth (``forward`` of the
+    float32 model on the same weights and tokens).
+    Readings: prefill ms, decode ms per token (median of 32 steps × 3
+    passes) and tokens/s, ``param_bytes``, one profiled decode step (device
+    busy, ``qmm``'s share), the W4KV8 step's bytes bound and the
+    unembedding's per-step dequantize. Two layers at full width in float32
+    on the card and on the port's CPU (same weights, the card's tokens,
+    full precision and W4, float cache): logits within 1e-4·max|logits|.
+    ``qmm`` at M = 8 on layer 0's six products beside ``torch.matmul`` on the
+    dequantized bf16 weight and the bound (``lm_qmm_bound_ms``: bf16 x and y,
+    the three bf16 pieces at the tensor-core peak), at the prefill's M =
+    8,192 beside materialize + matmul, a layer's six products on both routes
+    of ``dense`` at 8 to 1,024 rows (where ``QMM_MAX_ROWS`` should sit), and
+    flash at B = 8, S = 1,024 beside SDPA.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -242,11 +274,20 @@ copy of ``flashattn_wgmma.cu`` in a temporary directory, builds the copies,
 and holds each, beside the real kernel, to the starcoder2-3b checks. It
 passes when the real kernel meets every check and every copy fails one, and
 writes ``flash_mutants.json`` to ``--out``.
+
+``python3 chip_smoke.py --lm-faults`` (~3 min) runs only phase ``lm``'s W4KV8
+run and its gates, first on the real kernels, then with each fault planted:
+every ``qmm`` product of one layer read with its scales ×1.1, ×1.03 and ×1.01,
+and each fault of ``FLASH_MUTANTS`` launched as ``FLASH_TC``. It passes when
+the real kernels meet every gate and the ×1.1 fault and the logic faults of
+flash (``LM_FLASH_FAULTS``) fail one, and writes ``lm_faults.json`` to
+``--out``.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -347,6 +388,36 @@ SANITIZE_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-
 RESUME_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-phi", "2",
                           "--requantize", "fixed", "--batch", "8"]),
                ("mri-wavelet", ["--config", "mri-wavelet"]))
+# The lm phase: starcoder2-3b (src/repro/configs/starcoder2_3b.py) at full
+# width, all 30 layers, served to 8 prompts of 1,024 tokens, 32 decode steps
+LM_ARCH = "starcoder2-3b"
+LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 1024, 32
+LM_TIMING_PASSES = 3
+# Logits, as a share of max|logits|. tests/test_models_smoke.py:96 bounds the
+# reference's SMOKE model by 2e-2 (LM_TOL): the kernel routes against the plain
+# routes, and serving against forward at full precision. W4KV8 serving reads
+# an int8 cache where forward has exact K/V; the int8 cache alone moves the
+# logits 1.53e-2 from the float32 truth (scripts/lm_noise_floor.py), so that
+# pair is held to LM_TOL plus that. The kernel routes must also stay within
+# LM_TRUTH_RATIO times the plain routes' distance from the float32 truth.
+LM_TOL = 2e-2
+LM_KV8_FORWARD_TOL = 3.5e-2
+LM_TRUTH_RATIO = 1.25
+# the route threshold's rows: a layer's six products through qmm against
+# materialize + matmul
+LM_ROUTE_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024)
+# --lm-faults: faults planted in the W4KV8 run, each held to phase lm's gates.
+# qmm: every product of one layer read with its scales off by a factor; the
+# first must fail a gate, the others measure how small a fault the gates see.
+LM_FAULT_LAYER = 15
+LM_SCALE_FAULTS = (1.1, 1.03, 1.01)
+# flash faults of FLASH_MUTANTS the lm gates must catch: the logic faults. A
+# fault of bf16's size (bf16_acc) is phase 12's elementwise check's to catch.
+LM_FLASH_FAULTS = ("diagonal_tile", "own_key")
+LM_PRODUCTS = 6                # QWeight products of a gelu layer: wq, wk, wv, wo, MLP wi, wo
+# the card against the port's CPU: two layers at full width, float32
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE_STEPS = 2, 2, 128, 8
+LM_CPU_TOL = 1e-4
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
 # Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
@@ -382,6 +453,17 @@ class Phases:
             return None
         print(f"[chip_smoke] phase {name} ok ({time.perf_counter() - t0:.1f} s)", flush=True)
         return out
+
+
+def lm_qmm_bound_ms(m, n, k, kp):
+    """Least time for the LM's QWeight product x (M, K) @ dequant(w)ᵀ with bf16
+    activations: codes, per-row scales, x and y (bf16) moved once, or the three
+    exact bf16 pieces of x that qmm_wgmma.cu multiplies at the bf16 tensor-core
+    peak. Returns (ms, bound_by, bytes-only ms)."""
+    nbytes = n * kp + 4 * n + 2 * m * k + 2 * m * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * 2 * m * n * k / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            t_bytes * 1e3)
 
 
 def bound_ms(m, n, k, kp, n_groups=None):
@@ -1878,29 +1960,12 @@ def flash_mutants(torch, mods):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
-    plain, FLASH_TC, CudaLibrary = (mods["attention_plain"], mods["FLASH_TC"],
-                                    mods["CudaLibrary"])
+    plain, FLASH_TC = mods["attention_plain"], mods["FLASH_TC"]
 
-    class CopyLibrary(CudaLibrary):
-        """A copy's library, built beside the copy."""
-
-        def library_path(self):
-            return self.source.with_suffix(".so")
-
-    source = FLASH_TC.library.source.read_text()
     with tempfile.TemporaryDirectory() as tmp:
         kernels = {"kernel": FLASH_TC}
-        for name, (_, edits) in FLASH_MUTANTS.items():
-            text = source
-            for old, new in edits:
-                if text.count(old) != 1:
-                    raise AssertionError(f"mutant {name}: {old!r} is not in "
-                                         "flashattn_wgmma.cu once")
-                text = text.replace(old, new)
-            path = Path(tmp) / f"flashattn_wgmma_{name}.cu"
-            path.write_text(text)
-            kernels[name] = type(FLASH_TC)(CopyLibrary(path, FLASH_TC.library.entries),
-                                           FLASH_TC.entry, FLASH_TC.dtypes)
+        for name, library in flash_mutant_libraries(mods, tmp).items():
+            kernels[name] = type(FLASH_TC)(library, FLASH_TC.entry, FLASH_TC.dtypes)
         phase_build([k.library for k in kernels.values()])
 
         gen = torch.Generator(device=torch.device("cuda")).manual_seed(5)
@@ -3582,6 +3647,568 @@ def phase_sanitize(torch, mods):
     return out
 
 
+LM_KERNELS = ("QMM", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "FLASH", "FLASH_TC",
+              "FLASH_CORE", "FLASH_UNALIGNED")
+# plain versions the kernel routes must not run, by (module key in mods, name)
+LM_PLAIN = (("lm_layers", "chunked_attention_plain"), ("qmm_ops", "qmm_ref"),
+            ("fa_ops", "attention_plain"))
+
+
+@contextlib.contextmanager
+def counting_plain(mods, calls):
+    """Count, in ``calls``, the calls of the LM path's plain versions
+    (``LM_PLAIN``) and of ``materialize`` (layers: the products; model: the
+    unembedding): each stands in for itself through :func:`stand_in`."""
+    targets = LM_PLAIN + (("lm_layers", "materialize"), ("lm_model", "materialize"))
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+    by_module = collections.defaultdict(dict)
+    for m, n in targets:
+        calls[f"{m}.{n}"] = 0
+        by_module[m][n] = counted(f"{m}.{n}", getattr(mods[m], n))
+    with contextlib.ExitStack() as stack:
+        for m, fns in by_module.items():
+            stack.enter_context(stand_in(mods[m], **fns))
+        yield
+
+
+def lm_snapshot(mods, calls):
+    snap = {name: mods[name].launches for name in LM_KERNELS}
+    snap.update(calls)
+    return snap
+
+
+def lm_generate(torch, mods, cfg, params, prompt, policy):
+    """``generate`` with LM_DECODE_STEPS decode steps, a CUDA event and the
+    launch and call counts after the prefill and after each step: (tokens,
+    logits, device ms of the prefill and of each step, counts, host wall s)."""
+    events, counts, calls = [], [], collections.Counter()
+    start = torch.cuda.Event(enable_timing=True)
+
+    def on_step(i, logits):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        counts.append(lm_snapshot(mods, calls))
+    with counting_plain(mods, calls):
+        torch.cuda.synchronize()
+        before = lm_snapshot(mods, calls)
+        t0 = time.perf_counter()
+        start.record()
+        toks, logits = mods["generate"](cfg, params, prompt, LM_DECODE_STEPS + 1, policy,
+                                        on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = [start.elapsed_time(events[0])] + [a.elapsed_time(b) for a, b in
+                                           zip(events, events[1:])]
+    deltas = [{k: c[k] - p[k] for k in c} for p, c in zip([before] + counts, counts)]
+    return toks, logits, ms, deltas, wall
+
+
+def lm_teacher_forced(torch, mods, cfg, params, prompt, toks, policy):
+    """Logits (B, n, V) of a prefill over ``prompt`` and decode steps over
+    toks[:, :n - 1], as ``generate`` takes them (teacher-forced)."""
+    b, s = prompt.shape
+    n = toks.shape[1]
+    cache = mods["lm_model"].init_cache(cfg, b, s + n + 8, policy, device=prompt.device)
+    logits, cache = mods["lm_model"].prefill(cfg, params, prompt, cache, policy=policy)
+    out = [logits]
+    for i in range(n - 1):
+        logits, cache = mods["lm_model"].decode_step(cfg, params, toks[:, i], cache,
+                                                     policy=policy, position=s + i)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def lm_gap(torch, got, want):
+    """max |got - want| over max |want|, per step (dim 1) and overall."""
+    scale = want.float().abs().amax(dim=(0, 2)).clamp_min(1e-30)
+    per_step = (got.float() - want.float()).abs().amax(dim=(0, 2)) / scale
+    return [float(v) for v in per_step]
+
+
+def lm_rel(got, want) -> float:
+    """max |got - want| over max |want|, over the whole tensor."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def lm_launch_gates(label, cfg, deltas, quantized):
+    """The launch and call gates of one generate run, as failure messages:
+    prefill FLASH_TC once per layer and no qmm, each decode step QMM
+    LM_PRODUCTS per layer (W4) or none (full precision), no other kernel, no
+    plain version; materialize for the prefill's products, per decode step
+    only for the unembedding (W4) and every product (full precision, whose
+    f32 weights are cast)."""
+    n = cfg.n_layers
+    want_pre = {"FLASH_TC": n, "lm_layers.materialize": LM_PRODUCTS * n,
+                "lm_model.materialize": 1}
+    want_dec = {"QMM": LM_PRODUCTS * n if quantized else 0,
+                "lm_layers.materialize": 0 if quantized else LM_PRODUCTS * n,
+                "lm_model.materialize": 1}
+    fails = []
+    for step, d in enumerate(deltas):
+        want = want_pre if step == 0 else want_dec
+        for key, got in d.items():
+            if got != want.get(key, 0):
+                fails.append(f"lm {label}: {'prefill' if step == 0 else f'decode step {step}'}"
+                             f" ran {key} {got} times, expected {want.get(key, 0)}")
+    return fails
+
+
+def lm_logit_gates(label, run, kv8):
+    """The logit gates of one run, as failure messages (see LM_TOL)."""
+    fails = [] if run["finite"] else [f"lm {label}: non-finite logits"]
+    for what, limit in run["limits"].items():
+        if not run[what] <= limit:
+            fails.append(f"lm {label}: {what} {run[what]:.4g} > {limit}")
+    if not run["truth"]["kernel"] <= LM_TRUTH_RATIO * run["truth"]["plain"]:
+        fails.append(f"lm {label}: the kernel routes are {run['truth']['kernel']:.4g} from the "
+                     f"float32 truth, more than {LM_TRUTH_RATIO}× the plain routes' "
+                     f"{run['truth']['plain']:.4g}")
+    return fails
+
+
+def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized):
+    """One generate run on the kernel routes, held to every gate of phase lm:
+    the launch and call counts per step, the logits against the plain routes
+    on the card (teacher-forced on the run's tokens) and against ``forward``
+    over prompt + generated tokens, and all three against the float32 truth
+    (``forward`` of the float32 model on the same weights and tokens, exact
+    K/V). Returns (run, with its failed gates in ``gates_failed``; tokens)."""
+    m = mods["lm_model"]
+    kv8 = policy.kv_bits is not None
+    toks, logits, ms, deltas, wall = lm_generate(torch, mods, cfg, tree, prompt, policy)
+    by_shape = dict(mods["QMM"].launches_by_shape)
+    run = {"qmm_launches": sum(d["QMM"] for d in deltas),
+           "qmm_launches_by_shape": {f"{n}x{k}": c for (n, k), c in by_shape.items()},
+           "flash_tc_launches": sum(d["FLASH_TC"] for d in deltas),
+           "qmm_per_decode_step": deltas[1]["QMM"], "flash_per_prefill": deltas[0]["FLASH_TC"],
+           "finite": bool(torch.isfinite(logits).all()), "first_wall_s": wall,
+           "limits": {"vs_plain_max_rel": LM_TOL,
+                      "vs_forward_max_rel": LM_KV8_FORWARD_TOL if kv8 else LM_TOL}}
+    fails = lm_launch_gates(label, cfg, deltas, quantized)
+    plain = dict(qweight_product=lambda x, w: x @ mods["lm_materialize"](w, x.dtype),
+                 attention_kernel=lambda q, k, v, causal: mods["lm_layers"].chunked_attention_plain(
+                     q, k, v, causal=causal, chunk=cfg.attn_chunk))
+    before = {name: mods[name].launches for name in LM_KERNELS}
+    with stand_in(mods["lm_layers"], **plain):
+        plain_logits = lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy)
+    launched = {name: mods[name].launches - before[name] for name in LM_KERNELS}
+    if any(launched.values()):
+        fails.append(f"lm {label}: the plain routes launched {launched}")
+    run["vs_plain_per_step"] = lm_gap(torch, logits, plain_logits)
+    run["vs_plain_max_rel"] = lm_rel(logits, plain_logits)
+    run["greedy_agree_with_plain"] = float((plain_logits.argmax(-1) == toks).float().mean())
+    seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    before = mods["FLASH_TC"].launches
+    fwd = m.forward(cfg, tree, seq, policy=policy)[0][:, LM_PROMPT - 1:]
+    if mods["FLASH_TC"].launches - before != cfg.n_layers:
+        fails.append(f"lm {label}: forward launched FLASH_TC "
+                     f"{mods['FLASH_TC'].launches - before} times")
+    run["vs_forward_max_rel"] = lm_rel(logits, fwd)
+    truth = m.forward(dataclasses.replace(cfg, dtype="float32"), tree, seq,
+                      policy=policy)[0][:, LM_PROMPT - 1:]
+    run["truth"] = {name: lm_rel(a, truth) for name, a in (
+        ("kernel", logits), ("plain", plain_logits), ("forward", fwd))}
+    del plain_logits, fwd, truth, logits
+    run["gates_failed"] = fails + lm_logit_gates(label, run, kv8)
+    print(f"[chip_smoke]   lm {label}: qmm {run['qmm_per_decode_step']} per decode step, "
+          f"FLASH_TC {run['flash_per_prefill']} per prefill; logits vs the plain routes "
+          f"{run['vs_plain_max_rel']:.4g} (limit {run['limits']['vs_plain_max_rel']}), vs "
+          f"forward {run['vs_forward_max_rel']:.4g} (limit "
+          f"{run['limits']['vs_forward_max_rel']}) of max|logits|; against the float32 truth: "
+          f"kernel routes {run['truth']['kernel']:.4g}, plain routes {run['truth']['plain']:.4g}"
+          f" (ratio {run['truth']['kernel'] / run['truth']['plain']:.3f}, limit "
+          f"{LM_TRUTH_RATIO}), forward {run['truth']['forward']:.4g} (greedy tokens agree with "
+          f"the plain routes' argmax {run['greedy_agree_with_plain']:.0%}); gates failed: "
+          f"{len(run['gates_failed'])}", flush=True)
+    return run, toks
+
+
+def lm_profile_step(torch, mods, cfg, params, prompt, policy):
+    """One warm decode step under torch.profiler: its wall, device busy time,
+    qmm's device time and the device launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    m = mods["lm_model"]
+    b, s = prompt.shape
+    cache = m.init_cache(cfg, b, s + 4, policy, device=prompt.device)
+    logits, cache = m.prefill(cfg, params, prompt, cache, policy=policy)
+    tok = logits.argmax(-1)
+    logits, cache = m.decode_step(cfg, params, tok, cache, policy=policy)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.decode_step(cfg, params, tok, cache, policy=policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events) / 1e3
+    qmm = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events
+              if "qmm_wgmma_kernel" in e.key) / 1e3
+    top = sorted(({"name": e.key[:80], "device_ms": (getattr(e, "self_device_time_total", 0)
+                                                      or 0) / 1e3, "calls": e.count}
+                  for e in events), key=lambda r: -r["device_ms"])[:12]
+    if not events:
+        return {"wall_ms": wall * 1e3, "device_busy_ms": None, "qmm_device_ms": None}
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "device_busy_share": busy / wall / 1e3,
+            "qmm_device_ms": qmm, "qmm_share_of_busy": qmm / busy if busy else None,
+            "device_launches": sum(e.count for e in events), "top": top}
+
+
+def lm_kernel_rows(torch, mods, cfg, qparams, flush):
+    """qmm at M = LM_BATCH on layer 0's six products (kernel, plain version,
+    torch.matmul on the dequantized bf16 weight, bound), qmm at the prefill's
+    M = LM_BATCH·LM_PROMPT on the MLP's wi beside materialize + matmul, a
+    layer's six products on both routes of ``dense`` at LM_ROUTE_ROWS rows,
+    and flash attention at B = LM_BATCH, S = LM_PROMPT beside SDPA and its
+    bound. x holds bf16 values, as on the path; the kernel reads them as the
+    float32 that ``qmm`` hands it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dev = torch.device(mods["device"])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    QMM, qmm, qmm_ref = mods["QMM"], mods["qmm"], mods["qmm_ref"]
+    layers, materialize = mods["lm_layers"], mods["lm_materialize"]
+    slot = qparams["slots"]["slot0"]
+    products = {"wq": slot["attn"]["wq"]["w"], "wk": slot["attn"]["wk"]["w"],
+                "wv": slot["attn"]["wv"]["w"], "wo": slot["attn"]["wo"]["w"],
+                "mlp_wi": slot["ffn"]["wi"]["w"], "mlp_wo": slot["ffn"]["wo"]["w"]}
+    rows = []
+
+    def check(name, x, pw, y):
+        k, bits = pw.k_dim, pw.bits
+        ref = qmm_ref(x, pw.packed, pw.scale, bits, k)
+        wabs = mods["unpack_codes"](pw.packed, bits, k).float().abs() * (
+            pw.scale.reshape(-1, 1) / mods["BY_BITS"][bits].half_steps)
+        err = (y - ref).abs()
+        if not bool((err <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wabs.T)).all()):
+            raise AssertionError(f"lm qmm {name} M={x.shape[0]}: max |Δ| {float(err.max())} "
+                                 "exceeds the tolerance")
+        return float(err.max())
+
+    for name, stacked in products.items():
+        qw = stacked[0]
+        pw = qw.packed_weights()
+        if mods["cuda_kernel"](pw) is not QMM:
+            raise AssertionError(f"lm qmm {name}: routed to {mods['cuda_kernel'](pw).entry}")
+        n, kp = pw.packed.shape
+        k = pw.k_dim
+        x16 = torch.randn(LM_BATCH, k, generator=gen, device=dev).to(torch.bfloat16)
+        x = x16.float()
+        err = check(name, x, pw, qmm(x16, pw))
+        w16 = qw.dequantize(torch.bfloat16)
+        b_ms, b_by, bb_ms = lm_qmm_bound_ms(LM_BATCH, n, k, kp)
+        row = {"shape": name, "M": LM_BATCH, "N": n, "K": k, "bits": pw.bits,
+               "max_abs_err": err,
+               "ms": time_ms(torch, lambda: QMM(x, pw.packed, pw.scale, pw.bits, k), 20, flush),
+               "plain_ms": time_ms(torch, lambda: qmm_ref(x, pw.packed, pw.scale, pw.bits, k),
+                                   5, flush),
+               "library_ms": time_ms(torch, lambda: torch.matmul(x16, w16), 20, flush),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms}
+        rows.append(row)
+        print(f"[chip_smoke]   lm qmm {name:6s} M={LM_BATCH} N={n:5d} K={k:5d}: "
+              f"max|Δ|={err:.3g} kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+              f"matmul(bf16 w) {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    # the prefill's rows: M = B·S on the MLP's wi
+    qw = products["mlp_wi"][0]
+    pw = qw.packed_weights()
+    n, kp = pw.packed.shape
+    k, m = pw.k_dim, LM_BATCH * LM_PROMPT
+    x16 = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    x = x16.float()
+    err = check("mlp_wi", x, pw, qmm(x16, pw))
+    b_ms, b_by, bb_ms = lm_qmm_bound_ms(m, n, k, kp)
+    prefill_row = {
+        "shape": "mlp_wi", "M": m, "N": n, "K": k, "bits": pw.bits, "max_abs_err": err,
+        "ms": time_ms(torch, lambda: QMM(x, pw.packed, pw.scale, pw.bits, k), 3, flush),
+        "materialize_matmul_ms": time_ms(
+            torch, lambda: torch.matmul(x16, materialize(qw, torch.bfloat16)), 3, flush),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms}
+    print(f"[chip_smoke]   lm qmm mlp_wi at the prefill's M={m}: kernel {prefill_row['ms']:.3f} ms"
+          f"  materialize + matmul (bf16) {prefill_row['materialize_matmul_ms']:.3f} ms  "
+          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+    del x, x16
+    # the route threshold: a layer's six products at M rows through each route of dense
+    route_rows = []
+    for m in LM_ROUTE_ROWS:
+        t_qmm = t_mat = 0.0
+        for qw in (stacked[0] for stacked in products.values()):
+            x = torch.randn(m, qw.k_dim, generator=gen, device=dev).to(torch.bfloat16)
+            t_qmm += time_ms(torch, lambda x=x, qw=qw: layers.qweight_product(x, qw).to(x.dtype),
+                             5, flush)
+            t_mat += time_ms(torch, lambda x=x, qw=qw: x @ materialize(qw, x.dtype), 5, flush)
+        route_rows.append({"M": m, "qmm_ms": t_qmm, "materialize_matmul_ms": t_mat})
+        print(f"[chip_smoke]   lm a layer's six products at M={m:4d}: qmm {t_qmm:.4f} ms, "
+              f"materialize + matmul {t_mat:.4f} ms", flush=True)
+    qmm_faster = 0
+    for r in route_rows:
+        if r["qmm_ms"] >= r["materialize_matmul_ms"]:
+            break
+        qmm_faster = r["M"]
+    print(f"[chip_smoke]   lm qmm ahead up to M={qmm_faster} of {LM_ROUTE_ROWS}; the route "
+          f"threshold QMM_MAX_ROWS = {layers.QMM_MAX_ROWS}", flush=True)
+    # the prefill's attention
+    hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    q, kk, v = (torch.randn(LM_BATCH, h, LM_PROMPT, d, generator=gen, device=dev)
+                .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    FLASH_TC = mods["FLASH_TC"]
+    before = FLASH_TC.launches
+    out = mods["flash_attention"](q, kk, v, causal=True)
+    if FLASH_TC.launches != before + 1:
+        raise AssertionError("lm flash: FLASH_TC was not launched")
+    ref = mods["attention_plain"](q, kk, v, causal=True, scale=d ** -0.5)
+    gap = held(torch, "lm prefill", out, ref, 2e-2, rows=True)     # the flash phase's bf16 rule
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(q, kk, v, is_causal=True,
+                                                                    enable_gqa=True)
+    b_ms, b_by, _ = attention_bound(LM_BATCH, hq, hkv, LM_PROMPT, LM_PROMPT, d, 2, True)
+    flash_row = {"B": LM_BATCH, "Hq": hq, "Hkv": hkv, "S": LM_PROMPT, "D": d,
+                 "max_abs_err": gap["max_abs_err"], "max_row_rel": gap["max_row_rel"],
+                 "ms": time_ms(torch, lambda: FLASH_TC(q, kk, v, True, d ** -0.5), 10, flush),
+                 "plain_ms": time_ms(torch, lambda: mods["attention_plain"](
+                     q, kk, v, causal=True, scale=d ** -0.5), 3, flush),
+                 "library_ms": time_ms(torch, sdpa, 10, flush),
+                 "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[chip_smoke]   lm flash B={LM_BATCH} Hq={hq} Hkv={hkv} S={LM_PROMPT} D={d} bf16: "
+          f"max|Δ|={gap['max_abs_err']:.3g} kernel {flash_row['ms']:.4f} ms  plain "
+          f"{flash_row['plain_ms']:.3f} ms  SDPA {flash_row['library_ms']:.4f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return {"qmm_rows": rows, "qmm_prefill_row": prefill_row, "route_rows": route_rows,
+            "qmm_ahead_up_to_rows": qmm_faster, "qmm_max_rows": layers.QMM_MAX_ROWS,
+            "flash_row": flash_row}
+
+
+def lm_card_vs_cpu(torch, mods, cfg):
+    """Two layers of ``cfg`` at full width in float32 on the card and on the
+    port's CPU, the same weights (drawn on the card, copied): logits of a
+    prefill and LM_CPU_DECODE_STEPS decode steps over the card's greedy
+    tokens, full precision and W4 (the card's decode products on qmm), held
+    within LM_CPU_TOL of max|logits|, TF32 off. The cache stays float: an
+    int8 KV code can round the other way on the two devices."""
+    dev = torch.device(mods["device"])
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, dtype="float32")
+    params = mods["lm_model"].init_params(cfg2, mods["prng"].PRNGKey(0), device=dev)
+    prompt = mods["prng"].randint(mods["prng"].PRNGKey(2), (LM_CPU_BATCH, LM_CPU_PROMPT), 0,
+                                  cfg2.vocab_size, device=dev)
+    out = {}
+    for label, policy, tree in (
+            ("fp32", mods["QuantPolicy"](), params),
+            ("w4", mods["QuantPolicy"](weight_bits=4), mods["quantize_params"](params, 4))):
+        toks, card = mods["generate"](cfg2, tree, prompt, LM_CPU_DECODE_STEPS + 1, policy)
+        t0 = time.perf_counter()
+        cpu = lm_teacher_forced(torch, mods, cfg2, mods["lm_tree_to"](tree, "cpu"), prompt.cpu(),
+                                toks.cpu(), policy)
+        cpu_s = time.perf_counter() - t0
+        gaps = lm_gap(torch, card.cpu(), cpu)
+        out[label] = {"max_rel": max(gaps), "per_step": gaps, "cpu_s": cpu_s}
+        print(f"[chip_smoke]   lm card vs CPU, {LM_CPU_LAYERS} layers float32 {label}: max "
+              f"|Δ|/max|logits| {max(gaps):.3g} over the prefill and {LM_CPU_DECODE_STEPS} "
+              f"steps (CPU {cpu_s:.1f} s)", flush=True)
+        if not max(gaps) <= LM_CPU_TOL:
+            raise AssertionError(f"lm card vs CPU {label}: {max(gaps)} > {LM_CPU_TOL}")
+    return out
+
+
+def lm_setup(torch, mods):
+    """starcoder2-3b's config, its f32 parameters from PRNGKey(0) on the
+    card, their W4 tree (nearest) and the prompts from PRNGKey(1), with the
+    set-up's readings; every layer slice of the W4 tree must route to QMM."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dev = torch.device(mods["device"])
+    prng, m = mods["prng"], mods["lm_model"]
+    cfg = mods["lm_get_config"](LM_ARCH)
+    out = {"config": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "decode_steps": LM_DECODE_STEPS}
+    t0 = time.perf_counter()
+    params = m.init_params(cfg, prng.PRNGKey(0), device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams = mods["quantize_params"](params, 4)
+    torch.cuda.synchronize()
+    out["quantize_s"] = time.perf_counter() - t0
+    out["param_bytes"] = {"fp32": mods["param_bytes"](params),
+                          "w4": mods["param_bytes"](qparams)}
+    slot = qparams["slots"]["slot0"]
+    layer_codes = sum(w.packed.numel() for w in mods["lm_tree_leaves"](slot)
+                      if isinstance(w, mods["QWeight"]))
+    out["layer_code_bytes"] = layer_codes
+    for i in range(cfg.n_layers):                 # every layer slice on the tensor cores
+        for w in mods["lm_tree_leaves"](slot):
+            if isinstance(w, mods["QWeight"]) and mods["cuda_kernel"](w[i].packed_weights()) \
+                    is not mods["QMM"]:
+                raise AssertionError(f"lm: layer {i}'s codes do not route to QMM")
+    print(f"[chip_smoke]   lm {cfg.name}: init {out['init_s']:.1f} s, quantize W4 "
+          f"{out['quantize_s']:.1f} s; param bytes {out['param_bytes']['fp32']:,} (f32) -> "
+          f"{out['param_bytes']['w4']:,} (W4), layer codes {layer_codes:,}", flush=True)
+    prompt = prng.randint(prng.PRNGKey(1), (LM_BATCH, LM_PROMPT), 0, cfg.vocab_size, device=dev)
+    return cfg, params, qparams, prompt, out
+
+
+def phase_lm(torch, mods):
+    """starcoder2-3b at full width (30 layers) served on the card: W4KV8 on
+    the kernel routes and full precision, gated per step and held against
+    the plain routes, against forward, and (two layers) against the CPU."""
+    dev = torch.device(mods["device"])
+    cfg, params, qparams, prompt, out = lm_setup(torch, mods)
+    layer_codes = out["layer_code_bytes"]
+    for label, policy, tree, quantized in (
+            ("w4kv8", mods["QuantPolicy"](weight_bits=4, kv_bits=8), qparams, True),
+            ("full", mods["QuantPolicy"](), params, False)):
+        reset_counts(mods)
+        run, toks = lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized)
+        if run["gates_failed"]:
+            raise AssertionError("; ".join(run["gates_failed"]))
+        # timing: LM_TIMING_PASSES more runs
+        passes = []
+        for _ in range(LM_TIMING_PASSES):
+            _, _, pms, _, pwall = lm_generate(torch, mods, cfg, tree, prompt, policy)
+            passes.append({"prefill_ms": pms[0], "decode_ms": pms[1:], "wall_s": pwall})
+        steps = sorted(v for p in passes for v in p["decode_ms"])
+        run["prefill_ms"] = sorted(p["prefill_ms"] for p in passes)[len(passes) // 2]
+        run["decode_ms_median"] = steps[len(steps) // 2]
+        run["decode_ms_pass_medians"] = [sorted(p["decode_ms"])[len(p["decode_ms"]) // 2]
+                                         for p in passes]
+        run["tokens_per_s"] = LM_BATCH * 1e3 / run["decode_ms_median"]
+        run["passes"] = passes
+        run["profile"] = lm_profile_step(torch, mods, cfg, tree, prompt, policy)
+        prof = run["profile"]
+        print(f"[chip_smoke]   lm {label}: prefill {run['prefill_ms']:.2f} ms, decode "
+              f"{run['decode_ms_median']:.3f} ms per token (pass medians "
+              f"{', '.join(f'{v:.3f}' for v in run['decode_ms_pass_medians'])}), "
+              f"{run['tokens_per_s']:.0f} tokens/s at B={LM_BATCH}; one profiled step: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['device_busy_ms']} ms, qmm "
+              f"{prof['qmm_device_ms']} ms, {prof.get('device_launches')} device launches",
+              flush=True)
+        out[label] = run
+        del toks
+        torch.cuda.empty_cache()
+    # the bytes a W4KV8 step must read: layer codes, scales, biases and norms,
+    # the unembedding's codes, the KV cache at the mean length
+    mean_len = LM_PROMPT + LM_DECODE_STEPS // 2
+    kv_bytes = (cfg.n_layers * 2 * LM_BATCH * cfg.padded_kv_heads * mean_len
+                * (cfg.head_dim_ + 4))
+    step_bytes = (mods["param_bytes"](qparams["slots"]) + mods["param_bytes"](qparams["unembed"])
+                  + kv_bytes)
+    out["w4kv8_step_bytes"] = step_bytes
+    out["w4kv8_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    out["layer_codes_bound_ms"] = layer_codes / HBM_BYTES_PER_S * 1e3
+    fp_bytes = mods["param_bytes"](params["slots"]) + mods["param_bytes"](params["unembed"])
+    out["full_step_bound_ms"] = (fp_bytes + kv_bytes * 2) / HBM_BYTES_PER_S * 1e3
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    unembed = qparams["unembed"]["w"]
+    out["unembed_dequantize_ms"] = time_ms(
+        torch, lambda: mods["lm_materialize"](unembed, torch.bfloat16), 5, flush)
+    print(f"[chip_smoke]   lm W4KV8 bytes per step {step_bytes:,} -> bound "
+          f"{out['w4kv8_step_bound_ms']:.3f} ms (layer codes alone "
+          f"{out['layer_codes_bound_ms']:.3f} ms); the unembedding's dequantize "
+          f"{out['unembed_dequantize_ms']:.3f} ms per step; full precision bound "
+          f"{out['full_step_bound_ms']:.3f} ms", flush=True)
+    out.update(lm_kernel_rows(torch, mods, cfg, qparams, flush))
+    del params, qparams, flush
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg)
+    return out
+
+
+def flash_mutant_libraries(mods, tmp):
+    """A library for each fault of FLASH_MUTANTS: a copy of flashattn_wgmma.cu
+    in ``tmp`` with the fault planted, built beside the copy (not yet built)."""
+    FLASH_TC, CudaLibrary = mods["FLASH_TC"], mods["CudaLibrary"]
+
+    class CopyLibrary(CudaLibrary):
+        def library_path(self):
+            return self.source.with_suffix(".so")
+
+    source = FLASH_TC.library.source.read_text()
+    libraries = {}
+    for name, (_, edits) in FLASH_MUTANTS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"mutant {name}: {old!r} is not in flashattn_wgmma.cu once")
+            text = text.replace(old, new)
+        path = Path(tmp) / f"flashattn_wgmma_{name}.cu"
+        path.write_text(text)
+        libraries[name] = CopyLibrary(path, FLASH_TC.library.entries)
+    return libraries
+
+
+def lm_faults(torch, mods):
+    """Phase lm's W4KV8 run and its gates (lm_check_run) with faults planted:
+    every qmm product of layer LM_FAULT_LAYER read with its scales times each
+    factor of LM_SCALE_FAULTS (the real kernel on wrong scales), and each
+    fault of FLASH_MUTANTS built into a copy of flashattn_wgmma.cu that
+    FLASH_TC launches in place of the real one. Passes when the real kernels
+    meet every gate and the first scale fault and the LM_FLASH_FAULTS fail
+    one; the other faults are readings."""
+    import tempfile
+
+    cfg, params, qparams, prompt, _ = lm_setup(torch, mods)
+    del params
+    torch.cuda.empty_cache()
+    policy = mods["QuantPolicy"](weight_bits=4, kv_bits=8)
+    layers, QWeight, FLASH_TC = mods["lm_layers"], mods["QWeight"], mods["FLASH_TC"]
+    results = {}
+
+    def check(name):
+        reset_counts(mods)
+        try:
+            run, _ = lm_check_run(torch, mods, cfg, name, policy, qparams, prompt, True)
+        except Exception as e:  # noqa: BLE001 -- a fault that stops the run is caught
+            traceback.print_exc()
+            run = {"gates_failed": [f"raised {type(e).__name__}: {e}"]}
+        results[name] = {k: run[k] for k in ("vs_plain_max_rel", "vs_forward_max_rel", "truth",
+                                             "limits", "finite", "gates_failed") if k in run}
+        torch.cuda.empty_cache()
+
+    check("kernel")
+    targets = {w[LM_FAULT_LAYER].packed.data_ptr()
+               for w in mods["lm_tree_leaves"](qparams["slots"]["slot0"])
+               if isinstance(w, QWeight)}
+    real = layers.qweight_product
+    for factor in LM_SCALE_FAULTS:
+        def faulty(x, w, factor=factor):
+            if w.packed.data_ptr() in targets:
+                w = QWeight(w.packed, w.scale * factor, w.bits, w.k_dim)
+            return real(x, w)
+        with stand_in(layers, qweight_product=faulty):
+            check(f"qmm_scale_x{factor}")
+    real_library = FLASH_TC.library
+    with tempfile.TemporaryDirectory() as tmp:
+        libraries = flash_mutant_libraries(mods, tmp)
+        phase_build(list(libraries.values()))
+        for name, library in libraries.items():
+            FLASH_TC.library = library
+            try:
+                check(f"flash_{name}")
+            finally:
+                FLASH_TC.library = real_library
+    required = [f"qmm_scale_x{LM_SCALE_FAULTS[0]}"] + [f"flash_{n}" for n in LM_FLASH_FAULTS]
+    missed = [name for name in required if not results[name]["gates_failed"]]
+    for name, r in results.items():
+        print(f"[chip_smoke]   lm fault {name:22s}: {len(r['gates_failed'])} gates failed"
+              + (f" ({r['gates_failed'][0]})" if r["gates_failed"] else ""), flush=True)
+    if results["kernel"]["gates_failed"] or missed:
+        raise AssertionError(f"lm faults: the real kernels failed a gate: "
+                             f"{results['kernel']['gates_failed']}; faults no gate caught: "
+                             f"{missed}")
+    return {"layer": LM_FAULT_LAYER, "scale_factors": LM_SCALE_FAULTS,
+            "flash_mutants": {n: what for n, (what, _) in FLASH_MUTANTS.items()},
+            "results": results}
+
+
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
     sys.path.insert(0, str(SRC))
@@ -3651,8 +4278,25 @@ def load_port() -> dict:
     from repro_torch.core.niht import stopping_iterations
     from repro_torch.core.recovery import source_recovery, support_recovery
     from repro_torch.quant.quantize import fake_quantize, quantize
+    from repro_torch.configs import get_config as lm_get_config
+    from repro_torch.kernels.flashattn import ops as fa_ops
+    from repro_torch.models import generate, layers as lm_layers, model as lm_model
+    from repro_torch.models.quantized import (
+        QWeight,
+        materialize as lm_materialize,
+        param_bytes,
+        quantize_params,
+        tree_leaves as lm_tree_leaves,
+        tree_to as lm_tree_to,
+    )
+    from repro_torch.quant.policy import QuantPolicy
 
-    mods = dict(prng=prng, GAUSS=GAUSS, LOFAR=LOFAR, QMM=QMM, pack_operator=pack_operator,
+    mods = dict(lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
+                lm_layers=lm_layers, lm_model=lm_model, QWeight=QWeight,
+                lm_materialize=lm_materialize, param_bytes=param_bytes,
+                quantize_params=quantize_params, lm_tree_leaves=lm_tree_leaves,
+                lm_tree_to=lm_tree_to,
+                QuantPolicy=QuantPolicy, prng=prng, GAUSS=GAUSS, LOFAR=LOFAR, QMM=QMM, pack_operator=pack_operator,
                 pack_weights=pack_weights, qmm_ref=qmm_ref, recover_gaussian=recover_gaussian,
                 recover_lofar=recover_lofar, unpack_codes=unpack_codes, Station=Station,
                 measurement_matrix=measurement_matrix, make_sky=make_sky,
@@ -3710,6 +4354,9 @@ def main(argv=None) -> int:
     ap.add_argument("--flash-mutants", action="store_true",
                     help="only check that planted faults of flashattn_wgmma.cu fail the bf16 "
                          "checks")
+    ap.add_argument("--lm-faults", action="store_true",
+                    help="only check that faults planted in the lm phase's W4KV8 run (qmm "
+                         "scales of one layer, the flash mutants) fail its gates")
     args = ap.parse_args(argv)
     import torch
 
@@ -3729,6 +4376,12 @@ def main(argv=None) -> int:
         result = phases.run("flash-mutants", flash_mutants, torch, mods)
         mods["out_dir"].mkdir(parents=True, exist_ok=True)
         (mods["out_dir"] / "flash_mutants.json").write_text(json.dumps(result, indent=1))
+        print(nvidia_smi_line(), flush=True)
+        return 1 if phases.failed else 0
+    if args.lm_faults:
+        result = phases.run("lm-faults", lm_faults, torch, mods)
+        mods["out_dir"].mkdir(parents=True, exist_ok=True)
+        (mods["out_dir"] / "lm_faults.json").write_text(json.dumps(result, indent=1))
         print(nvidia_smi_line(), flush=True)
         return 1 if phases.failed else 0
     report = {"device": kind}
@@ -3754,6 +4407,7 @@ def main(argv=None) -> int:
     report["theory"] = phases.run("theory", phase_theory, torch, mods, report["lofar"])
     report["baselines"] = phases.run("baselines", phase_baselines, torch, mods)
     report["sanitize"] = phases.run("sanitize", phase_sanitize, torch, mods)
+    report["lm"] = phases.run("lm", phase_lm, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
@@ -3978,6 +4632,51 @@ def main(argv=None) -> int:
             "shape": f"B=1 N={row['N']} s={row['s']} nbins={NBINS}; launches: the {name} "
                      "hsthresh solves, single and batch 8",
         })
+    lm, lm_source = report["lm"], f"src/repro_torch/kernels/qmm/csrc/{report['kernel']['source']}"
+    for row in lm["qmm_rows"]:
+        if row["shape"] == "wv":
+            continue                  # wk's shape: launches_by_shape counts them together
+        name = "wk+wv" if row["shape"] == "wk" else row["shape"]
+        kernels.append({
+            "name": f"qmm[lm decode: {LM_ARCH} W4 {name}]",
+            "route": "cuda",
+            "source": lm_source,
+            "entry": report["kernel"]["entry"],
+            "replaces": "src/repro/kernels/qmm/kernel.py:265",
+            "launches": lm["w4kv8"]["qmm_launches_by_shape"][f"{row['N']}x{row['K']}"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bytes_bound_ms": row["bytes_bound_ms"],
+            "library_ms": row["library_ms"],
+            "shape": f"M={row['M']} N={row['N']} K={row['K']} bits={row['bits']}, layer 0's "
+                     "codes (timed); launches: the W4KV8 run's decode steps, all layers; "
+                     "bound: codes, scales, bf16 x and y, or three bf16 pieces of x at the "
+                     "tensor-core peak; library: torch.matmul on the dequantized bf16 weight "
+                     "(the reference computes materialize, src/repro/models/quantized.py:71, "
+                     "then x @ w)",
+        })
+    row = lm["flash_row"]
+    kernels.append({
+        "name": f"flash_attention[lm prefill: {LM_ARCH} B={row['B']} S={row['S']}]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+        "entry": "repro_flash_attention_tc",
+        "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+        "launches": lm["w4kv8"]["flash_tc_launches"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "max_row_rel": row["max_row_rel"],
+        "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} bf16 "
+                 "causal; launches: the W4KV8 run's prefill, one per layer (the reference "
+                 "computes chunked_attention, src/repro/models/layers.py:203)",
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""How far bf16 arithmetic and the int8 KV cache put starcoder2-3b's logits
+from a float32 truth at full width, on one card.
+
+    python3 scripts/lm_noise_floor.py
+
+The model and traffic of ``chip_smoke.py``'s ``lm`` phase (30 layers,
+weights from PRNGKey(0), 8 prompts of 1,024 tokens from PRNGKey(1), 32
+greedy decode steps), under W4KV8 and at full precision. The truth is
+``forward`` of the float32 model on the same weights and tokens (exact K/V).
+Each serving variant runs a prefill and the decode steps over the kernel
+run's tokens: the kernel routes (``generate``), the plain routes in bf16 with
+and without the int8 cache, the float32 model with and without it, and the
+bf16 ``forward``. For each pair it prints max |Δ| over max |reference|, the
+measure of ``chip_smoke.py``'s gates, and one JSON object with the card's
+name and power limit.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("lm_noise_floor: needs a GPU", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+
+    mods = cs.load_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    prng, m, layers = mods["prng"], mods["lm_model"], mods["lm_layers"]
+    policy_of = mods["QuantPolicy"]
+    cfg = mods["lm_get_config"](cs.LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = m.init_params(cfg, prng.PRNGKey(0), device=dev)
+    qparams = mods["quantize_params"](params, 4)
+    prompt = prng.randint(prng.PRNGKey(1), (cs.LM_BATCH, cs.LM_PROMPT), 0, cfg.vocab_size,
+                          device=dev)
+    plain = dict(qweight_product=lambda x, w: x @ mods["lm_materialize"](w, x.dtype),
+                 attention_kernel=lambda q, k, v, causal: layers.chunked_attention_plain(
+                     q, k, v, causal=causal, chunk=cfg.attn_chunk))
+    out = {}
+    for label, tree, policy in (("w4kv8", qparams, policy_of(weight_bits=4, kv_bits=8)),
+                                ("full", params, policy_of())):
+        no_kv = dataclasses.replace(policy, kv_bits=None)
+        toks, kernel = mods["generate"](cfg, tree, prompt, cs.LM_DECODE_STEPS + 1, policy)
+        seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+        runs = {"kernel": kernel}
+        runs["truth"] = m.forward(cfg32, tree, seq)[0][:, cs.LM_PROMPT - 1:].float()
+        runs["forward_bf16"] = m.forward(cfg, tree, seq)[0][:, cs.LM_PROMPT - 1:]
+        with cs.stand_in(layers, **plain):
+            runs["plain"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy)
+            runs["plain_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks,
+                                                        no_kv)
+        runs["f32_kv8"] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, policy)
+        runs["f32_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, no_kv)
+        pairs = [(name, "truth") for name in runs if name != "truth"] + [
+            ("kernel", "plain"), ("kernel", "forward_bf16"), ("plain", "forward_bf16")]
+        out[label] = {f"{a}_vs_{b}": cs.lm_rel(runs[a], runs[b]) for a, b in pairs}
+        for key, value in out[label].items():
+            print(f"{label:6s} {key:28s} {value:.4g}", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": cs.nvidia_smi_line(), "config": cfg.name, "batch": cs.LM_BATCH,
+                      "prompt": cs.LM_PROMPT, "decode_steps": cs.LM_DECODE_STEPS, **out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,20 @@
-"""Configurations of the port (copies of ``repro.configs``' CS, MRI and
-serving problems): ``CONFIGS`` by the names ``python -m
-repro_torch.launch.recover --config`` takes, ``SERVE_CONFIGS`` by those of
-``python -m repro_torch.launch.serve --config``."""
+"""Configurations of the port (copies of ``repro.configs``).
+
+* the CS, MRI and serving problems: ``CONFIGS`` by the names ``python -m
+  repro_torch.launch.recover --config`` takes, ``SERVE_CONFIGS`` by those of
+  ``python -m repro_torch.launch.serve --config``;
+* the ten model architectures (``<arch>.py``: ``CONFIG`` at full width,
+  ``SMOKE`` reduced), resolved by ``--arch`` through :mod:`.registry`, and the
+  input-shape suites of :mod:`.shapes`.
+"""
 from repro_torch.configs import gaussian_toy, lofar_cs302, mri_brain, serve_batch
+from repro_torch.configs.registry import ALIASES, ARCH_IDS, get_config, get_smoke_config, resolve
+from repro_torch.configs.shapes import ALL_SHAPES, BY_NAME, ShapeSuite, applicable
+
+__all__ = [
+    "ALIASES", "ARCH_IDS", "get_config", "get_smoke_config", "resolve",
+    "ALL_SHAPES", "BY_NAME", "ShapeSuite", "applicable", "CONFIGS", "SERVE_CONFIGS",
+]
 
 CONFIGS = {
     "lofar": lofar_cs302.CONFIG,

@@ -5,7 +5,10 @@ as numpy (or anything ``np.asarray`` accepts), become the port's objects.
 * :func:`packed_weights_from_numpy` / :func:`packed_operator_from_numpy` —
   packed bytes, scale, bits, k_dim and granularity → ``PackedWeights`` /
   ``PackedOperator``;
-* :func:`problem_from_numpy` — a CS problem's Φ, y, x_true, e and s → ``CSProblem``.
+* :func:`problem_from_numpy` — a CS problem's Φ, y, x_true, e and s → ``CSProblem``;
+* :func:`lm_params_from_numpy` — an LM parameter tree (nested dicts and lists
+  of arrays; a quantized kernel as its ``packed``/``scale`` arrays with
+  ``bits``/``k_dim``) → the same tree of tensors and ``QWeight``s.
 
 The tests use these so that both packages compute on identical inputs. Any
 object with the reference's attribute names (``packed``, ``scale``,
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.qmm.ops import PackedOperator, PackedWeights
+from repro_torch.models.quantized import QWeight
 from repro_torch.quant.formats import as_granularity
 from repro_torch.sensing.gaussian import CSProblem
 
@@ -66,3 +70,20 @@ def problem_from_numpy(prob, device=None) -> CSProblem:
                      x_true=tensor_from_numpy(prob.x_true, device),
                      e=tensor_from_numpy(prob.e, device),
                      s=int(prob.s))
+
+
+def lm_params_from_numpy(params, device=None):
+    """The reference's LM parameter tree as the port's: dicts and lists keep
+    their keys and order, arrays become tensors on ``device``, and an object
+    with ``packed``, ``scale``, ``bits`` and ``k_dim`` (a quantized kernel)
+    becomes a :class:`~repro_torch.models.quantized.QWeight` of the same
+    bytes."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(lm_params_from_numpy(v, device) for v in params)
+    if all(hasattr(params, a) for a in ("packed", "scale", "bits", "k_dim")):
+        return QWeight(tensor_from_numpy(params.packed, device),
+                       tensor_from_numpy(np.asarray(params.scale, np.float32), device),
+                       int(params.bits), int(params.k_dim))
+    return tensor_from_numpy(params, device)

@@ -1,0 +1,38 @@
+"""The LM side of the port (port of ``repro.models``): the dense family's
+serving path — parameters, ``forward``, ``prefill`` and ``decode_step`` with
+an optional int8 KV cache, weight-only quantized parameters (``QWeight``,
+``quantize_params``) and greedy :func:`generate`. The MoE, SSM, hybrid,
+encoder-decoder and VLM families, ``loss_fn`` and ``encode`` come in later
+slices (ROADMAP.md §1 item 8)."""
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.generate import generate
+from repro_torch.models.model import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    prefill,
+)
+from repro_torch.models.quantized import (
+    QWeight,
+    materialize,
+    param_bytes,
+    quantize_params,
+    quantize_weight,
+)
+
+__all__ = [
+    "ModelConfig",
+    "torch_dtype",
+    "decode_step",
+    "forward",
+    "generate",
+    "init_cache",
+    "init_params",
+    "prefill",
+    "QWeight",
+    "materialize",
+    "param_bytes",
+    "quantize_params",
+    "quantize_weight",
+]

@@ -1,0 +1,399 @@
+"""Core neural layers (port of ``repro.models.layers``): norms, RoPE, dense
+and GQA attention, MLP variants, KV caches (float or int8-quantized: the
+paper's Q applied to the "observations").
+
+Parameters are plain nested dicts of tensors; initialization is explicit and
+draws from :mod:`repro_torch.random` (the reference's threefry), on the
+``device`` given. Routes on the card, each fixed and counted by its kernel:
+
+* :func:`dense` on a :class:`~repro_torch.models.quantized.QWeight` with at
+  most ``QMM_MAX_ROWS`` rows of x (the decode loop, short prefills) →
+  :func:`qweight_product`, the ``qmm`` kernel on the packed codes as they
+  are stored; more rows (long prefills) → materialize + ``torch.matmul``,
+  the reference's own computation.
+* :func:`chunked_attention` → :func:`attention_kernel`, the
+  ``flash_attention`` kernel (bf16 on the tensor cores, f32 on the CUDA
+  cores), for non-causal attention and causal attention with Sq = Sk.
+* :func:`decode_attention`, the KV-cache quantization, norms, RoPE and the
+  MLP activations are plain PyTorch on both devices, as they are einsums and
+  elementwise ops in the reference.
+
+On the CPU every route runs its plain version: materialize + matmul, and the
+reference's chunked online softmax (:func:`chunked_attention_plain`).
+
+The KV cache's ``length`` is a host integer, so a token is written at a
+Python index without a device sync. :func:`cache_update` writes the new
+tokens into the cache's tensors in place (the returned cache shares them):
+a cache is used by one generation.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random as prng
+from repro_torch.kernels.flashattn.ops import flash_attention
+from repro_torch.kernels.qmm.ops import qmm
+from repro_torch.models.quantized import QWeight, materialize
+from repro_torch.quant.formats import BY_BITS
+
+# The most rows of x a QWeight product sends to qmm on the card (a decode
+# step has B rows); past it, materialize + matmul. chip_smoke.py's lm phase
+# times a starcoder2-3b layer's six products on both routes: on an H100 qmm
+# is ahead up to 512 rows and behind at 1,024 (PERF.md §6).
+QMM_MAX_ROWS = 512
+
+# ---------------------------------------------------------------------------
+# init helpers
+
+
+def dense_init(key, in_dim: int, out_dim: int, bias: bool = False, scale: float = 0.02,
+               device=None):
+    p = {"w": prng.normal(key, (in_dim, out_dim), device=device) * scale}
+    if bias:
+        p["b"] = torch.zeros((out_dim,), dtype=torch.float32, device=device)
+    return p
+
+
+def norm_init(d: int, norm_type: str, device=None):
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if norm_type == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# apply helpers
+
+
+def qweight_product(x: torch.Tensor, w: QWeight) -> torch.Tensor:
+    """x @ dequant(w) through the ``qmm`` kernel, (..., in) → (..., out)
+    float32: the layer's codes and per-row scales as they are stored."""
+    pw = w.packed_weights()
+    y = qmm(x.reshape(-1, w.k_dim), pw)
+    return y.reshape(tuple(x.shape[:-1]) + (y.shape[-1],))
+
+
+def dense(p, x, dtype=None):
+    dtype = dtype or x.dtype
+    w = p["w"]
+    if isinstance(w, QWeight) and x.is_cuda and x.numel() // x.shape[-1] <= QMM_MAX_ROWS:
+        y = qweight_product(x, w).to(dtype)
+    else:
+        y = x @ materialize(w, dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def apply_norm(p, x, norm_type: str, eps: float):
+    xf = x.to(torch.float32)
+    if norm_type == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)   # jnp.var: population
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding (rotate-half). x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    ang = positions[..., None].to(torch.float32) * freq          # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_at(position, d: int, device=None) -> torch.Tensor:
+    """Sinusoidal embedding for one position: O(d), table-free."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)
+    ang = torch.as_tensor(position, dtype=torch.float32, device=device) / (
+        10_000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def _pick_chunk(s: int, chunk: int) -> int:
+    """Largest divisor of s that is <= chunk (handles non-power-of-two seqs,
+    e.g. Whisper's 1500-frame encoder memory)."""
+    if s <= chunk:
+        return s
+    for c in range(chunk, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def _attn_mask(q_pos, k_pos, causal, window):
+    mask = torch.ones((q_pos.shape[0], q_pos.shape[1], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, :, None] >= k_pos[None, None, :]
+    if window is not None:
+        mask &= q_pos[:, :, None] - k_pos[None, None, :] < window
+    return mask
+
+
+def chunked_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024,
+                            window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
+    """The reference's online-softmax attention over (chunk, chunk) blocks,
+    in float32, cast to q's dtype: the plain version of
+    :func:`chunked_attention`. q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    cq, ck = _pick_chunk(sq, chunk), _pick_chunk(sk, chunk)
+    nq, nk = sq // cq, sk // ck
+    qf = q.to(torch.float32).reshape(b, hq, nq, cq, d)
+    kf = k.to(torch.float32).reshape(b, hkv, nk, ck, d)
+    vf = v.to(torch.float32).reshape(b, hkv, nk, ck, d)
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=1)
+        vf = vf.repeat_interleave(rep, dim=1)
+    q_pos = q_offset + torch.arange(sq, device=q.device).reshape(nq, cq)
+    k_pos = torch.arange(sk, device=q.device).reshape(nk, ck)
+    m_run = torch.full((b, hq, nq, cq, 1), -1e30, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((b, hq, nq, cq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, nq, cq, d), dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        s = torch.einsum("bhncd,bhkd->bhnck", qf, kf[:, :, j]) * scale
+        s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, window)[None, None], -1e30)
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m_run - m_new)
+        l_run = alpha * l_run + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhnck,bhkd->bhncd", p, vf[:, :, j])
+        m_run = m_new
+    out = acc / torch.clamp_min(l_run, 1e-30)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def attention_kernel(q, k, v, causal: bool) -> torch.Tensor:
+    """The card's route of :func:`chunked_attention`: the ``flash_attention``
+    kernel, scale 1/√D, output in q's dtype."""
+    return flash_attention(q, k, v, causal=causal)
+
+
+def chunked_attention(
+    q: torch.Tensor,             # (B, Hq, Sq, D)
+    k: torch.Tensor,             # (B, Hkv, Sk, D)
+    v: torch.Tensor,             # (B, Hkv, Sk, D)
+    *,
+    causal: bool,
+    chunk: int = 1024,
+    window: Optional[int] = None,   # sliding-window (local) attention
+    q_offset: int = 0,              # global position of q[0]
+) -> torch.Tensor:
+    """Attention with the reference's semantics: query i (at position
+    q_offset + i) sees key j when j <= q_offset + i (causal) and
+    q_offset + i - j < window. On CUDA tensors it launches the flash
+    attention kernel (:func:`attention_kernel`), which takes non-causal
+    attention and causal attention with Sq = Sk at offset 0; a window or
+    another causal alignment raises. On the CPU it runs
+    :func:`chunked_attention_plain`."""
+    if not q.is_cuda:
+        return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk, window=window,
+                                       q_offset=q_offset)
+    if window is not None:
+        raise NotImplementedError(
+            "windowed (local) attention has no kernel on the card yet: flash_attention "
+            "takes no window; the hybrid family's slice (recurrentgemma-2b, ROADMAP.md §1 "
+            "item 8) ports it")
+    if causal and (q.shape[2] != k.shape[2] or q_offset):
+        raise NotImplementedError(
+            f"causal attention on the card takes Sq = Sk at offset 0 (the reference aligns "
+            f"query i to key q_offset + i); got Sq={q.shape[2]}, Sk={k.shape[2]}, "
+            f"q_offset={q_offset}")
+    return attention_kernel(q, k, v, causal)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (B, Hq, 1, D)
+    k: torch.Tensor,            # (B, Hkv, S, D)
+    v: torch.Tensor,
+    *,
+    length: int,                # valid cache length: masks the tail
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Grouped-GQA decode attention: q is reshaped to (B, Hkv, rep, D) and
+    contracted against the unrepeated cache, with float32 logits and
+    accumulation (the reference's ``preferred_element_type``)."""
+    b, hq, _, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = q[:, :, 0, :].reshape(b, hkv, rep, d)
+    logits = torch.einsum("bhrd,bhkd->bhrk", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    pos = torch.arange(s, device=q.device)
+    mask = pos < length
+    if window is not None:
+        mask &= pos >= length - window
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrk,bhkd->bhrd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (float or int8 codes — the paper's Q(y) analog)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor                  # (B, Hkv, S, D) dtype or int8 codes
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]  # (B, Hkv, S, 1) f32 when quantized
+    v_scale: Optional[torch.Tensor]
+    length: int                      # tokens filled (a host integer)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_kv_cache(b: int, hkv: int, s: int, d: int, dtype, kv_bits: Optional[int],
+                  device=None) -> KVCache:
+    if kv_bits:
+        return KVCache(
+            k=torch.zeros((b, hkv, s, d), dtype=torch.int8, device=device),
+            v=torch.zeros((b, hkv, s, d), dtype=torch.int8, device=device),
+            k_scale=torch.ones((b, hkv, s, 1), dtype=torch.float32, device=device),
+            v_scale=torch.ones((b, hkv, s, 1), dtype=torch.float32, device=device),
+            length=0,
+        )
+    return KVCache(
+        k=torch.zeros((b, hkv, s, d), dtype=dtype, device=device),
+        v=torch.zeros((b, hkv, s, d), dtype=dtype, device=device),
+        k_scale=None,
+        v_scale=None,
+        length=0,
+    )
+
+
+def _quantize_kv(x: torch.Tensor, bits: int):
+    """Per-(token, head) nearest-rounding quantization (half to even, as
+    ``jnp.round``). x: (B, H, T, D)."""
+    kk = BY_BITS[bits].half_steps
+    scale = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), 1e-6)
+    codes = torch.clamp(torch.round(x / scale * kk), -kk, kk).to(torch.int8)
+    return codes, scale.to(torch.float32)
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, bits: int, dtype):
+    kk = BY_BITS[bits].half_steps
+    return (codes.to(torch.float32) * (scale / kk)).to(dtype)
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 kv_bits: Optional[int]) -> KVCache:
+    """Write T new tokens at cache.length, in place. k_new: (B, Hkv, T, D).
+    Raises when they do not fit (the reference's dynamic_update_slice would
+    move the write back to fit)."""
+    idx, t = cache.length, k_new.shape[2]
+    if idx + t > cache.k.shape[2]:
+        raise ValueError(f"KV cache of {cache.k.shape[2]} tokens holds {idx}; "
+                         f"{t} more do not fit")
+    if kv_bits:
+        kc, ks = _quantize_kv(k_new.to(torch.float32), kv_bits)
+        vc, vs = _quantize_kv(v_new.to(torch.float32), kv_bits)
+        cache.k[:, :, idx:idx + t] = kc
+        cache.v[:, :, idx:idx + t] = vc
+        cache.k_scale[:, :, idx:idx + t] = ks
+        cache.v_scale[:, :, idx:idx + t] = vs
+    else:
+        cache.k[:, :, idx:idx + t] = k_new.to(cache.k.dtype)
+        cache.v[:, :, idx:idx + t] = v_new.to(cache.v.dtype)
+    return cache._replace(length=idx + t)
+
+
+def _roll_left(a: Optional[torch.Tensor]) -> None:
+    if a is not None:
+        a.copy_(torch.roll(a, -1, dims=2))
+
+
+def cache_update_window(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                        window: int, kv_bits: Optional[int]) -> KVCache:
+    """Sliding-window (ring-semantics) cache of fixed size ``window``, in place.
+
+    Slots hold the last min(length, window) tokens in chronological order
+    (RoPE is already applied at absolute positions, so order is all we need).
+    Prefill (T >= window): keeps the last ``window`` of the new tokens.
+    Decode (T == 1): shift-left-by-one when full, then write at the end.
+    """
+    t = k_new.shape[2]
+    if t >= window:
+        cache.k.zero_()
+        cache.v.zero_()
+        out = cache_update(cache._replace(length=0), k_new[:, :, -window:],
+                           v_new[:, :, -window:], kv_bits)
+        return out._replace(length=cache.length + t)
+    if t != 1:
+        # prefill shorter than the window: plain append (cache starts empty)
+        return cache_update(cache, k_new, v_new, kv_bits)
+    if cache.length >= window:
+        for a in cache[:4]:
+            _roll_left(a)
+    out = cache_update(cache._replace(length=min(cache.length, window - 1)), k_new, v_new,
+                       kv_bits)
+    return out._replace(length=cache.length + 1)
+
+
+def window_valid_length(cache: KVCache, window: int) -> int:
+    return min(cache.length, window)
+
+
+def cache_kv(cache: KVCache, kv_bits: Optional[int], dtype):
+    if kv_bits:
+        return (_dequantize_kv(cache.k, cache.k_scale, kv_bits, dtype),
+                _dequantize_kv(cache.v, cache.v_scale, kv_bits, dtype))
+    return cache.k, cache.v
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+
+
+def mlp_init(key, d: int, ff: int, mlp_type: str, device=None):
+    ks = prng.split(key, 3)
+    if mlp_type == "swiglu":
+        return {
+            "wi_gate": dense_init(ks[0], d, ff, device=device),
+            "wi_up": dense_init(ks[1], d, ff, device=device),
+            "wo": dense_init(ks[2], ff, d, device=device),
+        }
+    return {"wi": dense_init(ks[0], d, ff, device=device),
+            "wo": dense_init(ks[1], ff, d, device=device)}
+
+
+def mlp_apply(p, x, mlp_type: str):
+    if mlp_type == "swiglu":
+        h = F.silu(dense(p["wi_gate"], x, x.dtype)) * dense(p["wi_up"], x, x.dtype)
+    elif mlp_type == "gelu":
+        h = F.gelu(dense(p["wi"], x, x.dtype), approximate="tanh")   # jax.nn.gelu's default
+    elif mlp_type == "relu2":
+        h = torch.square(F.relu(dense(p["wi"], x, x.dtype)))
+    else:
+        raise ValueError(mlp_type)
+    return dense(p["wo"], h, x.dtype)

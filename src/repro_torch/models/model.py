@@ -1,0 +1,413 @@
+"""Model assembly (port of ``repro.models.model``), the dense family: decoder
+LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV bias, RMSNorm or
+LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP).
+
+The parameter tree is the reference's: nested dicts of tensors, layers
+stacked by period slot as ``(L, ...)`` under ``params["slots"]["slot<j>"]``
+(keys sorted, as ``jax.vmap`` returns them), the remainder under
+``params["tail"]``. Where the reference scans a slot, the port loops over its
+layers and indexes each leaf (a ``QWeight`` too) at the layer.
+
+Three execution paths share the block code:
+  * :func:`forward` — teacher-forced logits over (B, S) tokens,
+  * :func:`prefill` — forward + KV cache construction (serving, long prompts),
+  * :func:`decode_step` — one token against the cache (the bandwidth-bound
+    loop the paper's technique speeds up with weight/KV quantization).
+
+The other families (moe, ssm, hybrid, encdec, vlm) raise
+``NotImplementedError`` naming the later slice that ports them; so do the
+cross-attention, recurrent and SSM blocks. The reference's SPMD hooks
+(``constrain``, ``constrain_kv``) have no counterpart on one GPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import random as prng
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.layers import (
+    KVCache,
+    apply_norm,
+    cache_kv,
+    cache_update,
+    cache_update_window,
+    chunked_attention,
+    decode_attention,
+    dense,
+    dense_init,
+    init_kv_cache,
+    mlp_apply,
+    mlp_init,
+    norm_init,
+    rope,
+    window_valid_length,
+)
+from repro_torch.models.quantized import materialize
+from repro_torch.quant.policy import QuantPolicy
+
+# The slice of ROADMAP.md §1 item 8 that ports each family this one does not.
+_LATER = {
+    "ssm": "mamba2-370m, models/ssm.py",
+    "hybrid": "recurrentgemma-2b: the RG-LRU and windowed attention",
+    "encdec": "whisper-tiny: the encoder, encode and cross-attention",
+    "vlm": "llama-3.2-vision-11b: the cross-attention image layers",
+    "moe": "qwen3-moe-30b, models/moe.py",
+}
+
+
+def _require_dense(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{what}: the {cfg.family} family ({cfg.name}) is not ported yet; "
+            f"ROADMAP.md §1 item 8 queues it ({_LATER.get(cfg.family, cfg.family)})")
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def _attn_init(key, cfg: ModelConfig, device=None):
+    ks = prng.split(key, 4)
+    d, hd = cfg.d_model, cfg.head_dim_
+    hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
+    return {
+        "wq": dense_init(ks[0], d, hq * hd, bias=cfg.qkv_bias, device=device),
+        "wk": dense_init(ks[1], d, hkv * hd, bias=cfg.qkv_bias, device=device),
+        "wv": dense_init(ks[2], d, hkv * hd, bias=cfg.qkv_bias, device=device),
+        "wo": dense_init(ks[3], hq * hd, d, device=device),
+    }
+
+
+def _ffn_init(key, cfg: ModelConfig, device=None):
+    if cfg.n_experts:
+        raise NotImplementedError(f"mixture-of-experts FFN ({cfg.name}): ROADMAP.md §1 "
+                                  f"item 8 queues it ({_LATER['moe']})")
+    return mlp_init(key, cfg.d_model, cfg.d_ff, cfg.mlp_type, device=device)
+
+
+def _block_init(key, cfg: ModelConfig, kind: str, device=None):
+    ks = prng.split(key, 6)
+    d = cfg.d_model
+    p: dict[str, Any] = {"ln1": norm_init(d, cfg.norm_type, device)}
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} blocks ({cfg.name}) are not ported yet; "
+                                  f"ROADMAP.md §1 item 8 queues them")
+    p["attn"] = _attn_init(ks[0], cfg, device)
+    p["ln2"] = norm_init(d, cfg.norm_type, device)
+    p["ffn"] = _ffn_init(ks[1], cfg, device)
+    return p
+
+
+def _period_info(cfg: ModelConfig):
+    pattern = cfg.pattern_for_layers()
+    if cfg.family == "hybrid" and cfg.block_pattern:
+        period = len(cfg.block_pattern)
+    elif cfg.family == "vlm" and cfg.cross_attn_every:
+        period = cfg.cross_attn_every
+    else:
+        period = 1
+    n_full = cfg.n_layers // period
+    slots = pattern[:period]
+    tail = pattern[n_full * period:]
+    return slots, n_full, tail
+
+
+def _sorted_tree(tree):
+    """The tree with every dict's keys in sorted order, as a ``jax.vmap``
+    output has them (``quantize_params`` counts its keys in that order)."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _stack_into(stacked, tree, i: int, n: int):
+    """Write ``tree``'s leaves at index i of (n, ...) tensors, made at i = 0."""
+    if isinstance(tree, dict):
+        if stacked is None:
+            stacked = {}
+        for k, v in tree.items():
+            stacked[k] = _stack_into(stacked.get(k), v, i, n)
+        return stacked
+    if stacked is None:
+        stacked = torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
+    stacked[i] = tree
+    return stacked
+
+
+def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
+    """The reference's parameters for ``key``, float32, on ``device``
+    (default ``cuda``): every draw is ``repro_torch.random``'s threefry, so
+    the values are the reference's to within its erfinv rounding (~1e-6).
+    A stacked slot is drawn layer by layer from ``split(fold_in(keys[2], j),
+    n_full)``, as the reference's ``vmap`` draws it."""
+    _require_dense(cfg, "init_params")
+    device = resolve_device(device)
+    slots, n_full, tail = _period_info(cfg)
+    keys = prng.split(key, 8)
+    d, v = cfg.d_model, cfg.padded_vocab
+
+    params: dict[str, Any] = {
+        "embed": {"w": prng.normal(keys[0], (v, d), device=device) * 0.02},
+        "final_norm": norm_init(d, cfg.norm_type, device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = {"w": prng.normal(keys[1], (v, d), device=device) * 0.02}
+
+    def stack_init(base_key, kind, n):
+        stacked = None
+        for i, k in enumerate(prng.split(base_key, n)):
+            stacked = _stack_into(stacked, _block_init(k, cfg, kind, device), i, n)
+        return _sorted_tree(stacked)
+
+    params["slots"] = {
+        f"slot{j}": stack_init(prng.fold_in(keys[2], j), kind, n_full)
+        for j, kind in enumerate(slots)
+    }
+    params["tail"] = [
+        _block_init(prng.fold_in(keys[3], i), cfg, kind, device)
+        for i, kind in enumerate(tail)
+    ]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block application
+
+
+@dataclasses.dataclass
+class Ctx:
+    cfg: ModelConfig
+    positions: torch.Tensor                 # (B, S) integer positions
+    policy: QuantPolicy
+    memory: Optional[torch.Tensor] = None   # encoder output / image embeds (B, T, d)
+    causal: bool = True
+    window: Optional[int] = None
+
+
+def _qkv(p, x, cfg, positions, n_heads):
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q = dense(p["wq"], x).reshape(b, s, n_heads, hd)
+    k = dense(p["wk"], x).reshape(b, s, cfg.padded_kv_heads, hd)
+    v = dense(p["wv"], x).reshape(b, s, cfg.padded_kv_heads, hd)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    # (B, H, S, D)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _self_attention(p, x, ctx: Ctx):
+    cfg = ctx.cfg
+    q, k, v = _qkv(p, x, cfg, ctx.positions, cfg.padded_heads)
+    out = chunked_attention(q, k, v, causal=ctx.causal, chunk=cfg.attn_chunk,
+                            window=ctx.window)
+    b, h, s, hd = out.shape
+    return dense(p["wo"], out.transpose(1, 2).reshape(b, s, h * hd))
+
+
+def _ffn_apply(p, x, cfg: ModelConfig):
+    return mlp_apply(p, x, cfg.mlp_type), {}
+
+
+def apply_block_fwd(kind: str, p, x, ctx: Ctx):
+    """Full-sequence forward. Returns (x, aux)."""
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1 item 8)")
+    cfg = ctx.cfg
+    h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    x = x + _self_attention(p["attn"], h, ctx)
+    h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    y, aux = _ffn_apply(p["ffn"], h2, cfg)
+    return x + y, aux
+
+
+def _empty_cache_entry(kind: str, cfg: ModelConfig, b: int, cache_len: int, dtype,
+                       kv_bits, device):
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} caches are not ported yet (ROADMAP.md §1 item 8)")
+    if cfg.family == "hybrid" and cfg.local_window:
+        cache_len = min(cache_len, cfg.local_window)
+    return init_kv_cache(b, cfg.padded_kv_heads, cache_len, cfg.head_dim_, dtype, kv_bits,
+                         device)
+
+
+def apply_block_prefill(kind: str, p, x, cache_entry: KVCache, ctx: Ctx):
+    """Forward + cache fill. Returns (x, cache_entry)."""
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1 item 8)")
+    cfg = ctx.cfg
+    h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    q, k, v = _qkv(p["attn"], h, cfg, ctx.positions, cfg.padded_heads)
+    out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk, window=ctx.window)
+    b, hh, s, hd = out.shape
+    x = x + dense(p["attn"]["wo"], out.transpose(1, 2).reshape(b, s, hh * hd))
+    if ctx.window is not None:
+        cache_entry = cache_update_window(cache_entry, k, v, ctx.window, ctx.policy.kv_bits)
+    else:
+        cache_entry = cache_update(cache_entry, k, v, ctx.policy.kv_bits)
+    h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    y, _ = _ffn_apply(p["ffn"], h2, cfg)
+    return x + y, cache_entry
+
+
+def apply_block_decode(kind: str, p, x, cache_entry: KVCache, ctx: Ctx):
+    """One-token step against the cache. x: (B, 1, d)."""
+    if kind != "attn":
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1 item 8)")
+    cfg = ctx.cfg
+    h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    q, k_new, v_new = _qkv(p["attn"], h, cfg, ctx.positions, cfg.padded_heads)
+    if ctx.window is not None:
+        entry = cache_update_window(cache_entry, k_new, v_new, ctx.window, ctx.policy.kv_bits)
+        length = window_valid_length(entry, ctx.window)
+    else:
+        entry = cache_update(cache_entry, k_new, v_new, ctx.policy.kv_bits)
+        length = entry.length
+    k_all, v_all = cache_kv(entry, ctx.policy.kv_bits, x.dtype)
+    out = decode_attention(q, k_all, v_all, length=length)
+    b, hh, _, hd = out.shape
+    x = x + dense(p["attn"]["wo"], out.transpose(1, 2).reshape(b, 1, hh * hd))
+    h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    y, _ = _ffn_apply(p["ffn"], h2, cfg)
+    return x + y, entry
+
+
+# ---------------------------------------------------------------------------
+# whole-model paths
+
+
+def _at_layer(tree, i: int):
+    """Layer i of a stacked slot: every tensor and QWeight indexed at i."""
+    if isinstance(tree, dict):
+        return {k: _at_layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, KVCache):
+        return KVCache(*(None if a is None else a[i] for a in tree[:4]), length=tree.length)
+    return tree[i]
+
+
+def _run_stack(cfg, params, x, cache, block, ctx):
+    """Every layer in order (slots period by period, then the tail), each
+    with its cache entry when ``cache`` is given. Returns (x, new cache)."""
+    slots, n_full, tail = _period_info(cfg)
+    lengths = {}
+    for i in range(n_full):
+        for j, kind in enumerate(slots):
+            name = f"slot{j}"
+            p = _at_layer(params["slots"][name], i)
+            if cache is None:
+                x, _ = block(kind, p, x, ctx)
+            else:
+                x, entry = block(kind, p, x, _at_layer(cache["slots"][name], i), ctx)
+                lengths[name] = entry.length
+    if cache is None:
+        for i, kind in enumerate(tail):
+            x, _ = block(kind, params["tail"][i], x, ctx)
+        return x, None
+    new_cache = {"slots": {name: c._replace(length=lengths.get(name, c.length))
+                           for name, c in cache["slots"].items()},
+                 "tail": []}
+    for i, kind in enumerate(tail):
+        x, c = block(kind, params["tail"][i], x, cache["tail"][i], ctx)
+        new_cache["tail"].append(c)
+    return x, new_cache
+
+
+def _embed(cfg, params, tokens, dtype):
+    return params["embed"]["w"][tokens].to(dtype)
+
+
+def _unembed(cfg, params, x):
+    w = params["embed"]["w"] if cfg.tie_embeddings else params["unembed"]["w"]
+    wt = materialize(w, x.dtype)
+    if wt.shape[0] == cfg.padded_vocab:          # stored (V, d)
+        return x @ wt.T
+    return x @ wt
+
+
+def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
+    return torch.arange(start, start + s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
+            policy: QuantPolicy = QuantPolicy(), memory: Optional[torch.Tensor] = None):
+    """Teacher-forced logits (B, S, V) in the config's dtype, and the aux dict
+    (``moe_load_loss``, 0 for the dense family)."""
+    _require_dense(cfg, "forward")
+    b, s = tokens.shape
+    x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
+    ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
+              memory=memory, causal=True, window=None)
+    x, _ = _run_stack(cfg, params, x, None, apply_block_fwd, ctx)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    return _unembed(cfg, params, x), {
+        "moe_load_loss": torch.zeros((), dtype=torch.float32, device=tokens.device)}
+
+
+def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = QuantPolicy(),
+               mem_len: int = 0, device=None):
+    """Stacked cache matching the slot structure, on ``device`` (default
+    ``cuda``): each slot's KVCache holds (n_full, B, Hkv, S, D) tensors and
+    one host length."""
+    _require_dense(cfg, "init_cache")
+    del mem_len   # encoder memory: the encdec/vlm slices
+    device = resolve_device(device)
+    slots, n_full, tail = _period_info(cfg)
+    dtype = torch_dtype(cfg.dtype)
+
+    def stacked(kind):
+        one = _empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device)
+        return KVCache(*(None if a is None else a.expand((n_full,) + a.shape).clone()
+                         for a in one[:4]), length=0)
+
+    return {
+        "slots": {f"slot{j}": stacked(kind) for j, kind in enumerate(slots)},
+        "tail": [_empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device)
+                 for kind in tail],
+    }
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
+            policy: QuantPolicy = QuantPolicy(), memory=None):
+    """Run the prompt, fill the cache (in place). Returns (last-position
+    logits (B, V), cache)."""
+    _require_dense(cfg, "prefill")
+    b, s = tokens.shape
+    x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
+    window = cfg.local_window if cfg.family == "hybrid" else None
+    ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
+              memory=memory, causal=True, window=window)
+    x, new_cache = _run_stack(cfg, params, x, cache, apply_block_prefill, ctx)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    logits = _unembed(cfg, params, x[:, -1:, :])
+    return logits[:, 0], new_cache
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
+                policy: QuantPolicy = QuantPolicy(), position=None):
+    """One serving step. token: (B,) integer → logits (B, V), updated cache
+    (in place). ``position`` defaults to the cache's length."""
+    _require_dense(cfg, "decode_step")
+    b = token.shape[0]
+    x = _embed(cfg, params, token[:, None], torch_dtype(cfg.dtype))
+    position = _cache_length(cfg, cache) if position is None else int(position)
+    window = cfg.local_window if cfg.family == "hybrid" else None
+    ctx = Ctx(cfg=cfg, positions=_positions(b, 1, position, token.device), policy=policy,
+              causal=True, window=window)
+    x, new_cache = _run_stack(cfg, params, x, cache, apply_block_decode, ctx)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+    logits = _unembed(cfg, params, x)
+    return logits[:, 0], new_cache
+
+
+def _cache_length(cfg, cache) -> int:
+    """Current length from the first attention cache (a host integer)."""
+    for v in cache["slots"].values():
+        if isinstance(v, KVCache):
+            return v.length
+    return 0
+

@@ -968,3 +968,99 @@ def test_kernel_output_tripwire_names_the_kernel(cuda):
         with pytest.raises(FloatingPointError, match="kernel repro_qmm_tc"):
             qmm(x, w)
         qmm(torch.ones((1, 512), device=cuda), w)
+
+
+# ---------------------------------------------------------------------------
+# the dense LM on the card (repro_torch.models)
+
+# (in, out) of starcoder2-3b's six QWeight products: wq, wk (= wv), wo, MLP wi, wo
+STARCODER2_3B_PRODUCTS = [(3072, 4096), (3072, 256), (4096, 3072), (3072, 12288),
+                          (12288, 3072)]
+
+
+@pytest.mark.parametrize("shape", STARCODER2_3B_PRODUCTS)
+def test_qweight_product_on_qmm_matches_materialize(cuda, shape):
+    """A decode product (M = 8) of a layer slice of a stacked 4-bit kernel
+    launches QMM once and agrees with materialize + matmul within qmm's
+    1e-5 rule; a prefill's product (M > QMM_MAX_ROWS) launches none."""
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.quantized import quantize_weight
+
+    k, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    qw = quantize_weight(torch.randn(2, k, n, generator=gen, device=cuda) * 0.02, 4)[1]
+    assert cuda_kernel(qw.packed_weights()) is qmm_kernel.QMM
+    x = torch.randn(8, k, generator=gen, device=cuda)
+    before = qmm_kernel.QMM.launches
+    y = lm_layers.qweight_product(x, qw)
+    assert qmm_kernel.QMM.launches == before + 1
+    w = qw.dequantize(torch.float32)
+    ref = x @ w
+    assert bool(((y - ref).abs() <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ w.abs())).all())
+    p = {"w": qw, "b": torch.randn(n, generator=gen, device=cuda)}
+    y16 = lm_layers.dense(p, x.to(torch.bfloat16))
+    assert y16.dtype == torch.bfloat16 and qmm_kernel.QMM.launches == before + 2
+    xs = torch.randn(lm_layers.QMM_MAX_ROWS + 1, k, generator=gen, device=cuda)
+    lm_layers.dense(p, xs)
+    assert qmm_kernel.QMM.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 300, 300), (False, 40, 300)])
+def test_chunked_attention_on_flash(cuda, dtype, tol, causal, sq, sk):
+    """chunked_attention launches one flash kernel (FLASH_TC for bf16, FLASH
+    for f32) and agrees with its plain version; a window, or causal Sq ≠ Sk,
+    raises on the card."""
+    from repro_torch.models import layers as lm_layers
+
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(2, 8, sq, 128, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 2, sk, 128, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    kernel = fa_kernel.FLASH_TC if dtype == torch.bfloat16 else fa_kernel.FLASH
+    before = kernel.launches
+    out = lm_layers.chunked_attention(q, k, v, causal=causal)
+    assert kernel.launches == before + 1 and out.dtype == dtype
+    ref = lm_layers.chunked_attention_plain(q, k, v, causal=causal, chunk=128)
+    assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+    with pytest.raises(NotImplementedError, match="window"):
+        lm_layers.chunked_attention(q[:, :, :sk], k, v, causal=True, window=64)
+    if causal:
+        with pytest.raises(NotImplementedError, match="Sq = Sk"):
+            lm_layers.chunked_attention(q[:, :, :10], k, v, causal=True)
+
+
+@pytest.mark.parametrize("bits", [None, 4])
+def test_smoke_model_on_the_card_matches_the_cpu(cuda, bits):
+    """A two-layer starcoder2-3b SMOKE model in float32, full precision and
+    W4: prefill and decode steps on the card (flash, qmm) against the same
+    weights on the CPU, within 1e-4·max|logits|; the routes are counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.quantized import quantize_params, tree_to
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = dataclasses.replace(get_smoke_config("starcoder2_3b"), dtype="float32")
+    params = init_params(cfg, prng.PRNGKey(0), device=cuda)
+    if bits:
+        params = quantize_params(params, bits)
+    policy = QuantPolicy(weight_bits=bits)
+    toks = prng.randint(prng.PRNGKey(1), (2, 12), 0, cfg.vocab_size, device=cuda)
+
+    def run(tree, t):
+        cache = init_cache(cfg, 2, 16, policy, device=t.device)
+        out, cache = prefill(cfg, tree, t[:, :8], cache, policy=policy)
+        outs = [out]
+        for i in range(8, 12):
+            out, cache = decode_step(cfg, tree, t[:, i], cache, policy=policy)
+            outs.append(out)
+        return torch.stack(outs, dim=1)
+
+    qmm_before, flash_before = qmm_kernel.QMM.launches, fa_kernel.FLASH.launches
+    card = run(params, toks)
+    assert fa_kernel.FLASH.launches - flash_before == cfg.n_layers
+    # 16 prefill rows and 2 per decode step: every product goes to qmm
+    assert qmm_kernel.QMM.launches - qmm_before == (5 * 6 * cfg.n_layers if bits else 0)
+    cpu = run(tree_to(params, "cpu"), toks.cpu())
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
