@@ -13,10 +13,10 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    the CUDA-core row walk, ``qmm_group`` for g not a multiple of 16 and both
    for codes off a 16-byte boundary; ``hsthresh.cu``: ``hist`` and ``mask``;
    ``hsthresh_fused.cu``: the whole H_s in one cluster launch; ``sqround.cu``;
-   ``flashattn.cu``, attention on the CUDA cores (float32, 16-bit at head dims
-   8/160/256, and views off a 16-byte boundary); ``flashattn_wgmma.cu``,
-   bf16/fp16 attention on the tensor cores), one nvcc per source, started
-   together;
+   ``flashattn.cu``, float32 attention on the CUDA cores (aligned, and views
+   off a 16-byte boundary); ``flashattn_wgmma.cu``, bf16/fp16 attention on
+   the tensor cores at every head dim, aligned and off a 16-byte boundary),
+   one nvcc per source, started together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
@@ -101,17 +101,21 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     shapes, causal and not; the head dims of the reference's other configs
     (D = 8, 160, 256 in f32, bf16 and fp16, and stablelm-12b's,
     recurrentgemma-2b's and qwen3-moe-235b SMOKE's attention at S = 4,096 in
-    bf16); and q, k, v as views
-    2 elements into larger tensors. Aligned bf16 and fp16 calls at D ≤ 128
-    must launch ``FLASH_TC`` (``flashattn_wgmma.cu``), at D = 8, 160, 256
-    ``FLASH_CORE``, f32 calls ``FLASH``, and views off a 16-byte boundary
-    ``FLASH_UNALIGNED`` (all three ``flashattn.cu``).
+    bf16, the first two also at the LM prefill's B = 8, S = 1,024); and q,
+    k, v as views 2 elements (16-bit at D = 160 and 256, and starcoder2-3b's
+    f32 at 4,096: 1 element) into larger tensors. Aligned bf16 and fp16 calls at every D must launch
+    ``FLASH_TC`` and 16-bit views off a 16-byte boundary
+    ``FLASH_TC_UNALIGNED`` (both ``flashattn_wgmma.cu``), aligned f32 calls
+    ``FLASH`` and f32 views ``FLASH_UNALIGNED`` (both ``flashattn.cu``).
     |Δ| ≤ 2e-4 (f32) and 2e-2 (bf16, fp16), abs and rel, TF32 off; 16-bit
     rows also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ (one bf16 ulp, relative), which scales with
     the output where 2e-2 does not. Timed beside
     ``scaled_dot_product_attention`` on the same tensors (its flash backend
-    for 16-bit inputs) and the bound; the library's own max row ‖Δ‖/‖ref‖
-    against the plain version is reported beside the kernel's, not gated;
+    for 16-bit inputs at D ≤ 128; PyTorch's choice otherwise, recorded by
+    the kernels one call launches, and at D = 160 and 256 its flash backend
+    too where it takes them) and the bound; the library's own max row
+    ‖Δ‖/‖ref‖ against the plain version is reported beside the kernel's, not
+    gated;
 13. the fused H_s (``HSTHRESH``, ``hsthresh_fused.cu``) against
     ``hsthresh_ref`` at (1, 65,536), (8, 65,536) and (3, 1,001), nbins
     2,048, s = 30, bit for bit (and on rows whose threshold-bin ties
@@ -315,8 +319,8 @@ BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak, H100 SXM data shee
 STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_HEAD_DIM = 24, 2, 128
 TRAIN_4K_LEN, PREFILL_32K_LEN = 4096, 32768
 # (query heads, KV heads, head dim) of src/repro/configs/stablelm_12b.py,
-# recurrentgemma_2b.py and qwen3_moe_235b.py's SMOKE: the head dims the
-# tensor-core kernel does not take
+# recurrentgemma_2b.py and qwen3_moe_235b.py's SMOKE: the head dims besides
+# starcoder2-3b's 128 (the widest two on their own tile shapes)
 STABLELM_12B_ATTN, RECURRENTGEMMA_2B_ATTN = (32, 8, 160), (10, 1, 256)
 QWEN3_MOE_SMOKE_ATTN = (8, 2, 8)
 PREFILL_TAIL_ROWS = 256        # rows of the 32k output held against a causal Sq = 256 call
@@ -433,7 +437,7 @@ FLASH_MUTANTS = {
         ("    fence_regs(acc);                                // P V has retired: acc holds tile t\n",
          "    fence_regs(acc);                                // P V has retired: acc holds tile t\n"
          "#pragma unroll\n"
-         "    for (int i = 0; i < DP / 2; ++i) acc[i] = __bfloat162float(__float2bfloat16_rn(acc[i]));\n")]),
+         "    for (int i = 0; i < DN / 2; ++i) acc[i] = __bfloat162float(__float2bfloat16_rn(acc[i]));\n")]),
 }
 
 
@@ -1794,34 +1798,61 @@ def starcoder2_qkv(torch, gen, s, dtype=None):
                  for h in (STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_KV_HEADS))
 
 
+def sdpa_backend(torch, lib, q, k, v):
+    """The backend scaled_dot_product_attention chose for the call whose
+    output is ``lib``: the first of cuDNN, flash, efficient and math (in
+    PyTorch's order of preference) that, asked for alone, gives the same
+    bits; None when none does or none takes the inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for name, backend in (("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("math", SDPBackend.MATH)):
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                       enable_gqa=True)
+        except RuntimeError:          # this backend refuses the inputs
+            continue
+        if torch.equal(out, lib):
+            return name
+    return None
+
+
 def phase_flash(torch, mods):
     """flash_attention through its entry point at starcoder2-3b's width
     (causal; bf16 at S = 4,096 and 32,768, fp16 and f32 at 4,096), at
     stablelm-12b's (D = 160), recurrentgemma-2b's (D = 256) and qwen3-moe
-    SMOKE's (D = 8) widths in bf16 at 4,096, starcoder2-3b's bf16 at 4,096 with q, k, v as views off a
-    16-byte boundary, and small shapes (f32 ragged and cross; D = 8, 160, 256
-    in f32, bf16 and fp16; views 2 elements in), held against the plain
-    version; timed beside scaled_dot_product_attention. Each call must
-    launch the kernel its case names: FLASH (f32), FLASH_TC (aligned 16-bit,
-    D <= 128), FLASH_CORE (aligned 16-bit, D = 8, 160, 256) or
-    FLASH_UNALIGNED (views off a 16-byte boundary)."""
+    SMOKE's (D = 8) widths in bf16 at 4,096, stablelm-12b and
+    recurrentgemma-2b at the LM prefill's B = 8, S = 1,024, starcoder2-3b's
+    bf16 and f32 at 4,096 with q, k, v as views off a 16-byte boundary, and small
+    shapes (f32 ragged and cross; D = 8, 160, 256 in f32, bf16 and fp16;
+    views 2 elements in, and 16-bit views 1 element in at D = 160 and 256),
+    held against the plain version; timed beside
+    scaled_dot_product_attention. Each call must launch the kernel its case
+    names: FLASH (aligned f32), FLASH_UNALIGNED (f32 views off a 16-byte
+    boundary), FLASH_TC (aligned 16-bit, every D) or FLASH_TC_UNALIGNED
+    (16-bit views off a 16-byte boundary)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     flash_attention, plain = mods["flash_attention"], mods["attention_plain"]
-    routes = {name: mods[name] for name in ("FLASH", "FLASH_TC", "FLASH_CORE",
+    routes = {name: mods[name] for name in ("FLASH", "FLASH_TC", "FLASH_TC_UNALIGNED",
                                             "FLASH_UNALIGNED")}
 
-    def sdpa(q, k, v):
+    def sdpa(q, k, v, flash=None):
         """The library call: its flash backend for 16-bit inputs at D <= 128
         (never the math one, which would materialize the S² scores); for
         float32, which that backend refuses, and wider heads, PyTorch's own
-        choice, TF32 off. Its kernels read 16-byte vectors and fault on views
-        off a 16-byte boundary, so such views are handed to it as aligned
-        copies (made outside the timed call)."""
-        flash_ok = q.dtype != torch.float32 and q.shape[-1] <= 128
-        with (sdpa_kernel([SDPBackend.FLASH_ATTENTION]) if flash_ok
+        choice (``flash=True`` asks for the flash backend there too), TF32
+        off. Its kernels read 16-byte vectors and fault on views off a
+        16-byte boundary, so such views are handed to it as aligned copies
+        (made outside the timed call)."""
+        if flash is None:
+            flash = q.dtype != torch.float32 and q.shape[-1] <= 128
+        with (sdpa_kernel([SDPBackend.FLASH_ATTENTION]) if flash
               else contextlib.nullcontext()):
             return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                     enable_gqa=True)
@@ -1850,31 +1881,40 @@ def phase_flash(torch, mods):
                                  ("cross", (1, 4, 2, 64, 256, 32)))
              for causal in (True, False)]
     small += [(f"D={dd} {str(dt)[6:]}", True, qkv(2, 4, 2, 200, 333, dd, dt),
-               2e-4 if dt == f32 else 2e-2, "FLASH" if dt == f32 else "FLASH_CORE")
+               2e-4 if dt == f32 else 2e-2, "FLASH" if dt == f32 else "FLASH_TC")
               for dd in (8, 160, 256) for dt in (f32, bf16, fp16)]
     small += [(f"views 2 elements in, D=64 {str(dt)[6:]}", True,
                qkv(1, 4, 2, 130, 130, 64, dt, offset=2), 2e-4 if dt == f32 else 2e-2,
-               "FLASH_UNALIGNED") for dt in (f32, bf16, fp16)]
-    # (label, S, dtype, (q, k, v), kernel, (Hq, Hkv, D))
-    big = [(f"starcoder2_3b S={s} {name}", s, dtype, starcoder2_qkv(torch, gen, s, dtype),
+               "FLASH_UNALIGNED" if dt == f32 else "FLASH_TC_UNALIGNED")
+              for dt in (f32, bf16, fp16)]
+    small += [(f"views 1 element in, D={dd} {str(dt)[6:]} causal={causal}", causal,
+               qkv(2, 4, 2, 200, 333, dd, dt, offset=1), 2e-2, "FLASH_TC_UNALIGNED")
+              for dd in (160, 256) for dt in (bf16, fp16) for causal in (True, False)]
+    # (label, B, S, dtype, (q, k, v), kernel, (Hq, Hkv, D))
+    big = [(f"starcoder2_3b S={s} {name}", 1, s, dtype, starcoder2_qkv(torch, gen, s, dtype),
             "FLASH" if dtype == f32 else "FLASH_TC", (hq, hkv, d))
            for s, name, dtype in ((TRAIN_4K_LEN, "bf16", bf16), (PREFILL_32K_LEN, "bf16", bf16),
                                   (TRAIN_4K_LEN, "fp16", fp16), (TRAIN_4K_LEN, "f32", f32))]
-    big += [(f"{name} S={TRAIN_4K_LEN} bf16", TRAIN_4K_LEN, bf16,
-             qkv(1, heads, kv, TRAIN_4K_LEN, TRAIN_4K_LEN, dd, bf16), "FLASH_CORE",
+    wide = (("stablelm_12b", *STABLELM_12B_ATTN), ("recurrentgemma_2b", *RECURRENTGEMMA_2B_ATTN))
+    big += [(f"{name} S={TRAIN_4K_LEN} bf16", 1, TRAIN_4K_LEN, bf16,
+             qkv(1, heads, kv, TRAIN_4K_LEN, TRAIN_4K_LEN, dd, bf16), "FLASH_TC",
              (heads, kv, dd))
-            for name, heads, kv, dd in (("stablelm_12b", *STABLELM_12B_ATTN),
-                                        ("recurrentgemma_2b", *RECURRENTGEMMA_2B_ATTN),
-                                        ("qwen3_moe_235b_smoke", *QWEN3_MOE_SMOKE_ATTN))]
-    big += [(f"starcoder2_3b S={TRAIN_4K_LEN} bf16 views 2 elements in", TRAIN_4K_LEN, bf16,
-             qkv(1, hq, hkv, TRAIN_4K_LEN, TRAIN_4K_LEN, d, bf16, offset=2), "FLASH_UNALIGNED",
-             (hq, hkv, d))]
+            for name, heads, kv, dd in (*wide, ("qwen3_moe_235b_smoke", *QWEN3_MOE_SMOKE_ATTN))]
+    big += [(f"{name} B={LM_BATCH} S={LM_PROMPT} bf16", LM_BATCH, LM_PROMPT, bf16,
+             qkv(LM_BATCH, heads, kv, LM_PROMPT, LM_PROMPT, dd, bf16), "FLASH_TC",
+             (heads, kv, dd))
+            for name, heads, kv, dd in wide]
+    big += [(f"starcoder2_3b S={TRAIN_4K_LEN} {name} views {n} element{'s' * (n > 1)} in", 1,
+             TRAIN_4K_LEN, dtype, qkv(1, hq, hkv, TRAIN_4K_LEN, TRAIN_4K_LEN, d, dtype, offset=n),
+             kernel, (hq, hkv, d))
+            for name, dtype, n, kernel in (("bf16", bf16, 2, "FLASH_TC_UNALIGNED"),
+                                           ("f32", f32, 1, "FLASH_UNALIGNED"))]
     reset_counts(mods)
     outs, expected = [], collections.Counter()
     for label, causal, t, _, kernel in small:
         outs.append(flash_attention(*t, causal=causal))
         expected[kernel] += 1
-    for label, _, _, t, kernel, _ in big:
+    for label, _, _, _, t, kernel, _ in big:
         outs.append(flash_attention(*t, causal=True))
         expected[kernel] += 1
     torch.cuda.synchronize()
@@ -1895,19 +1935,20 @@ def phase_flash(torch, mods):
               f"({routes[kernel].entry}): max|Δ|={err:.3g} (tolerance {tol:g})", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    for (label, s, dtype, (q, k, v), kernel, (h_q, h_kv, dd)), out in zip(big, outs[len(small):]):
+    for (label, b, s, dtype, (q, k, v), kernel, (h_q, h_kv, dd)), out in zip(
+            big, outs[len(small):]):
         is_f32 = dtype == f32
         tol = 2e-4 if is_f32 else 2e-2
         scale = 1.0 / dd ** 0.5          # flash_attention's default
-        row = {"shape": label, "B": 1, "Hq": h_q, "Hkv": h_kv, "S": s, "D": dd,
+        row = {"shape": label, "B": b, "Hq": h_q, "Hkv": h_kv, "S": s, "D": dd,
                "dtype": str(dtype).replace("torch.", ""), "kernel": routes[kernel].entry,
                "route": kernel}
-        if s == TRAIN_4K_LEN:
+        if s != PREFILL_32K_LEN:
             ref = plain(q, k, v, causal=True, scale=scale)
             gap = held(torch, label, out, ref, tol, not is_f32)
             row["plain_ms"] = time_ms(torch, lambda: plain(q, k, v, causal=True, scale=scale),
                                       3, flush)
-            row["plain_how"] = f"one call ({h_q}·S² f32 scores)"
+            row["plain_how"] = f"one call ({b * h_q}·S² f32 scores)"
             reps = 10
         else:
             tail = plain(q[:, :, -PREFILL_TAIL_ROWS:], k, v, causal=True, scale=scale)
@@ -1924,6 +1965,7 @@ def phase_flash(torch, mods):
         row["ms"] = time_ms(torch, lambda: flash_attention(q, k, v, causal=True), reps, flush)
         lq, lk, lv = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
         lib = sdpa(lq, lk, lv)
+        row["library_backend"] = sdpa_backend(torch, lib, lq, lk, lv)
         row["library_max_abs_diff"] = float((lib.float() - out.float()).abs().max())
         # the library's own distance from the plain version: a witness of what
         # a kernel that rounds P to 16 bits reaches (reported, not gated)
@@ -1932,17 +1974,28 @@ def phase_flash(torch, mods):
         row["library_max_row_rel"] = lib_gap["max_row_rel"]
         del lib, ref
         row["library_ms"] = time_ms(torch, lambda: sdpa(lq, lk, lv), 10, flush)
+        if not is_f32 and dd > 128:      # PyTorch chose; its flash backend, where it takes D
+            try:
+                sdpa(lq, lk, lv, flash=True)
+                row["library_flash_ms"] = time_ms(torch, lambda: sdpa(lq, lk, lv, flash=True),
+                                                  10, flush)
+            except RuntimeError as exc:  # the backend refuses this head dim: recorded
+                row["library_flash_ms"] = None
+                row["library_flash_refused"] = str(exc).splitlines()[0][:200]
         del lq, lk, lv
         row["bound_ms"], row["bound_by"], row["f32_core_bound_ms"] = attention_bound(
-            1, h_q, h_kv, s, s, dd, q.element_size(), True)
+            b, h_q, h_kv, s, s, dd, q.element_size(), True)
         rows.append(row)
-        print(f"[chip_smoke]   flash_attention {label} ({h_q}/{h_kv} heads, D={dd}, causal, "
+        flash_note = ("" if "library_flash_ms" not in row else
+                      f"; its flash backend {row['library_flash_ms']:.3f} ms"
+                      if row["library_flash_ms"] is not None else "; its flash backend refuses")
+        print(f"[chip_smoke]   flash_attention {label} ({b}×{h_q}/{h_kv} heads, D={dd}, causal, "
               f"{row['kernel']}): max|Δ|={row['max_abs_err']:.3g} (tolerance {tol:g}), max row "
               f"‖Δ‖/‖ref‖={row['max_row_rel']:.3g}"
               f"{'' if is_f32 else ' (tolerance 2^-7)'} [sdpa {row['library_max_row_rel']:.3g}]; "
               f"kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms ({row['plain_how']})  "
-              f"sdpa {row['library_ms']:.3f} ms (|Δ| to the kernel "
-              f"{row['library_max_abs_diff']:.3g})  bound {row['bound_ms']:.3f} ms "
+              f"sdpa {row['library_ms']:.3f} ms ({row['library_backend']}{flash_note}; |Δ| to "
+              f"the kernel {row['library_max_abs_diff']:.3g})  bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']}; {row['f32_core_bound_ms']:.2f} ms at the f32 CUDA-core "
               f"peak)", flush=True)
     del small, big, outs, flush
@@ -3648,7 +3701,7 @@ def phase_sanitize(torch, mods):
 
 
 LM_KERNELS = ("QMM", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "FLASH", "FLASH_TC",
-              "FLASH_CORE", "FLASH_UNALIGNED")
+              "FLASH_TC_UNALIGNED", "FLASH_UNALIGNED")
 # plain versions the kernel routes must not run, by (module key in mods, name)
 LM_PLAIN = (("lm_layers", "chunked_attention_plain"), ("qmm_ops", "qmm_ref"),
             ("fa_ops", "attention_plain"))
@@ -4307,7 +4360,8 @@ def load_port() -> dict:
                 HIST=hs_kernel.HIST, MASK=hs_kernel.MASK, hs_ops=hs_ops,
                 HSTHRESH=hs_kernel.HSTHRESH, hsthresh_cuda=hs_kernel.hsthresh_cuda,
                 QMM_CORE=QMM_CORE, PackedWeights=PackedWeights,
-                FLASH_CORE=fa_kernel.FLASH_CORE, FLASH_UNALIGNED=fa_kernel.FLASH_UNALIGNED,
+                FLASH_TC_UNALIGNED=fa_kernel.FLASH_TC_UNALIGNED,
+                FLASH_UNALIGNED=fa_kernel.FLASH_UNALIGNED,
                 hsthresh_ref_mod=hsthresh_ref_mod, qniht_batch=qniht_batch,
                 solver_setup=_solver_setup, SQROUND=sq_kernel.SQROUND, sqround=sqround,
                 sqround_ref=sqround_ref, narrow_words=sq_kernel.narrow_words,
@@ -4329,7 +4383,8 @@ def load_port() -> dict:
                 serve=serve, Request=Request, PackedStreamingOperator=PackedStreamingOperator,
                 KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
                          hs_kernel.HSTHRESH, sq_kernel.SQROUND, fa_kernel.FLASH,
-                         fa_kernel.FLASH_TC, fa_kernel.FLASH_CORE, fa_kernel.FLASH_UNALIGNED),
+                         fa_kernel.FLASH_TC, fa_kernel.FLASH_TC_UNALIGNED,
+                         fa_kernel.FLASH_UNALIGNED),
                 LIBRARIES=(qmm_kernel.LIBRARY, qmm_kernel.CORE_LIBRARY, hs_kernel.LIBRARY,
                            hs_kernel.FUSED_LIBRARY, sq_kernel.LIBRARY, fa_kernel.LIBRARY,
                            fa_kernel.TC_LIBRARY))
@@ -4540,18 +4595,26 @@ def main(argv=None) -> int:
     flash = report["flash"]
     rows = {r["shape"]: r for r in flash["rows"]}
     for name, key, source, entry in (
-            ("flash_attention[starcoder2_3b_prefill_32k]",
+            ("flash_attention_tc[starcoder2_3b_prefill_32k]",
              f"starcoder2_3b S={PREFILL_32K_LEN} bf16", "flashattn_wgmma.cu", "FLASH_TC"),
             ("flash_attention_f32[starcoder2_3b_train_4k]",
              f"starcoder2_3b S={TRAIN_4K_LEN} f32", "flashattn.cu", "FLASH"),
-            ("flash_attention_core[stablelm_12b_train_4k]",
-             f"stablelm_12b S={TRAIN_4K_LEN} bf16", "flashattn.cu", "FLASH_CORE"),
-            ("flash_attention_core[recurrentgemma_2b_train_4k]",
-             f"recurrentgemma_2b S={TRAIN_4K_LEN} bf16", "flashattn.cu", "FLASH_CORE"),
-            ("flash_attention_core[qwen3_moe_235b_smoke_train_4k]",
-             f"qwen3_moe_235b_smoke S={TRAIN_4K_LEN} bf16", "flashattn.cu", "FLASH_CORE"),
-            ("flash_attention_unaligned[starcoder2_3b_train_4k]",
-             f"starcoder2_3b S={TRAIN_4K_LEN} bf16 views 2 elements in", "flashattn.cu",
+            ("flash_attention_tc[stablelm_12b_train_4k]",
+             f"stablelm_12b S={TRAIN_4K_LEN} bf16", "flashattn_wgmma.cu", "FLASH_TC"),
+            ("flash_attention_tc[recurrentgemma_2b_train_4k]",
+             f"recurrentgemma_2b S={TRAIN_4K_LEN} bf16", "flashattn_wgmma.cu", "FLASH_TC"),
+            ("flash_attention_tc[qwen3_moe_235b_smoke_train_4k]",
+             f"qwen3_moe_235b_smoke S={TRAIN_4K_LEN} bf16", "flashattn_wgmma.cu", "FLASH_TC"),
+            ("flash_attention_tc[stablelm_12b_prefill_b8_1k]",
+             f"stablelm_12b B={LM_BATCH} S={LM_PROMPT} bf16", "flashattn_wgmma.cu", "FLASH_TC"),
+            ("flash_attention_tc[recurrentgemma_2b_prefill_b8_1k]",
+             f"recurrentgemma_2b B={LM_BATCH} S={LM_PROMPT} bf16", "flashattn_wgmma.cu",
+             "FLASH_TC"),
+            ("flash_attention_tc_unaligned[starcoder2_3b_train_4k]",
+             f"starcoder2_3b S={TRAIN_4K_LEN} bf16 views 2 elements in", "flashattn_wgmma.cu",
+             "FLASH_TC_UNALIGNED"),
+            ("flash_attention_f32_unaligned[starcoder2_3b_train_4k]",
+             f"starcoder2_3b S={TRAIN_4K_LEN} f32 views 1 element in", "flashattn.cu",
              "FLASH_UNALIGNED")):
         row = rows[key]
         kernels.append({
@@ -4569,8 +4632,10 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"],
             "max_row_rel": row["max_row_rel"],
             "library_max_row_rel": row["library_max_row_rel"],
+            "library_backend": row["library_backend"],
+            "library_flash_ms": row.get("library_flash_ms"),
             "f32_core_bound_ms": row["f32_core_bound_ms"],
-            "shape": f"B=1 Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} "
+            "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} "
                      f"{row['dtype']} causal",
         })
     row = next(r for r in report["kernel"]["rows"]
@@ -4660,7 +4725,7 @@ def main(argv=None) -> int:
         })
     row = lm["flash_row"]
     kernels.append({
-        "name": f"flash_attention[lm prefill: {LM_ARCH} B={row['B']} S={row['S']}]",
+        "name": f"flash_attention_tc[lm prefill: {LM_ARCH} B={row['B']} S={row['S']}]",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
         "entry": "repro_flash_attention_tc",

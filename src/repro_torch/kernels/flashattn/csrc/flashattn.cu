@@ -1,19 +1,16 @@
-// Causal or full multi-head attention with grouped K/V heads (GQA), in one
-// online-softmax pass on the CUDA cores of NVIDIA Hopper, sm_90a.
+// Causal or full multi-head attention with grouped K/V heads (GQA) for
+// float32 inputs, in one online-softmax pass on the CUDA cores of NVIDIA
+// Hopper, sm_90a.
 //
-// Three entries replace repro/kernels/flashattn/kernel.py::flash_attention_pallas
-// (_flash_kernel) where the tensor-core kernel of flashattn_wgmma.cu does
-// not run:
-//   * repro_flash_attention: float32 inputs, every head dim of the
-//     reference's configs, D in {8, 16, 32, 64, 128, 160, 256};
-//   * repro_flash_attention_core: bfloat16 and float16 inputs at the head
-//     dims flashattn_wgmma.cu does not take, D in {8, 160, 256};
-//   * repro_flash_attention_unaligned: any of the three types and head dims
-//     when q, k or v does not start on a 16-byte boundary (a view into a
-//     larger tensor): scalar loads, no vectors, no copy.
-// 16-bit inputs are widened to float32 as they are loaded, so every entry
-// computes in float32 and rounds once, when it stores o in q's type. For
-// queries q (B, Hq, Sq, D) and keys and values k, v (B, Hkv, Sk, D), Hq a
+// Two entries replace repro/kernels/flashattn/kernel.py::flash_attention_pallas
+// (_flash_kernel) for float32 inputs, at every head dim of the reference's
+// configs, D in {8, 16, 32, 64, 128, 160, 256}; bfloat16 and float16 inputs
+// take the tensor-core kernels of flashattn_wgmma.cu:
+//   * repro_flash_attention: q, k and v on a 16-byte boundary (16-byte
+//     vector loads);
+//   * repro_flash_attention_unaligned: q, k or v off a 16-byte boundary (a
+//     view into a larger tensor): scalar loads, no copy.
+// For queries q (B, Hq, Sq, D) and keys and values k, v (B, Hkv, Sk, D), Hq a
 // multiple of Hkv:
 //
 //     o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / (Hq / Hkv), j]) v[b, h / (Hq / Hkv), j]
@@ -42,9 +39,9 @@
 //     row's four lanes, and accumulates output columns CW(part + 4c) .. +CW-1
 //     (CW = 4; 2 at D = 8). Rows are padded by 4 floats so that the four
 //     lanes of a row, and the eight rows of a warp, hit different banks.
-//   * Tiles are loaded as 16-byte vectors (4 float32 or 8 16-bit values)
-//     when q, k and v start on a 16-byte boundary (rows are then aligned
-//     too: D is a multiple of 8), else element by element.
+//   * Tiles are loaded as float4 vectors when q, k and v start on a 16-byte
+//     boundary (rows are then aligned too: D is a multiple of 8), else
+//     element by element.
 //   * K and then V of a tile pass through one shared buffer; with the q
 //     tile and the probabilities that is 83 KB at D = 128, two blocks per SM
 //     (150 KB at D = 256: one).
@@ -59,8 +56,6 @@
 // Plain C interface, built with nvcc and loaded with ctypes: the entry
 // launches on the given stream, does not synchronise, and returns
 // cudaGetLastError().
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,19 +68,6 @@ constexpr int kKeys = kRows / kParts;    // keys a thread scores per tile
 constexpr int kLP = kRows + 4;           // padded row of the probability tile
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
 
 // CW consecutive floats of shared memory (CW = 2 or 4, aligned).
 template <int CW>
@@ -103,38 +85,25 @@ __device__ __forceinline__ void load_cols(float (&dst)[CW], const float* p) {
   }
 }
 
-// kRows rows of a (rows, D) array of T from row0 into shared memory as
-// float32, row stride D + 4; rows at or past `rows` read as zeros. VEC:
-// 16-byte loads (the array starts on a 16-byte boundary), else one element
-// at a time.
-template <typename T, int D, bool VEC>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+// kRows rows of a (rows, D) float32 array from row0 into shared memory,
+// row stride D + 4; rows at or past `rows` read as zeros. VEC: float4 loads
+// (the array starts on a 16-byte boundary), else one element at a time.
+template <int D, bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int rows) {
   if constexpr (VEC) {
-    constexpr int kE = 16 / sizeof(T);    // elements of one 16-byte load
-    constexpr int kVec = D / kE;
+    constexpr int kVec = D / 4;
     for (int idx = threadIdx.x; idx < kRows * kVec; idx += kThreads) {
-      const int r = idx / kVec, c = (idx % kVec) * kE;
-      float f[kE];
-      if (row0 + r < rows) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int i = 0; i < kE; ++i) f[i] = to_f32(e[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kE; ++i) f[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kE; i += 4)
-        *reinterpret_cast<float4*>(dst + r * (D + 4) + c + i) =
-            make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+      const int r = idx / kVec, c = (idx % kVec) * 4;
+      *reinterpret_cast<float4*>(dst + r * (D + 4) + c) =
+          row0 + r < rows
+              ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * D + c)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   } else {
     for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
       const int r = idx / D, c = idx % D;
-      dst[r * (D + 4) + c] =
-          row0 + r < rows ? to_f32(src[static_cast<size_t>(row0 + r) * D + c]) : 0.f;
+      dst[r * (D + 4) + c] = row0 + r < rows ? src[static_cast<size_t>(row0 + r) * D + c] : 0.f;
     }
   }
 }
@@ -144,10 +113,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kRows * (D + 4) + kRows * kLP);
 }
 
-template <typename T, int D, bool VEC>
+template <int D, bool VEC>
 __global__ void __launch_bounds__(kThreads, D > 160 ? 1 : 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, bool causal) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, bool causal) {
   constexpr int LD = D + 4;
   constexpr int CW = D % 16 == 0 ? 4 : 2;    // output columns a thread holds together
   constexpr int kCols = D / (CW * kParts);   // column groups of a thread
@@ -165,10 +134,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
   const int qi = q0 + r;
   const int off = Sk - Sq;                        // causal: row i sees keys j <= i + off
-  const T* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  const T* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const float* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const float* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
 
-  load_tile<T, D, VEC>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
+  load_tile<D, VEC>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
   int n_kv = (Sk + kRows - 1) / kRows;
   if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);
 
@@ -182,7 +151,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * kRows;
     __syncthreads();                              // the last tile's P and V reads are done
-    load_tile<T, D, VEC>(KVs, kbase, k0, Sk);
+    load_tile<D, VEC>(KVs, kbase, k0, Sk);
     __syncthreads();
     float s[kKeys];
 #pragma unroll
@@ -227,7 +196,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int e = 0; e < CW; ++e) acc[c][e] *= alpha;
     __syncthreads();                              // K reads done: the buffer takes V
-    load_tile<T, D, VEC>(KVs, vbase, k0, Sk);
+    load_tile<D, VEC>(KVs, vbase, k0, Sk);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kRows; ++j) {
@@ -243,12 +212,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
   if (qi < Sq) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
+    float* orow = o + (static_cast<size_t>(bh) * Sq + qi) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
 #pragma unroll
       for (int e = 0; e < CW; ++e)
-        orow[CW * (part + kParts * c) + e] = from_f32<T>(acc[c][e] / denom);
+        orow[CW * (part + kParts * c) + e] = acc[c][e] / denom;
   }
 }
 
@@ -258,7 +227,7 @@ int current_device() {
   return (dev < 0 || dev >= kMaxDevices) ? 0 : dev;
 }
 
-template <typename T, int D, bool VEC>
+template <int D, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
                    int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -266,38 +235,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const int dev = current_device();
   if (!opted_in[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<D, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     opted_in[dev] = true;
   }
   const dim3 grid(static_cast<unsigned>((Sq + kRows - 1) / kRows), static_cast<unsigned>(B * Hq));
-  flash_kernel<T, D, VEC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Sk, scale, causal);
+  flash_kernel<D, VEC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hkv, Sq, Sk, scale, causal);
   return cudaGetLastError();
 }
 
-// ALL: every head dim; otherwise only those flashattn_wgmma.cu does not take.
-template <typename T, bool VEC, bool ALL>
+template <bool VEC>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
                      int Hkv, int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
   switch (D) {
-    case 8: return launch<T, 8, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 160: return launch<T, 160, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 256: return launch<T, 256, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    default: break;
+    case 8: return launch<8, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 16: return launch<16, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 32: return launch<32, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 64: return launch<64, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 128: return launch<128, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 160: return launch<160, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 256: return launch<256, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
   }
-  if constexpr (ALL) {
-    switch (D) {
-      case 16: return launch<T, 16, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-      case 32: return launch<T, 32, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-      case 64: return launch<T, 64, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-      case 128: return launch<T, 128, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-      default: break;
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
 bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int causal) {
@@ -315,42 +277,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      float scale, int causal, void* stream) {
   if (bad_args(B, Hq, Hkv, Sq, Sk, causal) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_d<float, true, true>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale,
-                                                      causal != 0,
-                                                      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_d<true>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
-// As repro_flash_attention for dtype 1 (bfloat16) or 2 (float16), D in {8,
-// 160, 256}.
-extern "C" int repro_flash_attention_core(const void* q, const void* k, const void* v, void* o,
-                                          int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                                          int dtype, float scale, int causal, void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return static_cast<int>(launch_d<__nv_bfloat16, true, false>(D, q, k, v, o, B, Hq, Hkv, Sq,
-                                                                 Sk, scale, causal != 0, s));
-  if (dtype == 2)
-    return static_cast<int>(launch_d<__half, true, false>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                                          scale, causal != 0, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// q, k, v at any address their type allows, o contiguous; dtype 0, 1 or 2;
-// D in {8, 16, 32, 64, 128, 160, 256}.
+// As repro_flash_attention with q, k, v at any address float32 allows (o
+// contiguous).
 extern "C" int repro_flash_attention_unaligned(const void* q, const void* k, const void* v,
                                                void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                                                int D, int dtype, float scale, int causal,
                                                void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return static_cast<int>(launch_d<float, false, true>(D, q, k, v, o, B, Hq, Hkv, Sq,
-                                                                 Sk, scale, causal != 0, s));
-    case 1: return static_cast<int>(launch_d<__nv_bfloat16, false, true>(
-        D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0, s));
-    case 2: return static_cast<int>(launch_d<__half, false, true>(D, q, k, v, o, B, Hq, Hkv, Sq,
-                                                                  Sk, scale, causal != 0, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_args(B, Hq, Hkv, Sq, Sk, causal) || dtype != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_d<false>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0,
+                                          static_cast<cudaStream_t>(stream)));
 }

@@ -3,10 +3,10 @@
 :func:`flash_attention` launches one flash attention kernel on CUDA tensors,
 chosen by dtype (``CUDA_KERNELS``): float32 goes to ``FLASH`` (CUDA cores),
 bfloat16 and float16 to ``FLASH_TC`` (tensor cores); any other dtype raises.
-Two more routes (:func:`~repro_torch.kernels.flashattn.kernel.cuda_kernel`)
-take what those two do not: 16-bit inputs at head dims 8, 160 and 256 go to
-``FLASH_CORE``, and q, k or v that start off a 16-byte boundary (views into
-larger tensors) to ``FLASH_UNALIGNED``, both on the CUDA cores. Every kernel
+Each has a twin for q, k or v that start off a 16-byte boundary (views into
+larger tensors), ``FLASH_UNALIGNED`` and ``FLASH_TC_UNALIGNED``
+(:func:`~repro_torch.kernels.flashattn.kernel.cuda_kernel`); no copy is
+made. Every kernel takes every head dim of the reference's configs and
 reads each K/V head in place for its group of query heads. On CPU tensors, of any
 float dtype, it repeats K/V across the groups and runs the plain version
 (:func:`attention_plain`), as the reference does off the TPU.
@@ -25,8 +25,8 @@ import torch
 from repro_torch.kernels.flashattn.kernel import FLASH, FLASH_TC, cuda_kernel
 from repro_torch.kernels.flashattn.ref import attention_ref
 
-# The card's kernel for each dtype (aligned inputs, FLASH_TC's head dims): a
-# fixed route, not a fallback; cuda_kernel refines it by alignment and D.
+# The card's kernel for each dtype (aligned inputs): a fixed route, not a
+# fallback; cuda_kernel refines it by alignment.
 CUDA_KERNELS = {dtype: kernel for kernel in (FLASH, FLASH_TC) for dtype in kernel.dtypes}
 
 

@@ -14,9 +14,9 @@ below 2⁻¹¹⁰, the largest f32, rows spanning the whole range) is held to th
 same rule, computed in float64, and where the plain version overflows the
 kernel must give inf or nan in the same places. hist, mask, the fused H_s
 and sqround equal their plain versions bit for bit. Flash attention: |Δ| ≤ 2e-4
-(abs and rel) for float32 inputs (the CUDA-core kernel FLASH), 2e-2 for
-bfloat16 and float16 (the tensor-core kernel FLASH_TC), the reference's
-kernel-vs-oracle bounds; for the 16-bit types also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for
+(abs and rel) for float32 inputs (the CUDA-core kernels FLASH and
+FLASH_UNALIGNED), 2e-2 for bfloat16 and float16 (the tensor-core kernels
+FLASH_TC and FLASH_TC_UNALIGNED), the reference's kernel-vs-oracle bounds; for the 16-bit types also ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂ for
 every output row (one bfloat16 ulp, relative: the most that rounding both
 results to bfloat16 can set them apart), which scales with the output where
 2e-2 does not. Serving (``repro_torch.parallel``), bit for bit: a request's
@@ -616,13 +616,14 @@ def test_flash_attention_refuses_a_misaligned_view(cuda, which):
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_flash_attention_tc_refuses_a_misaligned_view(cuda, which):
     """A bfloat16 view that starts one element into its storage cannot feed
-    the tensor-core kernel's TMA: it goes to FLASH_UNALIGNED, is not copied,
-    and agrees with the plain version under the 16-bit rules."""
+    the tensor-core kernel's TMA: it goes to FLASH_TC_UNALIGNED (the producer
+    warpgroup loads the tiles itself), is not copied, and agrees with the
+    plain version under the 16-bit rules."""
     shapes = {"q": (1, 4, 64, 32), "k": (1, 2, 64, 32), "v": (1, 2, 64, 32)}
     inputs = {n: torch.randn(*shape, device=cuda).to(torch.bfloat16)
               for n, shape in shapes.items()}
     inputs[which] = _flash_view(inputs[which], 1)
-    _flash_held_on(fa_kernel.FLASH_UNALIGNED, inputs["q"], inputs["k"], inputs["v"], True,
+    _flash_held_on(fa_kernel.FLASH_TC_UNALIGNED, inputs["q"], inputs["k"], inputs["v"], True,
                    2e-2)
 
 
@@ -647,12 +648,12 @@ FLASH_TOLS = [(torch.float32, 2e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_head_dims_of_the_reference_configs(cuda, dtype, tol, d, causal):
     """D = 8 (qwen3_moe_235b smoke), 160 (stablelm_12b) and 256
-    (recurrentgemma_2b): float32 on FLASH, 16-bit on FLASH_CORE (CUDA cores),
-    ragged lengths and GQA, held under the flash rules."""
+    (recurrentgemma_2b): float32 on FLASH (CUDA cores), 16-bit on FLASH_TC
+    (tensor cores), ragged lengths and GQA, held under the flash rules."""
     gen = torch.Generator(device=cuda).manual_seed(d + causal)
     q = torch.randn(2, 4, 200, d, generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn(2, 2, 333, d, generator=gen, device=cuda).to(dtype) for _ in "kv")
-    kernel = fa_kernel.FLASH if dtype == torch.float32 else fa_kernel.FLASH_CORE
+    kernel = fa_kernel.FLASH if dtype == torch.float32 else fa_kernel.FLASH_TC
     _flash_held_on(kernel, q, k, v, causal, tol)
 
 
@@ -661,18 +662,37 @@ def test_flash_attention_head_dims_of_the_reference_configs(cuda, dtype, tol, d,
 @pytest.mark.parametrize("d", [32, 128, 160])
 def test_flash_attention_views_off_the_16_byte_boundary(cuda, dtype, tol, offset, d):
     """q, k and v as views 2 or 4 elements into larger tensors: off a 16-byte
-    boundary they run on FLASH_UNALIGNED; a float32 view 4 elements in (16
-    bytes) is aligned and keeps its usual route."""
+    boundary they run on FLASH_UNALIGNED (float32) or FLASH_TC_UNALIGNED
+    (16-bit); a float32 view 4 elements in (16 bytes) is aligned and keeps
+    its usual route."""
     gen = torch.Generator(device=cuda).manual_seed(offset + d)
     q = _flash_view(torch.randn(1, 4, 130, d, generator=gen, device=cuda).to(dtype), offset)
     k, v = (_flash_view(torch.randn(1, 2, 130, d, generator=gen, device=cuda).to(dtype),
                         offset) for _ in "kv")
     if (offset * q.element_size()) % 16:
-        kernel = fa_kernel.FLASH_UNALIGNED
+        kernel = (fa_kernel.FLASH_UNALIGNED if dtype == torch.float32
+                  else fa_kernel.FLASH_TC_UNALIGNED)
     else:
         kernel = fa_kernel.cuda_kernel(q, k, v)
         assert kernel is not fa_kernel.FLASH_UNALIGNED
     _flash_held_on(kernel, q, k, v, True, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("views", ["qkv", "k"])
+def test_flash_attention_tc_views_one_element_in(cuda, dtype, d, causal, views):
+    """16-bit views 1 element (2 bytes) into larger tensors at the widest
+    head dims, D = 160 (stablelm_12b; the third chunk half filled) and 256
+    (recurrentgemma_2b): FLASH_TC_UNALIGNED, GQA, ragged Sq and Sk, held
+    under the 16-bit rules."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 2 * causal + len(views))
+    q = torch.randn(2, 4, 200, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 2, 333, d, generator=gen, device=cuda).to(dtype) for _ in "kv")
+    inputs = {n: (_flash_view(t, 1) if n in views else t) for n, t in zip("qkv", (q, k, v))}
+    _flash_held_on(fa_kernel.FLASH_TC_UNALIGNED, inputs["q"], inputs["k"], inputs["v"],
+                   causal, 2e-2)
 
 
 @pytest.mark.parametrize("which", ["sqround", "flash_attention", "flash_attention_tc"])

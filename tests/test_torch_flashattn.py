@@ -15,6 +15,7 @@ bottom-right (the Pallas kernel aligns it top-left), and ragged lengths
 oracle only; the Pallas path only where it accepts the shape and aligns the
 same way (Sq = Sk, or not causal).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,16 @@ import torch
 from repro.kernels.flashattn.ops import flash_attention as jax_flash_attention
 from repro_torch.kernels.flashattn import kernel as fa_kernel
 from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
 
 F32_TOL = 2e-4
 BF16_TOL = 2e-2
@@ -203,42 +214,68 @@ def _view(t, offset):
     return view
 
 
+# the route of an aligned input, and of one off a 16-byte boundary
+TWINS = {"FLASH": "FLASH_UNALIGNED", "FLASH_TC": "FLASH_TC_UNALIGNED"}
+
+
 @pytest.mark.parametrize("dtype,d,want", [(torch.float32, 64, "FLASH"),
                                           (torch.float32, 8, "FLASH"),
                                           (torch.float32, 256, "FLASH"),
                                           (torch.bfloat16, 64, "FLASH_TC"),
                                           (torch.float16, 128, "FLASH_TC"),
-                                          (torch.bfloat16, 8, "FLASH_CORE"),
-                                          (torch.float16, 160, "FLASH_CORE"),
-                                          (torch.bfloat16, 256, "FLASH_CORE")])
+                                          (torch.bfloat16, 8, "FLASH_TC"),
+                                          (torch.float16, 160, "FLASH_TC"),
+                                          (torch.bfloat16, 256, "FLASH_TC")])
 @pytest.mark.parametrize("offset", [0, 2, 4])
 def test_card_route_by_dtype_head_dim_and_alignment(dtype, d, want, offset):
-    """The fixed route on the card: by alignment (a view off a 16-byte
-    boundary to FLASH_UNALIGNED, never a copy), then dtype, then head dim."""
+    """The fixed route on the card: by dtype (float32 to the CUDA cores,
+    16-bit to the tensor cores, at every head dim), then by alignment (a view
+    off a 16-byte boundary to the dtype's unaligned twin, never a copy)."""
     q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 2, 1, 8, 8, d))
     if offset:
         q = _view(q, offset)
     aligned = offset * q.element_size() % 16 == 0
     got = fa_kernel.cuda_kernel(q, k, v)
-    assert got is (getattr(fa_kernel, want) if aligned else fa_kernel.FLASH_UNALIGNED)
+    assert got is getattr(fa_kernel, want if aligned else TWINS[want])
     assert d in got.head_dims and dtype in got.dtypes
-    assert got.library.source.name == ("flashattn_wgmma.cu" if got is fa_kernel.FLASH_TC
+    assert got.needs_alignment == aligned
+    assert got.library.source.name == ("flashattn_wgmma.cu" if want == "FLASH_TC"
                                        else "flashattn.cu")
     # the CPU runs the plain version whatever the route would be
     ref = attention_plain(q, k, v, causal=True, scale=d ** -0.5)
     assert torch.equal(flash_attention(q, k, v, causal=True), ref)
 
 
-@pytest.mark.parametrize("kernel,dtype,d", [("FLASH_CORE", torch.bfloat16, 64),
-                                            ("FLASH_CORE", torch.float32, 8),
-                                            ("FLASH_TC", torch.bfloat16, 160),
-                                            ("FLASH_UNALIGNED", torch.float16, 96)])
-def test_wrappers_refuse_what_their_kernel_does_not_take(kernel, dtype, d):
+@pytest.mark.parametrize("offset", [0, 1, 2, 8])
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_every_16_bit_input_takes_a_tensor_core_route(dtype, d, offset):
+    """bf16 and fp16 at every head dim of the configs, with q, k and v views
+    0, 1, 2 or 8 elements into larger tensors: aligned (0, 8) to FLASH_TC,
+    off the boundary (1, 2) to FLASH_TC_UNALIGNED, both in flashattn_wgmma.cu;
+    no CUDA-core route takes 16-bit inputs any more."""
+    q, k, v = (_view(torch.from_numpy(a).to(dtype), offset) if offset
+               else torch.from_numpy(a).to(dtype) for a in _qkv(1, 4, 2, 8, 8, d))
+    got = fa_kernel.cuda_kernel(q, k, v)
+    assert got is (fa_kernel.FLASH_TC if offset in (0, 8) else fa_kernel.FLASH_TC_UNALIGNED)
+    assert got.library is fa_kernel.TC_LIBRARY and dtype in got.dtypes
+    assert not hasattr(fa_kernel, "FLASH_CORE")
+    assert [kk.entry for kk in fa_kernel.KERNELS if dtype in kk.dtypes] == [
+        "repro_flash_attention_tc", "repro_flash_attention_tc_unaligned"]
+
+
+@pytest.mark.parametrize("kernel,dtype,d,match", [
+    ("FLASH_TC_UNALIGNED", torch.float32, 64, "dtype"),
+    ("FLASH_UNALIGNED", torch.bfloat16, 8, "dtype"),
+    ("FLASH_TC", torch.bfloat16, 96, "head dim"),
+    ("FLASH_UNALIGNED", torch.float16, 96, "dtype")])
+def test_wrappers_refuse_what_their_kernel_does_not_take(kernel, dtype, d, match):
     """Each route's wrapper raises before any build or launch for a dtype or
-    head dim its kernel has no instantiation of, and counts nothing."""
+    head dim its kernel has no instantiation of (before it looks at the
+    device), and counts nothing."""
     k_obj = getattr(fa_kernel, kernel)
     q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 2, 1, 8, 8, d))
     before = k_obj.launches
-    with pytest.raises((TypeError, ValueError)):
+    with pytest.raises((TypeError, ValueError), match=match):
         k_obj(q, k, v, True, 0.1)
     assert k_obj.launches == before and k_obj._lib is None

@@ -62,6 +62,16 @@ from repro_torch.quant.quantize import (
     quantize_codes,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 REPO = Path(__file__).resolve().parents[1]
 BITS = [2, 4, 8]
 # g = the packing word (8 // bits), 16 and 64; K = 101 leaves every last group short

@@ -42,6 +42,16 @@ from repro_torch.kernels.hsthresh.ref import (
     tie_fill_mask,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 NBINS = 2048
 
 

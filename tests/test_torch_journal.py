@@ -20,6 +20,16 @@ from repro_torch import random as prng
 from repro_torch.parallel import BatchServer
 from repro_torch.parallel.journal import ChunkJournal, key_words, write_json_durable
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 B, M, N, S = 4, 16, 32, 3
 
 

@@ -25,6 +25,16 @@ from repro_torch.models import layers as tl
 from repro_torch.models import model as tmodel
 from repro_torch.models import quantized as tq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 TOL = 1e-5
 ARCHS = jconfigs.ARCH_IDS
 

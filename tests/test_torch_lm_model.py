@@ -33,6 +33,16 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import decode_step, forward, generate, init_cache, init_params, prefill
 from repro_torch.quant.policy import QuantPolicy
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 DENSE = ("qwen1_5_32b", "starcoder2_3b", "minitron_4b", "stablelm_12b")
 B, S = 2, 16
 INIT_TOL = 1e-6

@@ -29,6 +29,16 @@ from repro_torch.launch import recover
 from repro_torch.sensing import mri as tmri
 from repro_torch.transforms import wavelet as twav
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 jniht = importlib.import_module("repro.core.niht")
 
 

@@ -19,6 +19,15 @@ from repro_torch.core.niht import qniht, qniht_batch
 from repro_torch.core.recovery import relative_error
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(autouse=True)
 def _partitionable_threefry():
     """The port reproduces jax.random under jax_threefry_partitionable=True

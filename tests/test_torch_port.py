@@ -79,6 +79,45 @@ def test_no_jax_or_reference_import_in_source(path):
         assert not [n for n in names if _forbidden(n)], (path, node.lineno, names)
 
 
+def _imports_jax(tree) -> bool:
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        if any(n == "jax" or n.startswith("jax.") for n in names):
+            return True
+    return False
+
+
+def _clears_jax_caches_at_module_end(tree) -> bool:
+    """A module-scoped autouse fixture ``_leave_no_jax_executables`` that
+    calls ``clear_caches``."""
+    for node in tree.body:
+        if not (isinstance(node, ast.FunctionDef) and node.name == "_leave_no_jax_executables"):
+            continue
+        keywords = {kw.arg: getattr(kw.value, "value", None)
+                    for dec in node.decorator_list if isinstance(dec, ast.Call)
+                    for kw in dec.keywords}
+        calls = [n.func.attr for n in ast.walk(node)
+                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)]
+        return (keywords.get("autouse") is True and keywords.get("scope") == "module"
+                and "clear_caches" in calls)
+    return False
+
+
+@pytest.mark.parametrize("path", sorted(p.name for p in (REPO / "tests").glob("test_torch_*.py")))
+def test_port_test_files_that_import_jax_clear_its_caches(path):
+    """A port test file that calls the reference compiles eager JAX
+    primitives with jax_debug_nans and jax_debug_infs off; left cached, they
+    keep tests/test_sanitize.py from tripping when ``--dist loadfile`` puts
+    it in the same worker (test_torch_mri.py and test_torch_threshold.py
+    did). Every such file clears JAX's caches at module end."""
+    tree = ast.parse((REPO / "tests" / path).read_text())
+    if _imports_jax(tree):
+        assert _clears_jax_caches_at_module_end(tree), (
+            f"tests/{path} imports jax but has no module-scoped autouse fixture "
+            "_leave_no_jax_executables calling jax.clear_caches()")
+
+
 def test_cuda_is_the_default_device_and_raises_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.device import resolve_device

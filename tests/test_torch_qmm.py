@@ -34,6 +34,16 @@ from repro_torch.kernels.qmm.ops import (
 from repro_torch.kernels.qmm.ref import qmm_ref
 from repro_torch.quant.pack import unpack_codes
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 BITS = [2, 4, 8]
 # (M, N, K): ragged M, N and K, a K that fills whole bytes, and tiny edges
 SHAPES = [(1, 7, 5), (5, 33, 97), (3, 130, 870)]

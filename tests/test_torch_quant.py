@@ -25,6 +25,16 @@ from repro_torch.quant.quantize import (
     quantize_codes,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 BITS = [2, 4, 8]
 SHAPES = [(37,), (48, 96)]
 

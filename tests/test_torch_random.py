@@ -11,6 +11,16 @@ import pytest
 from repro_torch import convert
 from repro_torch import random as prng
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 KEYS = [0, 1, 42, 302, 2**31 - 1, -7]
 
 

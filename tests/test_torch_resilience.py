@@ -35,6 +35,16 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault import PreemptionGuard, StepTimer, run_with_restarts
 from test_torch_niht import gaussian_case
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 REPO = Path(__file__).resolve().parents[1]
 S = 5
 

@@ -46,6 +46,16 @@ from repro_torch.parallel import (
     strip_state,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 M, N, S, N_ITERS = 16, 32, 3, 12
 JKEY = jax.random.PRNGKey(7)
 KEY = convert.key_from_numpy(np.asarray(JKEY))

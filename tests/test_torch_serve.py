@@ -38,6 +38,16 @@ from repro_torch.core.niht import qniht_batch
 from repro_torch.launch import serve
 from repro_torch.parallel import BatchServer, ContinuousScheduler, Request, pad_batch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 REPO = Path(__file__).resolve().parents[1]
 SEEDS = [0, 1, 42, 302, -7]
 

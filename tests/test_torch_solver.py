@@ -23,6 +23,16 @@ import torch
 from repro_torch import convert
 from test_torch_niht import gaussian_case
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 tn = importlib.import_module("repro_torch.core.niht")   # the module: the package exports the function niht
 jn = importlib.import_module("repro.core.niht")   # repro.core re-exports niht the function
 

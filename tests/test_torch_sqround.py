@@ -21,6 +21,16 @@ from repro_torch.kernels.sqround.ops import sqround
 from repro_torch.kernels.sqround.ref import sqround_ref, uniform01_from_bits
 from repro_torch.quant.formats import BY_BITS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 BITS = [2, 4, 8]
 SHAPES = [(1, 1), (70, 90), (333, 1001)]
 

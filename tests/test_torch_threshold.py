@@ -17,6 +17,15 @@ from repro_torch.core import recovery as trec
 from repro_torch.core.threshold import hard_threshold, support, top_s_mask
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _leave_no_jax_executables():
+    """Drop the JAX executables this module's reference calls compiled: an
+    eager primitive cached with jax_debug_nans off would keep later tests in
+    the process (tests/test_sanitize.py) from tripping."""
+    yield
+    jax.clear_caches()
+
+
 def _j(a):
     return jnp.asarray(a, dtype=a.dtype)
 
