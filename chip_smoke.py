@@ -259,6 +259,36 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     8,192 beside materialize + matmul, a layer's six products on both routes
     of ``dense`` at 8 to 1,024 rows (where ``QMM_MAX_ROWS`` should sit), and
     flash at B = 8, S = 1,024 beside SDPA.
+22. training the dense LM (phase ``train``): starcoder2-3b at full width,
+    ``init_state`` from PRNGKey(0) on the card, then ``train_loop`` over
+    ``make_train_step`` for 4 steps of B = 8 × 1,024 synthetic tokens
+    (the card's tokens the CPU's), AdamW with the launcher's schedule, Q8
+    gradients and IHT at 50% (``examples/train_lm_sparse.py``'s operators).
+    Gated: every loss finite; per step ``FLASH_TC`` 60 launches (forward
+    and remat recompute), the attention backward route 30, ``HSTHRESH`` 8
+    (one per eligible leaf), ``SQROUND`` 213 (one per 2²⁴-entry chunk of
+    every gradient leaf), no other kernel, and the plain
+    ``chunked_attention_plain``, ``hsthresh_ref`` and ``sqround_ref`` never;
+    on the first step every eligible leaf keeps exactly ``keep`` entries,
+    its own values, the smallest kept |w| no smaller than the largest
+    dropped less one bin, and one chunk of the largest gradient leaf has
+    ``sqround``'s codes bit for bit the plain version's and the path's
+    values bit for bit those codes dequantized. Beside it: the attention
+    Function at B = 8, S = 1,024 bf16 against autograd through the plain
+    forward (dq, dk, dv within 2⁻⁶ in 2-norm, ``TRAIN_ATTN_REL``); two
+    float32 layers at full width, loss and every gradient card against
+    CPU within 1e-4 (``TRAIN_CPU_TOL``), and 3 whole steps of a small
+    model (``TRAIN_RESUME``) card against CPU, loss within 1e-4 and the
+    same sparsity; that small model killed after 6 of 12 steps
+    (checkpoints every 4) and restarted, bit for bit the uninterrupted
+    run; after the run, the fused H_s on the first step's dense inputs to
+    the projection (the embedding leaf, 151M entries, and the MLP wi leaf,
+    1.13e9), each bit for bit ``hsthresh_ref`` and its support the path's.
+    Readings: step ms (median of the steps after the first), tokens/s, the
+    step's FLOP bound, the split (forward + backward, compression, AdamW,
+    projection), peak ``max_memory_allocated``, and the fused H_s on those
+    two dense leaves, ``sqround`` on the captured gradient chunk and
+    ``FLASH_TC`` at B = 8, S = 1,024 beside their plain versions.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -295,6 +325,7 @@ import dataclasses
 import importlib
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -4094,11 +4125,11 @@ def lm_setup(torch, mods):
     out["param_bytes"] = {"fp32": mods["param_bytes"](params),
                           "w4": mods["param_bytes"](qparams)}
     slot = qparams["slots"]["slot0"]
-    layer_codes = sum(w.packed.numel() for w in mods["lm_tree_leaves"](slot)
+    layer_codes = sum(w.packed.numel() for w in mods["tree_leaves"](slot)
                       if isinstance(w, mods["QWeight"]))
     out["layer_code_bytes"] = layer_codes
     for i in range(cfg.n_layers):                 # every layer slice on the tensor cores
-        for w in mods["lm_tree_leaves"](slot):
+        for w in mods["tree_leaves"](slot):
             if isinstance(w, mods["QWeight"]) and mods["cuda_kernel"](w[i].packed_weights()) \
                     is not mods["QMM"]:
                 raise AssertionError(f"lm: layer {i}'s codes do not route to QMM")
@@ -4228,7 +4259,7 @@ def lm_faults(torch, mods):
 
     check("kernel")
     targets = {w[LM_FAULT_LAYER].packed.data_ptr()
-               for w in mods["lm_tree_leaves"](qparams["slots"]["slot0"])
+               for w in mods["tree_leaves"](qparams["slots"]["slot0"])
                if isinstance(w, QWeight)}
     real = layers.qweight_product
     for factor in LM_SCALE_FAULTS:
@@ -4261,6 +4292,547 @@ def lm_faults(torch, mods):
             "flash_mutants": {n: what for n, (what, _) in FLASH_MUTANTS.items()},
             "results": results}
 
+
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024  # the serving slice's prompt shape
+TRAIN_STEPS = 4                # the step time is the median of the steps after the first
+TRAIN_LR = 3e-3                # launch/train.py's default, cosine with a 20-step warm-up
+TRAIN_SPARSITY, TRAIN_GRAD_BITS = 0.5, 8    # examples/train_lm_sparse.py's defaults
+TRAIN_NBINS = 4096             # optim/iht.py's bins
+# The attention Function (kernel forward, plain backward) against autograd
+# through the all-plain forward, per gradient: ‖Δ‖₂ ≤ 2⁻⁶·‖ref‖₂. Both round
+# each gradient to bf16 (2⁻⁹ relative) and start from forward outputs within
+# one bf16 ulp of each other (phase 12's 2⁻⁷ per row), which reaches the
+# gradients through δ = Σ dout·out: two ulps of slack on those.
+TRAIN_ATTN_REL = 2.0 ** -6
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 128
+TRAIN_CPU_STEPS = 3            # whole steps of the resume model, card against CPU
+# two float32 layers at full width, card against the port's CPU: the loss
+# relative, each gradient leaf's max|Δ| over its max|g| (the lm phase's
+# card-vs-CPU bound on logits; the sums over d = 3,072 and 12,288 run in
+# other orders)
+TRAIN_CPU_TOL = 1e-4
+# the resume check's model: starcoder2-3b's block at 2 layers, d = 512,
+# 8 (padded 16) heads of 64 on 2, d_ff 2,048, vocab 4,096
+TRAIN_RESUME = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2, head_dim=64, d_ff=2048,
+                    vocab_size=4096)
+TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ = 4, 256
+TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_RESUME_KILL = 12, 4, 6
+# plain versions the training path must not run on the card, by (module key in mods, name)
+TRAIN_PLAIN = (("lm_layers", "chunked_attention_plain"), ("hs_ops", "hsthresh_ref"),
+               ("collectives", "sqround_ref"))
+# leaves whose dense input to the first step's projection is kept (on the
+# host) and held, after the run, kernel against plain on the card
+TRAIN_HS_LEAVES = {"embed": "['embed']['w']", "wi": "['slots']['slot0']['ffn']['wi']['w']"}
+
+
+def train_flops(mods, cfg, params, b, s):
+    """Operations a training step must do with per-layer remat: the layers'
+    products 4× (forward, recompute, two in the backward), the unembedding
+    3×, and per layer causal attention, 4·D flops a (query, key) pair a
+    product: QKᵀ and PV twice (forward and recompute) and the backward's
+    five (S, dP, dV, dQ, dK). Returns (total, the attention backward's)."""
+    slot = params["slots"]["slot0"]
+    layer_w = sum(leaf.numel() for path, leaf in mods["tree_flatten_with_path"](slot)
+                  if mods["last_key"](path) == "w")
+    unembed = params["unembed"]["w"].numel() if "unembed" in params else 0
+    pairs = s * (s + 1) // 2
+    per_product = 2 * b * cfg.padded_heads * cfg.head_dim_ * pairs * cfg.n_layers
+    attn_bwd = 5 * per_product
+    return 2 * b * s * (4 * layer_w + 3 * unembed) + 4 * per_product + attn_bwd, attn_bwd
+
+
+def train_attention_check(torch, mods, cfg):
+    """The attention Function at one layer's shape (B = 8, S = 1,024, 32
+    padded query heads on 2, D = 128, bf16, causal) against autograd through
+    the all-plain forward on the card: dq, dk, dv within TRAIN_ATTN_REL in
+    2-norm. One FLASH_TC launch and one backward-route call."""
+    dev = torch.device(mods["device"])
+    layers = mods["lm_layers"]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    shapes = ((hq, TRAIN_SEQ), (hkv, TRAIN_SEQ), (hkv, TRAIN_SEQ))
+    base = [torch.randn(TRAIN_BATCH, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
+            for h, s in shapes]
+    dout = torch.randn(TRAIN_BATCH, hq, TRAIN_SEQ, d, generator=gen, device=dev).to(torch.bfloat16)
+    grads = {}
+    for label in ("kernel", "plain"):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        before = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
+        if label == "kernel":
+            out = layers.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        else:
+            out = layers.chunked_attention_plain(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        out.backward(dout)
+        after = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
+        want = (1, 1) if label == "kernel" else (0, 0)
+        if (after[0] - before[0], after[1] - before[1]) != want:
+            raise AssertionError(f"train attention {label}: launches (FLASH_TC, backward) "
+                                 f"{(after[0] - before[0], after[1] - before[1])}, want {want}")
+        grads[label] = (q.grad, k.grad, v.grad)
+        del q, k, v, out
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        out[name] = {"rel": rel, "max_abs_err": float((a.float() - b.float()).abs().max()),
+                     "finite": bool(torch.isfinite(a).all())}
+        if not (rel <= TRAIN_ATTN_REL and out[name]["finite"]):
+            raise AssertionError(f"train attention {name}: ‖Δ‖/‖ref‖ {rel} > "
+                                 f"{TRAIN_ATTN_REL}")
+    print("[chip_smoke]   train attention Function vs all-plain autograd (B=8 S=1024 bf16): "
+          + ", ".join(f"{n} ‖Δ‖/‖ref‖ {v['rel']:.3g}" for n, v in out.items())
+          + f" (limit {TRAIN_ATTN_REL:.4g})", flush=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    q, k, v = base
+    o = layers.attention_kernel(q, k, v, True)
+    out["backward_ms"] = time_ms(torch, lambda: layers.attention_backward_plain(
+        q, k, v, o, dout, causal=True, chunk=cfg.attn_chunk), 3, flush)
+    return out
+
+
+def train_card_vs_cpu(torch, mods, cfg):
+    """TRAIN_CPU_LAYERS layers of cfg at full width in float32, the same
+    weights (drawn on the card, copied) and tokens: loss_fn and every
+    gradient on the card and on the port's CPU, within TRAIN_CPU_TOL."""
+    dev = torch.device(mods["device"])
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    params = mods["lm_model"].init_params(cfg2, mods["prng"].PRNGKey(0), device=dev)
+    batch = mods["SyntheticStream"](0, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, cfg2.vocab_size,
+                                    device=dev).at_step(0)
+    out = {}
+    runs = {}
+    for where, tree, b in (("card", params, batch),
+                           ("cpu", mods["lm_tree_to"](params, "cpu"),
+                            {k: v.cpu() for k, v in batch.items()})):
+        leaves = mods["tree_leaves"](tree)
+        for p in leaves:
+            p.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss = mods["loss_fn"](cfg2, tree, b)
+        loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+        out[f"{where}_s"] = time.perf_counter() - t0
+        runs[where] = (float(loss.detach()), [p.grad.cpu() for p in leaves])
+        del tree, leaves, loss
+    loss_rel = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(runs["card"][1], runs["cpu"][1]))
+    out.update(loss_card=runs["card"][0], loss_cpu=runs["cpu"][0], loss_rel=loss_rel,
+               grad_worst_rel=worst)
+    print(f"[chip_smoke]   train card vs CPU, {TRAIN_CPU_LAYERS} layers float32 B="
+          f"{TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}: loss {runs['card'][0]:.6f} / "
+          f"{runs['cpu'][0]:.6f} (rel {loss_rel:.3g}), worst gradient leaf max|Δ|/max|g| "
+          f"{worst:.3g} (limit {TRAIN_CPU_TOL}; CPU {out['cpu_s']:.1f} s)", flush=True)
+    if not (loss_rel <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL):
+        raise AssertionError(f"train card vs CPU: loss rel {loss_rel}, gradients {worst} > "
+                             f"{TRAIN_CPU_TOL}")
+    out["steps"] = train_steps_card_vs_cpu(torch, mods, cfg)
+    return out
+
+
+def train_steps_card_vs_cpu(torch, mods, cfg):
+    """TRAIN_CPU_STEPS whole training steps (Q8 gradients, AdamW, IHT) of the
+    TRAIN_RESUME model in float32 on the card and on the port's CPU from the
+    same state: the loss at each step within TRAIN_CPU_TOL relative and the
+    sparsity the same. A Q8 code whose uniform sits on its rounding edge can
+    flip between the devices, so the weights are held by the loss."""
+    dev = torch.device(mods["device"])
+    rcfg = dataclasses.replace(cfg, name=f"{cfg.name}-resume", dtype="float32", **TRAIN_RESUME)
+    cfg_iht = mods["IHTConfig"](sparsity=TRAIN_SPARSITY)
+    opt = mods["adamw"](mods["cosine_schedule"](TRAIN_LR, warmup=2, total=TRAIN_CPU_STEPS))
+    step = mods["make_train_step"](rcfg, opt, policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
+                                   iht=cfg_iht)
+    card = mods["init_state"](rcfg, opt, mods["prng"].PRNGKey(0), device=dev)
+    cpu = mods["tree_map"](lambda t: t.cpu(), card)
+    runs = {}
+    for where, state in (("card", card), ("cpu", cpu)):
+        stream = mods["SyntheticStream"](2, TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ, rcfg.vocab_size,
+                                         device=dev if where == "card" else "cpu")
+        losses = []
+        for i in range(TRAIN_CPU_STEPS):
+            state, m = step(state, stream.at_step(i))
+            losses.append(float(m["loss"]))
+        runs[where] = (losses, mods["sparsity_report"](state.params, cfg_iht))
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["card"][0], runs["cpu"][0])]
+    print(f"[chip_smoke]   train {TRAIN_CPU_STEPS} steps card vs CPU ({rcfg.name}, float32, "
+          f"Q{TRAIN_GRAD_BITS}, IHT): losses {runs['card'][0]} / {runs['cpu'][0]}, max rel "
+          f"{max(rel):.3g} (limit {TRAIN_CPU_TOL}); sparsity {runs['card'][1]} / "
+          f"{runs['cpu'][1]}", flush=True)
+    if not (max(rel) <= TRAIN_CPU_TOL and runs["card"][1] == runs["cpu"][1]):
+        raise AssertionError(f"train steps card vs CPU: {runs}")
+    return {"card": runs["card"], "cpu": runs["cpu"], "max_rel": max(rel)}
+
+
+def train_resume_check(torch, mods, cfg):
+    """A run of the TRAIN_RESUME model on the card, killed after TRAIN_RESUME_KILL
+    steps (checkpoints every TRAIN_RESUME_EVERY) and restarted through
+    run_with_restarts, must end with the bits of an uninterrupted run (Q8
+    gradients and the projection on, as the full run)."""
+    import tempfile
+
+    dev = torch.device(mods["device"])
+    rcfg = dataclasses.replace(cfg, name=f"{cfg.name}-resume", **TRAIN_RESUME)
+    opt = mods["adamw"](TRAIN_LR)
+    step = mods["make_train_step"](rcfg, opt, policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
+                                   iht=mods["IHTConfig"](sparsity=TRAIN_SPARSITY))
+    stream = mods["SyntheticStream"](1, TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ, rcfg.vocab_size,
+                                     device=dev)
+    LoopConfig, train_loop = mods["LoopConfig"], mods["train_loop"]
+
+    def fresh():
+        return mods["init_state"](rcfg, opt, mods["prng"].PRNGKey(0), device=dev)
+
+    def loop_cfg(total, d):
+        return LoopConfig(total_steps=total, ckpt_dir=str(d), ckpt_every=TRAIN_RESUME_EVERY,
+                          ckpt_async=False, log_every=1000)
+
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        want = train_loop(step, fresh(), stream, loop_cfg(TRAIN_RESUME_STEPS, tmp / "whole"),
+                          log=lambda s: None)
+
+        def body(attempt):
+            if attempt == 0:
+                train_loop(step, fresh(), stream, loop_cfg(TRAIN_RESUME_KILL, tmp / "killed"),
+                           log=lambda s: None)
+                raise RuntimeError("injected failure after the checkpoint")
+            return train_loop(step, fresh(), stream, loop_cfg(TRAIN_RESUME_STEPS, tmp / "killed"),
+                              log=logs.append)
+
+        got = mods["run_with_restarts"](body, max_restarts=1)
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "whole").rglob("*") if f.is_file())
+        seconds = time.perf_counter() - t0
+    leaves_w, leaves_g = mods["tree_leaves"](want), mods["tree_leaves"](got)
+    same = len(leaves_w) == len(leaves_g) and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(leaves_w, leaves_g))
+    last_ckpt = TRAIN_RESUME_KILL // TRAIN_RESUME_EVERY * TRAIN_RESUME_EVERY
+    expect_log = [f"[loop] resumed from checkpoint step {last_ckpt}"]
+    n_params = sum(p.numel() for p in mods["tree_leaves"](want.params))
+    print(f"[chip_smoke]   train resume ({rcfg.name}: {n_params:,} params, B="
+          f"{TRAIN_RESUME_BATCH} S={TRAIN_RESUME_SEQ}, {TRAIN_RESUME_STEPS} steps, checkpoints "
+          f"every {TRAIN_RESUME_EVERY}, killed after {TRAIN_RESUME_KILL}; {ckpt_bytes:,} bytes "
+          f"of checkpoints kept): bit for bit {same}, {logs} ({seconds:.1f} s)", flush=True)
+    if not same or logs != expect_log or int(got.step) != TRAIN_RESUME_STEPS:
+        raise AssertionError(f"train resume: bitwise {same}, log {logs}, step {int(got.step)}")
+    return {"bitwise": same, "params": n_params, "checkpoint_bytes": ckpt_bytes,
+            "seconds": seconds, "log": logs}
+
+
+def _timed(torch, record, name, fn):
+    """fn with its wall (synchronized at both ends) appended to record[name]."""
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        record[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def train_projection_gate(torch, mods, params, cfg_iht, project, dense):
+    """project(params) with every eligible leaf held: exactly keep nonzeros,
+    the kept entries the leaf's own values, and the smallest kept |w| no
+    smaller than the largest dropped |w| less one histogram bin (ties in
+    the threshold bin are kept by index). The leaves of TRAIN_HS_LEAVES go
+    into ``dense`` on the host as (the dense input, the path's kept mask).
+    Returns the per-leaf readings."""
+    iht = mods["iht"]
+    before = {}
+    for path, leaf in mods["tree_flatten_with_path"](params):
+        if iht.eligible(path, leaf, cfg_iht):
+            before[mods["keystr"](path)] = (leaf, leaf.clone())
+    project(params)
+    rows = []
+    for name, (leaf, old) in before.items():
+        keep = iht.keep_count(leaf, cfg_iht)
+        kept = leaf != 0
+        n_kept = int(kept.sum())
+        same = torch.equal(torch.where(kept, old, torch.zeros_like(old)), leaf)
+        mag = old.abs()
+        binw = float(mag.max()) / TRAIN_NBINS
+        kept_min = float(torch.where(kept, mag, torch.full_like(mag, float("inf"))).min())
+        dropped_max = float(torch.where(kept, torch.zeros_like(mag), mag).max())
+        rows.append({"leaf": name, "N": leaf.numel(), "keep": keep, "kept": n_kept,
+                     "values_kept": same, "kept_min": kept_min, "dropped_max": dropped_max,
+                     "bin": binw})
+        if name in TRAIN_HS_LEAVES.values():
+            dense[name] = (old.cpu(), kept.cpu())
+        del kept, mag, old
+        if n_kept != keep or not same or kept_min < dropped_max - binw:
+            raise AssertionError(f"train projection {name}: kept {n_kept} of keep {keep}, "
+                                 f"values kept {same}, kept min {kept_min} vs dropped max "
+                                 f"{dropped_max} (bin {binw})")
+    return rows
+
+
+def train_sqround_check(torch, mods, captured, bits):
+    """The kernel's codes on the captured chunk of the largest gradient leaf
+    against the plain version's (bit for bit), and the path's compressed
+    chunk against those codes dequantized (bit for bit)."""
+    v, words, scale, after = captured
+    got = mods["SQROUND"](v, words, scale, bits)
+    want = mods["sqround_ref"](v, words, scale, bits)
+    kk = torch.tensor(float(mods["BY_BITS"][bits].half_steps), device=v.device)
+    out = {"N": v.numel(), "codes_bitwise": bool(torch.equal(got, want)),
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "path_bitwise": bool(torch.equal(after, (got.float() * scale / kk).view(-1)))}
+    if not (out["codes_bitwise"] and out["path_bitwise"]):
+        raise AssertionError(f"train sqround on a chunk of the largest gradient leaf: {out}")
+    return out
+
+
+def train_run(torch, mods, cfg):
+    """The full-width run: init_state, then train_loop over make_train_step
+    (Q8 gradients, IHT at TRAIN_SPARSITY) for TRAIN_STEPS steps, timed and
+    split, gated on the loss, the launches, the plain versions' calls and
+    (first step) the projection and one chunk of the compression. Returns
+    (state, readings, the path's inputs: the first step's dense leaves of
+    TRAIN_HS_LEAVES before its projection and its captured sqround chunk)."""
+    dev = torch.device(mods["device"])
+    steps_mod, prng = mods["train_steps"], mods["prng"]
+    cfg_iht = mods["IHTConfig"](sparsity=TRAIN_SPARSITY)
+    opt = mods["adamw"](mods["cosine_schedule"](TRAIN_LR, warmup=20, total=TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = mods["init_state"](cfg, opt, prng.PRNGKey(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = mods["SyntheticStream"](0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, device=dev)
+    on_cpu = mods["SyntheticStream"](0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, device="cpu")
+    if not all(torch.equal(stream.at_step(i)["tokens"].cpu(), on_cpu.at_step(i)["tokens"])
+               for i in range(TRAIN_STEPS)):
+        raise AssertionError("train: the card's tokens differ from the CPU's")
+    n_eligible = sum(mods["iht"].eligible(path, leaf, cfg_iht)
+                     for path, leaf in mods["tree_flatten_with_path"](state.params))
+    chunk = mods["collectives"].CHUNK
+    sq_chunks = sum(-(-leaf.numel() // chunk) for leaf in mods["tree_leaves"](state.params))
+    record = collections.defaultdict(list)
+    checks, captured, dense, count = {}, [], {}, {"step": 0}
+    real_compress, real_project = steps_mod.fake_grad_compression, steps_mod.maybe_project
+
+    def compress(grads, bits, key):
+        if count["step"] > 0:
+            return _timed(torch, record, "compression_ms", real_compress)(grads, bits, key)
+        leaves = mods["tree_leaves"](grads)          # step 1: keep one chunk of the largest leaf
+        i = max(range(len(leaves)), key=lambda j: leaves[j].numel())
+        flat = leaves[i].view(-1)
+        scale = torch.clamp_min(torch.linalg.vector_norm(flat, float("inf"),
+                                                         dtype=torch.float32), 1e-30)
+        words = prng._bits_flat(prng.fold_in(key, i), 0, chunk, dev) & ~0x1FF
+        v = flat[:chunk].clone().view(1, -1)
+        out = real_compress(grads, bits, key)
+        captured.append((v, words.view(1, -1), scale, flat[:chunk].clone()))
+        return out
+
+    def project(params, step, cfg_):
+        if count["step"] > 0:
+            return _timed(torch, record, "projection_ms", real_project)(params, step, cfg_)
+        checks["projection"] = train_projection_gate(
+            torch, mods, params, cfg_, lambda p: real_project(p, step, cfg_), dense)
+        return params
+
+    timed_opt = mods["Optimizer"](opt.init, _timed(torch, record, "adamw_ms", opt.update))
+    losses = []
+
+    def stepped(state, batch):
+        if count["step"] == 1:      # the peak of the steps without the first one's checks
+            record["first_step_peak_bytes"].append(torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        record["step_ms"].append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        count["step"] += 1
+        return state, metrics
+
+    calls = collections.Counter()
+    plain = collections.defaultdict(dict)
+    for m, n in TRAIN_PLAIN:
+        def counted(*a, _fn=getattr(mods[m], n), _key=f"{m}.{n}", **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        plain[m][n] = counted
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(stand_in(steps_mod, fake_grad_compression=compress,
+                                     maybe_project=project))
+        for m, fns in plain.items():
+            stack.enter_context(stand_in(mods[m], **fns))
+        step = mods["make_train_step"](cfg, timed_opt,
+                                       policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
+                                       iht=cfg_iht)
+        reset_counts(mods)
+        mods["ATTENTION_BACKWARD"].reset_counts()
+        t_run = time.perf_counter()
+        state = mods["train_loop"](stepped, state, stream,
+                                   mods["LoopConfig"](total_steps=TRAIN_STEPS, log_every=1),
+                                   log=lambda s: print(f"[chip_smoke]   train {s}", flush=True))
+        run_s = time.perf_counter() - t_run
+    launches = {k.entry: k.launches for k in mods["KERNELS"]}
+    launches["attention_backward"] = mods["ATTENTION_BACKWARD"].launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"repro_flash_attention_tc": 2 * cfg.n_layers * TRAIN_STEPS,
+            "attention_backward": cfg.n_layers * TRAIN_STEPS,
+            "repro_hsthresh": n_eligible * TRAIN_STEPS,
+            "repro_sqround": sq_chunks * TRAIN_STEPS}
+    failed = [f"{k} launched {launches.get(k, 0)} times, want {v}" for k, v in want.items()
+              if launches.get(k, 0) != v]
+    failed += [f"{k} launched {v} times, want 0" for k, v in launches.items()
+               if k not in want and v]
+    failed += [f"the plain {k} ran {v} times" for k, v in calls.items() if v]
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"losses {losses} not all finite")
+    if "projection" not in checks or not captured or len(dense) != len(TRAIN_HS_LEAVES):
+        failed.append("the first step's projection or compression was not checked")
+    if failed:
+        raise AssertionError("train: " + "; ".join(failed))
+    checks["sqround"] = train_sqround_check(torch, mods, captured[0], TRAIN_GRAD_BITS)
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+    # steps 2.. (the first carries the checks); the projection's record starts at step 2
+    later = list(zip(record["step_ms"][1:], record["compression_ms"], record["adamw_ms"][1:],
+                     record["projection_ms"]))
+    split = {"step_ms": median([s for s, _, _, _ in later]),
+             "forward_backward_ms": median([s - c - a - p for s, c, a, p in later]),
+             "compression_ms": median([c for _, c, _, _ in later]),
+             "adamw_ms": median([a for _, _, a, _ in later]),
+             "projection_ms": median([p for _, _, _, p in later])}
+    flops, attn_bwd = train_flops(mods, cfg, state.params, TRAIN_BATCH, TRAIN_SEQ)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    out = {"config": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "init_s": init_s, "run_s": run_s, "losses": losses, "record": dict(record),
+           "split": split, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / split["step_ms"],
+           "step_flops": flops, "attention_backward_flops": attn_bwd,
+           "step_bound_ms": bound_ms, "peak_bytes": peak,
+           "first_step_peak_bytes": record["first_step_peak_bytes"][0], "launches": launches,
+           "launches_per_step": {k: v // TRAIN_STEPS for k, v in want.items()},
+           "plain_calls": dict(calls), "eligible_leaves": n_eligible,
+           "sqround_chunks_per_step": sq_chunks, "checks": checks}
+    print(f"[chip_smoke]   train {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ}, Q{TRAIN_GRAD_BITS} "
+          f"gradients, IHT {TRAIN_SPARSITY:.0%}: init {init_s:.1f} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; step {split['step_ms']:.1f} ms (median of "
+          f"steps 2..{TRAIN_STEPS}; all {', '.join(f'{x:.1f}' for x in record['step_ms'])}), "
+          f"{out['tokens_per_s']:.0f} tokens/s; FLOP bound {bound_ms:.1f} ms ({flops:.4g} flops "
+          f"at the bf16 peak, {attn_bwd:.3g} of them the attention backward's)", flush=True)
+    print(f"[chip_smoke]   train split of a step (medians of steps 2..{TRAIN_STEPS}): forward + "
+          f"backward {split['forward_backward_ms']:.1f} ms, compression "
+          f"{split['compression_ms']:.1f} ms, AdamW {split['adamw_ms']:.1f} ms, projection "
+          f"{split['projection_ms']:.1f} ms; peak max_memory_allocated {peak:,} bytes over "
+          f"steps 2..{TRAIN_STEPS} ({record['first_step_peak_bytes'][0]:,} with init_state and "
+          f"the first step's checks)", flush=True)
+    print(f"[chip_smoke]   train launches per step: FLASH_TC {2 * cfg.n_layers}, the attention "
+          f"backward route {cfg.n_layers}, HSTHRESH {n_eligible} (eligible leaves), SQROUND "
+          f"{sq_chunks} (chunks of {chunk:,}); plain versions run: none", flush=True)
+    for row in checks["projection"]:
+        print(f"[chip_smoke]   train projection {row['leaf']}: N={row['N']:,}, kept "
+              f"{row['kept']:,} = keep, kept min {row['kept_min']:.4g} >= dropped max "
+              f"{row['dropped_max']:.4g} - bin {row['bin']:.3g}", flush=True)
+    print(f"[chip_smoke]   train sqround on {checks['sqround']['N']:,} entries of the largest "
+          f"gradient leaf: codes bitwise the plain version's, the path's values bitwise them "
+          f"dequantized", flush=True)
+    return state, out, {"hs": dense, "sqround": captured[0],
+                        "sqround_err": checks["sqround"]["max_abs_err"]}
+
+
+def train_kernel_rows(torch, mods, cfg, inputs):
+    """The training kernels on the path's own inputs, after the run: the fused
+    H_s on the first step's dense embedding and MLP wi leaves, each bit for
+    bit against hsthresh_ref and its support the path's, timed; sqround on
+    the captured gradient chunk; FLASH_TC at B = 8, S = 1,024 beside SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dev = torch.device(mods["device"])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    cfg_iht = mods["IHTConfig"](sparsity=TRAIN_SPARSITY)
+    HSTHRESH, ref = mods["HSTHRESH"], mods["hsthresh_ref_mod"].hsthresh_ref
+    rows = {}
+    for name, path in TRAIN_HS_LEAVES.items():
+        old, kept = inputs["hs"].pop(path)
+        x = old.to(dev).view(1, -1)
+        del old
+        keep = mods["iht"].keep_count(x, cfg_iht)
+        got = HSTHRESH(x, keep, TRAIN_NBINS)
+        want = ref(x, keep, TRAIN_NBINS)
+        row = {"N": x.numel(), "keep": keep, "bitwise": bool(torch.equal(got, want)),
+               "max_abs_err": float((got - want).abs().max()),
+               "path_support": bool(torch.equal(got.view(-1) != 0, kept.to(dev).view(-1)))}
+        del got, want, kept
+        if not (row["bitwise"] and row["path_support"]):
+            raise AssertionError(f"train: the fused H_s on the dense {path} leaf: bitwise "
+                                 f"hsthresh_ref {row['bitwise']} (max|Δ| {row['max_abs_err']}), "
+                                 f"support the path's {row['path_support']}")
+        row["ms"] = time_ms(torch, lambda: HSTHRESH(x, keep, TRAIN_NBINS), 2, flush)
+        row["plain_ms"] = time_ms(torch, lambda: ref(x, keep, TRAIN_NBINS), 1, flush)
+        row["bound_ms"], row["bound_by"] = 8 * x.numel() / HBM_BYTES_PER_S * 1e3, "bytes"
+        rows[name] = row
+        del x
+        torch.cuda.empty_cache()
+    v, words, scale, _ = inputs["sqround"]
+    w32 = mods["narrow_words"](words)
+    sq = {"N": v.numel(), "max_abs_err": inputs["sqround_err"],
+          "ms": time_ms(torch, lambda: mods["SQROUND"](v, w32, scale, TRAIN_GRAD_BITS), 5, flush),
+          "plain_ms": time_ms(torch, lambda: mods["sqround_ref"](v, words, scale, TRAIN_GRAD_BITS),
+                              3, flush),
+          "words_ms": time_ms(torch, lambda: mods["prng"]._bits_flat(
+              mods["prng"].PRNGKey(5), 0, v.numel(), dev), 3, flush),
+          "bound_ms": 9 * v.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del v, words, w32
+    hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, kk, vv = (torch.randn(TRAIN_BATCH, h, TRAIN_SEQ, d, generator=gen, device=dev)
+                 .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    FLASH_TC = mods["FLASH_TC"]
+    o = FLASH_TC(q, kk, vv, True, d ** -0.5)
+    refo = mods["attention_plain"](q, kk, vv, causal=True, scale=d ** -0.5)
+    gap = held(torch, "train forward", o, refo, 2e-2, rows=True)
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                                    enable_gqa=True)
+    b_ms, b_by, _ = attention_bound(TRAIN_BATCH, hq, hkv, TRAIN_SEQ, TRAIN_SEQ, d, 2, True)
+    fl = {"B": TRAIN_BATCH, "Hq": hq, "Hkv": hkv, "S": TRAIN_SEQ, "D": d,
+          "max_abs_err": gap["max_abs_err"], "max_row_rel": gap["max_row_rel"],
+          "ms": time_ms(torch, lambda: FLASH_TC(q, kk, vv, True, d ** -0.5), 10, flush),
+          "plain_ms": time_ms(torch, lambda: mods["lm_layers"].chunked_attention_plain(
+              q, kk, vv, causal=True, chunk=cfg.attn_chunk), 3, flush),
+          "library_ms": time_ms(torch, sdpa, 10, flush), "bound_ms": b_ms, "bound_by": b_by}
+    emb, wi = rows["embed"], rows["wi"]
+    print(f"[chip_smoke]   train fused H_s on the first step's dense leaves, bit for bit "
+          f"hsthresh_ref and the path's support: embed N={emb['N']:,} {emb['ms']:.2f} ms (plain "
+          f"{emb['plain_ms']:.1f} ms), MLP wi N={wi['N']:,} {wi['ms']:.1f} ms (plain "
+          f"{wi['plain_ms']:.1f} ms, bound {wi['bound_ms']:.2f} ms); sqround on the captured "
+          f"gradient chunk of {sq['N']:,}: "
+          f"{sq['ms']:.4f} ms (plain {sq['plain_ms']:.3f}, its threefry words "
+          f"{sq['words_ms']:.2f}, bound {sq['bound_ms']:.4f}); FLASH_TC B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}: {fl['ms']:.4f} ms (plain {fl['plain_ms']:.2f}, SDPA "
+          f"{fl['library_ms']:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
+    return {"hsthresh": rows, "sqround": sq, "flash": fl}
+
+
+def phase_train(torch, mods):
+    """starcoder2-3b trained at full width on the card (phase ``train``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = mods["lm_get_config"](TRAIN_ARCH)
+    out = {"attention": train_attention_check(torch, mods, cfg)}
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, mods, cfg)
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume_check(torch, mods, cfg)
+    torch.cuda.empty_cache()
+    state, out["run"], inputs = train_run(torch, mods, cfg)
+    del state
+    torch.cuda.empty_cache()
+    out["kernels"] = train_kernel_rows(torch, mods, cfg, inputs)
+    return out
 
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
@@ -4339,15 +4911,37 @@ def load_port() -> dict:
         materialize as lm_materialize,
         param_bytes,
         quantize_params,
-        tree_leaves as lm_tree_leaves,
         tree_to as lm_tree_to,
     )
     from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import loss_fn
+    from repro_torch.models.layers import ATTENTION_BACKWARD
+    from repro_torch.optim import IHTConfig, Optimizer, adamw, cosine_schedule, sparsity_report
+    from repro_torch.optim import iht
+    from repro_torch.parallel import collectives
+    from repro_torch.train import (
+        LoopConfig,
+        init_state,
+        make_train_step,
+        run_with_restarts,
+        train_loop,
+    )
+    from repro_torch.train import steps as train_steps
+    from repro_torch.tree import keystr, last_key, tree_flatten_with_path, tree_leaves, tree_map
 
-    mods = dict(lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
+    mods = dict(SyntheticStream=SyntheticStream, loss_fn=loss_fn,
+                ATTENTION_BACKWARD=ATTENTION_BACKWARD, IHTConfig=IHTConfig, Optimizer=Optimizer,
+                adamw=adamw, cosine_schedule=cosine_schedule, iht=iht, collectives=collectives,
+                LoopConfig=LoopConfig, init_state=init_state, make_train_step=make_train_step,
+                run_with_restarts=run_with_restarts, train_loop=train_loop,
+                train_steps=train_steps, tree_flatten_with_path=tree_flatten_with_path,
+                keystr=keystr, last_key=last_key,
+                tree_leaves=tree_leaves, tree_map=tree_map, sparsity_report=sparsity_report,
+                lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
                 lm_layers=lm_layers, lm_model=lm_model, QWeight=QWeight,
                 lm_materialize=lm_materialize, param_bytes=param_bytes,
-                quantize_params=quantize_params, lm_tree_leaves=lm_tree_leaves,
+                quantize_params=quantize_params,
                 lm_tree_to=lm_tree_to,
                 QuantPolicy=QuantPolicy, prng=prng, GAUSS=GAUSS, LOFAR=LOFAR, QMM=QMM, pack_operator=pack_operator,
                 pack_weights=pack_weights, qmm_ref=qmm_ref, recover_gaussian=recover_gaussian,
@@ -4463,6 +5057,7 @@ def main(argv=None) -> int:
     report["baselines"] = phases.run("baselines", phase_baselines, torch, mods)
     report["sanitize"] = phases.run("sanitize", phase_sanitize, torch, mods)
     report["lm"] = phases.run("lm", phase_lm, torch, mods)
+    report["train"] = phases.run("train", phase_train, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
@@ -4741,6 +5336,68 @@ def main(argv=None) -> int:
         "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} bf16 "
                  "causal; launches: the W4KV8 run's prefill, one per layer (the reference "
                  "computes chunked_attention, src/repro/models/layers.py:203)",
+    })
+    train, train_k = report["train"]["run"], report["train"]["kernels"]
+    hs = train_k["hsthresh"]
+    kernels.append({
+        "name": f"hsthresh[train: {TRAIN_ARCH} IHT projection, MLP wi leaf]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/hsthresh/csrc/hsthresh_fused.cu",
+        "entry": "repro_hsthresh",
+        "replaces": "src/repro/kernels/hsthresh/kernel.py:48 and :69 (hist_pallas, "
+                    "mask_pallas and the jnp pick and fill between them)",
+        "launches": train["launches"]["repro_hsthresh"],
+        "max_abs_err": hs["wi"]["max_abs_err"],
+        "ms": hs["wi"]["ms"],
+        "plain_ms": hs["wi"]["plain_ms"],
+        "bound_ms": hs["wi"]["bound_ms"],
+        "bound_by": hs["wi"]["bound_by"],
+        "library_ms": None,
+        "embed_ms": hs["embed"]["ms"],
+        "embed_plain_ms": hs["embed"]["plain_ms"],
+        "shape": f"B=1 N={hs['wi']['N']} s={hs['wi']['keep']} nbins={TRAIN_NBINS} (one "
+                 f"cluster), the first step's dense leaf; embed_*: N={hs['embed']['N']}; both "
+                 "held bit for bit against hsthresh_ref; "
+                 "launches: every eligible leaf of every step of the train phase's run",
+    })
+    sq = train_k["sqround"]
+    kernels.append({
+        "name": f"sqround[train: {TRAIN_ARCH} Q8 gradient chunks]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/sqround/csrc/sqround.cu",
+        "replaces": "src/repro/kernels/sqround/kernel.py:49",
+        "launches": train["launches"]["repro_sqround"],
+        "max_abs_err": sq["max_abs_err"],
+        "ms": sq["ms"],
+        "plain_ms": sq["plain_ms"],
+        "bound_ms": sq["bound_ms"],
+        "bound_by": sq["bound_by"],
+        "library_ms": None,
+        "words_ms": sq["words_ms"],
+        "shape": f"R=1 C={sq['N']} bits={TRAIN_GRAD_BITS} (the first step's first chunk of "
+                 "the largest gradient leaf); "
+                 "launches: every chunk of every gradient leaf of every step of the train "
+                 "phase's run; words_ms: the threefry words of one chunk",
+    })
+    row = train_k["flash"]
+    kernels.append({
+        "name": f"flash_attention_tc[train forward: {TRAIN_ARCH} B={row['B']} S={row['S']}]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+        "entry": "repro_flash_attention_tc",
+        "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+        "launches": train["launches"]["repro_flash_attention_tc"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "max_row_rel": row["max_row_rel"],
+        "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} bf16 "
+                 "causal; launches: the train phase's run, two per layer a step (the forward "
+                 "and the remat recompute; the reference trains through chunked_attention's "
+                 "custom VJP, src/repro/models/layers.py:145-200)",
     })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

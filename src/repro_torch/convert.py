@@ -8,7 +8,9 @@ as numpy (or anything ``np.asarray`` accepts), become the port's objects.
 * :func:`problem_from_numpy` — a CS problem's Φ, y, x_true, e and s → ``CSProblem``;
 * :func:`lm_params_from_numpy` — an LM parameter tree (nested dicts and lists
   of arrays; a quantized kernel as its ``packed``/``scale`` arrays with
-  ``bits``/``k_dim``) → the same tree of tensors and ``QWeight``s.
+  ``bits``/``k_dim``) → the same tree of tensors and ``QWeight``s;
+* :func:`train_state_from_numpy` — a training state (params, AdamW's
+  ``mu``/``nu``, the step counts and the key) → ``TrainState``.
 
 The tests use these so that both packages compute on identical inputs. Any
 object with the reference's attribute names (``packed``, ``scale``,
@@ -23,8 +25,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.qmm.ops import PackedOperator, PackedWeights
 from repro_torch.models.quantized import QWeight
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.quant.formats import as_granularity
 from repro_torch.sensing.gaussian import CSProblem
+from repro_torch.train.state import TrainState
 
 
 def key_from_numpy(key) -> torch.Tensor:
@@ -87,3 +91,19 @@ def lm_params_from_numpy(params, device=None):
                        tensor_from_numpy(np.asarray(params.scale, np.float32), device),
                        int(params.bits), int(params.k_dim))
     return tensor_from_numpy(params, device)
+
+
+def train_state_from_numpy(state, device=None):
+    """The reference's ``TrainState`` (``step``, ``params``, ``opt`` with
+    ``step``/``mu``/``nu``, ``rng``), handed over as numpy or anything
+    ``np.asarray`` takes, as the port's: the parameter and moment trees on
+    ``device``, the step counts as host int32 tensors, the key as a
+    :mod:`repro_torch.random` key."""
+    def count(x) -> torch.Tensor:
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32)
+
+    opt = AdamWState(step=count(state.opt.step),
+                     mu=lm_params_from_numpy(state.opt.mu, device),
+                     nu=lm_params_from_numpy(state.opt.nu, device))
+    return TrainState(step=count(state.step), params=lm_params_from_numpy(state.params, device),
+                      opt=opt, rng=key_from_numpy(state.rng))

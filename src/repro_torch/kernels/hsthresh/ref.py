@@ -45,13 +45,34 @@ def mask_ref(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() > t.unsqueeze(-1), x, torch.zeros_like(x))
 
 
+# the longest piece of a row one cumsum call takes: PyTorch's CUDA cumsum
+# (torch 2.11) faults on a row of 1.13e9 entries, the length of a stacked
+# starcoder2-3b MLP leaf that the training projection thresholds
+_SCAN_PIECE = 1 << 28
+
+
+def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """Integer cumsum along the last axis, in pieces of at most _SCAN_PIECE
+    with the running total carried over (exact: the same integers)."""
+    n = x.shape[-1]
+    if n <= _SCAN_PIECE:
+        return torch.cumsum(x, dim=-1)
+    out = torch.empty_like(x)
+    carry = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    for a in range(0, n, _SCAN_PIECE):
+        piece = torch.cumsum(x[..., a:a + _SCAN_PIECE], dim=-1) + carry
+        out[..., a:a + _SCAN_PIECE] = piece
+        carry = piece[..., -1:]
+    return out
+
+
 def tie_fill_mask(strict: torch.Tensor, tied: torch.Tensor, s: int) -> torch.Tensor:
     """Mask of the ``tied`` entries to add to the ``strict`` survivors: the
     first ones by ascending index, up to a total support of s. Shared by the
     histogram H_s here and the bisection one in
     :mod:`repro_torch.core.threshold`."""
     room = s - strict.sum(dim=-1, keepdim=True)
-    return tied & (torch.cumsum(tied.to(torch.int32), dim=-1) <= room)
+    return tied & (_cumsum_last(tied.to(torch.int32)) <= room)
 
 
 def fill_threshold_bin(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,

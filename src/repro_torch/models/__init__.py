@@ -1,9 +1,9 @@
-"""The LM side of the port (port of ``repro.models``): the dense family's
-serving path — parameters, ``forward``, ``prefill`` and ``decode_step`` with
-an optional int8 KV cache, weight-only quantized parameters (``QWeight``,
-``quantize_params``) and greedy :func:`generate`. The MoE, SSM, hybrid,
-encoder-decoder and VLM families, ``loss_fn`` and ``encode`` come in later
-slices (ROADMAP.md §1 item 8)."""
+"""The LM side of the port (port of ``repro.models``): the dense family —
+parameters, ``forward`` and its training ``loss_fn``, ``prefill`` and
+``decode_step`` with an optional int8 KV cache, weight-only quantized
+parameters (``QWeight``, ``quantize_params``) and greedy :func:`generate`.
+The MoE, SSM, hybrid, encoder-decoder and VLM families and ``encode`` come
+in later slices (ROADMAP.md §1)."""
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.generate import generate
 from repro_torch.models.model import (
@@ -11,6 +11,7 @@ from repro_torch.models.model import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 from repro_torch.models.quantized import (
@@ -29,6 +30,7 @@ __all__ = [
     "generate",
     "init_cache",
     "init_params",
+    "loss_fn",
     "prefill",
     "QWeight",
     "materialize",

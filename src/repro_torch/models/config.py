@@ -7,7 +7,8 @@ unused. ``repro_torch/configs/<arch>.py`` instantiates one per architecture.
 The fields, properties and parameter counts are the reference's;
 :func:`torch_dtype` maps ``cfg.dtype`` to a ``torch.dtype``. The fields that
 steer XLA (``remat``, ``scan_unroll``) are kept so that the two packages'
-configs compare equal; the port runs eagerly and ignores them.
+configs compare equal; the port runs eagerly, ignores ``scan_unroll`` and
+reads ``remat`` as a checkpoint per layer in a differentiated forward.
 """
 from __future__ import annotations
 

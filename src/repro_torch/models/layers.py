@@ -13,7 +13,10 @@ draws from :mod:`repro_torch.random` (the reference's threefry), on the
   the reference's own computation.
 * :func:`chunked_attention` → :func:`attention_kernel`, the
   ``flash_attention`` kernel (bf16 on the tensor cores, f32 on the CUDA
-  cores), for non-causal attention and causal attention with Sq = Sk.
+  cores), for non-causal attention and causal attention with Sq = Sk. With
+  a gradient (training) it is :class:`KernelAttention`: that kernel forward
+  and the reference's flash-style backward as a fixed plain route
+  (:func:`attention_backward_plain`, counted in ``ATTENTION_BACKWARD``).
 * :func:`decode_attention`, the KV-cache quantization, norms, RoPE and the
   MLP activations are plain PyTorch on both devices, as they are einsums and
   elementwise ops in the reference.
@@ -195,6 +198,115 @@ def attention_kernel(q, k, v, causal: bool) -> torch.Tensor:
     return flash_attention(q, k, v, causal=causal)
 
 
+class RouteCounter:
+    """Calls of a fixed plain route on the card, counted as a kernel's
+    launches are (``launches``, ``reset_counts``)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+
+
+# The attention backward on the card: a fixed plain route (the reference
+# trains through XLA einsums, not a Pallas kernel), counted per call.
+ATTENTION_BACKWARD = RouteCounter("attention_backward")
+# entries of one score block of the plain backward (256 MB of float32)
+_BWD_BLOCK = 1 << 26
+
+
+def _logsumexp_plain(qf, kf, q_pos, k_pos, scale, causal):
+    """Row logsumexp of the masked scores, (b, h, nq, cq): one chunked Q·Kᵀ
+    pass with a running max, as the reference's forward keeps it."""
+    m_run = torch.full(qf.shape[:-1], -1e30, dtype=torch.float32, device=qf.device)
+    l_run = torch.zeros_like(m_run)
+    for j in range(kf.shape[2]):
+        s = torch.einsum("bhncd,bhkd->bhnck", qf, kf[:, :, j]) * scale
+        s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, None)[None, None], -1e30)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        l_run = torch.exp(m_run - m_new) * l_run + torch.exp(s - m_new[..., None]).sum(dim=-1)
+        m_run = m_new
+    return m_run + torch.log(torch.clamp_min(l_run, 1e-30))
+
+
+def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1024):
+    """(dq, dk, dv) of the reference's chunked attention, as its flash-style
+    custom VJP computes them (``_flash_core_bwd``, float32): the logsumexp
+    from one chunked Q·Kᵀ pass, δ = Σ dout·out, then per key chunk
+    p = exp(s − lse), dv += pᵀ·dout, ds = p·(dout·vᵀ − δ)·scale, dq += ds·k,
+    dk += dsᵀ·q. K/V are repeated over each GQA group, as the reference
+    repeats them before the core, and their gradients summed back over it.
+    Batch rows go in groups so that one score block stays near 256 MB.
+    Query i sits at position i: the card's forward takes no window and no
+    offset."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    cq, ck = _pick_chunk(sq, chunk), _pick_chunk(sk, chunk)
+    nq, nk = sq // cq, sk // ck
+    q_pos = torch.arange(sq, device=q.device).reshape(nq, cq)
+    k_pos = torch.arange(sk, device=q.device).reshape(nk, ck)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rows = max(1, _BWD_BLOCK // (hq * sq * ck))
+    for b0 in range(0, b, rows):
+        sl = slice(b0, b0 + rows)
+        bb = q[sl].shape[0]
+        qf = q[sl].to(torch.float32).reshape(bb, hq, nq, cq, d)
+        kf = k[sl].to(torch.float32).reshape(bb, hkv, nk, ck, d)
+        vf = v[sl].to(torch.float32).reshape(bb, hkv, nk, ck, d)
+        if rep > 1:
+            kf = kf.repeat_interleave(rep, dim=1)
+            vf = vf.repeat_interleave(rep, dim=1)
+        of = out[sl].to(torch.float32).reshape(bb, hq, nq, cq, d)
+        gf = dout[sl].to(torch.float32).reshape(bb, hq, nq, cq, d)
+        lse = _logsumexp_plain(qf, kf, q_pos, k_pos, scale, causal)
+        delta = (gf * of).sum(dim=-1, keepdim=True)
+        dqf = torch.zeros_like(qf)
+        dkf = torch.empty_like(kf)
+        dvf = torch.empty_like(vf)
+        for j in range(nk):
+            kj, vj = kf[:, :, j], vf[:, :, j]
+            s = torch.einsum("bhncd,bhkd->bhnck", qf, kj) * scale
+            s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, None)[None, None], -1e30)
+            p = torch.exp(s - lse[..., None])
+            dvf[:, :, j] = torch.einsum("bhnck,bhncd->bhkd", p, gf)
+            dp = torch.einsum("bhncd,bhkd->bhnck", gf, vj)
+            ds = p * (dp - delta) * scale
+            dqf += torch.einsum("bhnck,bhkd->bhncd", ds, kj)
+            dkf[:, :, j] = torch.einsum("bhnck,bhncd->bhkd", ds, qf)
+        dq[sl] = dqf.reshape(bb, hq, sq, d)
+        dk[sl] = dkf.reshape(bb, hkv, rep, sk, d).sum(dim=2)
+        dv[sl] = dvf.reshape(bb, hkv, rep, sk, d).sum(dim=2)
+    return dq, dk, dv
+
+
+class KernelAttention(torch.autograd.Function):
+    """Attention with a gradient on the card: the forward is the
+    ``flash_attention`` kernel (:func:`attention_kernel`), the backward
+    :func:`attention_backward_plain` from q, k, v, the kernel's output and
+    the output's gradient, counted in ``ATTENTION_BACKWARD``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        out = attention_kernel(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.chunk = causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        ATTENTION_BACKWARD.launches += 1
+        dq, dk, dv = attention_backward_plain(q, k, v, out, dout, causal=ctx.causal,
+                                              chunk=ctx.chunk)
+        return dq, dk, dv, None, None
+
+
 def chunked_attention(
     q: torch.Tensor,             # (B, Hq, Sq, D)
     k: torch.Tensor,             # (B, Hkv, Sk, D)
@@ -210,8 +322,10 @@ def chunked_attention(
     q_offset + i - j < window. On CUDA tensors it launches the flash
     attention kernel (:func:`attention_kernel`), which takes non-causal
     attention and causal attention with Sq = Sk at offset 0; a window or
-    another causal alignment raises. On the CPU it runs
-    :func:`chunked_attention_plain`."""
+    another causal alignment raises. Where q, k or v require a gradient it
+    runs :class:`KernelAttention` (the kernel forward, the plain backward).
+    On the CPU it runs :func:`chunked_attention_plain`, and autograd
+    differentiates that."""
     if not q.is_cuda:
         return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk, window=window,
                                        q_offset=q_offset)
@@ -225,6 +339,8 @@ def chunked_attention(
             f"causal attention on the card takes Sq = Sk at offset 0 (the reference aligns "
             f"query i to key q_offset + i); got Sq={q.shape[2]}, Sk={k.shape[2]}, "
             f"q_offset={q_offset}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return KernelAttention.apply(q, k, v, causal, chunk)
     return attention_kernel(q, k, v, causal)
 
 

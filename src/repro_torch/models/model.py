@@ -6,10 +6,14 @@ The parameter tree is the reference's: nested dicts of tensors, layers
 stacked by period slot as ``(L, ...)`` under ``params["slots"]["slot<j>"]``
 (keys sorted, as ``jax.vmap`` returns them), the remainder under
 ``params["tail"]``. Where the reference scans a slot, the port loops over its
-layers and indexes each leaf (a ``QWeight`` too) at the layer.
+layers: :func:`forward` splits each stacked leaf once (``torch.unbind``) and,
+where autograd records and ``cfg.remat``, checkpoints each layer as the
+reference's ``jax.checkpoint``; prefill and decode index each leaf (a
+``QWeight`` too) at the layer.
 
 Three execution paths share the block code:
-  * :func:`forward` — teacher-forced logits over (B, S) tokens,
+  * :func:`forward` — teacher-forced logits over (B, S) tokens, and
+    :func:`loss_fn`, the training loss over them,
   * :func:`prefill` — forward + KV cache construction (serving, long prompts),
   * :func:`decode_step` — one token against the cache (the bandwidth-bound
     loop the paper's technique speeds up with weight/KV quantization).
@@ -25,6 +29,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import random as prng
 from repro_torch.device import resolve_device
@@ -46,8 +52,9 @@ from repro_torch.models.layers import (
     rope,
     window_valid_length,
 )
-from repro_torch.models.quantized import materialize
+from repro_torch.models.quantized import QWeight, materialize
 from repro_torch.quant.policy import QuantPolicy
+from repro_torch.tree import tree_leaves
 
 # The slice of ROADMAP.md §1 item 8 that ports each family this one does not.
 _LATER = {
@@ -290,24 +297,65 @@ def _at_layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked slot, each leaf split once with
+    ``torch.unbind`` (a QWeight's codes and scales too). Indexing a leaf per
+    layer would make autograd build a full-size zero gradient of the stacked
+    leaf for every layer; unbind's backward stacks the layers' gradients
+    once."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, QWeight):
+        return [QWeight(p, s, tree.bits, tree.k_dim)
+                for p, s in zip(tree.packed.unbind(0), tree.scale.unbind(0))]
+    return list(tree.unbind(0))
+
+
+def _block_x(kind, p, x, ctx):
+    return apply_block_fwd(kind, p, x, ctx)[0]
+
+
+def _run_forward(cfg, params, x, ctx):
+    """Every layer's full-sequence forward in order (slots period by period,
+    then the tail). Where autograd records and ``cfg.remat``, each layer is
+    checkpointed (``torch.utils.checkpoint``, non-reentrant), as the
+    reference wraps its period body in ``jax.checkpoint``: only the layer
+    inputs stay alive, and the backward runs each layer's forward again."""
+    slots, n_full, tail = _period_info(cfg)
+    layers = {f"slot{j}": _unstack(params["slots"][f"slot{j}"], n_full)
+              for j in range(len(slots))}
+
+    def recorded(p, x) -> bool:
+        return torch.is_grad_enabled() and (x.requires_grad or any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(p)))
+
+    def block(kind, p, x):
+        if cfg.remat and recorded(p, x):
+            return torch.utils.checkpoint.checkpoint(_block_x, kind, p, x, ctx,
+                                                     use_reentrant=False,
+                                                     preserve_rng_state=False)
+        return _block_x(kind, p, x, ctx)
+
+    for i in range(n_full):
+        for j, kind in enumerate(slots):
+            x = block(kind, layers[f"slot{j}"][i], x)
+    for i, kind in enumerate(tail):
+        x = block(kind, params["tail"][i], x)
+    return x
+
+
 def _run_stack(cfg, params, x, cache, block, ctx):
-    """Every layer in order (slots period by period, then the tail), each
-    with its cache entry when ``cache`` is given. Returns (x, new cache)."""
+    """Every layer in order with its cache entry (prefill, decode). Returns
+    (x, new cache)."""
     slots, n_full, tail = _period_info(cfg)
     lengths = {}
     for i in range(n_full):
         for j, kind in enumerate(slots):
             name = f"slot{j}"
-            p = _at_layer(params["slots"][name], i)
-            if cache is None:
-                x, _ = block(kind, p, x, ctx)
-            else:
-                x, entry = block(kind, p, x, _at_layer(cache["slots"][name], i), ctx)
-                lengths[name] = entry.length
-    if cache is None:
-        for i, kind in enumerate(tail):
-            x, _ = block(kind, params["tail"][i], x, ctx)
-        return x, None
+            x, entry = block(kind, _at_layer(params["slots"][name], i), x,
+                             _at_layer(cache["slots"][name], i), ctx)
+            lengths[name] = entry.length
     new_cache = {"slots": {name: c._replace(length=lengths.get(name, c.length))
                            for name, c in cache["slots"].items()},
                  "tail": []}
@@ -318,7 +366,10 @@ def _run_stack(cfg, params, x, cache, block, ctx):
 
 
 def _embed(cfg, params, tokens, dtype):
-    return params["embed"]["w"][tokens].to(dtype)
+    # F.embedding: on the card its backward sums a repeated token's rows in a
+    # fixed order (PyTorch's indexing backward does not by default), which
+    # keeps a resumed training run bit for bit
+    return F.embedding(tokens, params["embed"]["w"]).to(dtype)
 
 
 def _unembed(cfg, params, x):
@@ -342,10 +393,28 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
     ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
               memory=memory, causal=True, window=None)
-    x, _ = _run_stack(cfg, params, x, None, apply_block_fwd, ctx)
+    x = _run_forward(cfg, params, x, ctx)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return _unembed(cfg, params, x), {
         "moe_load_loss": torch.zeros((), dtype=torch.float32, device=tokens.device)}
+
+
+def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()):
+    """Mean next-token cross entropy over a float32 log-softmax; labels < 0
+    are padding. batch: ``tokens`` and ``labels`` (B, S), optional
+    ``memory`` (the encdec and vlm families, not ported). Differentiable in
+    the parameters: call it with leaves that require a gradient."""
+    logits, aux = forward(cfg, params, batch["tokens"], policy=policy,
+                          memory=batch.get("memory"))
+    labels = batch["labels"]
+    mask = labels >= 0
+    labels_safe = torch.clamp_min(labels, 0).to(torch.int64)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux["moe_load_loss"] / max(cfg.n_layers, 1)
+    return loss
 
 
 def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = QuantPolicy(),

@@ -29,6 +29,7 @@ from repro_torch.kernels.qmm.ops import PackedWeights
 from repro_torch.quant.formats import BY_BITS, PER_CHANNEL
 from repro_torch.quant.pack import pack_codes, unpack_codes
 from repro_torch.quant.quantize import quantize_codes
+from repro_torch.tree import tree_leaves
 
 
 class QWeight:
@@ -137,15 +138,6 @@ def quantize_params(params, bits: int, key: Optional[torch.Tensor] = None,
         return out
 
     return rewrite((), params)
-
-
-def tree_leaves(tree) -> list:
-    """Tensors and QWeights of a nested dict/list/tuple, in its order."""
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [tree]
 
 
 def tree_to(tree, device):

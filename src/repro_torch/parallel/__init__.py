@@ -2,9 +2,11 @@
 device): the chunked :class:`BatchServer`, the continuous-batching
 :class:`ContinuousScheduler` and the write-ahead :class:`ChunkJournal`.
 
-Not yet ported: sharding the batch over several devices (the reference's
-``shard_map`` half of ``parallel/batch.py``), and the model-training half
-(``parallel/sharding.py``, ``parallel/collectives.py``).
+Of the model-training half, :func:`fake_grad_compression` (the Q_b gradient
+compression of one device's training step). Not yet ported: sharding over
+several devices (the reference's ``shard_map`` half of ``parallel/batch.py``,
+``parallel/sharding.py`` and the quantized all-reduce of
+``parallel/collectives.py``).
 """
 from repro_torch.parallel.batch import (
     BatchServer,
@@ -14,6 +16,7 @@ from repro_torch.parallel.batch import (
     refill_rows,
     strip_state,
 )
+from repro_torch.parallel.collectives import fake_grad_compression
 from repro_torch.parallel.journal import ChunkJournal
 from repro_torch.parallel.scheduler import (
     AdmissionQueue,
@@ -28,6 +31,7 @@ __all__ = [
     "BatchServer",
     "ChunkJournal",
     "ContinuousScheduler",
+    "fake_grad_compression",
     "Request",
     "RequestReport",
     "make_batch_mesh",

@@ -30,6 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import keystr, tree_flatten_with_path, tree_unflatten
+
 _MANIFEST = "manifest.json"
 
 # One lock per checkpoint directory: concurrent saves (two async writers, or an
@@ -56,31 +58,9 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def _flatten(tree, path=""):
-    """[(path, leaf)] in a fixed order; leaves are tensors or numpy arrays."""
-    if _is_namedtuple(tree):
-        return [item for name in tree._fields
-                for item in _flatten(getattr(tree, name), f"{path}.{name}")]
-    if isinstance(tree, (tuple, list)):
-        return [item for i, v in enumerate(tree) for item in _flatten(v, f"{path}[{i}]")]
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree) for item in _flatten(tree[k], f"{path}[{k!r}]")]
-    return [(path, tree)]
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from ``leaves``."""
-    if _is_namedtuple(tree):
-        return type(tree)(*(_unflatten(getattr(tree, n), leaves) for n in tree._fields))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_unflatten(v, leaves) for v in tree)
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    return next(leaves)
+def _flatten(tree):
+    """[(path, leaf)] in a fixed order (JAX's); leaves are tensors or numpy arrays."""
+    return [(keystr(path), leaf) for path, leaf in tree_flatten_with_path(tree)]
 
 
 def _host(leaf) -> np.ndarray:
@@ -196,7 +176,7 @@ def restore(directory: str, step: int, target):
             leaves.append(torch.from_numpy(arr).to(tgt.device))
         else:
             leaves.append(arr)
-    return _unflatten(target, iter(leaves))
+    return tree_unflatten(target, iter(leaves))
 
 
 def restore_latest(directory: str, target):

@@ -1084,3 +1084,78 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda, bits):
     assert qmm_kernel.QMM.launches - qmm_before == (5 * 6 * cfg.n_layers if bits else 0)
     cpu = run(tree_to(params, "cpu"), toks.cpu())
     assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -6), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_function_gradients_on_the_card(cuda, dtype, rel, causal):
+    """chunked_attention with inputs that require a gradient runs the kernel
+    forward (one flash launch) and the plain backward route (one call of
+    ATTENTION_BACKWARD); dq, dk, dv agree with autograd through the plain
+    forward within ``rel`` in 2-norm (bf16: both round the gradients to
+    bf16 and start from outputs one bf16 ulp apart; f32: the sums' order)."""
+    from repro_torch.models import layers as lm_layers
+
+    gen = torch.Generator(device=cuda).manual_seed(int(causal))
+    base = [torch.randn(2, h, 384, 128, generator=gen, device=cuda).to(dtype) for h in (8, 2, 2)]
+    dout = torch.randn(2, 8, 384, 128, generator=gen, device=cuda).to(dtype)
+    kernel = fa_kernel.FLASH_TC if dtype == torch.bfloat16 else fa_kernel.FLASH
+    grads = []
+    for plain in (False, True):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        before = (kernel.launches, lm_layers.ATTENTION_BACKWARD.launches)
+        if plain:
+            out = lm_layers.chunked_attention_plain(q, k, v, causal=causal, chunk=128)
+        else:
+            out = lm_layers.chunked_attention(q, k, v, causal=causal, chunk=128)
+        out.backward(dout)
+        moved = (kernel.launches - before[0], lm_layers.ATTENTION_BACKWARD.launches - before[1])
+        assert moved == ((0, 0) if plain else (1, 1))
+        grads.append((q.grad, k.grad, v.grad))
+    for a, b in zip(*grads):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).norm()) <= rel * float(b.float().norm())
+
+
+def test_fused_hsthresh_on_a_row_past_two_to_the_thirty(cuda):
+    """One row of 2³⁰ + 12,345 entries (a stacked MLP leaf of the training
+    projection is 1.13e9): the fused kernel equals hsthresh_ref bit for bit
+    and keeps exactly s entries."""
+    n = (1 << 30) + 12345
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    x = torch.randn(1, n, generator=gen, device=cuda)
+    s = n // 2
+    before = hs_kernel.HSTHRESH.launches
+    got = hsthresh(x, s, nbins=4096)
+    assert hs_kernel.HSTHRESH.launches == before + 1
+    assert int(torch.count_nonzero(got)) == s
+    want = hsthresh_ref(x, s, 4096)
+    assert torch.equal(got, want)
+
+
+def test_chunked_gradient_compression_on_the_card(cuda, monkeypatch):
+    """fake_grad_compression on the card (one sqround launch per chunk of
+    each leaf, a ragged last chunk) equals the CPU's plain path bit for bit,
+    and the kernel's codes on words with the low 9 bits cleared equal the
+    plain version's."""
+    from repro_torch.kernels.sqround.kernel import narrow_words
+    from repro_torch.parallel import collectives
+
+    monkeypatch.setattr(collectives, "CHUNK", 1 << 16)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    grads = {"a": {"w": torch.randn(3, 300, 500, generator=gen, device=cuda)},
+             "b": torch.randn(1000, generator=gen, device=cuda) * 1e-3,
+             "z": torch.zeros(7, 9, device=cuda)}
+    cpu = {"a": {"w": grads["a"]["w"].cpu()}, "b": grads["b"].cpu(), "z": grads["z"].cpu()}
+    key = prng.PRNGKey(9)
+    before = sq_kernel.SQROUND.launches
+    collectives.fake_grad_compression(grads, 8, key)
+    assert sq_kernel.SQROUND.launches - before == 7 + 1 + 1        # ⌈450,000 / 65,536⌉ + 1 + 1
+    collectives.fake_grad_compression(cpu, 8, key)
+    for a, b in ((grads["a"]["w"], cpu["a"]["w"]), (grads["b"], cpu["b"]), (grads["z"], cpu["z"])):
+        assert torch.equal(a.cpu(), b)
+    v = torch.randn(1, 1 << 16, generator=gen, device=cuda)
+    words = (prng._bits_flat(key, 0, 1 << 16, cuda) & ~0x1FF).view(1, -1)
+    scale = v.abs().amax()
+    assert torch.equal(sq_kernel.sqround_cuda(v, narrow_words(words), scale, 8),
+                       sqround_ref(v, words, scale, 8))
