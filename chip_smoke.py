@@ -103,7 +103,12 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     recurrentgemma-2b's and qwen3-moe-235b SMOKE's attention at S = 4,096 in
     bf16, the first two also at the LM prefill's B = 8, S = 1,024); and q,
     k, v as views 2 elements (16-bit at D = 160 and 256, and starcoder2-3b's
-    f32 at 4,096: 1 element) into larger tensors. Aligned bf16 and fp16 calls at every D must launch
+    f32 at 4,096: 1 element) into larger tensors; and, on every route (f32,
+    bf16 and fp16 aligned, f32 and bf16 views 1 element in) at D = 128 and
+    256, a sliding window and a query offset (``FLASH_BAND_CASES``: causal
+    with a window shorter than S, a window not causal, causal Sq < Sk at
+    ``q_offset`` = Sk − Sq and at 0, a window at an offset) against the
+    plain version with the same window and offset. Aligned bf16 and fp16 calls at every D must launch
     ``FLASH_TC`` and 16-bit views off a 16-byte boundary
     ``FLASH_TC_UNALIGNED`` (both ``flashattn_wgmma.cu``), aligned f32 calls
     ``FLASH`` and f32 views ``FLASH_UNALIGNED`` (both ``flashattn.cu``).
@@ -289,6 +294,30 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     projection), peak ``max_memory_allocated``, and the fused H_s on those
     two dense leaves, ``sqround`` on the captured gradient chunk and
     ``FLASH_TC`` at B = 8, S = 1,024 beside their plain versions.
+23. the hybrid LM (phase ``hybrid``, run between phases 21 and 22):
+    recurrentgemma-2b at full width, all 26 layers ((rec, rec, attn) × 8,
+    then rec, rec; d = 2,560, 10 query heads on 1, D = 256, RG-LRU width
+    2,560, window 2,048, vocab 256,000),
+    set up, served and gated as phase 21 serves starcoder2-3b (run A: 8
+    prompts of 1,024 tokens, 32 decode steps, W4KV8 and full precision):
+    each W4KV8 decode step ``QMM`` once per product (an RG-LRU layer's five,
+    the gates on float32 x, an attention layer's four, each swiglu MLP's
+    three: 200), each prefill ``FLASH_TC`` once per attention layer (8) with
+    the window, the logit limits ``HYBRID_TOL`` and
+    ``HYBRID_KV8_FORWARD_TOL`` from this family's own noise floor
+    (``scripts/lm_noise_floor.py --arch recurrentgemma-2b``). Run B: one
+    prompt of 4,096 tokens and 32 decode steps under W4KV8, where the window
+    bites: 8 windowed ``FLASH_TC`` launches in the prefill (their shape key
+    names the window), the cache's 2,048 slots shifting every step, the
+    logits held as in run A (``forward`` over the same 4,128 tokens, whose
+    float32 truth runs the windowed ``FLASH``). Readings as phase 21's, and
+    ``qmm`` at M = 8 on layer 0's RG-LRU and attention products, the
+    windowed ``FLASH_TC`` at B = 1, S = 4,096 and B = 8, S = 1,024 and the
+    windowed ``FLASH`` at B = 1, S = 4,096 beside SDPA given the band as a
+    boolean mask (its backend recorded), the same call without the window
+    and the band's bound, and the RG-LRU scan (plain, log-depth) per
+    layer. The first period in float32, its window cut to 32 keys, card
+    against CPU on a 96-token prompt within 1e-4·max|logits|.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -353,6 +382,14 @@ TRAIN_4K_LEN, PREFILL_32K_LEN = 4096, 32768
 # recurrentgemma_2b.py and qwen3_moe_235b.py's SMOKE: the head dims besides
 # starcoder2-3b's 128 (the widest two on their own tile shapes)
 STABLELM_12B_ATTN, RECURRENTGEMMA_2B_ATTN = (32, 8, 160), (10, 1, 256)
+# phase 12's windowed and offset cases (what, causal, Sq, Sk, window, q_offset;
+# q_offset None: Sk - Sq), at D = 128 and 256 on every route: f32, bf16 and
+# fp16 aligned, f32 and bf16 views 1 element in
+FLASH_BAND_CASES = (("causal window 64", True, 333, 333, 64, None),
+                    ("window 50 not causal", False, 200, 333, 50, None),
+                    ("causal Sq<Sk at q_offset=Sk-Sq", True, 200, 333, None, 133),
+                    ("causal Sq<Sk at q_offset=0", True, 200, 333, None, 0),
+                    ("causal window 100 at q_offset=40", True, 200, 333, 100, 40))
 QWEN3_MOE_SMOKE_ATTN = (8, 2, 8)
 PREFILL_TAIL_ROWS = 256        # rows of the 32k output held against a causal Sq = 256 call
 PLAIN_CHUNK_ROWS = 1024        # query rows per plain-version call at 32k
@@ -449,19 +486,40 @@ LM_SCALE_FAULTS = (1.1, 1.03, 1.01)
 # flash faults of FLASH_MUTANTS the lm gates must catch: the logic faults. A
 # fault of bf16's size (bf16_acc) is phase 12's elementwise check's to catch.
 LM_FLASH_FAULTS = ("diagonal_tile", "own_key")
-LM_PRODUCTS = 6                # QWeight products of a gelu layer: wq, wk, wv, wo, MLP wi, wo
 # the card against the port's CPU: two layers at full width, float32
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE_STEPS = 2, 2, 128, 8
 LM_CPU_TOL = 1e-4
+# The hybrid phase: recurrentgemma-2b (src/repro/configs/recurrentgemma_2b.py)
+# at full width, all 26 layers ((rec, rec, attn) × 8, then rec, rec), served
+# as phase lm serves starcoder2-3b (run A: LM_BATCH prompts of LM_PROMPT
+# tokens, inside the 2,048-key window) and to one prompt of
+# HYBRID_LONG_PROMPT tokens (run B: the window bites in the prefill, and the
+# 2,048-slot cache shifts every decode step)
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_LONG_PROMPT = 4096
+# Logits, as a share of max|logits|, from this family's own noise floor
+# (scripts/lm_noise_floor.py --arch recurrentgemma-2b on an H100; PERF.md §6,
+# PR 23): every bf16 route (kernel, plain, forward, with or without the int8
+# cache) sits up to 0.0487 from the float32 truth, 3.2× starcoder2-3b's, and
+# two of them may sit that far on opposite sides, so a pair is held to twice
+# that floor; W4KV8 serving against forward (exact K/V) also carries the int8
+# cache's own shift, 0.0031 in float32. The truth ratio (LM_TRUTH_RATIO) is
+# the sharper gate here.
+HYBRID_BF16_FLOOR, HYBRID_KV8_SHIFT = 0.0487, 0.0031
+HYBRID_TOL = 2 * HYBRID_BF16_FLOOR
+HYBRID_KV8_FORWARD_TOL = 2 * HYBRID_BF16_FLOOR + HYBRID_KV8_SHIFT
+# the card against the port's CPU: the first period (rec, rec, attn) at full
+# width in float32, the window cut to HYBRID_CPU_WINDOW keys and a prompt of
+# three windows, so that the f32 kernel's window bites
+HYBRID_CPU_WINDOW, HYBRID_CPU_PROMPT = 32, 96
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
 # Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
 # (what it breaks, [(text of the source, its replacement), ...])
 FLASH_MUTANTS = {
     "diagonal_tile": ("causal query tiles past the first skip their diagonal KV tile", [
-        ("  if (causal) n_kv = min(n_kv, (min(q0 + kBlockM, Sq) - 1 + off) / kBlockN + 1);\n",
-         "  if (causal) n_kv = min(n_kv, (min(q0 + kBlockM, Sq) - 1 + off) / kBlockN + 1);\n"
-         "  if (causal && qt > 0) n_kv -= 1;\n")]),
+        ("  const int n_kv = (key_hi + kBlockN - 1) / kBlockN - t_lo;\n",
+         "  const int n_kv = (key_hi + kBlockN - 1) / kBlockN - t_lo - (causal && qt > 0);\n")]),
     "own_key": ("the causal mask drops each row's own key (j < i + Sk - Sq)", [
         ("(!causal || key <= row + off)", "(!causal || key < row + off)")]),
     "bf16_acc": ("the f32 O accumulator rounded to bf16 after each KV tile", [
@@ -490,12 +548,13 @@ class Phases:
         return out
 
 
-def lm_qmm_bound_ms(m, n, k, kp):
+def lm_qmm_bound_ms(m, n, k, kp, x_bytes=2):
     """Least time for the LM's QWeight product x (M, K) @ dequant(w)ᵀ with bf16
-    activations: codes, per-row scales, x and y (bf16) moved once, or the three
-    exact bf16 pieces of x that qmm_wgmma.cu multiplies at the bf16 tensor-core
-    peak. Returns (ms, bound_by, bytes-only ms)."""
-    nbytes = n * kp + 4 * n + 2 * m * k + 2 * m * n
+    activations (``x_bytes`` 4: float32, as the RG-LRU's gates): codes,
+    per-row scales, x and y moved once, or the three exact bf16 pieces of x
+    that qmm_wgmma.cu multiplies at the bf16 tensor-core peak. Returns (ms,
+    bound_by, bytes-only ms)."""
+    nbytes = n * kp + 4 * n + x_bytes * m * k + x_bytes * m * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * 2 * m * n * k / BF16_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
             t_bytes * 1e3)
@@ -1764,11 +1823,25 @@ def phase_sqround(torch, mods):
             "launches_by_shape": {str(k): n for k, n in by_shape.items()}}
 
 
-def attention_bound(b, hq, hkv, sq, sk, d, itemsize, causal):
+def attention_pairs(sq, sk, causal, window=None, off=None):
+    """The (query, key) pairs attention computes: row i, at key position
+    i + off (default Sk - Sq), sees keys j < Sk with j <= i + off (causal)
+    and i + off - j < window (a window)."""
+    off = sk - sq if off is None else off
+    pairs = 0
+    for i in range(sq):
+        pos = i + off
+        hi = min(sk - 1, pos) if causal else sk - 1
+        lo = max(0, pos - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def attention_bound(b, hq, hkv, sq, sk, d, itemsize, causal, window=None, off=None):
     """(bound ms, bound_by, ms at the f32 CUDA-core peak): q, k, v and o
-    moved once, or 4·D flops per visible (query, key) pair (causal: row i
-    sees keys j <= i + Sk - Sq) over the peak of the inputs' type."""
-    pairs = sq * (sk - sq) + sq * (sq + 1) // 2 if causal else sq * sk
+    moved once, or 4·D flops per visible (query, key) pair
+    (``attention_pairs``) over the peak of the inputs' type."""
+    pairs = attention_pairs(sq, sk, causal, window, off)
     flops = 4 * b * hq * d * pairs
     nbytes = itemsize * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
     peak = BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S
@@ -1829,21 +1902,23 @@ def starcoder2_qkv(torch, gen, s, dtype=None):
                  for h in (STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_KV_HEADS))
 
 
-def sdpa_backend(torch, lib, q, k, v):
+def sdpa_backend(torch, lib, q, k, v, attn_mask=None):
     """The backend scaled_dot_product_attention chose for the call whose
-    output is ``lib``: the first of cuDNN, flash, efficient and math (in
-    PyTorch's order of preference) that, asked for alone, gives the same
-    bits; None when none does or none takes the inputs."""
+    output is ``lib`` (causal, or with the boolean ``attn_mask``): the first
+    of cuDNN, flash, efficient and math (in PyTorch's order of preference)
+    that, asked for alone, gives the same bits; None when none does or none
+    takes the inputs."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    mask = {"is_causal": True} if attn_mask is None else {"attn_mask": attn_mask}
     for name, backend in (("cudnn", SDPBackend.CUDNN_ATTENTION),
                           ("flash", SDPBackend.FLASH_ATTENTION),
                           ("efficient", SDPBackend.EFFICIENT_ATTENTION),
                           ("math", SDPBackend.MATH)):
         try:
             with sdpa_kernel([backend]):
-                out = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                                       enable_gqa=True)
+                out = torch.nn.functional.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                                       **mask)
         except RuntimeError:          # this backend refuses the inputs
             continue
         if torch.equal(out, lib):
@@ -1890,12 +1965,12 @@ def phase_flash(torch, mods):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
-    def qkv(b, hq, hkv, sq, sk, d, dtype, offset=0):
-        """q, k, v; with ``offset``, each a view that many elements into a
-        larger tensor."""
+    def qkv(b, hq, hkv, sq, sk, d, dtype, offset=0, g=None):
+        """q, k, v (drawn from ``g``, default ``gen``); with ``offset``, each
+        a view that many elements into a larger tensor."""
         out = []
         for h, s in ((hq, sq), (hkv, sk), (hkv, sk)):
-            t = torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+            t = torch.randn(b, h, s, d, generator=g or gen, device=dev).to(dtype)
             if offset:
                 flat = torch.zeros(offset + t.numel(), dtype=dtype, device=dev)
                 view = flat[offset:].view(t.shape)
@@ -1921,6 +1996,18 @@ def phase_flash(torch, mods):
     small += [(f"views 1 element in, D={dd} {str(dt)[6:]} causal={causal}", causal,
                qkv(2, 4, 2, 200, 333, dd, dt, offset=1), 2e-2, "FLASH_TC_UNALIGNED")
               for dd in (160, 256) for dt in (bf16, fp16) for causal in (True, False)]
+    small = [case + (None, None) for case in small]
+    # a sliding window and a query offset on every route (window, q_offset),
+    # drawn from a generator of their own
+    band_gen = torch.Generator(device=dev).manual_seed(23)
+    small += [(f"{what}, D={dd} {str(dt)[6:]}{' views 1 element in' if n else ''}", causal,
+               qkv(2, 4, 2, sq, sk, dd, dt, offset=n, g=band_gen),
+               2e-4 if dt == f32 else 2e-2, kernel, window, q_offset)
+              for dt, n, kernel in ((f32, 0, "FLASH"), (f32, 1, "FLASH_UNALIGNED"),
+                                    (bf16, 0, "FLASH_TC"), (fp16, 0, "FLASH_TC"),
+                                    (bf16, 1, "FLASH_TC_UNALIGNED"))
+              for dd in (128, 256)
+              for what, causal, sq, sk, window, q_offset in FLASH_BAND_CASES]
     # (label, B, S, dtype, (q, k, v), kernel, (Hq, Hkv, D))
     big = [(f"starcoder2_3b S={s} {name}", 1, s, dtype, starcoder2_qkv(torch, gen, s, dtype),
             "FLASH" if dtype == f32 else "FLASH_TC", (hq, hkv, d))
@@ -1942,8 +2029,8 @@ def phase_flash(torch, mods):
                                            ("f32", f32, 1, "FLASH_UNALIGNED"))]
     reset_counts(mods)
     outs, expected = [], collections.Counter()
-    for label, causal, t, _, kernel in small:
-        outs.append(flash_attention(*t, causal=causal))
+    for label, causal, t, _, kernel, window, q_offset in small:
+        outs.append(flash_attention(*t, causal=causal, window=window, q_offset=q_offset))
         expected[kernel] += 1
     for label, _, _, _, t, kernel, _ in big:
         outs.append(flash_attention(*t, causal=True))
@@ -1958,10 +2045,10 @@ def phase_flash(torch, mods):
     by_shape = {k.entry: {str(key): n for key, n in k.launches_by_shape.items()}
                 for k in routes.values()}
 
-    for (label, causal, (q, k, v), tol, kernel), out in zip(small, outs):
+    for (label, causal, (q, k, v), tol, kernel, window, q_offset), out in zip(small, outs):
         err = held(torch, label, out,
-                   plain(q, k, v, causal=causal, scale=1.0 / q.shape[-1] ** 0.5), tol,
-                   q.dtype != f32)["max_abs_err"]
+                   plain(q, k, v, causal=causal, scale=1.0 / q.shape[-1] ** 0.5, window=window,
+                         q_offset=q_offset), tol, q.dtype != f32)["max_abs_err"]
         print(f"[chip_smoke]   flash_attention {label} {tuple(q.shape)} kv {tuple(k.shape)} "
               f"({routes[kernel].entry}): max|Δ|={err:.3g} (tolerance {tol:g})", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -3820,87 +3907,118 @@ def lm_rel(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def lm_launch_gates(label, cfg, deltas, quantized):
+def lm_products(cfg) -> int:
+    """The QWeight products of one pass over ``cfg``'s layers: an attention
+    layer's four (wq, wk, wv, wo), an RG-LRU layer's five (in_x, in_gate,
+    w_r, w_i, out), and every layer's MLP (three for swiglu, else two)."""
+    mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    return sum((4 if kind == "attn" else 5) + mlp for kind in cfg.pattern_for_layers())
+
+
+def lm_attention_layers(cfg) -> int:
+    return sum(kind == "attn" for kind in cfg.pattern_for_layers())
+
+
+def lm_launch_gates(label, cfg, deltas, quantized, tag="lm"):
     """The launch and call gates of one generate run, as failure messages:
-    prefill FLASH_TC once per layer and no qmm, each decode step QMM
-    LM_PRODUCTS per layer (W4) or none (full precision), no other kernel, no
-    plain version; materialize for the prefill's products, per decode step
-    only for the unembedding (W4) and every product (full precision, whose
-    f32 weights are cast)."""
-    n = cfg.n_layers
-    want_pre = {"FLASH_TC": n, "lm_layers.materialize": LM_PRODUCTS * n,
+    prefill FLASH_TC once per attention layer and no qmm, each decode step
+    QMM once per QWeight product (``lm_products``; W4) or none (full
+    precision), no other kernel, no plain version; materialize for the
+    prefill's products, per decode step only for the unembedding (W4) and
+    every product (full precision, whose f32 weights are cast)."""
+    n = lm_products(cfg)
+    want_pre = {"FLASH_TC": lm_attention_layers(cfg), "lm_layers.materialize": n,
                 "lm_model.materialize": 1}
-    want_dec = {"QMM": LM_PRODUCTS * n if quantized else 0,
-                "lm_layers.materialize": 0 if quantized else LM_PRODUCTS * n,
+    want_dec = {"QMM": n if quantized else 0,
+                "lm_layers.materialize": 0 if quantized else n,
                 "lm_model.materialize": 1}
     fails = []
     for step, d in enumerate(deltas):
         want = want_pre if step == 0 else want_dec
         for key, got in d.items():
             if got != want.get(key, 0):
-                fails.append(f"lm {label}: {'prefill' if step == 0 else f'decode step {step}'}"
+                fails.append(f"{tag} {label}: {'prefill' if step == 0 else f'decode step {step}'}"
                              f" ran {key} {got} times, expected {want.get(key, 0)}")
     return fails
 
 
-def lm_logit_gates(label, run, kv8):
+def lm_logit_gates(label, run, kv8, tag="lm"):
     """The logit gates of one run, as failure messages (see LM_TOL)."""
-    fails = [] if run["finite"] else [f"lm {label}: non-finite logits"]
+    fails = [] if run["finite"] else [f"{tag} {label}: non-finite logits"]
     for what, limit in run["limits"].items():
         if not run[what] <= limit:
-            fails.append(f"lm {label}: {what} {run[what]:.4g} > {limit}")
+            fails.append(f"{tag} {label}: {what} {run[what]:.4g} > {limit}")
     if not run["truth"]["kernel"] <= LM_TRUTH_RATIO * run["truth"]["plain"]:
-        fails.append(f"lm {label}: the kernel routes are {run['truth']['kernel']:.4g} from the "
-                     f"float32 truth, more than {LM_TRUTH_RATIO}× the plain routes' "
+        fails.append(f"{tag} {label}: the kernel routes are {run['truth']['kernel']:.4g} from "
+                     f"the float32 truth, more than {LM_TRUTH_RATIO}× the plain routes' "
                      f"{run['truth']['plain']:.4g}")
     return fails
 
 
-def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized):
+def lm_plain_routes(mods, cfg):
+    """The plain routes of the card's two kernel routes in ``models/layers.py``,
+    to stand in for them: materialize + matmul for ``qmm``, the reference's
+    chunked online softmax for ``flash_attention`` (with its window and
+    offset)."""
+    layers = mods["lm_layers"]
+    return dict(
+        qweight_product=lambda x, w: x @ mods["lm_materialize"](w, x.dtype),
+        attention_kernel=lambda q, k, v, causal, window=None, q_offset=0:
+            layers.chunked_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                                           window=window, q_offset=q_offset))
+
+
+def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limits=None,
+                 tag="lm"):
     """One generate run on the kernel routes, held to every gate of phase lm:
     the launch and call counts per step, the logits against the plain routes
     on the card (teacher-forced on the run's tokens) and against ``forward``
     over prompt + generated tokens, and all three against the float32 truth
     (``forward`` of the float32 model on the same weights and tokens, exact
-    K/V). Returns (run, with its failed gates in ``gates_failed``; tokens)."""
+    K/V). ``limits`` (default LM_TOL and LM_KV8_FORWARD_TOL) bound the
+    logits against the plain routes and against ``forward``. Returns (run,
+    with its failed gates in ``gates_failed``; tokens)."""
     m = mods["lm_model"]
     kv8 = policy.kv_bits is not None
+    s = prompt.shape[1]
     toks, logits, ms, deltas, wall = lm_generate(torch, mods, cfg, tree, prompt, policy)
     by_shape = dict(mods["QMM"].launches_by_shape)
     run = {"qmm_launches": sum(d["QMM"] for d in deltas),
            "qmm_launches_by_shape": {f"{n}x{k}": c for (n, k), c in by_shape.items()},
            "flash_tc_launches": sum(d["FLASH_TC"] for d in deltas),
+           "flash_tc_launches_by_shape": {str(key): c for key, c in
+                                          mods["FLASH_TC"].launches_by_shape.items()},
            "qmm_per_decode_step": deltas[1]["QMM"], "flash_per_prefill": deltas[0]["FLASH_TC"],
            "finite": bool(torch.isfinite(logits).all()), "first_wall_s": wall,
-           "limits": {"vs_plain_max_rel": LM_TOL,
-                      "vs_forward_max_rel": LM_KV8_FORWARD_TOL if kv8 else LM_TOL}}
-    fails = lm_launch_gates(label, cfg, deltas, quantized)
-    plain = dict(qweight_product=lambda x, w: x @ mods["lm_materialize"](w, x.dtype),
-                 attention_kernel=lambda q, k, v, causal: mods["lm_layers"].chunked_attention_plain(
-                     q, k, v, causal=causal, chunk=cfg.attn_chunk))
+           "first_prefill_ms": ms[0], "first_decode_ms_median": sorted(ms[1:])[(len(ms) - 1) // 2],
+           "limits": limits or {"vs_plain_max_rel": LM_TOL,
+                                "vs_forward_max_rel": LM_KV8_FORWARD_TOL if kv8 else LM_TOL}}
+    fails = lm_launch_gates(label, cfg, deltas, quantized, tag)
     before = {name: mods[name].launches for name in LM_KERNELS}
-    with stand_in(mods["lm_layers"], **plain):
+    with stand_in(mods["lm_layers"], **lm_plain_routes(mods, cfg)):
         plain_logits = lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy)
     launched = {name: mods[name].launches - before[name] for name in LM_KERNELS}
     if any(launched.values()):
-        fails.append(f"lm {label}: the plain routes launched {launched}")
+        fails.append(f"{tag} {label}: the plain routes launched {launched}")
     run["vs_plain_per_step"] = lm_gap(torch, logits, plain_logits)
     run["vs_plain_max_rel"] = lm_rel(logits, plain_logits)
     run["greedy_agree_with_plain"] = float((plain_logits.argmax(-1) == toks).float().mean())
     seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
     before = mods["FLASH_TC"].launches
-    fwd = m.forward(cfg, tree, seq, policy=policy)[0][:, LM_PROMPT - 1:]
-    if mods["FLASH_TC"].launches - before != cfg.n_layers:
-        fails.append(f"lm {label}: forward launched FLASH_TC "
+    fwd = m.forward(cfg, tree, seq, policy=policy)[0][:, s - 1:]
+    if mods["FLASH_TC"].launches - before != lm_attention_layers(cfg):
+        fails.append(f"{tag} {label}: forward launched FLASH_TC "
                      f"{mods['FLASH_TC'].launches - before} times")
     run["vs_forward_max_rel"] = lm_rel(logits, fwd)
+    before = mods["FLASH"].launches
     truth = m.forward(dataclasses.replace(cfg, dtype="float32"), tree, seq,
-                      policy=policy)[0][:, LM_PROMPT - 1:]
+                      policy=policy)[0][:, s - 1:]
+    run["truth_flash_f32_launches"] = mods["FLASH"].launches - before
     run["truth"] = {name: lm_rel(a, truth) for name, a in (
         ("kernel", logits), ("plain", plain_logits), ("forward", fwd))}
     del plain_logits, fwd, truth, logits
-    run["gates_failed"] = fails + lm_logit_gates(label, run, kv8)
-    print(f"[chip_smoke]   lm {label}: qmm {run['qmm_per_decode_step']} per decode step, "
+    run["gates_failed"] = fails + lm_logit_gates(label, run, kv8, tag)
+    print(f"[chip_smoke]   {tag} {label}: qmm {run['qmm_per_decode_step']} per decode step, "
           f"FLASH_TC {run['flash_per_prefill']} per prefill; logits vs the plain routes "
           f"{run['vs_plain_max_rel']:.4g} (limit {run['limits']['vs_plain_max_rel']}), vs "
           f"forward {run['vs_forward_max_rel']:.4g} (limit "
@@ -3946,6 +4064,52 @@ def lm_profile_step(torch, mods, cfg, params, prompt, policy):
             "device_launches": sum(e.count for e in events), "top": top}
 
 
+def lm_qmm_check(torch, mods, name, x, pw, y):
+    """max |y - qmm_ref| of a qmm call, raising past qmm's rule |Δ| <=
+    1e-5·|ref| + 1e-5·(|x| @ |w|ᵀ)."""
+    k, bits = pw.k_dim, pw.bits
+    ref = mods["qmm_ref"](x, pw.packed, pw.scale, bits, k)
+    wabs = mods["unpack_codes"](pw.packed, bits, k).float().abs() * (
+        pw.scale.reshape(-1, 1) / mods["BY_BITS"][bits].half_steps)
+    err = (y - ref).abs()
+    if not bool((err <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wabs.T)).all()):
+        raise AssertionError(f"{name} M={x.shape[0]}: max |Δ| {float(err.max())} exceeds the "
+                             "tolerance")
+    return float(err.max())
+
+
+def lm_qmm_row(torch, mods, tag, name, qw, gen, flush, x_dtype=None):
+    """qmm at M = LM_BATCH on one layer's QWeight ``qw`` (x of bf16 values, or
+    float32 ones with ``x_dtype``, as the RG-LRU's gates take): the kernel,
+    its plain version, torch.matmul on the dequantized weight in x's type,
+    and the bound, held to qmm's rule; it must route to QMM."""
+    QMM, qmm_ref = mods["QMM"], mods["qmm_ref"]
+    dev = torch.device(mods["device"])
+    pw = qw.packed_weights()
+    if mods["cuda_kernel"](pw) is not QMM:
+        raise AssertionError(f"{tag} qmm {name}: routed to {mods['cuda_kernel'](pw).entry}")
+    n, kp = pw.packed.shape
+    k = pw.k_dim
+    x_dtype = x_dtype or torch.bfloat16
+    xt = torch.randn(LM_BATCH, k, generator=gen, device=dev).to(x_dtype)
+    x = xt.float()
+    err = lm_qmm_check(torch, mods, f"{tag} qmm {name}", x, pw, mods["qmm"](xt, pw))
+    w = qw.dequantize(x_dtype)
+    b_ms, b_by, bb_ms = lm_qmm_bound_ms(LM_BATCH, n, k, kp, xt.element_size())
+    row = {"shape": name, "M": LM_BATCH, "N": n, "K": k, "bits": pw.bits,
+           "x_dtype": str(x_dtype).replace("torch.", ""), "max_abs_err": err,
+           "ms": time_ms(torch, lambda: QMM(x, pw.packed, pw.scale, pw.bits, k), 20, flush),
+           "plain_ms": time_ms(torch, lambda: qmm_ref(x, pw.packed, pw.scale, pw.bits, k),
+                               5, flush),
+           "library_ms": time_ms(torch, lambda: torch.matmul(xt, w), 20, flush),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms}
+    print(f"[chip_smoke]   {tag} qmm {name:8s} M={LM_BATCH} N={n:5d} K={k:5d}: "
+          f"max|Δ|={err:.3g} kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+          f"matmul({row['x_dtype']} w) {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    return row
+
+
 def lm_kernel_rows(torch, mods, cfg, qparams, flush):
     """qmm at M = LM_BATCH on layer 0's six products (kernel, plain version,
     torch.matmul on the dequantized bf16 weight, bound), qmm at the prefill's
@@ -3958,49 +4122,14 @@ def lm_kernel_rows(torch, mods, cfg, qparams, flush):
 
     dev = torch.device(mods["device"])
     gen = torch.Generator(device=dev).manual_seed(20)
-    QMM, qmm, qmm_ref = mods["QMM"], mods["qmm"], mods["qmm_ref"]
+    QMM, qmm = mods["QMM"], mods["qmm"]
     layers, materialize = mods["lm_layers"], mods["lm_materialize"]
     slot = qparams["slots"]["slot0"]
     products = {"wq": slot["attn"]["wq"]["w"], "wk": slot["attn"]["wk"]["w"],
                 "wv": slot["attn"]["wv"]["w"], "wo": slot["attn"]["wo"]["w"],
                 "mlp_wi": slot["ffn"]["wi"]["w"], "mlp_wo": slot["ffn"]["wo"]["w"]}
-    rows = []
-
-    def check(name, x, pw, y):
-        k, bits = pw.k_dim, pw.bits
-        ref = qmm_ref(x, pw.packed, pw.scale, bits, k)
-        wabs = mods["unpack_codes"](pw.packed, bits, k).float().abs() * (
-            pw.scale.reshape(-1, 1) / mods["BY_BITS"][bits].half_steps)
-        err = (y - ref).abs()
-        if not bool((err <= 1e-5 * ref.abs() + 1e-5 * (x.abs() @ wabs.T)).all()):
-            raise AssertionError(f"lm qmm {name} M={x.shape[0]}: max |Δ| {float(err.max())} "
-                                 "exceeds the tolerance")
-        return float(err.max())
-
-    for name, stacked in products.items():
-        qw = stacked[0]
-        pw = qw.packed_weights()
-        if mods["cuda_kernel"](pw) is not QMM:
-            raise AssertionError(f"lm qmm {name}: routed to {mods['cuda_kernel'](pw).entry}")
-        n, kp = pw.packed.shape
-        k = pw.k_dim
-        x16 = torch.randn(LM_BATCH, k, generator=gen, device=dev).to(torch.bfloat16)
-        x = x16.float()
-        err = check(name, x, pw, qmm(x16, pw))
-        w16 = qw.dequantize(torch.bfloat16)
-        b_ms, b_by, bb_ms = lm_qmm_bound_ms(LM_BATCH, n, k, kp)
-        row = {"shape": name, "M": LM_BATCH, "N": n, "K": k, "bits": pw.bits,
-               "max_abs_err": err,
-               "ms": time_ms(torch, lambda: QMM(x, pw.packed, pw.scale, pw.bits, k), 20, flush),
-               "plain_ms": time_ms(torch, lambda: qmm_ref(x, pw.packed, pw.scale, pw.bits, k),
-                                   5, flush),
-               "library_ms": time_ms(torch, lambda: torch.matmul(x16, w16), 20, flush),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bb_ms}
-        rows.append(row)
-        print(f"[chip_smoke]   lm qmm {name:6s} M={LM_BATCH} N={n:5d} K={k:5d}: "
-              f"max|Δ|={err:.3g} kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-              f"matmul(bf16 w) {row['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+    rows = [lm_qmm_row(torch, mods, "lm", name, stacked[0], gen, flush)
+            for name, stacked in products.items()]
     # the prefill's rows: M = B·S on the MLP's wi
     qw = products["mlp_wi"][0]
     pw = qw.packed_weights()
@@ -4008,7 +4137,7 @@ def lm_kernel_rows(torch, mods, cfg, qparams, flush):
     k, m = pw.k_dim, LM_BATCH * LM_PROMPT
     x16 = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
     x = x16.float()
-    err = check("mlp_wi", x, pw, qmm(x16, pw))
+    err = lm_qmm_check(torch, mods, "lm mlp_wi", x, pw, qmm(x16, pw))
     b_ms, b_by, bb_ms = lm_qmm_bound_ms(m, n, k, kp)
     prefill_row = {
         "shape": "mlp_wi", "M": m, "N": n, "K": k, "bits": pw.bits, "max_abs_err": err,
@@ -4072,17 +4201,19 @@ def lm_kernel_rows(torch, mods, cfg, qparams, flush):
             "flash_row": flash_row}
 
 
-def lm_card_vs_cpu(torch, mods, cfg):
-    """Two layers of ``cfg`` at full width in float32 on the card and on the
-    port's CPU, the same weights (drawn on the card, copied): logits of a
-    prefill and LM_CPU_DECODE_STEPS decode steps over the card's greedy
-    tokens, full precision and W4 (the card's decode products on qmm), held
-    within LM_CPU_TOL of max|logits|, TF32 off. The cache stays float: an
-    int8 KV code can round the other way on the two devices."""
+def lm_card_vs_cpu(torch, mods, cfg, tag="lm", n_layers=LM_CPU_LAYERS,
+                   prompt_len=LM_CPU_PROMPT, **replace):
+    """``n_layers`` layers of ``cfg`` (and the fields of ``replace``) at full
+    width in float32 on the card and on the port's CPU, the same weights
+    (drawn on the card, copied): logits of a prefill of ``prompt_len`` tokens
+    and LM_CPU_DECODE_STEPS decode steps over the card's greedy tokens, full
+    precision and W4 (the card's decode products on qmm), held within
+    LM_CPU_TOL of max|logits|, TF32 off. The cache stays float: an int8 KV
+    code can round the other way on the two devices."""
     dev = torch.device(mods["device"])
-    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, dtype="float32")
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32", **replace)
     params = mods["lm_model"].init_params(cfg2, mods["prng"].PRNGKey(0), device=dev)
-    prompt = mods["prng"].randint(mods["prng"].PRNGKey(2), (LM_CPU_BATCH, LM_CPU_PROMPT), 0,
+    prompt = mods["prng"].randint(mods["prng"].PRNGKey(2), (LM_CPU_BATCH, prompt_len), 0,
                                   cfg2.vocab_size, device=dev)
     out = {}
     for label, policy, tree in (
@@ -4095,23 +4226,25 @@ def lm_card_vs_cpu(torch, mods, cfg):
         cpu_s = time.perf_counter() - t0
         gaps = lm_gap(torch, card.cpu(), cpu)
         out[label] = {"max_rel": max(gaps), "per_step": gaps, "cpu_s": cpu_s}
-        print(f"[chip_smoke]   lm card vs CPU, {LM_CPU_LAYERS} layers float32 {label}: max "
-              f"|Δ|/max|logits| {max(gaps):.3g} over the prefill and {LM_CPU_DECODE_STEPS} "
-              f"steps (CPU {cpu_s:.1f} s)", flush=True)
+        print(f"[chip_smoke]   {tag} card vs CPU, {n_layers} layers float32 {label}: max "
+              f"|Δ|/max|logits| {max(gaps):.3g} over the prefill of {prompt_len} tokens and "
+              f"{LM_CPU_DECODE_STEPS} steps (CPU {cpu_s:.1f} s)", flush=True)
         if not max(gaps) <= LM_CPU_TOL:
-            raise AssertionError(f"lm card vs CPU {label}: {max(gaps)} > {LM_CPU_TOL}")
+            raise AssertionError(f"{tag} card vs CPU {label}: {max(gaps)} > {LM_CPU_TOL}")
     return out
 
 
-def lm_setup(torch, mods):
-    """starcoder2-3b's config, its f32 parameters from PRNGKey(0) on the
-    card, their W4 tree (nearest) and the prompts from PRNGKey(1), with the
-    set-up's readings; every layer slice of the W4 tree must route to QMM."""
+def lm_setup(torch, mods, arch=LM_ARCH, tag="lm"):
+    """``arch``'s config (starcoder2-3b by default), its f32 parameters from
+    PRNGKey(0) on the card, their W4 tree (nearest) and LM_BATCH prompts of
+    LM_PROMPT tokens from PRNGKey(1), with the set-up's readings; every layer
+    slice of every slot's W4 kernels, and every tail layer's, must route to
+    QMM."""
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
     dev = torch.device(mods["device"])
     prng, m = mods["prng"], mods["lm_model"]
-    cfg = mods["lm_get_config"](LM_ARCH)
+    cfg = mods["lm_get_config"](arch)
     out = {"config": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT,
            "decode_steps": LM_DECODE_STEPS}
     t0 = time.perf_counter()
@@ -4124,34 +4257,73 @@ def lm_setup(torch, mods):
     out["quantize_s"] = time.perf_counter() - t0
     out["param_bytes"] = {"fp32": mods["param_bytes"](params),
                           "w4": mods["param_bytes"](qparams)}
-    slot = qparams["slots"]["slot0"]
-    layer_codes = sum(w.packed.numel() for w in mods["tree_leaves"](slot)
+    layers = [qparams["tail"]]
+    for slot in qparams["slots"].values():
+        n_full = next(w.packed.shape[0] for w in mods["tree_leaves"](slot)
                       if isinstance(w, mods["QWeight"]))
+        layers += [mods["tree_map"](lambda w, i=i: w[i], slot) for i in range(n_full)]
+    qweights = [w for layer in layers for w in mods["tree_leaves"](layer)
+                if isinstance(w, mods["QWeight"])]
+    layer_codes = sum(w.packed.numel() for w in qweights)
     out["layer_code_bytes"] = layer_codes
-    for i in range(cfg.n_layers):                 # every layer slice on the tensor cores
-        for w in mods["tree_leaves"](slot):
-            if isinstance(w, mods["QWeight"]) and mods["cuda_kernel"](w[i].packed_weights()) \
-                    is not mods["QMM"]:
-                raise AssertionError(f"lm: layer {i}'s codes do not route to QMM")
-    print(f"[chip_smoke]   lm {cfg.name}: init {out['init_s']:.1f} s, quantize W4 "
+    out["layer_qweights"] = len(qweights)
+    for w in qweights:                            # every layer slice on the tensor cores
+        if mods["cuda_kernel"](w.packed_weights()) is not mods["QMM"]:
+            raise AssertionError(f"{tag}: the codes {tuple(w.packed.shape)} do not route to QMM")
+    print(f"[chip_smoke]   {tag} {cfg.name}: init {out['init_s']:.1f} s, quantize W4 "
           f"{out['quantize_s']:.1f} s; param bytes {out['param_bytes']['fp32']:,} (f32) -> "
           f"{out['param_bytes']['w4']:,} (W4), layer codes {layer_codes:,}", flush=True)
     prompt = prng.randint(prng.PRNGKey(1), (LM_BATCH, LM_PROMPT), 0, cfg.vocab_size, device=dev)
     return cfg, params, qparams, prompt, out
 
 
-def phase_lm(torch, mods):
-    """starcoder2-3b at full width (30 layers) served on the card: W4KV8 on
-    the kernel routes and full precision, gated per step and held against
-    the plain routes, against forward, and (two layers) against the CPU."""
-    dev = torch.device(mods["device"])
-    cfg, params, qparams, prompt, out = lm_setup(torch, mods)
-    layer_codes = out["layer_code_bytes"]
+def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="lm"):
+    """The bytes a W4KV8 decode step at B = LM_BATCH must read (layer codes,
+    scales, biases, norms and recurrent parameters, the unembedding's codes,
+    the int8 KV cache at the mean length, capped at the local window; the
+    recurrent states, read and written), the same at full precision (f32
+    weights, bf16 cache), as times at HBM_BYTES_PER_S, and the
+    unembedding's dequantize, which every W4 step runs."""
+    mean_len = LM_PROMPT + LM_DECODE_STEPS // 2
+    if cfg.local_window:
+        mean_len = min(mean_len, cfg.local_window)
+    kv_elems = (lm_attention_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * mean_len
+                * cfg.head_dim_)
+    kv_bytes = kv_elems + kv_elems // cfg.head_dim_ * 4      # int8 codes and f32 scales
+    rec_layers = cfg.n_layers - lm_attention_layers(cfg)
+    state_bytes = 2 * rec_layers * LM_BATCH * cfg.rnn_width_ * (2 * (cfg.ssm_conv - 1) + 4)
+    out = {}
+    step_bytes = (mods["param_bytes"](qparams["slots"]) + mods["param_bytes"](qparams["tail"])
+                  + mods["param_bytes"](qparams["unembed"]) + kv_bytes + state_bytes)
+    out["w4kv8_step_bytes"] = step_bytes
+    out["w4kv8_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    out["layer_codes_bound_ms"] = layer_codes / HBM_BYTES_PER_S * 1e3
+    fp_bytes = (mods["param_bytes"](params["slots"]) + mods["param_bytes"](params["tail"])
+                + mods["param_bytes"](params["unembed"]))
+    out["full_step_bound_ms"] = (fp_bytes + 2 * kv_elems + state_bytes) / HBM_BYTES_PER_S * 1e3
+    unembed = qparams["unembed"]["w"]
+    out["unembed_dequantize_ms"] = time_ms(
+        torch, lambda: mods["lm_materialize"](unembed, torch.bfloat16), 5, flush)
+    print(f"[chip_smoke]   {tag} W4KV8 bytes per step {step_bytes:,} -> bound "
+          f"{out['w4kv8_step_bound_ms']:.3f} ms (layer codes alone "
+          f"{out['layer_codes_bound_ms']:.3f} ms); the unembedding's dequantize "
+          f"{out['unembed_dequantize_ms']:.3f} ms per step; full precision bound "
+          f"{out['full_step_bound_ms']:.3f} ms", flush=True)
+    return out
+
+
+def lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits=None, tag="lm"):
+    """W4KV8 on the kernel routes and full precision, each a run held to
+    lm_check_run's gates (``limits``: its logit limits by label, default
+    LM_TOL and LM_KV8_FORWARD_TOL), then LM_TIMING_PASSES more runs timed
+    and one decode step profiled. Returns {label: run}."""
+    out = {}
     for label, policy, tree, quantized in (
             ("w4kv8", mods["QuantPolicy"](weight_bits=4, kv_bits=8), qparams, True),
             ("full", mods["QuantPolicy"](), params, False)):
         reset_counts(mods)
-        run, toks = lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized)
+        run, toks = lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized,
+                                 (limits or {}).get(label), tag)
         if run["gates_failed"]:
             raise AssertionError("; ".join(run["gates_failed"]))
         # timing: LM_TIMING_PASSES more runs
@@ -4168,7 +4340,7 @@ def phase_lm(torch, mods):
         run["passes"] = passes
         run["profile"] = lm_profile_step(torch, mods, cfg, tree, prompt, policy)
         prof = run["profile"]
-        print(f"[chip_smoke]   lm {label}: prefill {run['prefill_ms']:.2f} ms, decode "
+        print(f"[chip_smoke]   {tag} {label}: prefill {run['prefill_ms']:.2f} ms, decode "
               f"{run['decode_ms_median']:.3f} ms per token (pass medians "
               f"{', '.join(f'{v:.3f}' for v in run['decode_ms_pass_medians'])}), "
               f"{run['tokens_per_s']:.0f} tokens/s at B={LM_BATCH}; one profiled step: wall "
@@ -4178,31 +4350,173 @@ def phase_lm(torch, mods):
         out[label] = run
         del toks
         torch.cuda.empty_cache()
-    # the bytes a W4KV8 step must read: layer codes, scales, biases and norms,
-    # the unembedding's codes, the KV cache at the mean length
-    mean_len = LM_PROMPT + LM_DECODE_STEPS // 2
-    kv_bytes = (cfg.n_layers * 2 * LM_BATCH * cfg.padded_kv_heads * mean_len
-                * (cfg.head_dim_ + 4))
-    step_bytes = (mods["param_bytes"](qparams["slots"]) + mods["param_bytes"](qparams["unembed"])
-                  + kv_bytes)
-    out["w4kv8_step_bytes"] = step_bytes
-    out["w4kv8_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
-    out["layer_codes_bound_ms"] = layer_codes / HBM_BYTES_PER_S * 1e3
-    fp_bytes = mods["param_bytes"](params["slots"]) + mods["param_bytes"](params["unembed"])
-    out["full_step_bound_ms"] = (fp_bytes + kv_bytes * 2) / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def phase_lm(torch, mods):
+    """starcoder2-3b at full width (30 layers) served on the card: W4KV8 on
+    the kernel routes and full precision, gated per step and held against
+    the plain routes, against forward, and (two layers) against the CPU."""
+    dev = torch.device(mods["device"])
+    cfg, params, qparams, prompt, out = lm_setup(torch, mods)
+    layer_codes = out["layer_code_bytes"]
+    out.update(lm_serve_runs(torch, mods, cfg, params, qparams, prompt))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    unembed = qparams["unembed"]["w"]
-    out["unembed_dequantize_ms"] = time_ms(
-        torch, lambda: mods["lm_materialize"](unembed, torch.bfloat16), 5, flush)
-    print(f"[chip_smoke]   lm W4KV8 bytes per step {step_bytes:,} -> bound "
-          f"{out['w4kv8_step_bound_ms']:.3f} ms (layer codes alone "
-          f"{out['layer_codes_bound_ms']:.3f} ms); the unembedding's dequantize "
-          f"{out['unembed_dequantize_ms']:.3f} ms per step; full precision bound "
-          f"{out['full_step_bound_ms']:.3f} ms", flush=True)
+    out.update(lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush))
     out.update(lm_kernel_rows(torch, mods, cfg, qparams, flush))
     del params, qparams, flush
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg)
+    return out
+
+
+def hybrid_flash_row(torch, mods, cfg, b, s, dtype, flush, gen):
+    """The prefill's windowed attention at B = b, S = s (cfg's heads, D and
+    window, causal, query offset 0) through flash_attention: the kernel it
+    must launch (FLASH_TC for 16-bit, FLASH for float32), held against the
+    plain version (2e-2 and the 2⁻⁷ row rule for 16-bit, 2e-4 for f32),
+    timed beside it, beside SDPA with the band as a boolean mask (the
+    backend it chose recorded) and the band's bound."""
+    dev = torch.device(mods["device"])
+    hq, hkv, d, w = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_, cfg.local_window
+    q, kk, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+                for h in (hq, hkv, hkv))
+    is_f32 = dtype == torch.float32
+    kernel = mods["FLASH"] if is_f32 else mods["FLASH_TC"]
+    before = kernel.launches
+    out = mods["flash_attention"](q, kk, v, causal=True, window=w, q_offset=0)
+    if kernel.launches != before + 1:
+        raise AssertionError(f"hybrid flash B={b} S={s}: {kernel.entry} was not launched")
+
+    def plain():
+        return mods["attention_plain"](q, kk, v, causal=True, scale=d ** -0.5, window=w,
+                                       q_offset=0)
+    gap = held(torch, f"hybrid prefill B={b} S={s} window {w}", out, plain(),
+               2e-4 if is_f32 else 2e-2, not is_f32)
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, kk, v, attn_mask=band,
+                                                                enable_gqa=True)
+    lib = sdpa()
+    b_ms, b_by, f32_ms = attention_bound(b, hq, hkv, s, s, d, q.element_size(), True, w, 0)
+    row = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": w,
+           "dtype": str(dtype).replace("torch.", ""), "kernel": kernel.entry,
+           "max_abs_err": gap["max_abs_err"], "max_row_rel": gap["max_row_rel"],
+           "ms": time_ms(torch, lambda: mods["flash_attention"](q, kk, v, causal=True, window=w,
+                                                               q_offset=0), 10, flush),
+           "plain_ms": time_ms(torch, plain, 3, flush),
+           "library_ms": time_ms(torch, sdpa, 10, flush),
+           "library_backend": sdpa_backend(torch, lib, q, kk, v, attn_mask=band),
+           "library_max_abs_diff": float((lib.float() - out.float()).abs().max()),
+           "causal_ms": time_ms(torch, lambda: kernel(q, kk, v, True, d ** -0.5), 10, flush),
+           "band_pairs": attention_pairs(s, s, True, w, 0), "bound_ms": b_ms, "bound_by": b_by,
+           "f32_core_bound_ms": f32_ms}
+    print(f"[chip_smoke]   hybrid flash B={b} S={s} {hq}/{hkv} heads D={d} window {w} "
+          f"{row['dtype']} ({kernel.entry}): max|Δ|={row['max_abs_err']:.3g} kernel "
+          f"{row['ms']:.4f} ms (causal, no window: {row['causal_ms']:.4f})  plain "
+          f"{row['plain_ms']:.3f} ms  SDPA with the band as a mask {row['library_ms']:.4f} ms "
+          f"({row['library_backend']})  bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return row
+
+
+def hybrid_kernel_rows(torch, mods, cfg, qparams, flush):
+    """qmm at M = LM_BATCH on layer 0's RG-LRU products (in_x, in_gate and
+    out on bf16 x; the gates' w_r and w_i on float32 x) and attention
+    products (wq, wk, wv, wo); the windowed prefill attention at B = 1,
+    S = HYBRID_LONG_PROMPT (bf16 and f32) and at B = LM_BATCH, S = LM_PROMPT
+    (bf16); the RG-LRU scan of one layer's prefill at both shapes beside its
+    bytes bound."""
+    dev = torch.device(mods["device"])
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rec, attn = qparams["slots"]["slot0"]["rec"], qparams["slots"]["slot2"]["attn"]
+    rows = [lm_qmm_row(torch, mods, "hybrid", name, rec[name]["w"][0], gen, flush,
+                       torch.float32 if name in ("w_r", "w_i") else None)
+            for name in ("in_x", "in_gate", "w_r", "w_i", "out")]
+    rows += [lm_qmm_row(torch, mods, "hybrid", name, attn[name]["w"][0], gen, flush)
+             for name in ("wq", "wk", "wv", "wo")]
+    flash_rows = [hybrid_flash_row(torch, mods, cfg, b, s, dtype, flush, gen)
+                  for b, s, dtype in ((1, HYBRID_LONG_PROMPT, torch.bfloat16),
+                                      (LM_BATCH, LM_PROMPT, torch.bfloat16),
+                                      (1, HYBRID_LONG_PROMPT, torch.float32))]
+    scan_rows = []
+    rec_layers = cfg.n_layers - lm_attention_layers(cfg)
+    for b, s in ((LM_BATCH, LM_PROMPT), (1, HYBRID_LONG_PROMPT)):
+        a = torch.rand(b, s, cfg.rnn_width_, generator=gen, device=dev)
+        x = torch.randn(b, s, cfg.rnn_width_, generator=gen, device=dev)
+        ms = time_ms(torch, lambda: mods["rglru"].linear_scan(a, x), 10, flush)
+        bound = 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        scan_rows.append({"B": b, "S": s, "W": cfg.rnn_width_, "ms": ms, "bound_ms": bound,
+                          "bound_by": "bytes", "steps": math.ceil(math.log2(s)),
+                          "per_prefill_ms": ms * rec_layers})
+        print(f"[chip_smoke]   hybrid RG-LRU scan B={b} S={s} W={cfg.rnn_width_}: {ms:.3f} ms a "
+              f"layer ({ms * rec_layers:.2f} ms over the prefill's {rec_layers} layers), bound "
+              f"{bound:.4f} ms (bytes: a, b and h once)", flush=True)
+        del a, x
+    return {"qmm_rows": rows, "flash_rows": flash_rows, "scan_rows": scan_rows}
+
+
+def phase_hybrid(torch, mods):
+    """recurrentgemma-2b at full width (26 layers) served on the card: run A,
+    W4KV8 on the kernel routes and full precision at B = 8 × 1,024, gated
+    per step as phase lm gates starcoder2-3b (the RG-LRU's five products and
+    the MLP's three on qmm each decode step, FLASH_TC once per attention
+    layer in the prefill, with the 2,048-key window); run B, W4KV8 on one
+    prompt of 4,096 tokens, where the window bites (8 windowed FLASH_TC
+    launches in the prefill, the cache's 2,048 slots shifting each step);
+    both held against the plain routes, forward and the float32 truth; the
+    first period in float32 against the CPU at a cut window."""
+    t_phase = time.perf_counter()
+    dev = torch.device(mods["device"])
+    cfg, params, qparams, prompt, out = lm_setup(torch, mods, HYBRID_ARCH, "hybrid")
+    limits = {"w4kv8": {"vs_plain_max_rel": HYBRID_TOL,
+                        "vs_forward_max_rel": HYBRID_KV8_FORWARD_TOL},
+              "full": {"vs_plain_max_rel": HYBRID_TOL, "vs_forward_max_rel": HYBRID_TOL}}
+    out.update(lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits, "hybrid"))
+    # run B: one long prompt, the window bites
+    w4kv8 = mods["QuantPolicy"](weight_bits=4, kv_bits=8)
+    long_prompt = mods["prng"].randint(mods["prng"].PRNGKey(3), (1, HYBRID_LONG_PROMPT), 0,
+                                       cfg.vocab_size, device=dev)
+    cache = mods["lm_model"].init_cache(cfg, 1, HYBRID_LONG_PROMPT + LM_DECODE_STEPS + 8, w4kv8,
+                                        device=dev)
+    slots = cache["slots"]["slot2"].k.shape[3]
+    if slots != cfg.local_window:
+        raise AssertionError(f"hybrid: the attention cache holds {slots} slots, not the window")
+    del cache
+    reset_counts(mods)
+    run, toks = lm_check_run(torch, mods, cfg, "w4kv8 long", w4kv8, qparams, long_prompt, True,
+                             limits["w4kv8"], "hybrid")
+    windowed = str((1, cfg.padded_heads, cfg.padded_kv_heads, HYBRID_LONG_PROMPT,
+                    HYBRID_LONG_PROMPT, cfg.head_dim_, 0, cfg.local_window))
+    run["windowed_flash_tc"] = run["flash_tc_launches_by_shape"].get(windowed, 0)
+    if run["windowed_flash_tc"] != lm_attention_layers(cfg):
+        run["gates_failed"].append(f"hybrid w4kv8 long: {run['windowed_flash_tc']} windowed "
+                                   f"FLASH_TC launches {windowed} in the prefill, expected "
+                                   f"{lm_attention_layers(cfg)}")
+    if run["gates_failed"]:
+        raise AssertionError("; ".join(run["gates_failed"]))
+    print(f"[chip_smoke]   hybrid w4kv8 long: prefill of {HYBRID_LONG_PROMPT} tokens "
+          f"{run['first_prefill_ms']:.2f} ms, decode {run['first_decode_ms_median']:.3f} ms per "
+          f"token (one pass), {run['windowed_flash_tc']} windowed FLASH_TC launches", flush=True)
+    out["long"] = run
+    del toks
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out.update(lm_step_bounds(torch, mods, cfg, params, qparams, out["layer_code_bytes"], flush,
+                              "hybrid"))
+    out.update(hybrid_kernel_rows(torch, mods, cfg, qparams, flush))
+    del params, qparams, flush
+    torch.cuda.empty_cache()
+    reset_counts(mods)
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg, "hybrid", n_layers=3,
+                                        prompt_len=HYBRID_CPU_PROMPT,
+                                        local_window=HYBRID_CPU_WINDOW)
+    out["card_vs_cpu"]["flash_f32_launches"] = mods["FLASH"].launches
+    if not mods["FLASH"].launches:
+        raise AssertionError("hybrid card vs CPU: the f32 windowed FLASH was not launched")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   hybrid phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4906,6 +5220,7 @@ def load_port() -> dict:
     from repro_torch.configs import get_config as lm_get_config
     from repro_torch.kernels.flashattn import ops as fa_ops
     from repro_torch.models import generate, layers as lm_layers, model as lm_model
+    from repro_torch.models import rglru
     from repro_torch.models.quantized import (
         QWeight,
         materialize as lm_materialize,
@@ -4939,7 +5254,7 @@ def load_port() -> dict:
                 keystr=keystr, last_key=last_key,
                 tree_leaves=tree_leaves, tree_map=tree_map, sparsity_report=sparsity_report,
                 lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
-                lm_layers=lm_layers, lm_model=lm_model, QWeight=QWeight,
+                lm_layers=lm_layers, lm_model=lm_model, rglru=rglru, QWeight=QWeight,
                 lm_materialize=lm_materialize, param_bytes=param_bytes,
                 quantize_params=quantize_params,
                 lm_tree_to=lm_tree_to,
@@ -5057,6 +5372,7 @@ def main(argv=None) -> int:
     report["baselines"] = phases.run("baselines", phase_baselines, torch, mods)
     report["sanitize"] = phases.run("sanitize", phase_sanitize, torch, mods)
     report["lm"] = phases.run("lm", phase_lm, torch, mods)
+    report["hybrid"] = phases.run("hybrid", phase_hybrid, torch, mods)
     report["train"] = phases.run("train", phase_train, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
@@ -5337,6 +5653,64 @@ def main(argv=None) -> int:
                  "causal; launches: the W4KV8 run's prefill, one per layer (the reference "
                  "computes chunked_attention, src/repro/models/layers.py:203)",
     })
+    hybrid = report["hybrid"]
+    by_name = {r["shape"]: r for r in hybrid["qmm_rows"]}
+    for name, row, shape in (
+            ("2560x2560: RG-LRU in_x, in_gate, w_r, w_i, out; attention wq, wo", by_name["in_x"],
+             "in_x"),
+            ("256x2560: attention wk + wv", by_name["wk"], "wk")):
+        kernels.append({
+            "name": f"qmm[hybrid decode: {HYBRID_ARCH} W4 {name}]",
+            "route": "cuda",
+            "source": lm_source,
+            "entry": report["kernel"]["entry"],
+            "replaces": "src/repro/kernels/qmm/kernel.py:265",
+            "launches": hybrid["w4kv8"]["qmm_launches_by_shape"][f"{row['N']}x{row['K']}"]
+                        + hybrid["long"]["qmm_launches_by_shape"][f"{row['N']}x{row['K']}"],
+            "max_abs_err": max(r["max_abs_err"] for r in hybrid["qmm_rows"]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bytes_bound_ms": row["bytes_bound_ms"],
+            "library_ms": row["library_ms"],
+            "f32_x_ms": by_name["w_r"]["ms"] if shape == "in_x" else None,
+            "shape": f"M={row['M']} N={row['N']} K={row['K']} bits={row['bits']}, layer 0's "
+                     f"{shape} codes on bf16 x (timed; f32_x_ms: the gate w_r on float32 x); "
+                     "launches: the W4KV8 runs' decode steps (A and B), all layers; library: "
+                     "torch.matmul on the dequantized weight",
+        })
+    for row, what in ((hybrid["flash_rows"][0], "flashattn_wgmma.cu"),
+                      (hybrid["flash_rows"][2], "flashattn.cu")):
+        f32 = row["dtype"] == "float32"
+        kernels.append({
+            "name": (f"flash_attention_{'f32' if f32 else 'tc'}[hybrid prefill: {HYBRID_ARCH} "
+                     f"B={row['B']} S={row['S']} window {row['window']}]"),
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/flashattn/csrc/{what}",
+            "entry": row["kernel"],
+            "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+            "launches": (hybrid["long"]["truth_flash_f32_launches"] if f32 else
+                         hybrid["w4kv8"]["flash_tc_launches"]
+                         + hybrid["long"]["flash_tc_launches"]),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_backend": row["library_backend"],
+            "causal_ms": row["causal_ms"],
+            "max_row_rel": row["max_row_rel"],
+            "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} "
+                     f"{row['dtype']} causal, window {row['window']}, q_offset 0; launches: "
+                     + ("run B's float32 truth forward (the reference's chunked_attention, "
+                        "src/repro/models/layers.py:203)" if f32 else
+                        "the W4KV8 prefills of runs A and B, one per attention layer (the "
+                        "reference computes chunked_attention, src/repro/models/layers.py:203)")
+                     + "; library: SDPA with the band as a boolean mask; causal_ms: the same "
+                     "call without the window",
+        })
     train, train_k = report["train"]["run"], report["train"]["kernels"]
     hs = train_k["hsthresh"]
     kernels.append({

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""How far bf16 arithmetic and the int8 KV cache put starcoder2-3b's logits
-from a float32 truth at full width, on one card.
+"""How far bf16 arithmetic and the int8 KV cache put an LM's logits from a
+float32 truth at full width, on one card.
 
-    python3 scripts/lm_noise_floor.py
+    python3 scripts/lm_noise_floor.py [--arch recurrentgemma-2b]
 
-The model and traffic of ``chip_smoke.py``'s ``lm`` phase (30 layers,
-weights from PRNGKey(0), 8 prompts of 1,024 tokens from PRNGKey(1), 32
-greedy decode steps), under W4KV8 and at full precision. The truth is
+The model and traffic of ``chip_smoke.py``'s ``lm`` phase (starcoder2-3b by
+default, all layers, weights from PRNGKey(0), 8 prompts of 1,024 tokens from
+PRNGKey(1), 32 greedy decode steps; ``--arch recurrentgemma-2b``: the
+``hybrid`` phase's run A), under W4KV8 and at full precision. The truth is
 ``forward`` of the float32 model on the same weights and tokens (exact K/V).
 Each serving variant runs a prefill and the decode steps over the kernel
 run's tokens: the kernel routes (``generate``), the plain routes in bf16 with
@@ -26,8 +27,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="starcoder2-3b", help="an LM config of repro_torch.configs")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("lm_noise_floor: needs a GPU", file=sys.stderr)
@@ -39,15 +47,13 @@ def main() -> int:
     dev = torch.device("cuda")
     prng, m, layers = mods["prng"], mods["lm_model"], mods["lm_layers"]
     policy_of = mods["QuantPolicy"]
-    cfg = mods["lm_get_config"](cs.LM_ARCH)
+    cfg = mods["lm_get_config"](args.arch)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = m.init_params(cfg, prng.PRNGKey(0), device=dev)
     qparams = mods["quantize_params"](params, 4)
     prompt = prng.randint(prng.PRNGKey(1), (cs.LM_BATCH, cs.LM_PROMPT), 0, cfg.vocab_size,
                           device=dev)
-    plain = dict(qweight_product=lambda x, w: x @ mods["lm_materialize"](w, x.dtype),
-                 attention_kernel=lambda q, k, v, causal: layers.chunked_attention_plain(
-                     q, k, v, causal=causal, chunk=cfg.attn_chunk))
+    plain = cs.lm_plain_routes(mods, cfg)
     out = {}
     for label, tree, policy in (("w4kv8", qparams, policy_of(weight_bits=4, kv_bits=8)),
                                 ("full", params, policy_of())):

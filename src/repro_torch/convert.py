@@ -9,13 +9,17 @@ as numpy (or anything ``np.asarray`` accepts), become the port's objects.
 * :func:`lm_params_from_numpy` — an LM parameter tree (nested dicts and lists
   of arrays; a quantized kernel as its ``packed``/``scale`` arrays with
   ``bits``/``k_dim``) → the same tree of tensors and ``QWeight``s;
+* :func:`lm_cache_from_numpy` — an LM serving cache (stacked slots and the
+  tail; ``k``/``v``/``k_scale``/``v_scale``/``length`` KV caches and
+  ``conv``/``h`` recurrent states) → the same tree of ``KVCache``s and
+  ``RGLRUState``s;
 * :func:`train_state_from_numpy` — a training state (params, AdamW's
   ``mu``/``nu``, the step counts and the key) → ``TrainState``.
 
 The tests use these so that both packages compute on identical inputs. Any
 object with the reference's attribute names (``packed``, ``scale``,
-``bits``, ``k_dim``; ``fwd_re`` ...; ``phi``, ``y`` ...) is accepted; nothing
-here imports the reference.
+``bits``, ``k_dim``; ``fwd_re`` ...; ``phi``, ``y`` ...; ``k``, ``length``;
+``conv``, ``h``) is accepted; nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.qmm.ops import PackedOperator, PackedWeights
+from repro_torch.models.layers import KVCache
 from repro_torch.models.quantized import QWeight
+from repro_torch.models.rglru import RGLRUState
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.quant.formats import as_granularity
 from repro_torch.sensing.gaussian import CSProblem
@@ -39,8 +45,15 @@ def key_from_numpy(key) -> torch.Tensor:
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    """np.asarray(a) as a tensor on ``device`` (dtype kept)."""
-    return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+    """np.asarray(a) as a tensor on ``device`` (dtype kept; numpy's bfloat16
+    extension type, as JAX hands bfloat16 arrays over, becomes
+    torch.bfloat16 of the same bits)."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
 
 
 def packed_weights_from_numpy(w, device=None) -> PackedWeights:
@@ -91,6 +104,32 @@ def lm_params_from_numpy(params, device=None):
                        tensor_from_numpy(np.asarray(params.scale, np.float32), device),
                        int(params.bits), int(params.k_dim))
     return tensor_from_numpy(params, device)
+
+
+def lm_cache_from_numpy(cache, device=None):
+    """The reference's LM serving cache as the port's: dicts and lists keep
+    their keys and order; an object with ``k``, ``v``, ``k_scale``,
+    ``v_scale`` and ``length`` becomes a
+    :class:`~repro_torch.models.layers.KVCache` on ``device`` whose length is
+    a host integer (a stacked slot's lengths are one per layer and equal: the
+    first is taken); one with ``conv`` and ``h`` becomes a
+    :class:`~repro_torch.models.rglru.RGLRUState`, dtypes kept."""
+    if isinstance(cache, dict):
+        return {k: lm_cache_from_numpy(v, device) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)) and not hasattr(cache, "_fields"):
+        return type(cache)(lm_cache_from_numpy(v, device) for v in cache)
+    if all(hasattr(cache, a) for a in ("k", "v", "k_scale", "v_scale", "length")):
+        lengths = np.asarray(cache.length).reshape(-1)
+        if lengths.size and (lengths != lengths[0]).any():
+            raise ValueError(f"a stacked KV cache's layers hold different lengths {lengths}")
+
+        def conv(a):
+            return None if a is None else tensor_from_numpy(a, device)
+        return KVCache(conv(cache.k), conv(cache.v), conv(cache.k_scale), conv(cache.v_scale),
+                       length=int(lengths[0]))
+    if hasattr(cache, "conv") and hasattr(cache, "h"):
+        return RGLRUState(tensor_from_numpy(cache.conv, device), tensor_from_numpy(cache.h, device))
+    raise TypeError(f"not a cache entry: {type(cache).__name__}")
 
 
 def train_state_from_numpy(state, device=None):

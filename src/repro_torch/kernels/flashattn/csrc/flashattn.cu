@@ -15,9 +15,14 @@
 //
 //     o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / (Hq / Hkv), j]) v[b, h / (Hq / Hkv), j]
 //
-// over keys j < Sk, or, causal, j <= i + (Sk - Sq): the bottom-right
-// alignment of the reference's oracle attention_ref (for Sq = Sk, j <= i, as
-// the Pallas kernel masks it).
+// over the keys j < Sk that row i sees: query row i sits at key position
+// i + off, and sees key j when (!causal || j <= i + off) and (window == 0 ||
+// i + off - j < window). off = Sk - Sq is the bottom-right alignment of the
+// reference's oracle attention_ref (for Sq = Sk, j <= i, as the Pallas kernel
+// masks it); off = q_offset with a window is the sliding-window (local)
+// attention of repro/models/layers.py's chunked_attention (_attn_mask). Not
+// causal, a window hides only the keys too far back. Every row must see a key
+// (the entries refuse arguments under which one does not).
 //
 // What bounds it on an H100 SXM: operations. A causal pass does
 // 4 * B * Hq * D * (number of visible (i, j) pairs) flops, against bytes of
@@ -45,11 +50,12 @@
 //   * K and then V of a tile pass through one shared buffer; with the q
 //     tile and the probabilities that is 83 KB at D = 128, two blocks per SM
 //     (150 KB at D = 256: one).
-//   * Causal: KV tiles strictly above the block's last row's diagonal are not
-//     visited at all; the tiles that cross it and the ragged Sq and Sk edges
-//     are masked element by element, so every length works without padding.
-//     Blocks start with the heaviest query tiles (the last) to even out the
-//     causal load.
+//   * The KV loop runs only over the tiles some row of the block sees: from
+//     the tile of the first row's first key in its window to that of the
+//     last row's last key (causal). Keys outside the band and the ragged Sq
+//     and Sk edges are masked element by element, so every length works
+//     without padding. Blocks start with the heaviest query tiles (the last)
+//     to even out the causal load.
 //   * GQA: the block reads K/V head h / (Hq / Hkv) in place; no repeated
 //     copies of K and V are made.
 //
@@ -116,7 +122,8 @@ constexpr size_t smem_bytes() {
 template <int D, bool VEC>
 __global__ void __launch_bounds__(kThreads, D > 160 ? 1 : 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-             float* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, bool causal) {
+             float* __restrict__ o, int Hq, int Hkv, int Sq, int Sk, float scale, bool causal,
+             int off, int window) {
   constexpr int LD = D + 4;
   constexpr int CW = D % 16 == 0 ? 4 : 2;    // output columns a thread holds together
   constexpr int kCols = D / (CW * kParts);   // column groups of a thread
@@ -133,13 +140,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
   const int q0 = qb * kRows;
   const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
   const int qi = q0 + r;
-  const int off = Sk - Sq;                        // causal: row i sees keys j <= i + off
   const float* kbase = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
   const float* vbase = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
 
   load_tile<D, VEC>(Qs, q + static_cast<size_t>(bh) * Sq * D, q0, Sq);
-  int n_kv = (Sk + kRows - 1) / kRows;
-  if (causal) n_kv = min(n_kv, (min(q0 + kRows, Sq) - 1 + off) / kRows + 1);
+  // the KV tiles [t_lo, t_hi) that some row q0 .. of the block sees
+  const int key_hi = causal ? min(Sk, min(q0 + kRows, Sq) + off) : Sk;
+  const int key_lo = window > 0 ? max(0, q0 + off - window + 1) : 0;
+  const int t_lo = key_lo / kRows, t_hi = (key_hi + kRows - 1) / kRows;
 
   float m = kNegInf, l = 0.f;
   float acc[kCols][CW];
@@ -148,7 +156,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 #pragma unroll
     for (int e = 0; e < CW; ++e) acc[c][e] = 0.f;
 
-  for (int t = 0; t < n_kv; ++t) {
+  for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kRows;
     __syncthreads();                              // the last tile's P and V reads are done
     load_tile<D, VEC>(KVs, kbase, k0, Sk);
@@ -172,7 +180,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 #pragma unroll
     for (int i = 0; i < kKeys; ++i) {
       const int j = k0 + part + kParts * i;
-      const bool seen = j < Sk && (!causal || j <= qi + off);
+      const bool seen = j < Sk && (!causal || j <= qi + off) &&
+                        (window == 0 || qi + off - j < window);
       s[i] = seen ? s[i] * scale : kNegInf;
       tmax = fmaxf(tmax, s[i]);
     }
@@ -229,7 +238,8 @@ int current_device() {
 
 template <int D, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                   int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
+                   int Sq, int Sk, float scale, bool causal, int off, int window,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool opted_in[kMaxDevices] = {false};   // above 48 KB needs the opt-in, once per device
   const int dev = current_device();
@@ -243,42 +253,60 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(static_cast<unsigned>((Sq + kRows - 1) / kRows), static_cast<unsigned>(B * Hq));
   flash_kernel<D, VEC><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hkv, Sq, Sk, scale, causal);
+      static_cast<float*>(o), Hq, Hkv, Sq, Sk, scale, causal, off, window);
   return cudaGetLastError();
 }
 
 template <bool VEC>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                     int Hkv, int Sq, int Sk, float scale, bool causal, cudaStream_t stream) {
+                     int Hkv, int Sq, int Sk, float scale, bool causal, int off, int window,
+                     cudaStream_t stream) {
   switch (D) {
-    case 8: return launch<8, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 16: return launch<16, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 32: return launch<32, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 64: return launch<64, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 128: return launch<128, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 160: return launch<160, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
-    case 256: return launch<256, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, stream);
+    case 8: return launch<8, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
+    case 16: return launch<16, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
+    case 32: return launch<32, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
+    case 64: return launch<64, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
+    case 128: return launch<128, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
+    case 160: return launch<160, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
+    case 256: return launch<256, VEC>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal, off, window,
+                                     stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int causal) {
-  return B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-         static_cast<long long>(B) * Hq > 65535 || (causal && Sq > Sk);
+// Whether a row would see no key: causal, row 0 (at position off) before key
+// 0; with a window, the last row (at Sq - 1 + off) past key Sk - 1 by the
+// window or more. The rows between see keys if these two do.
+bool empty_rows(int Sq, int Sk, int causal, int off, int window) {
+  return (causal && off < 0) ||
+         (window > 0 && static_cast<long long>(Sq) - 1 + off - window >= Sk - 1);
+}
+
+bool bad_args(int B, int Hq, int Hkv, int Sq, int Sk, int causal, int off, int window) {
+  return B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 || window < 0 ||
+         static_cast<long long>(B) * Hq > 65535 || empty_rows(Sq, Sk, causal, off, window);
 }
 
 }  // namespace
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), o (B, Hq, Sq, D), contiguous and
 // 16-byte aligned; dtype 0 (float32, the only one); D in {8, 16, 32, 64,
-// 128, 160, 256}.
+// 128, 160, 256}; off the key position of query row 0 (Sk - Sq: bottom-right),
+// window the sliding window (0: none).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
-                                     float scale, int causal, void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, causal) || dtype != 0)
+                                     float scale, int causal, int off, int window,
+                                     void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, causal, off, window) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_d<true>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0,
-                                         static_cast<cudaStream_t>(stream)));
+                                         off, window, static_cast<cudaStream_t>(stream)));
 }
 
 // As repro_flash_attention with q, k, v at any address float32 allows (o
@@ -286,9 +314,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 extern "C" int repro_flash_attention_unaligned(const void* q, const void* k, const void* v,
                                                void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                                                int D, int dtype, float scale, int causal,
-                                               void* stream) {
-  if (bad_args(B, Hq, Hkv, Sq, Sk, causal) || dtype != 0)
+                                               int off, int window, void* stream) {
+  if (bad_args(B, Hq, Hkv, Sq, Sk, causal, off, window) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_d<false>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, causal != 0,
-                                          static_cast<cudaStream_t>(stream)));
+                                          off, window, static_cast<cudaStream_t>(stream)));
 }

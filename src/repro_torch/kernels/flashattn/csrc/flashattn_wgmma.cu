@@ -17,10 +17,17 @@
 //     o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, g, j]) v[b, g, j],
 //     g = h / (Hq / Hkv),
 //
-// over keys j < Sk, or, causal, j <= i + (Sk - Sq): the bottom-right
-// alignment of the reference's oracle attention_ref. As _flash_kernel does,
-// it keeps a running row max m, row sum l and a float32 accumulator, masks
-// scores with the finite -1e30 and returns acc / max(l, 1e-30) in q's dtype.
+// over the keys j < Sk that row i sees: query row i sits at key position
+// i + off, and sees key j when (!causal || j <= i + off) and (win == 0 ||
+// i + off - j < win). off = Sk - Sq is the bottom-right alignment of the
+// reference's oracle attention_ref; off = q_offset with a window win is the
+// sliding-window (local) attention of repro/models/layers.py's
+// chunked_attention (_attn_mask), which recurrentgemma-2b's prefill runs at
+// D = 256. Not causal, a window hides only the keys too far back. Every row
+// must see a key (the entries refuse arguments under which one does not). As
+// _flash_kernel does, it keeps a running row max m, row sum l and a float32
+// accumulator, masks scores with the finite -1e30 and returns
+// acc / max(l, 1e-30) in q's dtype.
 //
 // What bounds it on an H100 SXM: operations. A causal pass does
 // 4 * B * Hq * D * (number of visible (i, j) pairs) flops against the bytes
@@ -65,10 +72,15 @@
 //     (K-major), over D/16 k-steps of 16 columns (4 for D <= 64), an f32
 //     accumulator in registers. Lane l of warp w holds rows 16w + l/4 and
 //     +8, columns 8j + 2(l%4) + {0, 1}.
+//   * A block walks only the KV tiles some row of it sees: from the tile of
+//     its first row's first key in the window to that of its last row's last
+//     key (causal), so a window of W keys costs about W / S of a causal pass
+//     at S >> W. Producer and consumers count the same tiles.
 //   * Online softmax in f32 on the accumulator, in base 2 (scale * log2 e
 //     folded into the scores); a row's 4 lanes reduce its max with two
 //     shuffles; the row sum stays per lane until the epilogue. The causal
-//     mask and the ragged edges are applied only on tiles that cross them.
+//     mask, the window's lower edge and the ragged edges are applied only on
+//     tiles that cross them (a consumer warpgroup's 64 rows decide).
 //   * O += P V: P rounded to the input type in registers, where the score
 //     accumulator's layout is wgmma's A fragment; V from shared memory as an
 //     MN-major (transposed) B, m64n{DN}k16 with DN = D (64 for D <= 64): at
@@ -525,8 +537,8 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-__device__ __forceinline__ bool seen(int key, int row, int Sk, int off, int causal) {
-  return key < Sk && (!causal || key <= row + off);
+__device__ __forceinline__ bool seen(int key, int row, int Sk, int off, int causal, int win) {
+  return key < Sk && (!causal || key <= row + off) && (win == 0 || row + off - key < win);
 }
 
 __host__ __device__ constexpr int stored_width(int DN) {
@@ -541,7 +553,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v, const T* __restrict__ q,
                 const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o, int Hq,
-                int Hkv, int Sq, int Sk, int D, float scale_log2, int causal) {
+                int Hkv, int Sq, int Sk, int D, float scale_log2, int causal, int off, int win) {
   using L = Layout<stored_width(DN), kBlockN, kStages, raw_slot(kTma, kBlockN, DN)>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -557,9 +569,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qt = gridDim.y - 1 - blockIdx.y;        // heaviest causal tiles first
   const int q0 = qt * kBlockM;
   const int kv_plane = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int off = Sk - Sq;                          // causal: row i sees keys j <= i + off
-  int n_kv = (Sk + kBlockN - 1) / kBlockN;
-  if (causal) n_kv = min(n_kv, (min(q0 + kBlockM, Sq) - 1 + off) / kBlockN + 1);
+  // the KV tiles t_lo .. t_lo + n_kv - 1 that some row q0 .. of the block sees
+  const int key_hi = causal ? min(Sk, min(q0 + kBlockM, Sq) + off) : Sk;
+  const int t_lo = win > 0 ? max(0, q0 + off - win + 1) / kBlockN : 0;
+  const int n_kv = (key_hi + kBlockN - 1) / kBlockN - t_lo;
 
   if (threadIdx.x == 0) {
     const uint32_t arrivals = kTma ? 1 : kProducers;   // TMA: one arrival plus the bytes
@@ -587,9 +600,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
           mbar_expect_tx(full + s, 2 * L::kKVTile);
           for (int c = 0; c < L::kChunks; ++c) {
             tma_load(smem + L::kK + s * L::kKVTile + c * L::kKVChunk, &map_k, full + s,
-                     c * kAtom, t * kBlockN, kv_plane);
+                     c * kAtom, (t_lo + t) * kBlockN, kv_plane);
             tma_load(smem + L::kV + s * L::kKVTile + c * L::kKVChunk, &map_v, full + s,
-                     c * kAtom, t * kBlockN, kv_plane);
+                     c * kAtom, (t_lo + t) * kBlockN, kv_plane);
           }
         }
       }
@@ -608,27 +621,29 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_proxy_async();
       mbar_arrive(q_full);
       producers_sync();                             // the raw slots are read: reuse them
+      const int k_first = t_lo * kBlockN;
       if (lead) {
-        bulk_rows(raw_k_rows, k_plane, 0, min(kBlockN, Sk), D, raw_k);
-        bulk_rows(raw_v_rows, v_plane, 0, min(kBlockN, Sk), D, raw_v);
+        bulk_rows(raw_k_rows, k_plane, k_first, min(kBlockN, Sk - k_first), D, raw_k);
+        bulk_rows(raw_v_rows, v_plane, k_first, min(kBlockN, Sk - k_first), D, raw_v);
       }
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % kStages;
-        const int rows = min(kBlockN, Sk - t * kBlockN);
-        const int next = min(kBlockN, Sk - (t + 1) * kBlockN);   // rows of tile t + 1
+        const int k0 = k_first + t * kBlockN;
+        const int rows = min(kBlockN, Sk - k0);
+        const int next = t + 1 < n_kv ? min(kBlockN, Sk - k0 - kBlockN) : 0;   // of tile t + 1
         mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
         mbar_wait(raw_k, t & 1);
         shift_rows<kBlockN, L::kChunks>(smem + L::kK + s * L::kKVTile, raw_k_rows,
                                         misalignment(k_plane), rows, D);
         producers_sync();
-        if (lead && next > 0) bulk_rows(raw_k_rows, k_plane, (t + 1) * kBlockN, next, D, raw_k);
+        if (lead && next > 0) bulk_rows(raw_k_rows, k_plane, k0 + kBlockN, next, D, raw_k);
         mbar_wait(raw_v, t & 1);
         shift_rows<kBlockN, L::kChunks>(smem + L::kV + s * L::kKVTile, raw_v_rows,
                                         misalignment(v_plane), rows, D);
         fence_proxy_async();
         mbar_arrive(full + s);
         producers_sync();
-        if (lead && next > 0) bulk_rows(raw_v_rows, v_plane, (t + 1) * kBlockN, next, D, raw_v);
+        if (lead && next > 0) bulk_rows(raw_v_rows, v_plane, k0 + kBlockN, next, D, raw_v);
       }
     }
     return;
@@ -668,15 +683,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) sc[i] *= scale_log2;
-    const int k0 = t * kBlockN;
-    if (k0 + kBlockN > Sk || (causal && k0 + kBlockN - 1 > row_first + off)) {
+    const int k0 = (t_lo + t) * kBlockN;
+    if (k0 + kBlockN > Sk || (causal && k0 + kBlockN - 1 > row_first + off) ||
+        (win > 0 && k0 <= row_first + 63 + off - win)) {
 #pragma unroll
       for (int j = 0; j < kBlockN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + 8 * j + col + e;
-          if (!seen(key, r0, Sk, off, causal)) sc[4 * j + e] = kNegInf;
-          if (!seen(key, r0 + 8, Sk, off, causal)) sc[4 * j + 2 + e] = kNegInf;
+          if (!seen(key, r0, Sk, off, causal, win)) sc[4 * j + e] = kNegInf;
+          if (!seen(key, r0 + 8, Sk, off, causal, win)) sc[4 * j + 2 + e] = kNegInf;
         }
       }
     }
@@ -793,7 +809,8 @@ int current_device() {
 
 template <typename T, int DN, int kBlockN, int kStages, bool kTma>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                   int Sq, int Sk, int D, float scale, bool causal, cudaStream_t stream) {
+                   int Sq, int Sk, int D, float scale, bool causal, int off, int win,
+                   cudaStream_t stream) {
   constexpr int smem =
       Layout<stored_width(DN), kBlockN, kStages, raw_slot(kTma, kBlockN, DN)>::kBytes;
   const auto kernel = flash_tc_kernel<T, DN, kBlockN, kStages, kTma>;
@@ -827,7 +844,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, D, scale * kLog2e,
-      causal ? 1 : 0);
+      causal ? 1 : 0, off, win);
   return cudaGetLastError();
 }
 
@@ -837,39 +854,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // and D = 256 one stage.
 template <typename T, bool kTma>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-                     int Sq, int Sk, int D, float scale, bool causal, cudaStream_t stream) {
+                     int Sq, int Sk, int D, float scale, bool causal, int off, int win,
+                     cudaStream_t stream) {
   switch (D) {
     case 8:
     case 16:
     case 32:
     case 64:
-      return launch<T, 64, 128, 2, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, causal, stream);
+      return launch<T, 64, 128, 2, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, causal, off,
+                                         win, stream);
     case 128:
-      return launch<T, 128, 128, 2, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, causal,
-                                          stream);
+      return launch<T, 128, 128, 2, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, causal, off,
+                                          win, stream);
     case 160:
       return launch<T, 160, kTma ? 96 : 64, 2, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale,
-                                                     causal, stream);
+                                                     causal, off, win, stream);
     case 256:
       return launch<T, 256, 64, kTma ? 2 : 1, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale,
-                                                    causal, stream);
+                                                    causal, off, win, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Whether a row would see no key: causal, row 0 (at position off) before key
+// 0; with a window, the last row (at Sq - 1 + off) past key Sk - 1 by the
+// window or more. The rows between see keys if these two do.
+bool empty_rows(int Sq, int Sk, int causal, int off, int win) {
+  return (causal && off < 0) ||
+         (win > 0 && static_cast<long long>(Sq) - 1 + off - win >= Sk - 1);
+}
+
 template <bool kTma>
 int entry(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv, int Sq,
-          int Sk, int D, int dtype, float scale, int causal, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      (Sq + kBlockM - 1) / kBlockM > 65535 || (causal && Sq > Sk))
+          int Sk, int D, int dtype, float scale, int causal, int off, int win, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 || win < 0 ||
+      (Sq + kBlockM - 1) / kBlockM > 65535 || empty_rows(Sq, Sk, causal, off, win))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return static_cast<int>(
-        launch_d<__nv_bfloat16, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, causal != 0, s));
+    return static_cast<int>(launch_d<__nv_bfloat16, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D,
+                                                          scale, causal != 0, off, win, s));
   if (dtype == 2)
-    return static_cast<int>(
-        launch_d<__half, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, causal != 0, s));
+    return static_cast<int>(launch_d<__half, kTma>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale,
+                                                   causal != 0, off, win, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -877,11 +904,13 @@ int entry(const void* q, const void* k, const void* v, void* o, int B, int Hq, i
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), o (B, Hq, Sq, D), contiguous;
 // q, k and v 16-byte aligned; dtype 1 for bfloat16, 2 for float16; D in
-// {8, 16, 32, 64, 128, 160, 256}.
+// {8, 16, 32, 64, 128, 160, 256}; off the key position of query row 0
+// (Sk - Sq: bottom-right), win the sliding window (0: none).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                                         int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
-                                        float scale, int causal, void* stream) {
-  return entry<true>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, stream);
+                                        float scale, int causal, int off, int win,
+                                        void* stream) {
+  return entry<true>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, off, win, stream);
 }
 
 // As repro_flash_attention_tc, with q, k and v at any address their type
@@ -889,6 +918,6 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
 extern "C" int repro_flash_attention_tc_unaligned(const void* q, const void* k, const void* v,
                                                   void* o, int B, int Hq, int Hkv, int Sq, int Sk,
                                                   int D, int dtype, float scale, int causal,
-                                                  void* stream) {
-  return entry<false>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, stream);
+                                                  int off, int win, void* stream) {
+  return entry<false>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, off, win, stream);
 }

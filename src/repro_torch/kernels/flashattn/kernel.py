@@ -3,8 +3,11 @@
 All four replace ``repro/kernels/flashattn/kernel.py::flash_attention_pallas``:
 online-softmax attention over (B, Hq, Sq, D) queries and (B, Hkv, Sk, D)
 keys and values in one launch, reading K/V head ``h // (Hq // Hkv)`` in place
-(no repeated copies), causal with the bottom-right alignment of
-``attention_ref``, and every Sq and Sk (the ragged edges are masked).
+(no repeated copies), causal or not, with query row 0 at key position ``off``
+(``Sk - Sq`` by default: the bottom-right alignment of ``attention_ref``) and
+an optional sliding ``window`` (the reference's local attention), at every
+Sq and Sk (the ragged edges are masked). Arguments under which a row would
+see no key are refused (:func:`empty_rows`).
 
 * ``FLASH`` (``csrc/flashattn.cu``, ``repro_flash_attention``): float32, on
   the CUDA cores, the products in full float32.
@@ -25,12 +28,13 @@ Every kernel takes every head dim of the reference's model configs
 ``build/repro_torch/`` on first use (:mod:`repro_torch.kernels.cudalib`).
 There is no fallback: a CUDA tensor that reaches a wrapper launches its
 kernel or raises. ``launches`` counts each kernel's launches;
-``launches_by_shape`` splits them by (B, Hq, Hkv, Sq, Sk, D).
+``launches_by_shape`` splits them by (B, Hq, Hkv, Sq, Sk, D, off, window).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -43,12 +47,22 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)     # every head dim in src/repro/con
 DTYPES = {torch.float32: 0}                            # FLASH, FLASH_UNALIGNED
 TC_DTYPES = {torch.bfloat16: 1, torch.float16: 2}      # FLASH_TC, FLASH_TC_UNALIGNED
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, stream
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+# q, k, v, o, B, Hq, Hkv, Sq, Sk, D, dtype, scale, causal, off, window, stream
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 LIBRARY = CudaLibrary(SOURCE, {"repro_flash_attention": _ARGS,
                                "repro_flash_attention_unaligned": _ARGS})
 TC_LIBRARY = CudaLibrary(TC_SOURCE, {"repro_flash_attention_tc": _ARGS,
                                      "repro_flash_attention_tc_unaligned": _ARGS})
+
+
+def empty_rows(sq: int, sk: int, causal: bool, off: int, window: int) -> bool:
+    """Whether some query row would see no key, query row i sitting at key
+    position i + off and seeing key j < Sk when j <= i + off (causal) and
+    i + off - j < window (window > 0): causal, row 0 before key 0; with a
+    window, the last row at least a window past key Sk - 1. The kernels
+    refuse such arguments (the reference fills such a row with -1e30 and
+    returns the mean of v)."""
+    return (causal and off < 0) or (window > 0 and sq - 1 + off - window >= sk - 1)
 
 
 def aligned(*tensors: torch.Tensor) -> bool:
@@ -69,11 +83,12 @@ class FlashAttentionKernel(CudaKernel):
         self.needs_alignment = needs_alignment
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                 scale: float) -> torch.Tensor:
+                 scale: float, off: Optional[int] = None, window: int = 0) -> torch.Tensor:
         """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), one dtype of
         ``self.dtypes``, CUDA and contiguous (and 16-byte aligned where
-        ``self.needs_alignment``), D in ``self.head_dims``; returns (B, Hq,
-        Sq, D) in q's dtype."""
+        ``self.needs_alignment``), D in ``self.head_dims``; query row 0 at
+        key position ``off`` (default Sk - Sq), a sliding ``window`` of keys
+        (0: none); returns (B, Hq, Sq, D) in q's dtype."""
         if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
             raise ValueError(f"{self.entry}: q must be (B, Hq, Sq, D) and k, v "
                              f"(B, Hkv, Sk, D), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -99,16 +114,19 @@ class FlashAttentionKernel(CudaKernel):
                                  "FLASH_UNALIGNED or FLASH_TC_UNALIGNED")
         if hq % hkv:
             raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
-        if causal and sq > sk:
-            raise ValueError(f"causal attention needs Sq <= Sk, got Sq={sq} > Sk={sk}")
-        if b * hq > 65535 or max(sq, sk) >= 2**31:
+        off = sk - sq if off is None else int(off)
+        window = int(window or 0)
+        if window < 0 or empty_rows(sq, sk, causal, off, window):
+            raise ValueError(f"{self.entry}: some query row sees no key (Sq={sq}, Sk={sk}, "
+                             f"causal={causal}, off={off}, window={window})")
+        if abs(off) >= 2**31 or b * hq > 65535 or max(sq, sk) >= 2**31:
             raise ValueError(f"{self.entry}: B·Hq = {b * hq} or S exceeds the grid")
         out = torch.empty_like(q)
         if out.numel() == 0:
             return out
-        self.launch(q.device, (b, hq, hkv, sq, sk, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        self.launch(q.device, (b, hq, hkv, sq, sk, d, off, window), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), b, hq, hkv, sq, sk, d, self.dtypes[q.dtype], float(scale),
-                    int(bool(causal)), out=out)
+                    int(bool(causal)), off, window, out=out)
         return out
 
 

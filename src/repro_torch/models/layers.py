@@ -13,10 +13,11 @@ draws from :mod:`repro_torch.random` (the reference's threefry), on the
   the reference's own computation.
 * :func:`chunked_attention` → :func:`attention_kernel`, the
   ``flash_attention`` kernel (bf16 on the tensor cores, f32 on the CUDA
-  cores), for non-causal attention and causal attention with Sq = Sk. With
-  a gradient (training) it is :class:`KernelAttention`: that kernel forward
-  and the reference's flash-style backward as a fixed plain route
-  (:func:`attention_backward_plain`, counted in ``ATTENTION_BACKWARD``).
+  cores), causal or not, with the reference's ``window`` and ``q_offset``.
+  With a gradient (training) it is :class:`KernelAttention`: that kernel
+  forward and the reference's flash-style backward as a fixed plain route
+  (:func:`attention_backward_plain`, counted in ``ATTENTION_BACKWARD``),
+  which takes no window and no offset yet.
 * :func:`decode_attention`, the KV-cache quantization, norms, RoPE and the
   MLP activations are plain PyTorch on both devices, as they are einsums and
   elementwise ops in the reference.
@@ -192,10 +193,12 @@ def chunked_attention_plain(q, k, v, *, causal: bool, chunk: int = 1024,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def attention_kernel(q, k, v, causal: bool) -> torch.Tensor:
+def attention_kernel(q, k, v, causal: bool, window: Optional[int] = None,
+                     q_offset: int = 0) -> torch.Tensor:
     """The card's route of :func:`chunked_attention`: the ``flash_attention``
-    kernel, scale 1/√D, output in q's dtype."""
-    return flash_attention(q, k, v, causal=causal)
+    kernel, scale 1/√D, query i at key position q_offset + i, output in q's
+    dtype."""
+    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 class RouteCounter:
@@ -239,8 +242,8 @@ def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1
     dk += dsᵀ·q. K/V are repeated over each GQA group, as the reference
     repeats them before the core, and their gradients summed back over it.
     Batch rows go in groups so that one score block stays near 256 MB.
-    Query i sits at position i: the card's forward takes no window and no
-    offset."""
+    Query i sits at position i, no window: :func:`chunked_attention` takes
+    this route only then."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -320,28 +323,24 @@ def chunked_attention(
     """Attention with the reference's semantics: query i (at position
     q_offset + i) sees key j when j <= q_offset + i (causal) and
     q_offset + i - j < window. On CUDA tensors it launches the flash
-    attention kernel (:func:`attention_kernel`), which takes non-causal
-    attention and causal attention with Sq = Sk at offset 0; a window or
-    another causal alignment raises. Where q, k or v require a gradient it
-    runs :class:`KernelAttention` (the kernel forward, the plain backward).
+    attention kernel (:func:`attention_kernel`) with that window and offset;
+    arguments under which a query row would see no key raise. Where q, k or
+    v require a gradient it runs :class:`KernelAttention` (the kernel
+    forward, the plain backward), which takes no window and no offset yet.
     On the CPU it runs :func:`chunked_attention_plain`, and autograd
     differentiates that."""
     if not q.is_cuda:
         return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk, window=window,
                                        q_offset=q_offset)
-    if window is not None:
-        raise NotImplementedError(
-            "windowed (local) attention has no kernel on the card yet: flash_attention "
-            "takes no window; the hybrid family's slice (recurrentgemma-2b, ROADMAP.md §1 "
-            "item 8) ports it")
-    if causal and (q.shape[2] != k.shape[2] or q_offset):
-        raise NotImplementedError(
-            f"causal attention on the card takes Sq = Sk at offset 0 (the reference aligns "
-            f"query i to key q_offset + i); got Sq={q.shape[2]}, Sk={k.shape[2]}, "
-            f"q_offset={q_offset}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if window is not None or q_offset:
+            raise NotImplementedError(
+                f"attention with a gradient on the card takes no window and no q_offset "
+                f"(got window={window}, q_offset={q_offset}): attention_backward_plain has "
+                f"neither; hybrid training (the RG-LRU's and the windowed attention's "
+                f"backward) is a later slice, ROADMAP.md §1")
         return KernelAttention.apply(q, k, v, causal, chunk)
-    return attention_kernel(q, k, v, causal)
+    return attention_kernel(q, k, v, causal, window, q_offset)
 
 
 def decode_attention(

@@ -1,6 +1,9 @@
-"""Model assembly (port of ``repro.models.model``), the dense family: decoder
-LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV bias, RMSNorm or
-LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP).
+"""Model assembly (port of ``repro.models.model``), the dense and hybrid
+families: decoder LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV bias,
+RMSNorm or LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP) and
+RecurrentGemma's hybrid of "rec" blocks (the RG-LRU, :mod:`.rglru`) and
+local-attention "attn" blocks (a sliding window of ``cfg.local_window`` keys,
+cached in a ring of that many slots).
 
 The parameter tree is the reference's: nested dicts of tensors, layers
 stacked by period slot as ``(L, ...)`` under ``params["slots"]["slot<j>"]``
@@ -18,10 +21,11 @@ Three execution paths share the block code:
   * :func:`decode_step` — one token against the cache (the bandwidth-bound
     loop the paper's technique speeds up with weight/KV quantization).
 
-The other families (moe, ssm, hybrid, encdec, vlm) raise
-``NotImplementedError`` naming the later slice that ports them; so do the
-cross-attention, recurrent and SSM blocks. The reference's SPMD hooks
-(``constrain``, ``constrain_kv``) have no counterpart on one GPU.
+The other families (moe, ssm, encdec, vlm) raise ``NotImplementedError``
+naming the later slice that ports them; so do the cross-attention and SSM
+blocks, and :func:`loss_fn` for the hybrid family (its training is a later
+slice). The reference's SPMD hooks (``constrain``, ``constrain_kv``) have no
+counterpart on one GPU.
 """
 from __future__ import annotations
 
@@ -53,24 +57,34 @@ from repro_torch.models.layers import (
     window_valid_length,
 )
 from repro_torch.models.quantized import QWeight, materialize
+from repro_torch.models.rglru import (
+    RGLRUState,
+    init_rglru_state,
+    rglru_apply,
+    rglru_decode_step,
+    rglru_init,
+    rglru_sequence,
+)
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.tree import tree_leaves
 
-# The slice of ROADMAP.md §1 item 8 that ports each family this one does not.
+# The slice of ROADMAP.md §1 that ports each family this one does not.
 _LATER = {
     "ssm": "mamba2-370m, models/ssm.py",
-    "hybrid": "recurrentgemma-2b: the RG-LRU and windowed attention",
     "encdec": "whisper-tiny: the encoder, encode and cross-attention",
     "vlm": "llama-3.2-vision-11b: the cross-attention image layers",
     "moe": "qwen3-moe-30b, models/moe.py",
 }
 
 
-def _require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+_PORTED = ("dense", "hybrid")
+
+
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{what}: the {cfg.family} family ({cfg.name}) is not ported yet; "
-            f"ROADMAP.md §1 item 8 queues it ({_LATER.get(cfg.family, cfg.family)})")
+            f"ROADMAP.md §1 queues it ({_LATER.get(cfg.family, cfg.family)})")
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +106,7 @@ def _attn_init(key, cfg: ModelConfig, device=None):
 def _ffn_init(key, cfg: ModelConfig, device=None):
     if cfg.n_experts:
         raise NotImplementedError(f"mixture-of-experts FFN ({cfg.name}): ROADMAP.md §1 "
-                                  f"item 8 queues it ({_LATER['moe']})")
+                                  f"queues it ({_LATER['moe']})")
     return mlp_init(key, cfg.d_model, cfg.d_ff, cfg.mlp_type, device=device)
 
 
@@ -100,10 +114,13 @@ def _block_init(key, cfg: ModelConfig, kind: str, device=None):
     ks = prng.split(key, 6)
     d = cfg.d_model
     p: dict[str, Any] = {"ln1": norm_init(d, cfg.norm_type, device)}
-    if kind != "attn":
+    if kind == "attn":
+        p["attn"] = _attn_init(ks[0], cfg, device)
+    elif kind == "rec":
+        p["rec"] = rglru_init(ks[0], d, cfg.rnn_width_, cfg.ssm_conv, device)
+    else:
         raise NotImplementedError(f"{kind!r} blocks ({cfg.name}) are not ported yet; "
-                                  f"ROADMAP.md §1 item 8 queues them")
-    p["attn"] = _attn_init(ks[0], cfg, device)
+                                  f"ROADMAP.md §1 queues them")
     p["ln2"] = norm_init(d, cfg.norm_type, device)
     p["ffn"] = _ffn_init(ks[1], cfg, device)
     return p
@@ -151,7 +168,7 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
     the values are the reference's to within its erfinv rounding (~1e-6).
     A stacked slot is drawn layer by layer from ``split(fold_in(keys[2], j),
     n_full)``, as the reference's ``vmap`` draws it."""
-    _require_dense(cfg, "init_params")
+    _require_ported(cfg, "init_params")
     device = resolve_device(device)
     slots, n_full, tail = _period_info(cfg)
     keys = prng.split(key, 8)
@@ -221,13 +238,20 @@ def _ffn_apply(p, x, cfg: ModelConfig):
     return mlp_apply(p, x, cfg.mlp_type), {}
 
 
+def _require_block(kind: str) -> None:
+    if kind not in ("attn", "rec"):
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1)")
+
+
 def apply_block_fwd(kind: str, p, x, ctx: Ctx):
     """Full-sequence forward. Returns (x, aux)."""
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1 item 8)")
+    _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + _self_attention(p["attn"], h, ctx)
+    if kind == "attn":
+        x = x + _self_attention(p["attn"], h, ctx)
+    else:
+        x = x + rglru_apply(p["rec"], h, cfg.rnn_width_)
     h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
     y, aux = _ffn_apply(p["ffn"], h2, cfg)
     return x + y, aux
@@ -235,20 +259,40 @@ def apply_block_fwd(kind: str, p, x, ctx: Ctx):
 
 def _empty_cache_entry(kind: str, cfg: ModelConfig, b: int, cache_len: int, dtype,
                        kv_bits, device):
+    if kind == "rec":
+        return init_rglru_state(b, cfg.rnn_width_, cfg.ssm_conv, device)
     if kind != "attn":
-        raise NotImplementedError(f"{kind!r} caches are not ported yet (ROADMAP.md §1 item 8)")
+        raise NotImplementedError(f"{kind!r} caches are not ported yet (ROADMAP.md §1)")
     if cfg.family == "hybrid" and cfg.local_window:
         cache_len = min(cache_len, cfg.local_window)
     return init_kv_cache(b, cfg.padded_kv_heads, cache_len, cfg.head_dim_, dtype, kv_bits,
                          device)
 
 
-def apply_block_prefill(kind: str, p, x, cache_entry: KVCache, ctx: Ctx):
-    """Forward + cache fill. Returns (x, cache_entry)."""
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1 item 8)")
+def _rec_ffn(p, x, y, cfg):
+    """The rest of a "rec" block after the RG-LRU's output y."""
+    x = x + y
+    h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    yf, _ = _ffn_apply(p["ffn"], h2, cfg)
+    return x + yf
+
+
+def _rglru_prefill(p, u, cfg, state: RGLRUState):
+    """The RG-LRU over the prompt from the state's conv (h from 0, as the
+    reference's ``_rglru_prefill``), and the state after its last token."""
+    y, conv_new, h_last = rglru_sequence(p, u, state.conv)
+    return y, RGLRUState(conv=conv_new, h=h_last)
+
+
+def apply_block_prefill(kind: str, p, x, cache_entry, ctx: Ctx):
+    """Forward + cache fill. Returns (x, cache_entry): a KVCache for
+    "attn", the RGLRUState after the prompt for "rec"."""
+    _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    if kind == "rec":
+        y, new_state = _rglru_prefill(p["rec"], h, cfg, cache_entry)
+        return _rec_ffn(p, x, y, cfg), new_state
     q, k, v = _qkv(p["attn"], h, cfg, ctx.positions, cfg.padded_heads)
     out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk, window=ctx.window)
     b, hh, s, hd = out.shape
@@ -262,12 +306,14 @@ def apply_block_prefill(kind: str, p, x, cache_entry: KVCache, ctx: Ctx):
     return x + y, cache_entry
 
 
-def apply_block_decode(kind: str, p, x, cache_entry: KVCache, ctx: Ctx):
+def apply_block_decode(kind: str, p, x, cache_entry, ctx: Ctx):
     """One-token step against the cache. x: (B, 1, d)."""
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1 item 8)")
+    _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    if kind == "rec":
+        y, new_state = rglru_decode_step(p["rec"], h, cache_entry, cfg.rnn_width_)
+        return _rec_ffn(p, x, y, cfg), new_state
     q, k_new, v_new = _qkv(p["attn"], h, cfg, ctx.positions, cfg.padded_heads)
     if ctx.window is not None:
         entry = cache_update_window(cache_entry, k_new, v_new, ctx.window, ctx.policy.kv_bits)
@@ -294,6 +340,8 @@ def _at_layer(tree, i: int):
         return {k: _at_layer(v, i) for k, v in tree.items()}
     if isinstance(tree, KVCache):
         return KVCache(*(None if a is None else a[i] for a in tree[:4]), length=tree.length)
+    if isinstance(tree, RGLRUState):
+        return RGLRUState(tree.conv[i], tree.h[i])
     return tree[i]
 
 
@@ -345,20 +393,36 @@ def _run_forward(cfg, params, x, ctx):
     return x
 
 
+def _write_state(stacked: RGLRUState, i: int, new: RGLRUState) -> RGLRUState:
+    """Layer i's new recurrent state into the stacked slot, in place. The
+    conv state takes the activations' dtype, as the reference's prefill
+    leaves it: a slot of another dtype (float32 from init_cache) is replaced
+    once by one of that dtype."""
+    if stacked.conv.dtype != new.conv.dtype:
+        stacked = stacked._replace(conv=torch.empty(stacked.conv.shape, dtype=new.conv.dtype,
+                                                    device=stacked.conv.device))
+    stacked.conv[i] = new.conv
+    stacked.h[i] = new.h
+    return stacked
+
+
 def _run_stack(cfg, params, x, cache, block, ctx):
-    """Every layer in order with its cache entry (prefill, decode). Returns
-    (x, new cache)."""
+    """Every layer in order with its cache entry (prefill, decode). A slot's
+    KV caches are written in place and its host length updated; a slot's
+    recurrent states are written into it layer by layer (:func:`_write_state`).
+    Returns (x, new cache)."""
     slots, n_full, tail = _period_info(cfg)
-    lengths = {}
+    new_slots = dict(cache["slots"])
     for i in range(n_full):
         for j, kind in enumerate(slots):
             name = f"slot{j}"
             x, entry = block(kind, _at_layer(params["slots"][name], i), x,
                              _at_layer(cache["slots"][name], i), ctx)
-            lengths[name] = entry.length
-    new_cache = {"slots": {name: c._replace(length=lengths.get(name, c.length))
-                           for name, c in cache["slots"].items()},
-                 "tail": []}
+            if isinstance(entry, RGLRUState):
+                new_slots[name] = _write_state(new_slots[name], i, entry)
+            else:
+                new_slots[name] = new_slots[name]._replace(length=entry.length)
+    new_cache = {"slots": new_slots, "tail": []}
     for i, kind in enumerate(tail):
         x, c = block(kind, params["tail"][i], x, cache["tail"][i], ctx)
         new_cache["tail"].append(c)
@@ -380,6 +444,11 @@ def _unembed(cfg, params, x):
     return x @ wt
 
 
+def _window(cfg) -> Optional[int]:
+    """The local attention window: the hybrid family's, else none."""
+    return cfg.local_window if cfg.family == "hybrid" else None
+
+
 def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
     return torch.arange(start, start + s, dtype=torch.int32, device=device).expand(b, s)
 
@@ -387,12 +456,14 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             policy: QuantPolicy = QuantPolicy(), memory: Optional[torch.Tensor] = None):
     """Teacher-forced logits (B, S, V) in the config's dtype, and the aux dict
-    (``moe_load_loss``, 0 for the dense family)."""
-    _require_dense(cfg, "forward")
+    (``moe_load_loss``, 0 for the dense and hybrid families). The hybrid
+    family's attention is local, a window of ``cfg.local_window`` keys, as
+    in prefill and decode."""
+    _require_ported(cfg, "forward")
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
     ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
-              memory=memory, causal=True, window=None)
+              memory=memory, causal=True, window=_window(cfg))
     x = _run_forward(cfg, params, x, ctx)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     return _unembed(cfg, params, x), {
@@ -403,7 +474,12 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()
     """Mean next-token cross entropy over a float32 log-softmax; labels < 0
     are padding. batch: ``tokens`` and ``labels`` (B, S), optional
     ``memory`` (the encdec and vlm families, not ported). Differentiable in
-    the parameters: call it with leaves that require a gradient."""
+    the parameters: call it with leaves that require a gradient. The hybrid
+    family raises: its training is a later slice."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"loss_fn: the hybrid family ({cfg.name}) serves but does not train yet: ROADMAP.md "
+            f"§1 queues hybrid training (the RG-LRU's and the windowed attention's backward)")
     logits, aux = forward(cfg, params, batch["tokens"], policy=policy,
                           memory=batch.get("memory"))
     labels = batch["labels"]
@@ -420,9 +496,11 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()
 def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = QuantPolicy(),
                mem_len: int = 0, device=None):
     """Stacked cache matching the slot structure, on ``device`` (default
-    ``cuda``): each slot's KVCache holds (n_full, B, Hkv, S, D) tensors and
-    one host length."""
-    _require_dense(cfg, "init_cache")
+    ``cuda``): each attention slot's KVCache holds (n_full, B, Hkv, S, D)
+    tensors and one host length (S at most ``cfg.local_window`` for the
+    hybrid family), each recurrent slot's RGLRUState (n_full, B, d_conv − 1,
+    W) conv and (n_full, B, W) h, float32 until a prefill."""
+    _require_ported(cfg, "init_cache")
     del mem_len   # encoder memory: the encdec/vlm slices
     device = resolve_device(device)
     slots, n_full, tail = _period_info(cfg)
@@ -430,6 +508,8 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = Q
 
     def stacked(kind):
         one = _empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device)
+        if isinstance(one, RGLRUState):
+            return RGLRUState(*(a.expand((n_full,) + a.shape).clone() for a in one))
         return KVCache(*(None if a is None else a.expand((n_full,) + a.shape).clone()
                          for a in one[:4]), length=0)
 
@@ -444,12 +524,11 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
             policy: QuantPolicy = QuantPolicy(), memory=None):
     """Run the prompt, fill the cache (in place). Returns (last-position
     logits (B, V), cache)."""
-    _require_dense(cfg, "prefill")
+    _require_ported(cfg, "prefill")
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
-    window = cfg.local_window if cfg.family == "hybrid" else None
     ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
-              memory=memory, causal=True, window=window)
+              memory=memory, causal=True, window=_window(cfg))
     x, new_cache = _run_stack(cfg, params, x, cache, apply_block_prefill, ctx)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = _unembed(cfg, params, x[:, -1:, :])
@@ -460,13 +539,12 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
                 policy: QuantPolicy = QuantPolicy(), position=None):
     """One serving step. token: (B,) integer → logits (B, V), updated cache
     (in place). ``position`` defaults to the cache's length."""
-    _require_dense(cfg, "decode_step")
+    _require_ported(cfg, "decode_step")
     b = token.shape[0]
     x = _embed(cfg, params, token[:, None], torch_dtype(cfg.dtype))
     position = _cache_length(cfg, cache) if position is None else int(position)
-    window = cfg.local_window if cfg.family == "hybrid" else None
     ctx = Ctx(cfg=cfg, positions=_positions(b, 1, position, token.device), policy=policy,
-              causal=True, window=window)
+              causal=True, window=_window(cfg))
     x, new_cache = _run_stack(cfg, params, x, cache, apply_block_decode, ctx)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     logits = _unembed(cfg, params, x)
@@ -474,7 +552,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
 
 
 def _cache_length(cfg, cache) -> int:
-    """Current length from the first attention cache (a host integer)."""
+    """Current length from the first attention cache (a host integer); the
+    hybrid family's recurrent slots hold none."""
     for v in cache["slots"].values():
         if isinstance(v, KVCache):
             return v.length

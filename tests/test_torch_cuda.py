@@ -627,12 +627,15 @@ def test_flash_attention_tc_refuses_a_misaligned_view(cuda, which):
                    2e-2)
 
 
-def _flash_held_on(kernel, q, k, v, causal, tol):
+def _flash_held_on(kernel, q, k, v, causal, tol, window=None, q_offset=None):
     """flash_attention launched once on ``kernel`` and held to the plain
-    version: |Δ| ≤ tol (abs and rel), and 16-bit rows ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂."""
-    out = _launched_once(kernel, lambda: flash_attention(q, k, v, causal=causal))
+    version (with the same window and query offset): |Δ| ≤ tol (abs and
+    rel), and 16-bit rows ‖Δ‖₂ ≤ 2⁻⁷·‖ref‖₂."""
+    out = _launched_once(kernel, lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                                         q_offset=q_offset))
     assert out.dtype == q.dtype and out.shape == q.shape
-    ref = attention_plain(q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
+    ref = attention_plain(q, k, v, causal=causal, scale=1.0 / math.sqrt(q.shape[-1]),
+                          window=window, q_offset=q_offset)
     err = (out.float() - ref.float()).abs()
     assert bool((err <= tol + tol * ref.float().abs()).all()), float(err.max())
     if q.dtype != torch.float32:
@@ -693,6 +696,33 @@ def test_flash_attention_tc_views_one_element_in(cuda, dtype, d, causal, views):
     inputs = {n: (_flash_view(t, 1) if n in views else t) for n, t in zip("qkv", (q, k, v))}
     _flash_held_on(fa_kernel.FLASH_TC_UNALIGNED, inputs["q"], inputs["k"], inputs["v"],
                    causal, 2e-2)
+
+
+# (causal, Sq, Sk, window, q_offset): a sliding window and a query offset
+FLASH_BANDS = [(True, 333, 333, 64, None), (False, 200, 333, 50, None),
+               (True, 200, 333, None, 133), (True, 200, 333, None, 0),
+               (True, 200, 333, 100, 40), (True, 700, 700, 129, 0)]
+# (route, dtype, elements the views start into their storage)
+FLASH_ROUTES = [("FLASH", torch.float32, 0), ("FLASH_UNALIGNED", torch.float32, 1),
+                ("FLASH_TC", torch.bfloat16, 0), ("FLASH_TC", torch.float16, 0),
+                ("FLASH_TC_UNALIGNED", torch.bfloat16, 1)]
+
+
+@pytest.mark.parametrize("route,dtype,offset", FLASH_ROUTES)
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("band", FLASH_BANDS)
+def test_flash_attention_window_and_offset_on_every_route(cuda, route, dtype, offset, d, band):
+    """Each of the four routes with a window (causal or not; 700 rows at a
+    window of 129 skip whole KV tiles below the band) and with query row 0
+    at key q_offset, held to the plain version under its route's rules."""
+    causal, sq, sk, window, q_offset = band
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d + offset)
+    q = torch.randn(2, 4, sq, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, 2, sk, d, generator=gen, device=cuda).to(dtype) for _ in "kv")
+    if offset:
+        q, k, v = (_flash_view(t, offset) for t in (q, k, v))
+    _flash_held_on(getattr(fa_kernel, route), q, k, v, causal,
+                   2e-4 if dtype == torch.float32 else 2e-2, window, q_offset)
 
 
 @pytest.mark.parametrize("which", ["sqround", "flash_attention", "flash_attention_tc"])
@@ -1029,8 +1059,9 @@ def test_qweight_product_on_qmm_matches_materialize(cuda, shape):
 @pytest.mark.parametrize("causal,sq,sk", [(True, 300, 300), (False, 40, 300)])
 def test_chunked_attention_on_flash(cuda, dtype, tol, causal, sq, sk):
     """chunked_attention launches one flash kernel (FLASH_TC for bf16, FLASH
-    for f32) and agrees with its plain version; a window, or causal Sq ≠ Sk,
-    raises on the card."""
+    for f32) and agrees with its plain version, also with a window and, for
+    causal Sq ≠ Sk, with query i at key q_offset + i; with a gradient, a
+    window still raises."""
     from repro_torch.models import layers as lm_layers
 
     gen = torch.Generator(device=cuda).manual_seed(sq + sk)
@@ -1042,11 +1073,15 @@ def test_chunked_attention_on_flash(cuda, dtype, tol, causal, sq, sk):
     assert kernel.launches == before + 1 and out.dtype == dtype
     ref = lm_layers.chunked_attention_plain(q, k, v, causal=causal, chunk=128)
     assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-    with pytest.raises(NotImplementedError, match="window"):
-        lm_layers.chunked_attention(q[:, :, :sk], k, v, causal=True, window=64)
-    if causal:
-        with pytest.raises(NotImplementedError, match="Sq = Sk"):
-            lm_layers.chunked_attention(q[:, :, :10], k, v, causal=True)
+    for qq, kw in ((q[:, :, :sk], dict(window=64)), (q[:, :, :10], dict(q_offset=0)),
+                   (q[:, :, :10], dict(q_offset=100, window=30))):
+        before = kernel.launches
+        out = lm_layers.chunked_attention(qq, k, v, causal=True, **kw)
+        assert kernel.launches == before + 1
+        ref = lm_layers.chunked_attention_plain(qq, k, v, causal=True, chunk=128, **kw)
+        assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol), kw
+    with pytest.raises(NotImplementedError, match="hybrid training"):
+        lm_layers.chunked_attention(q[:, :, :sk].requires_grad_(), k, v, causal=True, window=64)
 
 
 @pytest.mark.parametrize("bits", [None, 4])
@@ -1084,6 +1119,50 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda, bits):
     assert qmm_kernel.QMM.launches - qmm_before == (5 * 6 * cfg.n_layers if bits else 0)
     cpu = run(tree_to(params, "cpu"), toks.cpu())
     assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
+def test_hybrid_smoke_generate_kernel_routes_match_plain_routes(cuda, monkeypatch):
+    """recurrentgemma-2b's SMOKE config cut to 5 layers (a period and two
+    tail layers), bf16 under W4KV8: generate from a 40-token prompt, past
+    its window of 32, and 12 decode steps, on the card's kernel routes (one
+    windowed FLASH_TC launch per prefill, QMM once per product in the
+    prefill's 80 rows and each decode step: 4 RG-LRU layers × 8 + 1
+    attention layer × 7); the plain routes,
+    teacher-forced on the same tokens, within 2e-2·max|logits|."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, generate, init_cache, init_params, prefill
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.quantized import materialize, quantize_params
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma_2b"), n_layers=5)
+    params = quantize_params(init_params(cfg, prng.PRNGKey(0), device=cuda), 4)
+    policy = QuantPolicy(weight_bits=4, kv_bits=8)
+    prompt = prng.randint(prng.PRNGKey(1), (2, 40), 0, cfg.vocab_size, device=cuda)
+    qmm_before = qmm_kernel.QMM.launches
+    flash_before = dict(fa_kernel.FLASH_TC.launches_by_shape)
+    toks, logits = generate(cfg, params, prompt, 13, policy)
+    windowed = (2, 4, 1, 40, 40, 16, 0, 32)
+    assert fa_kernel.FLASH_TC.launches_by_shape[windowed] - flash_before.get(windowed, 0) == 1
+    assert qmm_kernel.QMM.launches - qmm_before == 13 * (4 * 8 + 7)
+    monkeypatch.setattr(lm_layers, "qweight_product",
+                        lambda x, w: x @ materialize(w, x.dtype))
+    monkeypatch.setattr(lm_layers, "attention_kernel",
+                        lambda q, k, v, causal, window=None, q_offset=0:
+                        lm_layers.chunked_attention_plain(q, k, v, causal=causal,
+                                                          chunk=cfg.attn_chunk, window=window,
+                                                          q_offset=q_offset))
+    cache = init_cache(cfg, 2, 40 + 13 + 8, policy, device=cuda)
+    plain, cache = prefill(cfg, params, prompt, cache, policy=policy)
+    plain = [plain]
+    for i in range(12):
+        out, cache = decode_step(cfg, params, toks[:, i], cache, policy=policy)
+        plain.append(out)
+    plain = torch.stack(plain, dim=1)
+    assert float((logits.float() - plain.float()).abs().max()) <= 2e-2 * float(
+        plain.float().abs().max())
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -6), (torch.float32, 1e-4)])

@@ -22,6 +22,8 @@ import pytest
 import torch
 
 from repro.kernels.flashattn.ops import flash_attention as jax_flash_attention
+from repro.models import layers as jax_layers
+from repro_torch.models import layers as lm_layers
 from repro_torch.kernels.flashattn import kernel as fa_kernel
 from repro_torch.kernels.flashattn.ops import attention_plain, flash_attention
 
@@ -157,6 +159,47 @@ def test_rejects_what_the_reference_cannot_answer():
     with pytest.raises(ValueError, match="Sq <= Sk"):
         flash_attention(q, k, v, causal=True)
     flash_attention(q, k, v, causal=False)          # not causal: every row sees every key
+
+
+# (Hq, Hkv, Sq, Sk, causal, window, q_offset): a sliding window (recurrentgemma-2b's
+# local attention) and query row 0 at key q_offset, as the reference's
+# chunked_attention takes them
+WINDOW_CASES = [(4, 1, 48, 48, True, 16, 0),      # causal, window < S
+                (4, 2, 40, 40, False, 8, 0),      # not causal: only keys too far back hidden
+                (4, 2, 24, 64, True, None, 40),   # causal Sq < Sk at q_offset = Sk - Sq
+                (4, 2, 24, 64, True, None, 0),    # causal Sq < Sk at q_offset = 0 (top-left)
+                (4, 1, 24, 64, True, 12, 30),     # a window at an offset
+                (2, 2, 33, 70, False, 20, 10)]    # ragged, not causal, window and offset
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_and_offset_follow_the_reference(case):
+    """flash_attention's plain version and chunked_attention on the CPU, with
+    a window and a query offset, against the reference's chunked_attention
+    (float32, within 1e-5)."""
+    hq, hkv, sq, sk, causal, window, q_offset = case
+    q, k, v = _qkv(2, hq, hkv, sq, sk, 16, seed=sq + sk)
+    want = np.asarray(jax_layers.chunked_attention(
+        jnp.asarray(q, q.dtype), jnp.asarray(k, k.dtype), jnp.asarray(v, v.dtype), causal=causal,
+        chunk=16, window=window, q_offset=q_offset))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=causal, window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    got = lm_layers.chunked_attention(tq, tk, tv, causal=causal, chunk=16, window=window,
+                                      q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, None, -1), (True, 8, 70),
+                                                    (False, 8, 70), (False, 0, 0)])
+def test_rejects_rows_that_see_no_key(causal, window, q_offset):
+    """Sq = 8, Sk = 64: causal row 0 before key 0, or the last row a window
+    past the last key (and a window of no keys): refused on every device,
+    where the reference would fill the row with -1e30 and average v."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 64, 16))
+    with pytest.raises(ValueError, match="no key|positive"):
+        flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert fa_kernel.empty_rows(8, 64, causal, q_offset, window or 0) == bool(window != 0)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -328,6 +328,8 @@ def test_decode_attention(window):
 
 
 def test_unported_blocks_raise():
-    cfg = tconfigs.get_smoke_config("recurrentgemma_2b")
-    with pytest.raises(NotImplementedError, match="'rec' blocks"):
-        tmodel._block_init(prng.PRNGKey(0), cfg, "rec", device="cpu")
+    """mamba2-370m's 'ssm' blocks are not ported yet (the 'rec' blocks of
+    recurrentgemma-2b are: tests/test_torch_hybrid.py)."""
+    cfg = tconfigs.get_smoke_config("mamba2_370m")
+    with pytest.raises(NotImplementedError, match="'ssm' blocks"):
+        tmodel._block_init(prng.PRNGKey(0), cfg, "ssm", device="cpu")
