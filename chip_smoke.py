@@ -318,6 +318,23 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     and the band's bound, and the RG-LRU scan (plain, log-depth) per
     layer. The first period in float32, its window cut to 32 keys, card
     against CPU on a 96-token prompt within 1e-4·max|logits|.
+24. the SSM LM (phase ``ssm``, run after ``hybrid``): mamba2-370m at full
+    width, all 48 layers (attention-free SSD blocks, no MLP; d = 1,024,
+    d_inner 2,048 in 32 heads of 64, state 128, conv 4, chunk 64, vocab
+    50,432), set up, served and gated as phase 21 serves starcoder2-3b (run
+    A: 8 prompts of 1,024 tokens, 32 decode steps, W4 and full precision;
+    no KV cache for KV8 to act on): each W4 decode step ``QMM`` once per
+    product (in_proj and out_proj of every layer: 96), no ``FLASH_TC``
+    anywhere, the logit limit ``SSM_TOL`` from this family's own noise floor
+    (``scripts/lm_noise_floor.py --arch mamba2-370m``). Run B: one prompt of
+    16,384 tokens (256 chunks chain in the prefill) and 32 decode steps
+    under W4, held as run A (``forward`` over the same 16,416 tokens pads
+    its last chunk), its decode beside a B = 1 decode after 1,024 tokens
+    (the state does not grow). Readings as phase 21's, ``qmm`` at M = 8 on
+    layer 0's in_proj and out_proj, and the chunked SSD (plain) of one
+    layer's prefill at (8, 1,024) and (1, 16,384) with the chunk loop's
+    share, beside its bound. Two layers in float32, card against CPU on a
+    192-token prompt (three chunks) within 1e-4·max|logits|.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -512,6 +529,23 @@ HYBRID_KV8_FORWARD_TOL = 2 * HYBRID_BF16_FLOOR + HYBRID_KV8_SHIFT
 # width in float32, the window cut to HYBRID_CPU_WINDOW keys and a prompt of
 # three windows, so that the f32 kernel's window bites
 HYBRID_CPU_WINDOW, HYBRID_CPU_PROMPT = 32, 96
+# The ssm phase: mamba2-370m (src/repro/configs/mamba2_370m.py) at full
+# width, all 48 layers, served as phase lm serves starcoder2-3b (run A, W4
+# and full precision) and to one prompt of SSM_LONG_PROMPT tokens (run B:
+# 256 chunks of 64 chain in the prefill)
+SSM_ARCH = "mamba2-370m"
+SSM_LONG_PROMPT = 16384
+# Logits, as a share of max|logits|, from this family's own noise floor
+# (scripts/lm_noise_floor.py --arch mamba2-370m on an H100; PERF.md §6, PR
+# 24): every bf16 route (kernel, plain, forward; W4 or full precision) sits
+# 0.059-0.0642 from the float32 truth, the float32 serving path 9.7e-6 from
+# it; two routes may sit that far on opposite sides, so a pair is held to
+# twice that floor. The truth ratio (LM_TRUTH_RATIO) is the sharper gate.
+SSM_BF16_FLOOR = 0.0642
+SSM_TOL = 2 * SSM_BF16_FLOOR
+# the card against the port's CPU: two layers at full width in float32, a
+# prompt of three chunks
+SSM_CPU_PROMPT = 192
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
 # Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
@@ -3909,23 +3943,46 @@ def lm_rel(got, want) -> float:
 
 def lm_products(cfg) -> int:
     """The QWeight products of one pass over ``cfg``'s layers: an attention
-    layer's four (wq, wk, wv, wo), an RG-LRU layer's five (in_x, in_gate,
-    w_r, w_i, out), and every layer's MLP (three for swiglu, else two)."""
+    layer's four (wq, wk, wv, wo) and an RG-LRU layer's five (in_x, in_gate,
+    w_r, w_i, out), each with its MLP's (three for swiglu, else two); an SSD
+    layer's two (in_proj, out_proj; it has no MLP)."""
     mlp = 3 if cfg.mlp_type == "swiglu" else 2
-    return sum((4 if kind == "attn" else 5) + mlp for kind in cfg.pattern_for_layers())
+    own = {"attn": 4 + mlp, "rec": 5 + mlp, "ssm": 2}
+    return sum(own[kind] for kind in cfg.pattern_for_layers())
 
 
 def lm_attention_layers(cfg) -> int:
     return sum(kind == "attn" for kind in cfg.pattern_for_layers())
 
 
+def lm_quantized(mods, cfg):
+    """The label and policy of ``cfg``'s quantized serving run: W4KV8, or W4
+    for an attention-free stack (no KV cache for KV8 to act on)."""
+    if lm_attention_layers(cfg):
+        return "w4kv8", mods["QuantPolicy"](weight_bits=4, kv_bits=8)
+    return "w4", mods["QuantPolicy"](weight_bits=4)
+
+
+def lm_state_bytes(cfg, b, act_bytes=2) -> int:
+    """The recurrent states of one decode step at batch b, each read once and
+    written once: an RG-LRU layer's conv (d_conv − 1, W) in the activations'
+    dtype and h (W) float32, an SSD layer's conv (d_conv − 1, d_inner +
+    2·d_state) in the activations' dtype and state (H, hd, d_state) float32."""
+    per_layer = {"attn": 0,
+                 "rec": (cfg.ssm_conv - 1) * cfg.rnn_width_ * act_bytes + cfg.rnn_width_ * 4,
+                 "ssm": ((cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * act_bytes
+                         + cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4)}
+    return 2 * b * sum(per_layer[kind] for kind in cfg.pattern_for_layers())
+
+
 def lm_launch_gates(label, cfg, deltas, quantized, tag="lm"):
     """The launch and call gates of one generate run, as failure messages:
-    prefill FLASH_TC once per attention layer and no qmm, each decode step
-    QMM once per QWeight product (``lm_products``; W4) or none (full
-    precision), no other kernel, no plain version; materialize for the
-    prefill's products, per decode step only for the unembedding (W4) and
-    every product (full precision, whose f32 weights are cast)."""
+    prefill FLASH_TC once per attention layer (none for an attention-free
+    stack) and no qmm, each decode step QMM once per QWeight product
+    (``lm_products``; W4) or none (full precision), no other kernel, no
+    plain version; materialize for the prefill's products, per decode step
+    only for the unembedding (W4) and every product (full precision, whose
+    f32 weights are cast). A count the gates do not name must be 0."""
     n = lm_products(cfg)
     want_pre = {"FLASH_TC": lm_attention_layers(cfg), "lm_layers.materialize": n,
                 "lm_model.materialize": 1}
@@ -4278,25 +4335,26 @@ def lm_setup(torch, mods, arch=LM_ARCH, tag="lm"):
 
 
 def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="lm"):
-    """The bytes a W4KV8 decode step at B = LM_BATCH must read (layer codes,
-    scales, biases, norms and recurrent parameters, the unembedding's codes,
-    the int8 KV cache at the mean length, capped at the local window; the
-    recurrent states, read and written), the same at full precision (f32
-    weights, bf16 cache), as times at HBM_BYTES_PER_S, and the
-    unembedding's dequantize, which every W4 step runs."""
+    """The bytes a quantized decode step (W4KV8, or W4 for an attention-free
+    stack) at B = LM_BATCH must read (layer codes, scales, biases, norms and
+    recurrent parameters, the unembedding's codes, the int8 KV cache at the
+    mean length, capped at the local window; the recurrent states, read and
+    written), the same at full precision (f32 weights, bf16 cache), as times
+    at HBM_BYTES_PER_S, and the unembedding's dequantize, which every W4
+    step runs."""
+    label = lm_quantized(mods, cfg)[0]
     mean_len = LM_PROMPT + LM_DECODE_STEPS // 2
     if cfg.local_window:
         mean_len = min(mean_len, cfg.local_window)
     kv_elems = (lm_attention_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * mean_len
                 * cfg.head_dim_)
-    kv_bytes = kv_elems + kv_elems // cfg.head_dim_ * 4      # int8 codes and f32 scales
-    rec_layers = cfg.n_layers - lm_attention_layers(cfg)
-    state_bytes = 2 * rec_layers * LM_BATCH * cfg.rnn_width_ * (2 * (cfg.ssm_conv - 1) + 4)
-    out = {}
+    kv_bytes = kv_elems + (kv_elems // cfg.head_dim_ * 4 if kv_elems else 0)  # codes, scales
+    state_bytes = lm_state_bytes(cfg, LM_BATCH)
+    out = {"state_bytes": state_bytes}
     step_bytes = (mods["param_bytes"](qparams["slots"]) + mods["param_bytes"](qparams["tail"])
                   + mods["param_bytes"](qparams["unembed"]) + kv_bytes + state_bytes)
-    out["w4kv8_step_bytes"] = step_bytes
-    out["w4kv8_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    out[f"{label}_step_bytes"] = step_bytes
+    out[f"{label}_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
     out["layer_codes_bound_ms"] = layer_codes / HBM_BYTES_PER_S * 1e3
     fp_bytes = (mods["param_bytes"](params["slots"]) + mods["param_bytes"](params["tail"])
                 + mods["param_bytes"](params["unembed"]))
@@ -4304,22 +4362,24 @@ def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="l
     unembed = qparams["unembed"]["w"]
     out["unembed_dequantize_ms"] = time_ms(
         torch, lambda: mods["lm_materialize"](unembed, torch.bfloat16), 5, flush)
-    print(f"[chip_smoke]   {tag} W4KV8 bytes per step {step_bytes:,} -> bound "
-          f"{out['w4kv8_step_bound_ms']:.3f} ms (layer codes alone "
-          f"{out['layer_codes_bound_ms']:.3f} ms); the unembedding's dequantize "
+    print(f"[chip_smoke]   {tag} {label.upper()} bytes per step {step_bytes:,} -> bound "
+          f"{out[f'{label}_step_bound_ms']:.3f} ms (layer codes alone "
+          f"{out['layer_codes_bound_ms']:.3f} ms, recurrent states {state_bytes:,} bytes); "
+          f"the unembedding's dequantize "
           f"{out['unembed_dequantize_ms']:.3f} ms per step; full precision bound "
           f"{out['full_step_bound_ms']:.3f} ms", flush=True)
     return out
 
 
 def lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits=None, tag="lm"):
-    """W4KV8 on the kernel routes and full precision, each a run held to
-    lm_check_run's gates (``limits``: its logit limits by label, default
-    LM_TOL and LM_KV8_FORWARD_TOL), then LM_TIMING_PASSES more runs timed
-    and one decode step profiled. Returns {label: run}."""
+    """The quantized run (``lm_quantized``: W4KV8, or W4 for an
+    attention-free stack) on the kernel routes and full precision, each a
+    run held to lm_check_run's gates (``limits``: its logit limits by label,
+    default LM_TOL and LM_KV8_FORWARD_TOL), then LM_TIMING_PASSES more runs
+    timed and one decode step profiled. Returns {label: run}."""
     out = {}
     for label, policy, tree, quantized in (
-            ("w4kv8", mods["QuantPolicy"](weight_bits=4, kv_bits=8), qparams, True),
+            lm_quantized(mods, cfg) + (qparams, True),
             ("full", mods["QuantPolicy"](), params, False)):
         reset_counts(mods)
         run, toks = lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized,
@@ -4517,6 +4577,107 @@ def phase_hybrid(torch, mods):
         raise AssertionError("hybrid card vs CPU: the f32 windowed FLASH was not launched")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[chip_smoke]   hybrid phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def ssd_flops(cfg, b, s) -> int:
+    """Operations of the chunked SSD at (b, s), s a multiple of the chunk,
+    two per multiply-add: the scores C·Bᵀ and their product with x within
+    each chunk, the chunk-final states and the inter-chunk term."""
+    h, hd, ds = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    ck = min(cfg.ssm_chunk, s)
+    return 2 * b * (s // ck) * (ck * ck * ds + ck * ck * h * hd + 2 * ck * h * hd * ds)
+
+
+def ssm_kernel_rows(torch, mods, cfg, qparams, flush):
+    """qmm at M = LM_BATCH on layer 0's in_proj and out_proj (bf16 x); the
+    chunked SSD of one layer's prefill (plain PyTorch: ``ssm.ssd_chunked`` on
+    bf16 x, B, C and Δ, as the path hands it) at (LM_BATCH, LM_PROMPT) and
+    (1, SSM_LONG_PROMPT), with the chunk loop alone (``chunk_recurrence``),
+    beside its bound: the larger of its operations at the f32 CUDA-core peak
+    and its bytes (x, B, C and Δ read, y and the final state written)."""
+    dev = torch.device(mods["device"])
+    gen = torch.Generator(device=dev).manual_seed(24)
+    ssm, slot = mods["ssm"], qparams["slots"]["slot0"]["ssm"]
+    rows = [lm_qmm_row(torch, mods, "ssm", name, slot[name]["w"][0], gen, flush)
+            for name in ("in_proj", "out_proj")]
+    p = {k: v[0] for k, v in slot.items() if isinstance(v, torch.Tensor)}
+    h, hd, ds = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    ssd_rows = []
+    for b, s in ((LM_BATCH, LM_PROMPT), (1, SSM_LONG_PROMPT)):
+        xr = torch.randn(b, s, cfg.d_inner, generator=gen, device=dev).to(torch.bfloat16)
+        bb, cc = (torch.randn(b, s, ds, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        dt = torch.randn(b, s, h, generator=gen, device=dev).to(torch.bfloat16)
+        y, final = ssm.ssd_chunked(p, xr, bb, cc, dt, cfg)
+        if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(final).all())):
+            raise AssertionError(f"ssm SSD B={b} S={s}: non-finite output")
+        ms = time_ms(torch, lambda: ssm.ssd_chunked(p, xr, bb, cc, dt, cfg), 5, flush)
+        nc = s // cfg.ssm_chunk
+        states = torch.randn(b, nc, h, hd, ds, generator=gen, device=dev)
+        decay = torch.rand(b, nc, h, generator=gen, device=dev)
+        loop_ms = time_ms(torch, lambda: ssm.chunk_recurrence(states, decay), 5, flush)
+        flops = ssd_flops(cfg, b, s)
+        moved = (xr.numel() + bb.numel() + cc.numel() + dt.numel()) * 2 + (y.numel()
+                                                                          + final.numel()) * 4
+        ops_ms, bytes_ms = flops / F32_FLOP_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+        row = {"B": b, "S": s, "chunks": nc, "ms": ms, "chunk_loop_ms": loop_ms,
+               "chunk_loop_share": loop_ms / ms, "per_prefill_ms": ms * cfg.n_layers,
+               "flops": flops, "bytes": moved, "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        ssd_rows.append(row)
+        print(f"[chip_smoke]   ssm SSD B={b} S={s} ({nc} chunks): {ms:.3f} ms a layer "
+              f"({row['per_prefill_ms']:.1f} ms over the prefill's {cfg.n_layers} layers), the "
+              f"chunk loop {loop_ms:.3f} ms of it ({row['chunk_loop_share']:.0%}); bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.2f} GFLOP at the f32 "
+              f"peak, {moved / 1e6:.1f} MB)", flush=True)
+        del xr, bb, cc, dt, y, final, states, decay
+    return {"qmm_rows": rows, "ssd_rows": ssd_rows}
+
+
+def phase_ssm(torch, mods):
+    """mamba2-370m at full width (48 attention-free SSD layers) served on
+    the card: run A, W4 on the kernel routes and full precision at B = 8 ×
+    1,024, gated per step as phase lm gates starcoder2-3b (in_proj and
+    out_proj on qmm each W4 decode step, 96; no FLASH_TC anywhere); run B,
+    W4 on one prompt of 16,384 tokens (256 chunks chain), its decode beside
+    a B = 1 decode after 1,024 tokens; both held against the plain routes,
+    forward and the float32 truth; two layers in float32 against the CPU."""
+    t_phase = time.perf_counter()
+    dev = torch.device(mods["device"])
+    cfg, params, qparams, prompt, out = lm_setup(torch, mods, SSM_ARCH, "ssm")
+    label, w4 = lm_quantized(mods, cfg)
+    limits = {name: {"vs_plain_max_rel": SSM_TOL, "vs_forward_max_rel": SSM_TOL}
+              for name in (label, "full")}
+    out.update(lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits, "ssm"))
+    # run B: one long prompt, 256 chunks chain in the prefill
+    long_prompt = mods["prng"].randint(mods["prng"].PRNGKey(3), (1, SSM_LONG_PROMPT), 0,
+                                       cfg.vocab_size, device=dev)
+    reset_counts(mods)
+    run, toks = lm_check_run(torch, mods, cfg, f"{label} long", w4, qparams, long_prompt, True,
+                             limits[label], "ssm")
+    if run["gates_failed"]:
+        raise AssertionError("; ".join(run["gates_failed"]))
+    del toks
+    # the same decode at B = 1 after LM_PROMPT tokens: the state does not grow
+    _, _, ms, _, _ = lm_generate(torch, mods, cfg, qparams, prompt[:1], w4)
+    run["short_b1_decode_ms_median"] = sorted(ms[1:])[(len(ms) - 1) // 2]
+    print(f"[chip_smoke]   ssm {label} long: prefill of {SSM_LONG_PROMPT} tokens "
+          f"{run['first_prefill_ms']:.2f} ms, decode {run['first_decode_ms_median']:.3f} ms per "
+          f"token (one pass); B = 1 after {LM_PROMPT} tokens "
+          f"{run['short_b1_decode_ms_median']:.3f} ms per token", flush=True)
+    out["long"] = run
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out.update(lm_step_bounds(torch, mods, cfg, params, qparams, out["layer_code_bytes"], flush,
+                              "ssm"))
+    out.update(ssm_kernel_rows(torch, mods, cfg, qparams, flush))
+    del params, qparams, flush
+    torch.cuda.empty_cache()
+    reset_counts(mods)
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg, "ssm", prompt_len=SSM_CPU_PROMPT)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   ssm phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5220,7 +5381,7 @@ def load_port() -> dict:
     from repro_torch.configs import get_config as lm_get_config
     from repro_torch.kernels.flashattn import ops as fa_ops
     from repro_torch.models import generate, layers as lm_layers, model as lm_model
-    from repro_torch.models import rglru
+    from repro_torch.models import rglru, ssm
     from repro_torch.models.quantized import (
         QWeight,
         materialize as lm_materialize,
@@ -5254,7 +5415,7 @@ def load_port() -> dict:
                 keystr=keystr, last_key=last_key,
                 tree_leaves=tree_leaves, tree_map=tree_map, sparsity_report=sparsity_report,
                 lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
-                lm_layers=lm_layers, lm_model=lm_model, rglru=rglru, QWeight=QWeight,
+                lm_layers=lm_layers, lm_model=lm_model, rglru=rglru, ssm=ssm, QWeight=QWeight,
                 lm_materialize=lm_materialize, param_bytes=param_bytes,
                 quantize_params=quantize_params,
                 lm_tree_to=lm_tree_to,
@@ -5373,6 +5534,7 @@ def main(argv=None) -> int:
     report["sanitize"] = phases.run("sanitize", phase_sanitize, torch, mods)
     report["lm"] = phases.run("lm", phase_lm, torch, mods)
     report["hybrid"] = phases.run("hybrid", phase_hybrid, torch, mods)
+    report["ssm"] = phases.run("ssm", phase_ssm, torch, mods)
     report["train"] = phases.run("train", phase_train, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
@@ -5710,6 +5872,30 @@ def main(argv=None) -> int:
                         "reference computes chunked_attention, src/repro/models/layers.py:203)")
                      + "; library: SDPA with the band as a boolean mask; causal_ms: the same "
                      "call without the window",
+        })
+    ssm = report["ssm"]
+    for row in ssm["qmm_rows"]:
+        shape = f"{row['N']}x{row['K']}"
+        kernels.append({
+            "name": f"qmm[ssm decode: {SSM_ARCH} W4 {row['shape']}]",
+            "route": "cuda",
+            "source": lm_source,
+            "entry": report["kernel"]["entry"],
+            "replaces": "src/repro/kernels/qmm/kernel.py:265",
+            "launches": (ssm["w4"]["qmm_launches_by_shape"][shape]
+                         + ssm["long"]["qmm_launches_by_shape"][shape]),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bytes_bound_ms": row["bytes_bound_ms"],
+            "library_ms": row["library_ms"],
+            "shape": f"M={row['M']} N={row['N']} K={row['K']} bits={row['bits']}, layer 0's "
+                     f"{row['shape']} codes on bf16 x (timed); launches: the W4 runs' decode "
+                     "steps (A and B), all 48 layers; library: torch.matmul on the dequantized "
+                     "bf16 weight (the reference computes materialize, "
+                     "src/repro/models/ssm.py:55 and :179, then u @ w)",
         })
     train, train_k = report["train"]["run"], report["train"]["kernels"]
     hs = train_k["hsthresh"]

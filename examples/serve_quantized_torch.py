@@ -4,12 +4,14 @@ LM twin: a bandwidth-bound iteration re-streaming a fixed large operand).
 
     PYTHONPATH=src python examples/serve_quantized_torch.py [--bits 4] [--device cpu]
     PYTHONPATH=src python examples/serve_quantized_torch.py --arch recurrentgemma_2b --device cpu
+    PYTHONPATH=src python examples/serve_quantized_torch.py --arch mamba2_370m --device cpu
 
 The port's twin of ``examples/serve_quantized.py``: the same SMOKE config,
 the same parameters and prompt (the reference's threefry draws from
 PRNGKey(0)), greedy tokens at full precision and under W<bits> + KV8. The
-dense archs and the hybrid recurrentgemma_2b (RG-LRU blocks and local
-attention) run. On the GPU (the default device) the decode products go
+dense archs, the hybrid recurrentgemma_2b (RG-LRU blocks and local
+attention) and the attention-free mamba2_370m (SSD blocks; no KV cache for
+KV8 to act on) run. On the GPU (the default device) the decode products go
 through the ``qmm`` kernel and the prefill's attention through
 ``flash_attention`` (with the hybrid's window).
 """

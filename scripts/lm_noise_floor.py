@@ -2,17 +2,18 @@
 """How far bf16 arithmetic and the int8 KV cache put an LM's logits from a
 float32 truth at full width, on one card.
 
-    python3 scripts/lm_noise_floor.py [--arch recurrentgemma-2b]
+    python3 scripts/lm_noise_floor.py [--arch recurrentgemma-2b | mamba2-370m]
 
 The model and traffic of ``chip_smoke.py``'s ``lm`` phase (starcoder2-3b by
 default, all layers, weights from PRNGKey(0), 8 prompts of 1,024 tokens from
 PRNGKey(1), 32 greedy decode steps; ``--arch recurrentgemma-2b``: the
-``hybrid`` phase's run A), under W4KV8 and at full precision. The truth is
-``forward`` of the float32 model on the same weights and tokens (exact K/V).
-Each serving variant runs a prefill and the decode steps over the kernel
-run's tokens: the kernel routes (``generate``), the plain routes in bf16 with
-and without the int8 cache, the float32 model with and without it, and the
-bf16 ``forward``. For each pair it prints max |Δ| over max |reference|, the
+``hybrid`` phase's run A; ``--arch mamba2-370m``: the ``ssm`` phase's), under
+W4KV8 (W4 for an attention-free stack, which has no KV cache) and at full
+precision. The truth is ``forward`` of the float32 model on the same weights
+and tokens (exact K/V). Each serving variant runs a prefill and the decode
+steps over the kernel run's tokens: the kernel routes (``generate``), the
+plain routes in bf16 with and without the int8 cache, the float32 model with
+and without it (one of each without a KV cache), and the bf16 ``forward``. For each pair it prints max |Δ| over max |reference|, the
 measure of ``chip_smoke.py``'s gates, and one JSON object with the card's
 name and power limit.
 """
@@ -55,9 +56,10 @@ def main(argv=None) -> int:
                           device=dev)
     plain = cs.lm_plain_routes(mods, cfg)
     out = {}
-    for label, tree, policy in (("w4kv8", qparams, policy_of(weight_bits=4, kv_bits=8)),
-                                ("full", params, policy_of())):
+    w4_label, w4_policy = cs.lm_quantized(mods, cfg)
+    for label, tree, policy in ((w4_label, qparams, w4_policy), ("full", params, policy_of())):
         no_kv = dataclasses.replace(policy, kv_bits=None)
+        kv8 = policy.kv_bits is not None
         toks, kernel = mods["generate"](cfg, tree, prompt, cs.LM_DECODE_STEPS + 1, policy)
         seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
         runs = {"kernel": kernel}
@@ -65,10 +67,14 @@ def main(argv=None) -> int:
         runs["forward_bf16"] = m.forward(cfg, tree, seq)[0][:, cs.LM_PROMPT - 1:]
         with cs.stand_in(layers, **plain):
             runs["plain"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy)
-            runs["plain_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks,
-                                                        no_kv)
-        runs["f32_kv8"] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, policy)
-        runs["f32_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, no_kv)
+            if kv8:
+                runs["plain_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks,
+                                                            no_kv)
+        f32 = "f32_kv8" if kv8 else "f32"
+        runs[f32] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, policy)
+        if kv8:
+            runs["f32_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks,
+                                                      no_kv)
         pairs = [(name, "truth") for name in runs if name != "truth"] + [
             ("kernel", "plain"), ("kernel", "forward_bf16"), ("plain", "forward_bf16")]
         out[label] = {f"{a}_vs_{b}": cs.lm_rel(runs[a], runs[b]) for a, b in pairs}

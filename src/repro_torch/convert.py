@@ -11,8 +11,8 @@ as numpy (or anything ``np.asarray`` accepts), become the port's objects.
   ``bits``/``k_dim``) → the same tree of tensors and ``QWeight``s;
 * :func:`lm_cache_from_numpy` — an LM serving cache (stacked slots and the
   tail; ``k``/``v``/``k_scale``/``v_scale``/``length`` KV caches and
-  ``conv``/``h`` recurrent states) → the same tree of ``KVCache``s and
-  ``RGLRUState``s;
+  ``conv``/``h`` and ``conv``/``ssm`` recurrent states) → the same tree of
+  ``KVCache``s, ``RGLRUState``s and ``SSMState``s;
 * :func:`train_state_from_numpy` — a training state (params, AdamW's
   ``mu``/``nu``, the step counts and the key) → ``TrainState``.
 
@@ -31,6 +31,7 @@ from repro_torch.kernels.qmm.ops import PackedOperator, PackedWeights
 from repro_torch.models.layers import KVCache
 from repro_torch.models.quantized import QWeight
 from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.ssm import SSMState
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.quant.formats import as_granularity
 from repro_torch.sensing.gaussian import CSProblem
@@ -113,7 +114,8 @@ def lm_cache_from_numpy(cache, device=None):
     :class:`~repro_torch.models.layers.KVCache` on ``device`` whose length is
     a host integer (a stacked slot's lengths are one per layer and equal: the
     first is taken); one with ``conv`` and ``h`` becomes a
-    :class:`~repro_torch.models.rglru.RGLRUState`, dtypes kept."""
+    :class:`~repro_torch.models.rglru.RGLRUState`, one with ``conv`` and
+    ``ssm`` a :class:`~repro_torch.models.ssm.SSMState`, dtypes kept."""
     if isinstance(cache, dict):
         return {k: lm_cache_from_numpy(v, device) for k, v in cache.items()}
     if isinstance(cache, (list, tuple)) and not hasattr(cache, "_fields"):
@@ -129,6 +131,8 @@ def lm_cache_from_numpy(cache, device=None):
                        length=int(lengths[0]))
     if hasattr(cache, "conv") and hasattr(cache, "h"):
         return RGLRUState(tensor_from_numpy(cache.conv, device), tensor_from_numpy(cache.h, device))
+    if hasattr(cache, "conv") and hasattr(cache, "ssm"):
+        return SSMState(tensor_from_numpy(cache.conv, device), tensor_from_numpy(cache.ssm, device))
     raise TypeError(f"not a cache entry: {type(cache).__name__}")
 
 

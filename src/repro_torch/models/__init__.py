@@ -2,9 +2,10 @@
 parameters, ``forward`` and its training ``loss_fn``, ``prefill`` and
 ``decode_step`` with an optional int8 KV cache, weight-only quantized
 parameters (``QWeight``, ``quantize_params``) and greedy :func:`generate` —
-and the hybrid family's serving (RG-LRU blocks, :mod:`.rglru`, and local
-attention). Hybrid training, the MoE, SSM, encoder-decoder and VLM families
-and ``encode`` come in later slices (ROADMAP.md §1)."""
+the hybrid family's serving (RG-LRU blocks, :mod:`.rglru`, and local
+attention) and the SSM family's (Mamba-2's SSD blocks, :mod:`.ssm`). The
+training of the recurrent families, the MoE, encoder-decoder and VLM
+families and ``encode`` come in later slices (ROADMAP.md §1)."""
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.generate import generate
 from repro_torch.models.model import (

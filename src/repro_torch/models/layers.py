@@ -118,6 +118,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def causal_conv(p, x: torch.Tensor, conv_state: Optional[torch.Tensor] = None):
+    """Causal depthwise conv over S of x (B, S, C) with ``p["conv_w"]`` (K, C)
+    and ``p["conv_b"]``, its K taps summed in order, then the bias, from
+    ``conv_state`` (the last K − 1 inputs; zeros if None). Returns (out, the
+    new state) in x's dtype: the conv of the RG-LRU and of the SSD blocks."""
+    w = p["conv_w"].to(x.dtype)
+    k = w.shape[0]
+    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+           if conv_state is None else conv_state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = xp[:, 0:s, :] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s, :] * w[i]
+    out = out + p["conv_b"].to(x.dtype)
+    new_state = xp[:, -(k - 1):, :] if k > 1 else pad
+    return out, new_state
+
+
 def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
     pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]

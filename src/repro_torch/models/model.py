@@ -1,9 +1,10 @@
-"""Model assembly (port of ``repro.models.model``), the dense and hybrid
-families: decoder LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV bias,
-RMSNorm or LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP) and
+"""Model assembly (port of ``repro.models.model``), the dense, hybrid and
+SSM families: decoder LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV
+bias, RMSNorm or LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP),
 RecurrentGemma's hybrid of "rec" blocks (the RG-LRU, :mod:`.rglru`) and
 local-attention "attn" blocks (a sliding window of ``cfg.local_window`` keys,
-cached in a ring of that many slots).
+cached in a ring of that many slots), and Mamba-2's attention-free stack of
+"ssm" blocks (the SSD, :mod:`.ssm`; no MLP, a state of fixed size).
 
 The parameter tree is the reference's: nested dicts of tensors, layers
 stacked by period slot as ``(L, ...)`` under ``params["slots"]["slot<j>"]``
@@ -21,11 +22,11 @@ Three execution paths share the block code:
   * :func:`decode_step` — one token against the cache (the bandwidth-bound
     loop the paper's technique speeds up with weight/KV quantization).
 
-The other families (moe, ssm, encdec, vlm) raise ``NotImplementedError``
-naming the later slice that ports them; so do the cross-attention and SSM
-blocks, and :func:`loss_fn` for the hybrid family (its training is a later
-slice). The reference's SPMD hooks (``constrain``, ``constrain_kv``) have no
-counterpart on one GPU.
+The other families (moe, encdec, vlm) raise ``NotImplementedError``
+naming the later slice that ports them; so do the cross-attention blocks,
+and :func:`loss_fn` for the hybrid and SSM families (their training is a
+later slice). The reference's SPMD hooks (``constrain``, ``constrain_kv``)
+have no counterpart on one GPU.
 """
 from __future__ import annotations
 
@@ -65,19 +66,27 @@ from repro_torch.models.rglru import (
     rglru_init,
     rglru_sequence,
 )
+from repro_torch.models.ssm import (
+    SSMState,
+    init_ssm_state,
+    ssd_apply,
+    ssd_decode_step,
+    ssd_init,
+    ssd_sequence,
+)
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.tree import tree_leaves
 
 # The slice of ROADMAP.md §1 that ports each family this one does not.
 _LATER = {
-    "ssm": "mamba2-370m, models/ssm.py",
     "encdec": "whisper-tiny: the encoder, encode and cross-attention",
     "vlm": "llama-3.2-vision-11b: the cross-attention image layers",
     "moe": "qwen3-moe-30b, models/moe.py",
 }
 
 
-_PORTED = ("dense", "hybrid")
+_PORTED = ("dense", "hybrid", "ssm")
+_RECURRENT_STATES = (RGLRUState, SSMState)
 
 
 def _require_ported(cfg: ModelConfig, what: str) -> None:
@@ -118,6 +127,10 @@ def _block_init(key, cfg: ModelConfig, kind: str, device=None):
         p["attn"] = _attn_init(ks[0], cfg, device)
     elif kind == "rec":
         p["rec"] = rglru_init(ks[0], d, cfg.rnn_width_, cfg.ssm_conv, device)
+    elif kind == "ssm":
+        p["ssm"] = ssd_init(ks[0], d, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv,
+                            device)
+        return p                                   # no ln2, no MLP
     else:
         raise NotImplementedError(f"{kind!r} blocks ({cfg.name}) are not ported yet; "
                                   f"ROADMAP.md §1 queues them")
@@ -239,7 +252,7 @@ def _ffn_apply(p, x, cfg: ModelConfig):
 
 
 def _require_block(kind: str) -> None:
-    if kind not in ("attn", "rec"):
+    if kind not in ("attn", "rec", "ssm"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1)")
 
 
@@ -248,6 +261,8 @@ def apply_block_fwd(kind: str, p, x, ctx: Ctx):
     _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    if kind == "ssm":
+        return x + ssd_apply(p["ssm"], h, cfg), {}
     if kind == "attn":
         x = x + _self_attention(p["attn"], h, ctx)
     else:
@@ -261,6 +276,8 @@ def _empty_cache_entry(kind: str, cfg: ModelConfig, b: int, cache_len: int, dtyp
                        kv_bits, device):
     if kind == "rec":
         return init_rglru_state(b, cfg.rnn_width_, cfg.ssm_conv, device)
+    if kind == "ssm":
+        return init_ssm_state(b, cfg, device)
     if kind != "attn":
         raise NotImplementedError(f"{kind!r} caches are not ported yet (ROADMAP.md §1)")
     if cfg.family == "hybrid" and cfg.local_window:
@@ -284,12 +301,40 @@ def _rglru_prefill(p, u, cfg, state: RGLRUState):
     return y, RGLRUState(conv=conv_new, h=h_last)
 
 
+def _ssd_prefill(p, u, cfg, state: SSMState):
+    """The SSD over the prompt u (B, S, d), projected and run once: y, and the
+    state after its last token (the chunk loop's final state; the conv state
+    the last d_conv − 1 pre-conv inputs, float32, as the reference's
+    ``_ssd_prefill`` leaves them). Where the reference's prefill fails, this
+    raises: S not a multiple of min(chunk, S) (its ``_ssd_final_state`` does
+    not pad, and padding here would move the state, softplus(dt_bias) ≠ 0),
+    and S < d_conv − 1 (its conv state comes out short, and the next decode
+    step fails)."""
+    s, k = u.shape[1], cfg.ssm_conv
+    ck = min(cfg.ssm_chunk, s)
+    if s % ck:
+        raise ValueError(f"prefill ({cfg.name}): a prompt of {s} tokens is not a multiple of "
+                         f"min(ssm_chunk, S) = {ck}; the reference's _ssd_final_state cannot "
+                         f"reshape it either")
+    if s < k - 1:
+        raise ValueError(f"prefill ({cfg.name}): a prompt of {s} tokens is shorter than "
+                         f"d_conv - 1 = {k - 1}; the reference builds a conv state of {s} rows "
+                         f"and its next decode step fails")
+    y, xbc_in, final = ssd_sequence(p, u, cfg)
+    conv = xbc_in[:, -(k - 1):, :].to(torch.float32) if k > 1 else state.conv
+    return y, SSMState(conv=conv, ssm=final)
+
+
 def apply_block_prefill(kind: str, p, x, cache_entry, ctx: Ctx):
     """Forward + cache fill. Returns (x, cache_entry): a KVCache for
-    "attn", the RGLRUState after the prompt for "rec"."""
+    "attn", the RGLRUState or SSMState after the prompt for "rec" or
+    "ssm"."""
     _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    if kind == "ssm":
+        y, new_state = _ssd_prefill(p["ssm"], h, cfg, cache_entry)
+        return x + y, new_state
     if kind == "rec":
         y, new_state = _rglru_prefill(p["rec"], h, cfg, cache_entry)
         return _rec_ffn(p, x, y, cfg), new_state
@@ -311,6 +356,9 @@ def apply_block_decode(kind: str, p, x, cache_entry, ctx: Ctx):
     _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    if kind == "ssm":
+        y, new_state = ssd_decode_step(p["ssm"], h, cache_entry, cfg)
+        return x + y, new_state
     if kind == "rec":
         y, new_state = rglru_decode_step(p["rec"], h, cache_entry, cfg.rnn_width_)
         return _rec_ffn(p, x, y, cfg), new_state
@@ -340,8 +388,8 @@ def _at_layer(tree, i: int):
         return {k: _at_layer(v, i) for k, v in tree.items()}
     if isinstance(tree, KVCache):
         return KVCache(*(None if a is None else a[i] for a in tree[:4]), length=tree.length)
-    if isinstance(tree, RGLRUState):
-        return RGLRUState(tree.conv[i], tree.h[i])
+    if isinstance(tree, _RECURRENT_STATES):
+        return type(tree)(*(a[i] for a in tree))
     return tree[i]
 
 
@@ -393,17 +441,20 @@ def _run_forward(cfg, params, x, ctx):
     return x
 
 
-def _write_state(stacked: RGLRUState, i: int, new: RGLRUState) -> RGLRUState:
-    """Layer i's new recurrent state into the stacked slot, in place. The
-    conv state takes the activations' dtype, as the reference's prefill
-    leaves it: a slot of another dtype (float32 from init_cache) is replaced
-    once by one of that dtype."""
-    if stacked.conv.dtype != new.conv.dtype:
-        stacked = stacked._replace(conv=torch.empty(stacked.conv.shape, dtype=new.conv.dtype,
-                                                    device=stacked.conv.device))
-    stacked.conv[i] = new.conv
-    stacked.h[i] = new.h
-    return stacked
+def _write_state(stacked, i: int, new):
+    """Layer i's new recurrent state (an RGLRUState or SSMState) into the
+    stacked slot, in place. Each field keeps the dtype the reference's step
+    leaves it in (the RG-LRU's conv state the activations' dtype; the SSD's
+    float32 after a prefill and the activations' dtype after a decode step):
+    a stacked field of another dtype is replaced once by one of that dtype,
+    which the same pass over the layers fills."""
+    fields = []
+    for old, val in zip(stacked, new):
+        if old.dtype != val.dtype:
+            old = torch.empty(old.shape, dtype=val.dtype, device=old.device)
+        old[i] = val
+        fields.append(old)
+    return type(stacked)(*fields)
 
 
 def _run_stack(cfg, params, x, cache, block, ctx):
@@ -418,7 +469,7 @@ def _run_stack(cfg, params, x, cache, block, ctx):
             name = f"slot{j}"
             x, entry = block(kind, _at_layer(params["slots"][name], i), x,
                              _at_layer(cache["slots"][name], i), ctx)
-            if isinstance(entry, RGLRUState):
+            if isinstance(entry, _RECURRENT_STATES):
                 new_slots[name] = _write_state(new_slots[name], i, entry)
             else:
                 new_slots[name] = new_slots[name]._replace(length=entry.length)
@@ -456,7 +507,7 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             policy: QuantPolicy = QuantPolicy(), memory: Optional[torch.Tensor] = None):
     """Teacher-forced logits (B, S, V) in the config's dtype, and the aux dict
-    (``moe_load_loss``, 0 for the dense and hybrid families). The hybrid
+    (``moe_load_loss``, 0 for the dense, hybrid and SSM families). The hybrid
     family's attention is local, a window of ``cfg.local_window`` keys, as
     in prefill and decode."""
     _require_ported(cfg, "forward")
@@ -475,11 +526,12 @@ def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()
     are padding. batch: ``tokens`` and ``labels`` (B, S), optional
     ``memory`` (the encdec and vlm families, not ported). Differentiable in
     the parameters: call it with leaves that require a gradient. The hybrid
-    family raises: its training is a later slice."""
-    if cfg.family == "hybrid":
+    and SSM families raise: their training is a later slice."""
+    if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
-            f"loss_fn: the hybrid family ({cfg.name}) serves but does not train yet: ROADMAP.md "
-            f"§1 queues hybrid training (the RG-LRU's and the windowed attention's backward)")
+            f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
+            f"ROADMAP.md §1 queues hybrid training and ssm training, the recurrent families' "
+            f"(the RG-LRU's, the SSD's and the windowed attention's backward)")
     logits, aux = forward(cfg, params, batch["tokens"], policy=policy,
                           memory=batch.get("memory"))
     labels = batch["labels"]
@@ -499,7 +551,9 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = Q
     ``cuda``): each attention slot's KVCache holds (n_full, B, Hkv, S, D)
     tensors and one host length (S at most ``cfg.local_window`` for the
     hybrid family), each recurrent slot's RGLRUState (n_full, B, d_conv − 1,
-    W) conv and (n_full, B, W) h, float32 until a prefill."""
+    W) conv and (n_full, B, W) h, float32 until a prefill, or SSMState
+    (n_full, B, d_conv − 1, conv_dim) conv and (n_full, B, H, hd, ds) ssm,
+    float32."""
     _require_ported(cfg, "init_cache")
     del mem_len   # encoder memory: the encdec/vlm slices
     device = resolve_device(device)
@@ -508,8 +562,8 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = Q
 
     def stacked(kind):
         one = _empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device)
-        if isinstance(one, RGLRUState):
-            return RGLRUState(*(a.expand((n_full,) + a.shape).clone() for a in one))
+        if isinstance(one, _RECURRENT_STATES):
+            return type(one)(*(a.expand((n_full,) + a.shape).clone() for a in one))
         return KVCache(*(None if a is None else a.expand((n_full,) + a.shape).clone()
                          for a in one[:4]), length=0)
 
@@ -552,8 +606,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
 
 
 def _cache_length(cfg, cache) -> int:
-    """Current length from the first attention cache (a host integer); the
-    hybrid family's recurrent slots hold none."""
+    """Current length from the first attention cache (a host integer); a
+    recurrent slot holds none, and an attention-free stack has length 0, as
+    the reference's (no layer of it reads a position)."""
     for v in cache["slots"].values():
         if isinstance(v, KVCache):
             return v.length

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as prng
-from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.layers import causal_conv, dense, dense_init
 
 _C = 8.0
 
@@ -59,24 +59,6 @@ def init_rglru_state(b: int, width: int, d_conv: int, device=None) -> RGLRUState
         conv=torch.zeros((b, d_conv - 1, width), dtype=torch.float32, device=device),
         h=torch.zeros((b, width), dtype=torch.float32, device=device),
     )
-
-
-def _conv(p, x: torch.Tensor, conv_state: Optional[torch.Tensor] = None):
-    """Causal depthwise conv over S, its d_conv taps summed in order, from
-    ``conv_state`` (the last d_conv − 1 inputs; zeros if None). Returns
-    (out, the new state) in x's dtype."""
-    w = p["conv_w"].to(x.dtype)
-    k = w.shape[0]
-    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-           if conv_state is None else conv_state.to(x.dtype))
-    xp = torch.cat([pad, x], dim=1)
-    s = x.shape[1]
-    out = xp[:, 0:s, :] * w[0]
-    for i in range(1, k):
-        out = out + xp[:, i:i + s, :] * w[i]
-    out = out + p["conv_b"].to(x.dtype)
-    new_state = xp[:, -(k - 1):, :] if k > 1 else pad
-    return out, new_state
 
 
 def _gates(p, x: torch.Tensor):
@@ -111,7 +93,7 @@ def rglru_sequence(p, u: torch.Tensor, conv_state: Optional[torch.Tensor] = None
     last h (B, W) float32)."""
     x = dense(p["in_x"], u)
     gate = dense(p["in_gate"], u)
-    x, conv_new = _conv(p, x, conv_state)
+    x, conv_new = causal_conv(p, x, conv_state)
     a, b = _gates(p, x)                                          # (B,S,W) each
     h = linear_scan(a, b)
     y = h.to(u.dtype) * F.gelu(gate, approximate="tanh")          # jax.nn.gelu's default
@@ -129,7 +111,7 @@ def rglru_decode_step(p, u: torch.Tensor, state: RGLRUState, width: int):
     del width
     x = dense(p["in_x"], u)
     gate = dense(p["in_gate"], u)
-    x, conv_new = _conv(p, x, state.conv)
+    x, conv_new = causal_conv(p, x, state.conv)
     a, b = _gates(p, x)                                          # (B,1,W)
     h = a[:, 0] * state.h + b[:, 0]                              # (B,W)
     y = h[:, None, :].to(u.dtype) * F.gelu(gate, approximate="tanh")

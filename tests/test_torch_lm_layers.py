@@ -328,8 +328,9 @@ def test_decode_attention(window):
 
 
 def test_unported_blocks_raise():
-    """mamba2-370m's 'ssm' blocks are not ported yet (the 'rec' blocks of
-    recurrentgemma-2b are: tests/test_torch_hybrid.py)."""
-    cfg = tconfigs.get_smoke_config("mamba2_370m")
-    with pytest.raises(NotImplementedError, match="'ssm' blocks"):
-        tmodel._block_init(prng.PRNGKey(0), cfg, "ssm", device="cpu")
+    """llama-3.2-vision's cross-attention 'xattn' blocks are not ported yet
+    (the 'rec' blocks of recurrentgemma-2b and the 'ssm' blocks of
+    mamba2-370m are: tests/test_torch_hybrid.py, tests/test_torch_ssm.py)."""
+    cfg = tconfigs.get_smoke_config("llama32_vision_11b")
+    with pytest.raises(NotImplementedError, match="'xattn' blocks"):
+        tmodel._block_init(prng.PRNGKey(0), cfg, "xattn", device="cpu")
