@@ -335,6 +335,36 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     layer's prefill at (8, 1,024) and (1, 16,384) with the chunk loop's
     share, beside its bound. Two layers in float32, card against CPU on a
     192-token prompt (three chunks) within 1e-4·max|logits|.
+25. the encoder-decoder LM (phase ``encdec``, run after ``train``):
+    whisper-tiny at full width (4 encoder and 4 decoder layers, d = 384, 6
+    heads of 64, vocab 52,096): 8 × 1,500 float32 stub frames through
+    ``encode``, prompts of 224 tokens over its memory and 32 decode steps,
+    W4KV8 and full precision, set up, served and gated as phase 21 serves
+    starcoder2-3b: each ``encode`` ``FLASH_TC`` 4 times (non-causal,
+    S = 1,500), each prefill 8 times (4 causal, 4 cross-attention 224 ×
+    1,500), each W4KV8 decode step ``QMM`` 32 times (the cross-attention's
+    wk and wv run once, in the prefill); every non-causal call of the run is
+    held against the plain version on its own inputs; the logit limits
+    ``ENCDEC_*`` from this family's noise floor, the truth its float32
+    serving path (its ``forward`` leaves RoPE out). A planted fault, the
+    prefill's cross-attention dropping the ragged last key tile (keys
+    1,472–1,499), must fail the gates. Readings as phase 21's, ``encode``'s
+    time, ``qmm`` at M = 8 on layer 0's products, ``FLASH_TC`` at both
+    non-causal shapes beside SDPA (non-causal) and the bound. The whole model
+    in float32, card against CPU within 1e-4·max|logits|.
+26. the VLM (phase ``vlm``, run after ``encdec``): llama-3.2-vision-11b at
+    full width (40 layers, (attn, attn, attn, xattn, attn) × 8, d = 4,096,
+    32/8 heads of 128, vocab 128,256) over 8 × 1,600 float32 stub image
+    rows, prompts of 1,024 tokens, 32 decode steps, W4KV8 and full
+    precision, gated as phase 21: each prefill ``FLASH_TC`` 48 times (40
+    causal, 8 cross-attention 1,024 × 1,600 on K/V cast from float32 to
+    bf16, the cast counted 8 times), each W4KV8 decode step ``QMM`` 296
+    times; each cross-attention call held against the plain version; the
+    limits ``VLM_*`` from its noise floor. Readings as phase 21's, the
+    prefill's memory projections, ``qmm`` at M = 8 on layer 0's products
+    and the cross-attention's wq, ``FLASH_TC`` cross (with the cast's gap to
+    float32 K/V) and causal beside SDPA and the bound. Two layers (xattn,
+    attn) in float32, card against CPU within 1e-4·max|logits|.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -546,6 +576,44 @@ SSM_TOL = 2 * SSM_BF16_FLOOR
 # the card against the port's CPU: two layers at full width in float32, a
 # prompt of three chunks
 SSM_CPU_PROMPT = 192
+# The encdec phase: whisper-tiny (src/repro/configs/whisper_tiny.py) at full
+# width, 4 encoder and 4 decoder layers, served to LM_BATCH prompts of
+# ENCDEC_PROMPT tokens and LM_DECODE_STEPS decode steps (256 tokens, within
+# Whisper's 448-token decoder context, arXiv:2212.04356) over the encoder's
+# memory of its encoder_seq (1,500) stub frames, float32 from a seed
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_PROMPT = 224
+# The vlm phase: llama-3.2-vision-11b (src/repro/configs/llama32_vision_11b.py)
+# at full width, 40 layers ((attn, attn, attn, xattn, attn) × 8), served as
+# phase lm serves starcoder2-3b over n_image_tokens (1,600) stub image rows,
+# float32 from a seed
+VLM_ARCH = "llama-3.2-vision-11b"
+# Logits, as a share of max|logits|, from each family's own noise floor
+# (scripts/lm_noise_floor.py --arch whisper-tiny / llama-3.2-vision-11b on an
+# H100; PERF.md §6). whisper-tiny: every bf16 serving route (kernel,
+# plain, with or without the int8 cache) sits up to 0.0090 from the truth,
+# its float32 serving path with exact K/V (not forward: the reference's
+# forward leaves RoPE out of the decoder's self-attention, its prefill and
+# decode put it in, ROADMAP.md §3); two routes may sit that far on opposite
+# sides, so a pair is held to twice that; serving against forward also
+# carries ENCDEC_ROPE_GAP (the float32 forward against the float32 serving
+# path, 0.0113) and, under W4KV8, the int8 cache's shift in float32
+# (0.00037). llama-3.2-vision-11b: the bf16 routes with exact K/V (full
+# precision, forward, the plain routes without the int8 cache) sit up to
+# 0.1055 from the float32 forward, those that read the int8 cache up to
+# 0.2306 (the int8 cache alone moves the float32 serving path 0.1952); a
+# pair of routes is held to the sum of their two floors. The truth ratio
+# (LM_TRUTH_RATIO) and the held non-causal calls are the sharper gates.
+ENCDEC_BF16_FLOOR, ENCDEC_ROPE_GAP, ENCDEC_KV8_SHIFT = 0.0090, 0.0113, 0.00037
+ENCDEC_TOL = 2 * ENCDEC_BF16_FLOOR
+VLM_BF16_FLOOR, VLM_KV8_FLOOR = 0.1055, 0.2306
+# the planted fault of the encdec phase: the prefill's cross-attention drops
+# the ragged last key tile of the memory (keys ENCDEC_FAULT_KEYS and on)
+ENCDEC_FAULT_KEYS = 1472
+# the card against the port's CPU in float32: whisper-tiny whole; the vlm cut
+# to two layers with cross_attn_every = 2, (xattn, attn), and two decode steps
+# (each W4 step dequantizes the 128,256 × 4,096 unembedding on the CPU, ~6 s)
+VLM_CPU_EVERY, VLM_CPU_DECODE_STEPS = 2, 2
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
 # Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
@@ -1936,15 +2004,16 @@ def starcoder2_qkv(torch, gen, s, dtype=None):
                  for h in (STARCODER2_3B_HEADS, STARCODER2_3B_KV_HEADS, STARCODER2_3B_KV_HEADS))
 
 
-def sdpa_backend(torch, lib, q, k, v, attn_mask=None):
+def sdpa_backend(torch, lib, q, k, v, attn_mask=None, causal=True):
     """The backend scaled_dot_product_attention chose for the call whose
-    output is ``lib`` (causal, or with the boolean ``attn_mask``): the first
-    of cuDNN, flash, efficient and math (in PyTorch's order of preference)
-    that, asked for alone, gives the same bits; None when none does or none
-    takes the inputs."""
+    output is ``lib`` (causal, with the boolean ``attn_mask``, or with
+    neither when not ``causal``): the first of cuDNN, flash, efficient and
+    math (in PyTorch's order of preference) that, asked for alone, gives the
+    same bits; None when none does or none takes the inputs."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    mask = {"is_causal": True} if attn_mask is None else {"attn_mask": attn_mask}
+    mask = ({"attn_mask": attn_mask} if attn_mask is not None else
+            {"is_causal": True} if causal else {})
     for name, backend in (("cudnn", SDPBackend.CUDNN_ATTENTION),
                           ("flash", SDPBackend.FLASH_ATTENTION),
                           ("efficient", SDPBackend.EFFICIENT_ATTENTION),
@@ -3883,14 +3952,45 @@ def counting_plain(mods, calls):
 
 def lm_snapshot(mods, calls):
     snap = {name: mods[name].launches for name in LM_KERNELS}
+    snap["ATTENTION_KV_CAST"] = mods["ATTENTION_KV_CAST"].launches
     snap.update(calls)
     return snap
 
 
-def lm_generate(torch, mods, cfg, params, prompt, policy):
+def lm_memory(mods, cfg, params, policy, source):
+    """The memory the cross-attention layers read: ``encode`` of the stub
+    frames ``source`` (encdec), the image embeddings themselves (vlm); None
+    for the other families."""
+    if source is None:
+        return None
+    if cfg.family == "encdec":
+        return mods["lm_model"].encode(cfg, params, source, policy)
+    return source
+
+
+def lm_stub_source(torch, mods, cfg, b, key=4):
+    """The stub input of a cross-attention family, float32 from
+    ``PRNGKey(key)`` on the card: b × encoder_seq frames (encdec) or b ×
+    n_image_tokens image rows (vlm), d_model wide; None otherwise."""
+    if cfg.family not in ("encdec", "vlm"):
+        return None
+    rows = cfg.encoder_seq if cfg.family == "encdec" else cfg.n_image_tokens
+    return mods["prng"].normal(mods["prng"].PRNGKey(key), (b, rows, cfg.d_model),
+                               device=torch.device(mods["device"]))
+
+
+def lm_prompt_len(cfg) -> int:
+    """Prompt tokens of a phase's run A: ENCDEC_PROMPT for whisper's decoder,
+    else LM_PROMPT."""
+    return ENCDEC_PROMPT if cfg.family == "encdec" else LM_PROMPT
+
+
+def lm_generate(torch, mods, cfg, params, prompt, policy, source=None):
     """``generate`` with LM_DECODE_STEPS decode steps, a CUDA event and the
-    launch and call counts after the prefill and after each step: (tokens,
-    logits, device ms of the prefill and of each step, counts, host wall s)."""
+    launch and call counts after the prefill and after each step, over the
+    memory of ``source`` (``lm_memory``; encdec: ``encode`` runs first, timed
+    and counted on its own): (tokens, logits, device ms of the prefill and of
+    each step, counts, host wall s, the encode's {"ms", "delta"} or None)."""
     events, counts, calls = [], [], collections.Counter()
     start = torch.cuda.Event(enable_timing=True)
 
@@ -3899,28 +3999,44 @@ def lm_generate(torch, mods, cfg, params, prompt, policy):
         ev.record()
         events.append(ev)
         counts.append(lm_snapshot(mods, calls))
+    enc = None
     with counting_plain(mods, calls):
         torch.cuda.synchronize()
         before = lm_snapshot(mods, calls)
         t0 = time.perf_counter()
         start.record()
+        memory = lm_memory(mods, cfg, params, policy, source)
+        if cfg.family == "encdec":
+            encoded = torch.cuda.Event(enable_timing=True)
+            encoded.record()
+            after = lm_snapshot(mods, calls)
+            enc = {"delta": {k: after[k] - before[k] for k in after}, "event": encoded}
+            before = after
         toks, logits = mods["generate"](cfg, params, prompt, LM_DECODE_STEPS + 1, policy,
-                                        on_step=on_step)
+                                        on_step=on_step, memory=memory)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ms = [start.elapsed_time(events[0])] + [a.elapsed_time(b) for a, b in
+    first = start if enc is None else enc.pop("event")
+    if enc is not None:
+        enc["ms"] = start.elapsed_time(first)
+    ms = [first.elapsed_time(events[0])] + [a.elapsed_time(b) for a, b in
                                            zip(events, events[1:])]
     deltas = [{k: c[k] - p[k] for k in c} for p, c in zip([before] + counts, counts)]
-    return toks, logits, ms, deltas, wall
+    return toks, logits, ms, deltas, wall, enc
 
 
-def lm_teacher_forced(torch, mods, cfg, params, prompt, toks, policy):
+def lm_teacher_forced(torch, mods, cfg, params, prompt, toks, policy, source=None):
     """Logits (B, n, V) of a prefill over ``prompt`` and decode steps over
-    toks[:, :n - 1], as ``generate`` takes them (teacher-forced)."""
+    toks[:, :n - 1], as ``generate`` takes them (teacher-forced), over the
+    memory of ``source`` (``lm_memory``)."""
     b, s = prompt.shape
     n = toks.shape[1]
-    cache = mods["lm_model"].init_cache(cfg, b, s + n + 8, policy, device=prompt.device)
-    logits, cache = mods["lm_model"].prefill(cfg, params, prompt, cache, policy=policy)
+    memory = lm_memory(mods, cfg, params, policy, source)
+    mem_len = 0 if memory is None else memory.shape[1]
+    cache = mods["lm_model"].init_cache(cfg, b, s + n + 8, policy, mem_len=mem_len,
+                                        device=prompt.device)
+    logits, cache = mods["lm_model"].prefill(cfg, params, prompt, cache, policy=policy,
+                                             memory=memory)
     out = [logits]
     for i in range(n - 1):
         logits, cache = mods["lm_model"].decode_step(cfg, params, toks[:, i], cache,
@@ -3941,18 +4057,32 @@ def lm_rel(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def lm_products(cfg) -> int:
+def lm_products(cfg, stage="decode") -> int:
     """The QWeight products of one pass over ``cfg``'s layers: an attention
     layer's four (wq, wk, wv, wo) and an RG-LRU layer's five (in_x, in_gate,
     w_r, w_i, out), each with its MLP's (three for swiglu, else two); an SSD
-    layer's two (in_proj, out_proj; it has no MLP)."""
+    layer's two (in_proj, out_proj; it has no MLP); a cross-attention
+    layer's self-attention four, its MLP's, and its cross-attention's wq and
+    wo in a decode step, wq, wk, wv and wo in the prefill (the memory's K/V
+    projected once)."""
     mlp = 3 if cfg.mlp_type == "swiglu" else 2
-    own = {"attn": 4 + mlp, "rec": 5 + mlp, "ssm": 2}
+    own = {"attn": 4 + mlp, "rec": 5 + mlp, "ssm": 2,
+           "xattn": 4 + mlp + (2 if stage == "decode" else 4)}
     return sum(own[kind] for kind in cfg.pattern_for_layers())
 
 
 def lm_attention_layers(cfg) -> int:
-    return sum(kind == "attn" for kind in cfg.pattern_for_layers())
+    """Layers with self-attention and a KV cache: "attn" and "xattn"."""
+    return sum(kind in ("attn", "xattn") for kind in cfg.pattern_for_layers())
+
+
+def lm_cross_layers(cfg) -> int:
+    return sum(kind == "xattn" for kind in cfg.pattern_for_layers())
+
+
+def lm_encoder_products(cfg) -> int:
+    """The encoder's products: each "attn" block's four and its MLP's."""
+    return cfg.n_encoder_layers * (4 + (3 if cfg.mlp_type == "swiglu" else 2))
 
 
 def lm_quantized(mods, cfg):
@@ -3968,34 +4098,45 @@ def lm_state_bytes(cfg, b, act_bytes=2) -> int:
     written once: an RG-LRU layer's conv (d_conv − 1, W) in the activations'
     dtype and h (W) float32, an SSD layer's conv (d_conv − 1, d_inner +
     2·d_state) in the activations' dtype and state (H, hd, d_state) float32."""
-    per_layer = {"attn": 0,
+    per_layer = {"attn": 0, "xattn": 0,
                  "rec": (cfg.ssm_conv - 1) * cfg.rnn_width_ * act_bytes + cfg.rnn_width_ * 4,
                  "ssm": ((cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * act_bytes
                          + cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4)}
     return 2 * b * sum(per_layer[kind] for kind in cfg.pattern_for_layers())
 
 
-def lm_launch_gates(label, cfg, deltas, quantized, tag="lm"):
+def lm_launch_gates(label, cfg, deltas, quantized, tag="lm", enc=None):
     """The launch and call gates of one generate run, as failure messages:
-    prefill FLASH_TC once per attention layer (none for an attention-free
-    stack) and no qmm, each decode step QMM once per QWeight product
-    (``lm_products``; W4) or none (full precision), no other kernel, no
-    plain version; materialize for the prefill's products, per decode step
-    only for the unembedding (W4) and every product (full precision, whose
-    f32 weights are cast). A count the gates do not name must be 0."""
+    prefill FLASH_TC once per attention layer and once more per
+    cross-attention layer (none for an attention-free stack), the K/V cast
+    once per cross-attention layer where the memory is float32 (vlm), and no
+    qmm; each decode step QMM once per QWeight product (``lm_products``; W4)
+    or none (full precision), no other kernel, no plain version; materialize
+    for the prefill's products, per decode step only for the unembedding
+    (W4) and every product (full precision, whose f32 weights are cast);
+    ``encode`` (``enc``, encdec) FLASH_TC once per encoder layer and
+    materialize once per encoder product. A count the gates do not name must
+    be 0."""
+    cross = lm_cross_layers(cfg)
+    want_pre = {"FLASH_TC": lm_attention_layers(cfg) + cross,
+                "ATTENTION_KV_CAST": cross if cfg.family == "vlm" else 0,
+                "lm_layers.materialize": lm_products(cfg, "prefill"), "lm_model.materialize": 1}
     n = lm_products(cfg)
-    want_pre = {"FLASH_TC": lm_attention_layers(cfg), "lm_layers.materialize": n,
-                "lm_model.materialize": 1}
     want_dec = {"QMM": n if quantized else 0,
                 "lm_layers.materialize": 0 if quantized else n,
                 "lm_model.materialize": 1}
+    stages = [("prefill", want_pre, deltas[0])] + [
+        (f"decode step {step}", want_dec, d) for step, d in enumerate(deltas[1:], 1)]
+    if enc is not None:
+        stages.append(("encode", {"FLASH_TC": cfg.n_encoder_layers,
+                                  "lm_layers.materialize": lm_encoder_products(cfg)},
+                       enc["delta"]))
     fails = []
-    for step, d in enumerate(deltas):
-        want = want_pre if step == 0 else want_dec
+    for stage, want, d in stages:
         for key, got in d.items():
             if got != want.get(key, 0):
-                fails.append(f"{tag} {label}: {'prefill' if step == 0 else f'decode step {step}'}"
-                             f" ran {key} {got} times, expected {want.get(key, 0)}")
+                fails.append(f"{tag} {label}: {stage} ran {key} {got} times, expected "
+                             f"{want.get(key, 0)}")
     return fails
 
 
@@ -4025,20 +4166,61 @@ def lm_plain_routes(mods, cfg):
                                            window=window, q_offset=q_offset))
 
 
+@contextlib.contextmanager
+def attention_witness(mods, calls):
+    """Keep, in ``calls``, the first non-causal ``attention_kernel`` call of
+    each (Sq, Sk) on the path (an encoder's self-attention, a
+    cross-attention), its inputs as the kernel got them and its output, to
+    hold against the plain version afterwards (:func:`held_witness`)."""
+    layers = mods["lm_layers"]
+    kernel = layers.attention_kernel
+
+    def witness(q, k, v, causal, window=None, q_offset=0):
+        out = kernel(q, k, v, causal, window, q_offset)
+        if not causal and (q.shape[2], k.shape[2]) not in calls:
+            calls[(q.shape[2], k.shape[2])] = (q, k, v, out)
+        return out
+    with stand_in(layers, attention_kernel=witness):
+        yield
+
+
+def held_witness(torch, mods, label, calls, tag):
+    """Each call of ``attention_witness`` against ``attention_plain`` on its
+    inputs (2e-2 and the 2⁻⁷ row rule): {"Sq x Sk": gap}, and failure
+    messages."""
+    out, fails = {}, []
+    for (sq, sk), (q, k, v, o) in calls.items():
+        ref = mods["attention_plain"](q, k, v, causal=False, scale=q.shape[-1] ** -0.5)
+        try:
+            out[f"{sq}x{sk}"] = held(torch, f"{tag} {label} non-causal {sq}x{sk}", o, ref, 2e-2,
+                                     rows=True)
+        except AssertionError as e:
+            out[f"{sq}x{sk}"] = attention_gap(torch, o, ref, 2e-2)
+            fails.append(f"{tag} {label}: {e}")
+    return out, fails
+
+
 def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limits=None,
-                 tag="lm"):
+                 tag="lm", source=None):
     """One generate run on the kernel routes, held to every gate of phase lm:
     the launch and call counts per step, the logits against the plain routes
     on the card (teacher-forced on the run's tokens) and against ``forward``
     over prompt + generated tokens, and all three against the float32 truth
     (``forward`` of the float32 model on the same weights and tokens, exact
-    K/V). ``limits`` (default LM_TOL and LM_KV8_FORWARD_TOL) bound the
-    logits against the plain routes and against ``forward``. Returns (run,
+    K/V; for encdec the float32 serving path with exact K/V, as its
+    ``forward`` leaves RoPE out). ``limits`` (default LM_TOL and
+    LM_KV8_FORWARD_TOL) bound the logits against the plain routes and
+    against ``forward``. With a ``source`` (the cross-attention families'
+    frames or image rows) the run also holds each non-causal attention call
+    it made (``attention_witness``) against the plain version. Returns (run,
     with its failed gates in ``gates_failed``; tokens)."""
     m = mods["lm_model"]
     kv8 = policy.kv_bits is not None
     s = prompt.shape[1]
-    toks, logits, ms, deltas, wall = lm_generate(torch, mods, cfg, tree, prompt, policy)
+    witnessed = {}
+    with attention_witness(mods, witnessed):
+        toks, logits, ms, deltas, wall, enc = lm_generate(torch, mods, cfg, tree, prompt, policy,
+                                                          source)
     by_shape = dict(mods["QMM"].launches_by_shape)
     run = {"qmm_launches": sum(d["QMM"] for d in deltas),
            "qmm_launches_by_shape": {f"{n}x{k}": c for (n, k), c in by_shape.items()},
@@ -4050,10 +4232,17 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
            "first_prefill_ms": ms[0], "first_decode_ms_median": sorted(ms[1:])[(len(ms) - 1) // 2],
            "limits": limits or {"vs_plain_max_rel": LM_TOL,
                                 "vs_forward_max_rel": LM_KV8_FORWARD_TOL if kv8 else LM_TOL}}
-    fails = lm_launch_gates(label, cfg, deltas, quantized, tag)
+    if enc is not None:
+        run["first_encode_ms"] = enc["ms"]
+        run["flash_per_encode"] = enc["delta"]["FLASH_TC"]
+    fails = lm_launch_gates(label, cfg, deltas, quantized, tag, enc)
+    if source is not None:
+        run["witness"], witness_fails = held_witness(torch, mods, label, witnessed, tag)
+        fails += witness_fails
+    del witnessed
     before = {name: mods[name].launches for name in LM_KERNELS}
     with stand_in(mods["lm_layers"], **lm_plain_routes(mods, cfg)):
-        plain_logits = lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy)
+        plain_logits = lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy, source)
     launched = {name: mods[name].launches - before[name] for name in LM_KERNELS}
     if any(launched.values()):
         fails.append(f"{tag} {label}: the plain routes launched {launched}")
@@ -4061,22 +4250,34 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
     run["vs_plain_max_rel"] = lm_rel(logits, plain_logits)
     run["greedy_agree_with_plain"] = float((plain_logits.argmax(-1) == toks).float().mean())
     seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    memory = lm_memory(mods, cfg, tree, policy, source)
     before = mods["FLASH_TC"].launches
-    fwd = m.forward(cfg, tree, seq, policy=policy)[0][:, s - 1:]
-    if mods["FLASH_TC"].launches - before != lm_attention_layers(cfg):
+    fwd = m.forward(cfg, tree, seq, policy=policy, memory=memory)[0][:, s - 1:]
+    if mods["FLASH_TC"].launches - before != lm_attention_layers(cfg) + lm_cross_layers(cfg):
         fails.append(f"{tag} {label}: forward launched FLASH_TC "
                      f"{mods['FLASH_TC'].launches - before} times")
+    del memory
     run["vs_forward_max_rel"] = lm_rel(logits, fwd)
     before = mods["FLASH"].launches
-    truth = m.forward(dataclasses.replace(cfg, dtype="float32"), tree, seq,
-                      policy=policy)[0][:, s - 1:]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.family == "encdec":
+        truth = lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks,
+                                  dataclasses.replace(policy, kv_bits=None), source)
+    else:
+        truth = m.forward(cfg32, tree, seq, policy=policy,
+                          memory=lm_memory(mods, cfg32, tree, policy, source))[0][:, s - 1:]
     run["truth_flash_f32_launches"] = mods["FLASH"].launches - before
     run["truth"] = {name: lm_rel(a, truth) for name, a in (
         ("kernel", logits), ("plain", plain_logits), ("forward", fwd))}
     del plain_logits, fwd, truth, logits
     run["gates_failed"] = fails + lm_logit_gates(label, run, kv8, tag)
     print(f"[chip_smoke]   {tag} {label}: qmm {run['qmm_per_decode_step']} per decode step, "
-          f"FLASH_TC {run['flash_per_prefill']} per prefill; logits vs the plain routes "
+          f"FLASH_TC {run['flash_per_prefill']} per prefill"
+          + (f" and {run['flash_per_encode']} per encode" if enc is not None else "")
+          + (f"; non-causal calls held against the plain version: "
+             f"{ {k: round(v['max_row_rel'], 5) for k, v in run['witness'].items()} } (max row "
+             f"‖Δ‖/‖ref‖)" if source is not None else "")
+          + f"; logits vs the plain routes "
           f"{run['vs_plain_max_rel']:.4g} (limit {run['limits']['vs_plain_max_rel']}), vs "
           f"forward {run['vs_forward_max_rel']:.4g} (limit "
           f"{run['limits']['vs_forward_max_rel']}) of max|logits|; against the float32 truth: "
@@ -4088,7 +4289,7 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
     return run, toks
 
 
-def lm_profile_step(torch, mods, cfg, params, prompt, policy):
+def lm_profile_step(torch, mods, cfg, params, prompt, policy, source=None):
     """One warm decode step under torch.profiler: its wall, device busy time,
     qmm's device time and the device launches."""
     from torch.autograd import DeviceType
@@ -4096,8 +4297,11 @@ def lm_profile_step(torch, mods, cfg, params, prompt, policy):
 
     m = mods["lm_model"]
     b, s = prompt.shape
-    cache = m.init_cache(cfg, b, s + 4, policy, device=prompt.device)
-    logits, cache = m.prefill(cfg, params, prompt, cache, policy=policy)
+    memory = lm_memory(mods, cfg, params, policy, source)
+    cache = m.init_cache(cfg, b, s + 4, policy, mem_len=0 if memory is None else memory.shape[1],
+                         device=prompt.device)
+    logits, cache = m.prefill(cfg, params, prompt, cache, policy=policy, memory=memory)
+    del memory
     tok = logits.argmax(-1)
     logits, cache = m.decode_step(cfg, params, tok, cache, policy=policy)
     tok = logits.argmax(-1)
@@ -4259,33 +4463,37 @@ def lm_kernel_rows(torch, mods, cfg, qparams, flush):
 
 
 def lm_card_vs_cpu(torch, mods, cfg, tag="lm", n_layers=LM_CPU_LAYERS,
-                   prompt_len=LM_CPU_PROMPT, **replace):
+                   prompt_len=LM_CPU_PROMPT, decode_steps=LM_CPU_DECODE_STEPS, **replace):
     """``n_layers`` layers of ``cfg`` (and the fields of ``replace``) at full
     width in float32 on the card and on the port's CPU, the same weights
     (drawn on the card, copied): logits of a prefill of ``prompt_len`` tokens
-    and LM_CPU_DECODE_STEPS decode steps over the card's greedy tokens, full
+    and ``decode_steps`` decode steps over the card's greedy tokens, full
     precision and W4 (the card's decode products on qmm), held within
-    LM_CPU_TOL of max|logits|, TF32 off. The cache stays float: an int8 KV
-    code can round the other way on the two devices."""
+    LM_CPU_TOL of max|logits|, TF32 off; a cross-attention family over the
+    memory of the same stub input (``lm_stub_source``) on both devices. The cache
+    stays float: an int8 KV code can round the other way on the two
+    devices."""
     dev = torch.device(mods["device"])
     cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32", **replace)
     params = mods["lm_model"].init_params(cfg2, mods["prng"].PRNGKey(0), device=dev)
     prompt = mods["prng"].randint(mods["prng"].PRNGKey(2), (LM_CPU_BATCH, prompt_len), 0,
                                   cfg2.vocab_size, device=dev)
+    source = lm_stub_source(torch, mods, cfg2, LM_CPU_BATCH, key=5)
     out = {}
     for label, policy, tree in (
             ("fp32", mods["QuantPolicy"](), params),
             ("w4", mods["QuantPolicy"](weight_bits=4), mods["quantize_params"](params, 4))):
-        toks, card = mods["generate"](cfg2, tree, prompt, LM_CPU_DECODE_STEPS + 1, policy)
+        toks, card = mods["generate"](cfg2, tree, prompt, decode_steps + 1, policy,
+                                      memory=lm_memory(mods, cfg2, tree, policy, source))
         t0 = time.perf_counter()
         cpu = lm_teacher_forced(torch, mods, cfg2, mods["lm_tree_to"](tree, "cpu"), prompt.cpu(),
-                                toks.cpu(), policy)
+                                toks.cpu(), policy, None if source is None else source.cpu())
         cpu_s = time.perf_counter() - t0
         gaps = lm_gap(torch, card.cpu(), cpu)
         out[label] = {"max_rel": max(gaps), "per_step": gaps, "cpu_s": cpu_s}
         print(f"[chip_smoke]   {tag} card vs CPU, {n_layers} layers float32 {label}: max "
               f"|Δ|/max|logits| {max(gaps):.3g} over the prefill of {prompt_len} tokens and "
-              f"{LM_CPU_DECODE_STEPS} steps (CPU {cpu_s:.1f} s)", flush=True)
+              f"{decode_steps} steps (CPU {cpu_s:.1f} s)", flush=True)
         if not max(gaps) <= LM_CPU_TOL:
             raise AssertionError(f"{tag} card vs CPU {label}: {max(gaps)} > {LM_CPU_TOL}")
     return out
@@ -4302,7 +4510,7 @@ def lm_setup(torch, mods, arch=LM_ARCH, tag="lm"):
     dev = torch.device(mods["device"])
     prng, m = mods["prng"], mods["lm_model"]
     cfg = mods["lm_get_config"](arch)
-    out = {"config": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT,
+    out = {"config": cfg.name, "batch": LM_BATCH, "prompt": lm_prompt_len(cfg),
            "decode_steps": LM_DECODE_STEPS}
     t0 = time.perf_counter()
     params = m.init_params(cfg, prng.PRNGKey(0), device=dev)
@@ -4330,52 +4538,77 @@ def lm_setup(torch, mods, arch=LM_ARCH, tag="lm"):
     print(f"[chip_smoke]   {tag} {cfg.name}: init {out['init_s']:.1f} s, quantize W4 "
           f"{out['quantize_s']:.1f} s; param bytes {out['param_bytes']['fp32']:,} (f32) -> "
           f"{out['param_bytes']['w4']:,} (W4), layer codes {layer_codes:,}", flush=True)
-    prompt = prng.randint(prng.PRNGKey(1), (LM_BATCH, LM_PROMPT), 0, cfg.vocab_size, device=dev)
+    prompt = prng.randint(prng.PRNGKey(1), (LM_BATCH, lm_prompt_len(cfg)), 0, cfg.vocab_size,
+                          device=dev)
     return cfg, params, qparams, prompt, out
+
+
+def lm_decode_weights(tree):
+    """The parameters a decode step reads: the slots and the tail, without
+    the cross-attention's wk and wv (the prefill projected the memory once;
+    each step reads the cached K/V), and the unembedding."""
+    def read(block):
+        if isinstance(block, dict) and "xattn" in block:
+            return {**block, "xattn": {k: v for k, v in block["xattn"].items()
+                                       if k in ("wq", "wo")}}
+        return block
+    return {"slots": {k: read(v) for k, v in tree["slots"].items()},
+            "tail": [read(b) for b in tree["tail"]], "unembed": tree["unembed"]}
 
 
 def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="lm"):
     """The bytes a quantized decode step (W4KV8, or W4 for an attention-free
     stack) at B = LM_BATCH must read (layer codes, scales, biases, norms and
     recurrent parameters, the unembedding's codes, the int8 KV cache at the
-    mean length, capped at the local window; the recurrent states, read and
-    written), the same at full precision (f32 weights, bf16 cache), as times
-    at HBM_BYTES_PER_S, and the unembedding's dequantize, which every W4
-    step runs."""
+    mean length, capped at the local window; the cross-attention layers'
+    cached memory K/V in bf16, without their wk and wv; the recurrent
+    states, read and written), the same at full precision (f32 weights, bf16
+    cache), as times at HBM_BYTES_PER_S, and the unembedding's dequantize,
+    which every W4 step runs."""
     label = lm_quantized(mods, cfg)[0]
-    mean_len = LM_PROMPT + LM_DECODE_STEPS // 2
+    mean_len = lm_prompt_len(cfg) + LM_DECODE_STEPS // 2
     if cfg.local_window:
         mean_len = min(mean_len, cfg.local_window)
     kv_elems = (lm_attention_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * mean_len
                 * cfg.head_dim_)
     kv_bytes = kv_elems + (kv_elems // cfg.head_dim_ * 4 if kv_elems else 0)  # codes, scales
+    mem_rows = {"encdec": cfg.encoder_seq, "vlm": cfg.n_image_tokens}.get(cfg.family, 0)
+    cross_bytes = (lm_cross_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * mem_rows
+                   * cfg.head_dim_ * 2)
     state_bytes = lm_state_bytes(cfg, LM_BATCH)
-    out = {"state_bytes": state_bytes}
-    step_bytes = (mods["param_bytes"](qparams["slots"]) + mods["param_bytes"](qparams["tail"])
-                  + mods["param_bytes"](qparams["unembed"]) + kv_bytes + state_bytes)
+    out = {"state_bytes": state_bytes, "cross_kv_bytes": cross_bytes}
+    step_bytes = (mods["param_bytes"](lm_decode_weights(qparams)) + kv_bytes + cross_bytes
+                  + state_bytes)
     out[f"{label}_step_bytes"] = step_bytes
     out[f"{label}_step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
-    out["layer_codes_bound_ms"] = layer_codes / HBM_BYTES_PER_S * 1e3
-    fp_bytes = (mods["param_bytes"](params["slots"]) + mods["param_bytes"](params["tail"])
-                + mods["param_bytes"](params["unembed"]))
-    out["full_step_bound_ms"] = (fp_bytes + 2 * kv_elems + state_bytes) / HBM_BYTES_PER_S * 1e3
+    read = lm_decode_weights(qparams)
+    read_codes = sum(w.packed.numel() for w in mods["tree_leaves"]([read["slots"], read["tail"]])
+                     if isinstance(w, mods["QWeight"]))
+    out["layer_codes_read_bytes"] = read_codes          # of layer_codes: all but cross wk, wv
+    out["layer_codes_bound_ms"] = read_codes / HBM_BYTES_PER_S * 1e3
+    fp_bytes = mods["param_bytes"](lm_decode_weights(params))
+    out["full_step_bound_ms"] = ((fp_bytes + 2 * kv_elems + cross_bytes + state_bytes)
+                                 / HBM_BYTES_PER_S * 1e3)
     unembed = qparams["unembed"]["w"]
     out["unembed_dequantize_ms"] = time_ms(
         torch, lambda: mods["lm_materialize"](unembed, torch.bfloat16), 5, flush)
     print(f"[chip_smoke]   {tag} {label.upper()} bytes per step {step_bytes:,} -> bound "
           f"{out[f'{label}_step_bound_ms']:.3f} ms (layer codes alone "
-          f"{out['layer_codes_bound_ms']:.3f} ms, recurrent states {state_bytes:,} bytes); "
+          f"{out['layer_codes_bound_ms']:.3f} ms, recurrent states {state_bytes:,} bytes, "
+          f"cross K/V {cross_bytes:,} bytes); "
           f"the unembedding's dequantize "
           f"{out['unembed_dequantize_ms']:.3f} ms per step; full precision bound "
           f"{out['full_step_bound_ms']:.3f} ms", flush=True)
     return out
 
 
-def lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits=None, tag="lm"):
+def lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits=None, tag="lm",
+                  source=None):
     """The quantized run (``lm_quantized``: W4KV8, or W4 for an
     attention-free stack) on the kernel routes and full precision, each a
     run held to lm_check_run's gates (``limits``: its logit limits by label,
-    default LM_TOL and LM_KV8_FORWARD_TOL), then LM_TIMING_PASSES more runs
+    default LM_TOL and LM_KV8_FORWARD_TOL; ``source``: a cross-attention
+    family's stub frames or image rows), then LM_TIMING_PASSES more runs
     timed and one decode step profiled. Returns {label: run}."""
     out = {}
     for label, policy, tree, quantized in (
@@ -4383,22 +4616,25 @@ def lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits=None, tag="l
             ("full", mods["QuantPolicy"](), params, False)):
         reset_counts(mods)
         run, toks = lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized,
-                                 (limits or {}).get(label), tag)
+                                 (limits or {}).get(label), tag, source)
         if run["gates_failed"]:
             raise AssertionError("; ".join(run["gates_failed"]))
         # timing: LM_TIMING_PASSES more runs
         passes = []
         for _ in range(LM_TIMING_PASSES):
-            _, _, pms, _, pwall = lm_generate(torch, mods, cfg, tree, prompt, policy)
-            passes.append({"prefill_ms": pms[0], "decode_ms": pms[1:], "wall_s": pwall})
+            _, _, pms, _, pwall, enc = lm_generate(torch, mods, cfg, tree, prompt, policy, source)
+            passes.append({"prefill_ms": pms[0], "decode_ms": pms[1:], "wall_s": pwall,
+                           "encode_ms": None if enc is None else enc["ms"]})
         steps = sorted(v for p in passes for v in p["decode_ms"])
+        if source is not None and cfg.family == "encdec":
+            run["encode_ms"] = sorted(p["encode_ms"] for p in passes)[len(passes) // 2]
         run["prefill_ms"] = sorted(p["prefill_ms"] for p in passes)[len(passes) // 2]
         run["decode_ms_median"] = steps[len(steps) // 2]
         run["decode_ms_pass_medians"] = [sorted(p["decode_ms"])[len(p["decode_ms"]) // 2]
                                          for p in passes]
         run["tokens_per_s"] = LM_BATCH * 1e3 / run["decode_ms_median"]
         run["passes"] = passes
-        run["profile"] = lm_profile_step(torch, mods, cfg, tree, prompt, policy)
+        run["profile"] = lm_profile_step(torch, mods, cfg, tree, prompt, policy, source)
         prof = run["profile"]
         print(f"[chip_smoke]   {tag} {label}: prefill {run['prefill_ms']:.2f} ms, decode "
               f"{run['decode_ms_median']:.3f} ms per token (pass medians "
@@ -4660,7 +4896,7 @@ def phase_ssm(torch, mods):
         raise AssertionError("; ".join(run["gates_failed"]))
     del toks
     # the same decode at B = 1 after LM_PROMPT tokens: the state does not grow
-    _, _, ms, _, _ = lm_generate(torch, mods, cfg, qparams, prompt[:1], w4)
+    _, _, ms, _, _, _ = lm_generate(torch, mods, cfg, qparams, prompt[:1], w4)
     run["short_b1_decode_ms_median"] = sorted(ms[1:])[(len(ms) - 1) // 2]
     print(f"[chip_smoke]   ssm {label} long: prefill of {SSM_LONG_PROMPT} tokens "
           f"{run['first_prefill_ms']:.2f} ms, decode {run['first_decode_ms_median']:.3f} ms per "
@@ -4678,6 +4914,226 @@ def phase_ssm(torch, mods):
     out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg, "ssm", prompt_len=SSM_CPU_PROMPT)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[chip_smoke]   ssm phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def xattn_flash_row(torch, mods, tag, shape, flush, gen, causal=False, kv_f32=False):
+    """An attention call of a cross-attention family's path at its own
+    ``shape`` (B, Hq, Hkv, Sq, Sk, D) through the model's route
+    (``chunked_attention``; q bf16, K/V bf16, or float32 with ``kv_f32``,
+    which the route casts to bf16, counted in ATTENTION_KV_CAST): the kernel
+    it must launch (FLASH_TC), held against the plain version on the same
+    bf16 inputs (2e-2 and the 2⁻⁷ row rule), timed (the kernel alone, and
+    the route with its cast) beside the plain version, SDPA on the bf16
+    inputs (non-causal, or causal; its backend recorded) and the bound. With
+    float32 K/V also the route's distance from the plain version in float32
+    on the float32 K/V (the reference's and the CPU's arithmetic), and the
+    cast's own share of it."""
+    dev = torch.device(mods["device"])
+    b, hq, hkv, sq, sk, d = shape
+    layers, plain = mods["lm_layers"], mods["attention_plain"]
+    q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(torch.bfloat16)
+    kf, vf = (torch.randn(b, hkv, sk, d, generator=gen, device=dev) for _ in range(2))
+    k16, v16 = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    kk, v = (kf, vf) if kv_f32 else (k16, v16)
+    FLASH_TC, cast = mods["FLASH_TC"], mods["ATTENTION_KV_CAST"]
+    before = (FLASH_TC.launches, cast.launches)
+    out = layers.chunked_attention(q, kk, v, causal=causal)
+    if (FLASH_TC.launches, cast.launches) != (before[0] + 1, before[1] + int(kv_f32)):
+        raise AssertionError(f"{tag} flash {shape}: FLASH_TC and the cast ran "
+                             f"{FLASH_TC.launches - before[0]} and {cast.launches - before[1]} "
+                             f"times, expected 1 and {int(kv_f32)}")
+    scale = d ** -0.5
+    label = f"{tag} {'causal' if causal else 'non-causal'} {sq}x{sk}"
+    gap = held(torch, label, out, plain(q, k16, v16, causal=causal, scale=scale), 2e-2, True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, k16, v16, is_causal=causal,
+                                                                enable_gqa=True)
+    lib = sdpa()
+    b_ms, b_by, f32_ms = attention_bound(b, hq, hkv, sq, sk, d, 2, causal)
+    row = {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "causal": causal,
+           "kv_dtype": "float32" if kv_f32 else "bfloat16", "kernel": FLASH_TC.entry,
+           "max_abs_err": gap["max_abs_err"], "max_row_rel": gap["max_row_rel"],
+           "ms": time_ms(torch, lambda: FLASH_TC(q, k16, v16, causal, scale), 10, flush),
+           "route_ms": time_ms(torch, lambda: layers.chunked_attention(q, kk, v, causal=causal),
+                               10, flush),
+           "plain_ms": time_ms(torch, lambda: plain(q, k16, v16, causal=causal, scale=scale), 3,
+                               flush),
+           "library_ms": time_ms(torch, sdpa, 10, flush),
+           "library_backend": sdpa_backend(torch, lib, q, k16, v16, causal=causal),
+           "library_max_abs_diff": float((lib.float() - out.float()).abs().max()),
+           "pairs": attention_pairs(sq, sk, causal, off=0 if causal else None),
+           "bound_ms": b_ms, "bound_by": b_by, "f32_core_bound_ms": f32_ms}
+    if kv_f32:
+        ref32 = plain(q.float(), kf, vf, causal=causal, scale=scale)
+        row["vs_f32_kv"] = attention_gap(torch, out, ref32, 2e-2)
+        row["cast_alone"] = attention_gap(torch, plain(q.float(), k16.float(), v16.float(),
+                                                       causal=causal, scale=scale), ref32, 2e-2)
+    print(f"[chip_smoke]   {label} B={b} {hq}/{hkv} heads D={d} bf16"
+          f"{' (K/V float32, cast)' if kv_f32 else ''}: max|Δ|={row['max_abs_err']:.3g} kernel "
+          f"{row['ms']:.4f} ms (route {row['route_ms']:.4f})  plain {row['plain_ms']:.3f} ms  "
+          f"SDPA {row['library_ms']:.4f} ms ({row['library_backend']})  bound {b_ms:.4f} ms "
+          f"({b_by})" + (f"; against float32 on the float32 K/V: max row ‖Δ‖/‖ref‖ "
+                          f"{row['vs_f32_kv']['max_row_rel']:.4g} (the cast alone "
+                          f"{row['cast_alone']['max_row_rel']:.4g})" if kv_f32 else ""),
+          flush=True)
+    del q, kf, vf, k16, v16, kk, v, out, lib
+    return row
+
+
+def xattn_qmm_rows(torch, mods, tag, qparams, names, gen, flush):
+    """qmm at M = LM_BATCH on layer 0's codes of each (slot, block, name)."""
+    rows = []
+    for slot, block, name in names:
+        qw = qparams["slots"][slot][block][name]["w"][0]
+        rows.append(lm_qmm_row(torch, mods, tag, f"{block}.{name}", qw, gen, flush))
+    return rows
+
+
+def encdec_fault(torch, mods, cfg, qparams, prompt, source, limits):
+    """The W4KV8 run with a fault planted in the kernel route: the prefill's
+    cross-attention over whisper's memory drops its ragged last key tile
+    (keys ENCDEC_FAULT_KEYS to encoder_seq − 1; the kernels, the plain
+    routes' witness and forward's and the truth's kernel calls alike). Its
+    gates must fail; returns the run's readings and failed gates."""
+    layers = mods["lm_layers"]
+    kernel = layers.attention_kernel
+
+    def faulty(q, k, v, causal, window=None, q_offset=0):
+        if not causal and q.shape[2] != k.shape[2] and k.shape[2] == cfg.encoder_seq:
+            k, v = k[:, :, :ENCDEC_FAULT_KEYS], v[:, :, :ENCDEC_FAULT_KEYS]
+        return kernel(q, k, v, causal, window, q_offset)
+    label, policy = lm_quantized(mods, cfg)
+    reset_counts(mods)
+    with stand_in(layers, attention_kernel=faulty):
+        run, toks = lm_check_run(torch, mods, cfg, f"{label} fault", policy, qparams, prompt,
+                                 True, limits, "encdec", source)
+    del toks
+    if not run["gates_failed"]:
+        raise AssertionError(f"encdec: the cross-attention dropping keys {ENCDEC_FAULT_KEYS}"
+                             f"-{cfg.encoder_seq - 1} passed every gate")
+    print(f"[chip_smoke]   encdec planted fault (keys {ENCDEC_FAULT_KEYS}-{cfg.encoder_seq - 1} "
+          f"dropped): {len(run['gates_failed'])} gates failed, as they must: "
+          f"{'; '.join(run['gates_failed'])[:400]}", flush=True)
+    return {k: run[k] for k in ("vs_plain_max_rel", "vs_forward_max_rel", "truth", "witness",
+                                "gates_failed")}
+
+
+def phase_encdec(torch, mods):
+    """whisper-tiny at full width (4 encoder and 4 decoder layers, d = 384)
+    served on the card: 8 × 1,500 stub frames through ``encode`` (4
+    non-causal FLASH_TC at S = 1,500), prompts of 224 tokens, 32 decode
+    steps, W4KV8 on the kernel routes and full precision, gated per step as
+    phase lm gates starcoder2-3b (8 FLASH_TC a prefill: 4 causal, 4 cross
+    224 × 1,500; 32 qmm a decode step), each non-causal call held against
+    the plain version, the logits against the plain routes, forward and the
+    float32 serving path; a planted fault (the cross-attention dropping the
+    ragged last key tile) must fail the gates; the whole model in float32
+    against the CPU."""
+    t_phase = time.perf_counter()
+    dev = torch.device(mods["device"])
+    cfg, params, qparams, prompt, out = lm_setup(torch, mods, ENCDEC_ARCH, "encdec")
+    source = lm_stub_source(torch, mods, cfg, LM_BATCH)
+    limits = {"w4kv8": {"vs_plain_max_rel": ENCDEC_TOL,
+                        "vs_forward_max_rel": ENCDEC_TOL + ENCDEC_ROPE_GAP + ENCDEC_KV8_SHIFT},
+              "full": {"vs_plain_max_rel": ENCDEC_TOL,
+                       "vs_forward_max_rel": ENCDEC_TOL + ENCDEC_ROPE_GAP}}
+    out.update(lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits, "encdec", source))
+    out["fault"] = encdec_fault(torch, mods, cfg, qparams, prompt, source, limits["w4kv8"])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out.update(lm_step_bounds(torch, mods, cfg, params, qparams, out["layer_code_bytes"], flush,
+                              "encdec"))
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out["qmm_rows"] = xattn_qmm_rows(torch, mods, "encdec", qparams, (
+        ("slot0", "attn", "wq"), ("slot0", "xattn", "wq"), ("slot0", "ffn", "wi"),
+        ("slot0", "ffn", "wo")), gen, flush)
+    hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    t, s = cfg.encoder_seq, lm_prompt_len(cfg)
+    out["flash_rows"] = [
+        xattn_flash_row(torch, mods, "encdec encode", (LM_BATCH, hq, hkv, t, t, d), flush, gen),
+        xattn_flash_row(torch, mods, "encdec cross", (LM_BATCH, hq, hkv, s, t, d), flush, gen)]
+    del params, qparams, flush, source
+    torch.cuda.empty_cache()
+    reset_counts(mods)
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg, "encdec", n_layers=cfg.n_layers)
+    out["card_vs_cpu"]["flash_f32_launches_by_shape"] = {
+        str(k): c for k, c in mods["FLASH"].launches_by_shape.items()}
+    if not mods["FLASH"].launches:
+        raise AssertionError("encdec card vs CPU: the f32 FLASH was not launched")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   encdec phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def vlm_prefill_parts(torch, mods, cfg, qparams, source, flush):
+    """The W4 prefill's memory projections (wk and wv of one cross-attention
+    layer over the 8 × 1,600 float32 image rows: materialize + matmul, as
+    the reference computes them) timed, and both per prefill (× the
+    cross-attention layers)."""
+    layers = mods["lm_layers"]
+    slot = next(f"slot{j}" for j, kind in enumerate(cfg.pattern_for_layers()[:cfg.cross_attn_every])
+                if kind == "xattn")
+    xattn = qparams["slots"][slot]["xattn"]
+    wk, wv = xattn["wk"]["w"][0], xattn["wv"]["w"][0]
+    ms = time_ms(torch, lambda: (layers.dense({"w": wk}, source), layers.dense({"w": wv}, source)),
+                 3, flush)
+    n = lm_cross_layers(cfg)
+    print(f"[chip_smoke]   vlm memory projections (wk, wv over {tuple(source.shape)} float32, "
+          f"materialize + matmul): {ms:.3f} ms a layer, {ms * n:.2f} ms a prefill", flush=True)
+    return {"memory_projection_ms": ms, "memory_projection_per_prefill_ms": ms * n}
+
+
+def phase_vlm(torch, mods):
+    """llama-3.2-vision-11b at full width (40 layers, 8 of them
+    cross-attention image layers) served on the card: 8 × 1,600 float32
+    image rows, prompts of 1,024 tokens, 32 decode steps, W4KV8 on the
+    kernel routes and full precision, gated per step as phase lm gates
+    starcoder2-3b (48 FLASH_TC a prefill: 40 causal, 8 cross 1,024 × 1,600
+    on K/V cast from float32, 8 casts; 296 qmm a decode step), each
+    cross-attention call held against the plain version, the logits against
+    the plain routes, forward and the float32 truth; two layers (xattn,
+    attn) in float32 against the CPU."""
+    t_phase = time.perf_counter()
+    dev = torch.device(mods["device"])
+    cfg, params, qparams, prompt, out = lm_setup(torch, mods, VLM_ARCH, "vlm")
+    source = lm_stub_source(torch, mods, cfg, LM_BATCH)
+    limits = {"w4kv8": {"vs_plain_max_rel": 2 * VLM_KV8_FLOOR,
+                        "vs_forward_max_rel": VLM_KV8_FLOOR + VLM_BF16_FLOOR},
+              "full": {"vs_plain_max_rel": 2 * VLM_BF16_FLOOR,
+                       "vs_forward_max_rel": 2 * VLM_BF16_FLOOR}}
+    out.update(lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits, "vlm", source))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out.update(lm_step_bounds(torch, mods, cfg, params, qparams, out["layer_code_bytes"], flush,
+                              "vlm"))
+    out.update(vlm_prefill_parts(torch, mods, cfg, qparams, source, flush))
+    del params, source
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out["qmm_rows"] = xattn_qmm_rows(torch, mods, "vlm", qparams, (
+        ("slot0", "attn", "wq"), ("slot0", "attn", "wk"), ("slot0", "ffn", "wi_gate"),
+        ("slot0", "ffn", "wo"), ("slot3", "xattn", "wq")), gen, flush)
+    hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    out["flash_rows"] = [
+        xattn_flash_row(torch, mods, "vlm cross", (LM_BATCH, hq, hkv, LM_PROMPT,
+                                                   cfg.n_image_tokens, d), flush, gen,
+                        kv_f32=True),
+        xattn_flash_row(torch, mods, "vlm self", (LM_BATCH, hq, hkv, LM_PROMPT, LM_PROMPT, d),
+                        flush, gen, causal=True)]
+    cross = out["flash_rows"][0]
+    out["cross_attention_per_prefill_ms"] = cross["route_ms"] * lm_cross_layers(cfg)
+    del qparams, flush
+    torch.cuda.empty_cache()
+    reset_counts(mods)
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg, "vlm", n_layers=2,
+                                        decode_steps=VLM_CPU_DECODE_STEPS,
+                                        cross_attn_every=VLM_CPU_EVERY)
+    out["card_vs_cpu"]["flash_f32_launches_by_shape"] = {
+        str(k): c for k, c in mods["FLASH"].launches_by_shape.items()}
+    if not mods["FLASH"].launches:
+        raise AssertionError("vlm card vs CPU: the f32 FLASH was not launched")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   vlm phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5416,6 +5872,7 @@ def load_port() -> dict:
                 tree_leaves=tree_leaves, tree_map=tree_map, sparsity_report=sparsity_report,
                 lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
                 lm_layers=lm_layers, lm_model=lm_model, rglru=rglru, ssm=ssm, QWeight=QWeight,
+                ATTENTION_KV_CAST=lm_layers.ATTENTION_KV_CAST,
                 lm_materialize=lm_materialize, param_bytes=param_bytes,
                 quantize_params=quantize_params,
                 lm_tree_to=lm_tree_to,
@@ -5536,6 +5993,8 @@ def main(argv=None) -> int:
     report["hybrid"] = phases.run("hybrid", phase_hybrid, torch, mods)
     report["ssm"] = phases.run("ssm", phase_ssm, torch, mods)
     report["train"] = phases.run("train", phase_train, torch, mods)
+    report["encdec"] = phases.run("encdec", phase_encdec, torch, mods)
+    report["vlm"] = phases.run("vlm", phase_vlm, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
@@ -5959,6 +6418,59 @@ def main(argv=None) -> int:
                  "and the remat recompute; the reference trains through chunked_attention's "
                  "custom VJP, src/repro/models/layers.py:145-200)",
     })
+    for tag, arch in (("encdec", ENCDEC_ARCH), ("vlm", VLM_ARCH)):
+        phase = report[tag]
+        by_shape = phase["w4kv8"]["qmm_launches_by_shape"]
+        for row in phase["qmm_rows"]:
+            shape = f"{row['N']}x{row['K']}"
+            kernels.append({
+                "name": f"qmm[{tag} decode: {arch} W4 {row['shape']} ({shape})]",
+                "route": "cuda",
+                "source": lm_source,
+                "entry": report["kernel"]["entry"],
+                "replaces": "src/repro/kernels/qmm/kernel.py:265",
+                "launches": by_shape.get(shape, 0),
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "bytes_bound_ms": row["bytes_bound_ms"],
+                "library_ms": row["library_ms"],
+                "shape": f"M={row['M']} N={row['N']} K={row['K']} bits={row['bits']}, layer 0's "
+                         f"{row['shape']} codes on bf16 x (timed); launches: the W4KV8 run's "
+                         "decode steps, every product of this shape in every layer; library: "
+                         "torch.matmul on the dequantized bf16 weight",
+            })
+        for row in phase["flash_rows"]:
+            key = str((LM_BATCH, row["Hq"], row["Hkv"], row["Sq"], row["Sk"], row["D"], 0, 0))
+            kernels.append({
+                "name": (f"flash_attention_tc[{tag}: {arch} B={row['B']} {row['Sq']}x{row['Sk']} "
+                         f"{'causal' if row['causal'] else 'non-causal'}]"),
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+                "entry": row["kernel"],
+                "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+                "launches": phase["w4kv8"]["flash_tc_launches_by_shape"].get(key, 0),
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library_backend": row["library_backend"],
+                "route_ms": row["route_ms"],
+                "max_row_rel": row["max_row_rel"],
+                "vs_f32_kv_max_row_rel": row.get("vs_f32_kv", {}).get("max_row_rel"),
+                "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} Sq={row['Sq']} "
+                         f"Sk={row['Sk']} D={row['D']} bf16 "
+                         f"{'causal' if row['causal'] else 'non-causal'}"
+                         + (", K/V float32 cast to bf16 by the route (route_ms)"
+                            if row["kv_dtype"] == "float32" else "")
+                         + "; launches: the W4KV8 run (encode and prefill); library: SDPA on the "
+                           "bf16 inputs (the reference computes chunked_attention, "
+                           "src/repro/models/layers.py:203)",
+            })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

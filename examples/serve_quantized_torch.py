@@ -11,7 +11,11 @@ the same parameters and prompt (the reference's threefry draws from
 PRNGKey(0)), greedy tokens at full precision and under W<bits> + KV8. The
 dense archs, the hybrid recurrentgemma_2b (RG-LRU blocks and local
 attention) and the attention-free mamba2_370m (SSD blocks; no KV cache for
-KV8 to act on) run. On the GPU (the default device) the decode products go
+KV8 to act on) run. whisper_tiny and llama32_vision_11b are refused: their
+layers read a memory (encoded audio frames, image embeddings) that the
+reference's example does not make (``generate(..., memory=...)`` serves
+them; ``tests/test_torch_xattn.py`` and ``chip_smoke.py``'s encdec and vlm
+phases do). On the GPU (the default device) the decode products go
 through the ``qmm`` kernel and the prefill's attention through
 ``flash_attention`` (with the hybrid's window).
 """
@@ -35,8 +39,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
+    if cfg.family in ("encdec", "vlm"):
+        ap.error(f"{args.arch} ({cfg.family}) reads a memory in its cross-attention layers "
+                 f"(encoded audio frames or image embeddings), and the reference's "
+                 f"examples/serve_quantized.py makes none; serve it with "
+                 f"generate(..., memory=...)")
+    device = resolve_device(args.device)
     key = prng.PRNGKey(0)
     params = init_params(cfg, key, device=device)
     prompt = prng.randint(key, (2, 16), 0, cfg.vocab_size, device=device)

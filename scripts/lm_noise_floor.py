@@ -2,20 +2,27 @@
 """How far bf16 arithmetic and the int8 KV cache put an LM's logits from a
 float32 truth at full width, on one card.
 
-    python3 scripts/lm_noise_floor.py [--arch recurrentgemma-2b | mamba2-370m]
+    python3 scripts/lm_noise_floor.py [--arch recurrentgemma-2b | mamba2-370m |
+                                       whisper-tiny | llama-3.2-vision-11b]
 
 The model and traffic of ``chip_smoke.py``'s ``lm`` phase (starcoder2-3b by
 default, all layers, weights from PRNGKey(0), 8 prompts of 1,024 tokens from
 PRNGKey(1), 32 greedy decode steps; ``--arch recurrentgemma-2b``: the
-``hybrid`` phase's run A; ``--arch mamba2-370m``: the ``ssm`` phase's), under
-W4KV8 (W4 for an attention-free stack, which has no KV cache) and at full
-precision. The truth is ``forward`` of the float32 model on the same weights
-and tokens (exact K/V). Each serving variant runs a prefill and the decode
-steps over the kernel run's tokens: the kernel routes (``generate``), the
-plain routes in bf16 with and without the int8 cache, the float32 model with
-and without it (one of each without a KV cache), and the bf16 ``forward``. For each pair it prints max |Δ| over max |reference|, the
-measure of ``chip_smoke.py``'s gates, and one JSON object with the card's
-name and power limit.
+``hybrid`` phase's run A; ``--arch mamba2-370m``: the ``ssm`` phase's;
+``--arch whisper-tiny``: the ``encdec`` phase's, prompts of 224 tokens over
+the encoder's memory of 1,500 stub frames; ``--arch llama-3.2-vision-11b``:
+the ``vlm`` phase's, over 1,600 stub image rows), under W4KV8 (W4 for an
+attention-free stack, which has no KV cache) and at full precision. The
+truth is ``forward`` of the float32 model on the same weights and tokens
+(exact K/V); for whisper-tiny, whose ``forward`` leaves out the RoPE that
+its prefill and decode apply (as the reference's), it is the float32
+serving path with exact K/V, and ``forward_f32_vs_truth`` is that gap.
+Each serving variant runs a prefill and the decode steps over the kernel
+run's tokens: the kernel routes (``generate``), the plain routes in bf16
+with and without the int8 cache, the float32 model with and without it (one
+of each without a KV cache), and the bf16 ``forward``. For each pair it
+prints max |Δ| over max |reference|, the measure of ``chip_smoke.py``'s
+gates, and one JSON object with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -52,29 +59,41 @@ def main(argv=None) -> int:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = m.init_params(cfg, prng.PRNGKey(0), device=dev)
     qparams = mods["quantize_params"](params, 4)
-    prompt = prng.randint(prng.PRNGKey(1), (cs.LM_BATCH, cs.LM_PROMPT), 0, cfg.vocab_size,
-                          device=dev)
+    s = cs.lm_prompt_len(cfg)
+    prompt = prng.randint(prng.PRNGKey(1), (cs.LM_BATCH, s), 0, cfg.vocab_size, device=dev)
+    source = cs.lm_stub_source(torch, mods, cfg, cs.LM_BATCH)
     plain = cs.lm_plain_routes(mods, cfg)
+    encdec = cfg.family == "encdec"
     out = {}
     w4_label, w4_policy = cs.lm_quantized(mods, cfg)
     for label, tree, policy in ((w4_label, qparams, w4_policy), ("full", params, policy_of())):
         no_kv = dataclasses.replace(policy, kv_bits=None)
         kv8 = policy.kv_bits is not None
-        toks, kernel = mods["generate"](cfg, tree, prompt, cs.LM_DECODE_STEPS + 1, policy)
+
+        def memory(c, p=policy, t=tree):
+            return cs.lm_memory(mods, c, t, p, source)
+        toks, kernel = mods["generate"](cfg, tree, prompt, cs.LM_DECODE_STEPS + 1, policy,
+                                        memory=memory(cfg))
         seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
         runs = {"kernel": kernel}
-        runs["truth"] = m.forward(cfg32, tree, seq)[0][:, cs.LM_PROMPT - 1:].float()
-        runs["forward_bf16"] = m.forward(cfg, tree, seq)[0][:, cs.LM_PROMPT - 1:]
+        forward_f32 = m.forward(cfg32, tree, seq, memory=memory(cfg32))[0][:, s - 1:].float()
+        runs["forward_bf16"] = m.forward(cfg, tree, seq, memory=memory(cfg))[0][:, s - 1:]
         with cs.stand_in(layers, **plain):
-            runs["plain"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy)
+            runs["plain"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy,
+                                                 source)
             if kv8:
                 runs["plain_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg, tree, prompt, toks,
-                                                            no_kv)
+                                                            no_kv, source)
         f32 = "f32_kv8" if kv8 else "f32"
-        runs[f32] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, policy)
+        runs[f32] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks, policy, source)
         if kv8:
             runs["f32_no_kv8"] = cs.lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks,
-                                                      no_kv)
+                                                      no_kv, source)
+        if encdec:
+            runs["truth"] = runs["f32_no_kv8" if kv8 else f32].float()
+            runs["forward_f32"] = forward_f32
+        else:
+            runs["truth"] = forward_f32
         pairs = [(name, "truth") for name in runs if name != "truth"] + [
             ("kernel", "plain"), ("kernel", "forward_bf16"), ("plain", "forward_bf16")]
         out[label] = {f"{a}_vs_{b}": cs.lm_rel(runs[a], runs[b]) for a, b in pairs}
@@ -83,7 +102,7 @@ def main(argv=None) -> int:
         del runs
         torch.cuda.empty_cache()
     print(json.dumps({"card": cs.nvidia_smi_line(), "config": cfg.name, "batch": cs.LM_BATCH,
-                      "prompt": cs.LM_PROMPT, "decode_steps": cs.LM_DECODE_STEPS, **out}))
+                      "prompt": s, "decode_steps": cs.LM_DECODE_STEPS, **out}))
     return 0
 
 

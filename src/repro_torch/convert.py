@@ -10,9 +10,10 @@ as numpy (or anything ``np.asarray`` accepts), become the port's objects.
   of arrays; a quantized kernel as its ``packed``/``scale`` arrays with
   ``bits``/``k_dim``) → the same tree of tensors and ``QWeight``s;
 * :func:`lm_cache_from_numpy` — an LM serving cache (stacked slots and the
-  tail; ``k``/``v``/``k_scale``/``v_scale``/``length`` KV caches and
-  ``conv``/``h`` and ``conv``/``ssm`` recurrent states) → the same tree of
-  ``KVCache``s, ``RGLRUState``s and ``SSMState``s;
+  tail; ``k``/``v``/``k_scale``/``v_scale``/``length`` KV caches,
+  ``conv``/``h`` and ``conv``/``ssm`` recurrent states, and cross-attention
+  entries ``{"self", "ck", "cv"}``) → the same tree of ``KVCache``s,
+  ``RGLRUState``s, ``SSMState``s and tensors;
 * :func:`train_state_from_numpy` — a training state (params, AdamW's
   ``mu``/``nu``, the step counts and the key) → ``TrainState``.
 
@@ -115,7 +116,8 @@ def lm_cache_from_numpy(cache, device=None):
     a host integer (a stacked slot's lengths are one per layer and equal: the
     first is taken); one with ``conv`` and ``h`` becomes a
     :class:`~repro_torch.models.rglru.RGLRUState`, one with ``conv`` and
-    ``ssm`` a :class:`~repro_torch.models.ssm.SSMState`, dtypes kept."""
+    ``ssm`` a :class:`~repro_torch.models.ssm.SSMState`, and an array (a
+    cross-attention entry's ``ck`` and ``cv``) a tensor, dtypes kept."""
     if isinstance(cache, dict):
         return {k: lm_cache_from_numpy(v, device) for k, v in cache.items()}
     if isinstance(cache, (list, tuple)) and not hasattr(cache, "_fields"):
@@ -133,6 +135,8 @@ def lm_cache_from_numpy(cache, device=None):
         return RGLRUState(tensor_from_numpy(cache.conv, device), tensor_from_numpy(cache.h, device))
     if hasattr(cache, "conv") and hasattr(cache, "ssm"):
         return SSMState(tensor_from_numpy(cache.conv, device), tensor_from_numpy(cache.ssm, device))
+    if isinstance(cache, np.ndarray):
+        return tensor_from_numpy(cache, device)
     raise TypeError(f"not a cache entry: {type(cache).__name__}")
 
 

@@ -14,16 +14,20 @@ CACHE_SLACK = 8          # cache tokens beyond prompt + generated, as the refere
 
 def generate(cfg, params, prompt: torch.Tensor, n_new: int,
              policy: QuantPolicy = QuantPolicy(), *,
-             on_step: Optional[Callable[[int, torch.Tensor], None]] = None):
+             on_step: Optional[Callable[[int, torch.Tensor], None]] = None,
+             memory: Optional[torch.Tensor] = None):
     """Greedy tokens after ``prompt`` (B, S): a prefill, then ``n_new - 1``
     decode steps, each taking the argmax of the last logits, in a cache of
-    S + n_new + ``CACHE_SLACK`` tokens on the prompt's device. Returns the
-    tokens (B, n_new) and the logits each was taken from (B, n_new, V).
-    ``on_step(i, logits)``, if given, is called after the prefill (i = 0) and
-    after each decode step (i = 1 ...)."""
+    S + n_new + ``CACHE_SLACK`` tokens on the prompt's device (and, with a
+    ``memory`` (B, T, d), the encdec and vlm families' cross-attention K/V
+    of T rows). Returns the tokens (B, n_new) and the logits each was taken
+    from (B, n_new, V). ``on_step(i, logits)``, if given, is called after
+    the prefill (i = 0) and after each decode step (i = 1 ...)."""
     b, s = prompt.shape
-    cache = init_cache(cfg, b, s + n_new + CACHE_SLACK, policy, device=prompt.device)
-    logits, cache = prefill(cfg, params, prompt, cache, policy=policy)
+    mem_len = 0 if memory is None else memory.shape[1]
+    cache = init_cache(cfg, b, s + n_new + CACHE_SLACK, policy, mem_len=mem_len,
+                       device=prompt.device)
+    logits, cache = prefill(cfg, params, prompt, cache, policy=policy, memory=memory)
     steps = [logits]
     if on_step is not None:
         on_step(0, logits)

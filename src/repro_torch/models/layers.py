@@ -17,7 +17,11 @@ draws from :mod:`repro_torch.random` (the reference's threefry), on the
   With a gradient (training) it is :class:`KernelAttention`: that kernel
   forward and the reference's flash-style backward as a fixed plain route
   (:func:`attention_backward_plain`, counted in ``ATTENTION_BACKWARD``),
-  which takes no window and no offset yet.
+  which takes no window and no offset yet. K/V of another dtype than q (the
+  vlm's cross-attention: a bf16 query over K/V projected from float32 image
+  embeddings) are cast to q's dtype first, a fixed route counted in
+  ``ATTENTION_KV_CAST`` (the kernels take one dtype; the reference casts
+  all three to float32, and caches the memory's K/V in q's dtype).
 * :func:`decode_attention`, the KV-cache quantization, norms, RoPE and the
   MLP activations are plain PyTorch on both devices, as they are einsums and
   elementwise ops in the reference.
@@ -235,6 +239,8 @@ class RouteCounter:
 # The attention backward on the card: a fixed plain route (the reference
 # trains through XLA einsums, not a Pallas kernel), counted per call.
 ATTENTION_BACKWARD = RouteCounter("attention_backward")
+# The card's cast of K/V to q's dtype in chunked_attention, counted per call.
+ATTENTION_KV_CAST = RouteCounter("attention_kv_cast")
 # entries of one score block of the plain backward (256 MB of float32)
 _BWD_BLOCK = 1 << 26
 
@@ -346,11 +352,16 @@ def chunked_attention(
     arguments under which a query row would see no key raise. Where q, k or
     v require a gradient it runs :class:`KernelAttention` (the kernel
     forward, the plain backward), which takes no window and no offset yet.
-    On the CPU it runs :func:`chunked_attention_plain`, and autograd
-    differentiates that."""
+    K/V of another dtype than q are cast to q's first on the card
+    (``ATTENTION_KV_CAST``). On the CPU it runs
+    :func:`chunked_attention_plain` (float32 throughout, as the reference),
+    and autograd differentiates that."""
     if not q.is_cuda:
         return chunked_attention_plain(q, k, v, causal=causal, chunk=chunk, window=window,
                                        q_offset=q_offset)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        ATTENTION_KV_CAST.launches += 1
+        k, v = k.to(q.dtype), v.to(q.dtype)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if window is not None or q_offset:
             raise NotImplementedError(

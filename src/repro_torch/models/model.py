@@ -1,10 +1,16 @@
-"""Model assembly (port of ``repro.models.model``), the dense, hybrid and
-SSM families: decoder LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV
-bias, RMSNorm or LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP),
-RecurrentGemma's hybrid of "rec" blocks (the RG-LRU, :mod:`.rglru`) and
-local-attention "attn" blocks (a sliding window of ``cfg.local_window`` keys,
-cached in a ring of that many slots), and Mamba-2's attention-free stack of
-"ssm" blocks (the SSD, :mod:`.ssm`; no MLP, a state of fixed size).
+"""Model assembly (port of ``repro.models.model``), the dense, hybrid, SSM,
+encoder-decoder and VLM families: decoder LMs of "attn" blocks (GQA or MHA,
+RoPE, optional QKV bias, RMSNorm or LayerNorm, SwiGLU, tanh-GELU or
+squared-ReLU MLP), RecurrentGemma's hybrid of "rec" blocks (the RG-LRU,
+:mod:`.rglru`) and local-attention "attn" blocks (a sliding window of
+``cfg.local_window`` keys, cached in a ring of that many slots), Mamba-2's
+attention-free stack of "ssm" blocks (the SSD, :mod:`.ssm`; no MLP, a state
+of fixed size), and the "xattn" blocks of Whisper's decoder and of
+Llama-3.2-Vision's image layers: self-attention, then cross-attention over a
+``memory`` (the output of :func:`encode` over audio frames, or image
+embeddings), then the MLP. A serving cache's "xattn" entry holds the self
+KV cache and the memory's K/V (``ck``, ``cv``), projected once in the
+prefill and read by every decode step.
 
 The parameter tree is the reference's: nested dicts of tensors, layers
 stacked by period slot as ``(L, ...)`` under ``params["slots"]["slot<j>"]``
@@ -22,11 +28,10 @@ Three execution paths share the block code:
   * :func:`decode_step` — one token against the cache (the bandwidth-bound
     loop the paper's technique speeds up with weight/KV quantization).
 
-The other families (moe, encdec, vlm) raise ``NotImplementedError``
-naming the later slice that ports them; so do the cross-attention blocks,
-and :func:`loss_fn` for the hybrid and SSM families (their training is a
-later slice). The reference's SPMD hooks (``constrain``, ``constrain_kv``)
-have no counterpart on one GPU.
+The MoE family raises ``NotImplementedError`` naming the later slice that
+ports it; so does :func:`loss_fn` for the hybrid, SSM, encoder-decoder and
+VLM families (their training is a later slice). The reference's SPMD hooks
+(``constrain``, ``constrain_kv``) have no counterpart on one GPU.
 """
 from __future__ import annotations
 
@@ -55,6 +60,8 @@ from repro_torch.models.layers import (
     mlp_init,
     norm_init,
     rope,
+    sinusoidal_at,
+    sinusoidal_positions,
     window_valid_length,
 )
 from repro_torch.models.quantized import QWeight, materialize
@@ -77,15 +84,13 @@ from repro_torch.models.ssm import (
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.tree import tree_leaves
 
-# The slice of ROADMAP.md §1 that ports each family this one does not.
-_LATER = {
-    "encdec": "whisper-tiny: the encoder, encode and cross-attention",
-    "vlm": "llama-3.2-vision-11b: the cross-attention image layers",
-    "moe": "qwen3-moe-30b, models/moe.py",
-}
+# The item of ROADMAP.md §1 (queue 1) that ports each family this one does not.
+_LATER = {"moe": "queue 1's MoE item: qwen3-moe-30b, models/moe.py"}
 
 
-_PORTED = ("dense", "hybrid", "ssm")
+_PORTED = ("dense", "hybrid", "ssm", "encdec", "vlm")
+_CROSS = ("encdec", "vlm")            # families whose "xattn" layers read a memory
+_BLOCKS = ("attn", "xattn", "rec", "ssm")
 _RECURRENT_STATES = (RGLRUState, SSMState)
 
 
@@ -123,8 +128,11 @@ def _block_init(key, cfg: ModelConfig, kind: str, device=None):
     ks = prng.split(key, 6)
     d = cfg.d_model
     p: dict[str, Any] = {"ln1": norm_init(d, cfg.norm_type, device)}
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         p["attn"] = _attn_init(ks[0], cfg, device)
+        if kind == "xattn":
+            p["ln_x"] = norm_init(d, cfg.norm_type, device)
+            p["xattn"] = _attn_init(ks[2], cfg, device)
     elif kind == "rec":
         p["rec"] = rglru_init(ks[0], d, cfg.rnn_width_, cfg.ssm_conv, device)
     elif kind == "ssm":
@@ -132,8 +140,7 @@ def _block_init(key, cfg: ModelConfig, kind: str, device=None):
                             device)
         return p                                   # no ln2, no MLP
     else:
-        raise NotImplementedError(f"{kind!r} blocks ({cfg.name}) are not ported yet; "
-                                  f"ROADMAP.md §1 queues them")
+        raise ValueError(kind)
     p["ln2"] = norm_init(d, cfg.norm_type, device)
     p["ffn"] = _ffn_init(ks[1], cfg, device)
     return p
@@ -180,7 +187,8 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
     (default ``cuda``): every draw is ``repro_torch.random``'s threefry, so
     the values are the reference's to within its erfinv rounding (~1e-6).
     A stacked slot is drawn layer by layer from ``split(fold_in(keys[2], j),
-    n_full)``, as the reference's ``vmap`` draws it."""
+    n_full)``, as the reference's ``vmap`` draws it; an encoder's "attn"
+    blocks (``params["encoder"]``) from ``split(keys[4], n_encoder_layers)``."""
     _require_ported(cfg, "init_params")
     device = resolve_device(device)
     slots, n_full, tail = _period_info(cfg)
@@ -208,6 +216,11 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
         _block_init(prng.fold_in(keys[3], i), cfg, kind, device)
         for i, kind in enumerate(tail)
     ]
+    if cfg.n_encoder_layers:
+        params["encoder"] = {
+            "blocks": stack_init(keys[4], "attn", cfg.n_encoder_layers),
+            "final_norm": norm_init(d, cfg.norm_type, device),
+        }
     return params
 
 
@@ -239,12 +252,42 @@ def _qkv(p, x, cfg, positions, n_heads):
 
 
 def _self_attention(p, x, ctx: Ctx):
+    """Full-sequence self-attention: with RoPE, except in the encdec family,
+    whose positions are sinusoids added to the input (the reference's
+    ``forward`` and ``encode``; its prefill and decode apply RoPE to both
+    families, :func:`apply_block_prefill`)."""
     cfg = ctx.cfg
-    q, k, v = _qkv(p, x, cfg, ctx.positions, cfg.padded_heads)
+    q, k, v = _qkv(p, x, cfg, ctx.positions if cfg.family != "encdec" else None,
+                   cfg.padded_heads)
     out = chunked_attention(q, k, v, causal=ctx.causal, chunk=cfg.attn_chunk,
                             window=ctx.window)
     b, h, s, hd = out.shape
     return dense(p["wo"], out.transpose(1, 2).reshape(b, s, h * hd))
+
+
+def _memory_kv(p, cfg, memory: torch.Tensor):
+    """The cross-attention's K and V (B, Hkv, T, D) of the memory (B, T, d),
+    in the memory's dtype."""
+    b, t, _ = memory.shape
+    hkv, hd = cfg.padded_kv_heads, cfg.head_dim_
+    k = dense(p["wk"], memory).reshape(b, t, hkv, hd).transpose(1, 2)
+    v = dense(p["wv"], memory).reshape(b, t, hkv, hd).transpose(1, 2)
+    return k, v
+
+
+def _cross_attention(p, x, ctx: Ctx, kv=None):
+    """Attention of the normed residual x (B, S, d) over every row of the
+    memory, no mask; ``kv`` the memory's K/V if already projected
+    (:func:`_memory_kv`). On the card, K/V of another dtype than q (the vlm's
+    float32 image embeddings under a bf16 model) take ``chunked_attention``'s
+    counted cast."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    hq, hd = cfg.padded_heads, cfg.head_dim_
+    q = dense(p["wq"], x).reshape(b, s, hq, hd).transpose(1, 2)
+    k, v = _memory_kv(p, cfg, ctx.memory) if kv is None else kv
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return dense(p["wo"], out.transpose(1, 2).reshape(b, s, hq * hd))
 
 
 def _ffn_apply(p, x, cfg: ModelConfig):
@@ -252,19 +295,23 @@ def _ffn_apply(p, x, cfg: ModelConfig):
 
 
 def _require_block(kind: str) -> None:
-    if kind not in ("attn", "rec", "ssm"):
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP.md §1)")
+    if kind not in _BLOCKS:
+        raise ValueError(kind)
 
 
 def apply_block_fwd(kind: str, p, x, ctx: Ctx):
-    """Full-sequence forward. Returns (x, aux)."""
+    """Full-sequence forward (the decoder's layers and the encoder's).
+    Returns (x, aux)."""
     _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
     if kind == "ssm":
         return x + ssd_apply(p["ssm"], h, cfg), {}
-    if kind == "attn":
+    if kind in ("attn", "xattn"):
         x = x + _self_attention(p["attn"], h, ctx)
+        if kind == "xattn":
+            hx = apply_norm(p["ln_x"], x, cfg.norm_type, cfg.norm_eps)
+            x = x + _cross_attention(p["xattn"], hx, ctx)
     else:
         x = x + rglru_apply(p["rec"], h, cfg.rnn_width_)
     h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
@@ -273,17 +320,20 @@ def apply_block_fwd(kind: str, p, x, ctx: Ctx):
 
 
 def _empty_cache_entry(kind: str, cfg: ModelConfig, b: int, cache_len: int, dtype,
-                       kv_bits, device):
+                       kv_bits, device, mem_len: int = 0):
     if kind == "rec":
         return init_rglru_state(b, cfg.rnn_width_, cfg.ssm_conv, device)
     if kind == "ssm":
         return init_ssm_state(b, cfg, device)
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} caches are not ported yet (ROADMAP.md §1)")
+    _require_block(kind)
+    hkv, hd = cfg.padded_kv_heads, cfg.head_dim_
+    if kind == "xattn":
+        return {"self": init_kv_cache(b, hkv, cache_len, hd, dtype, kv_bits, device),
+                "ck": torch.zeros((b, hkv, mem_len, hd), dtype=dtype, device=device),
+                "cv": torch.zeros((b, hkv, mem_len, hd), dtype=dtype, device=device)}
     if cfg.family == "hybrid" and cfg.local_window:
         cache_len = min(cache_len, cfg.local_window)
-    return init_kv_cache(b, cfg.padded_kv_heads, cache_len, cfg.head_dim_, dtype, kv_bits,
-                         device)
+    return init_kv_cache(b, hkv, cache_len, hd, dtype, kv_bits, device)
 
 
 def _rec_ffn(p, x, y, cfg):
@@ -325,10 +375,25 @@ def _ssd_prefill(p, u, cfg, state: SSMState):
     return y, SSMState(conv=conv, ssm=final)
 
 
+def _write_memory_kv(entry, k, v, cfg) -> None:
+    """The memory's K/V into an "xattn" entry's ck and cv, in place, in the
+    cache's dtype (the activations', as the reference stores them)."""
+    if tuple(entry["ck"].shape) != tuple(k.shape):
+        raise ValueError(f"the cross-attention cache holds memory of shape "
+                         f"{tuple(entry['ck'].shape)}, the memory gives {tuple(k.shape)}: size "
+                         f"it with init_cache(..., mem_len={k.shape[2]}) ({cfg.name})")
+    entry["ck"].copy_(k)
+    entry["cv"].copy_(v)
+
+
 def apply_block_prefill(kind: str, p, x, cache_entry, ctx: Ctx):
     """Forward + cache fill. Returns (x, cache_entry): a KVCache for
-    "attn", the RGLRUState or SSMState after the prompt for "rec" or
-    "ssm"."""
+    "attn"; for "xattn" a dict of the self KVCache and the memory's K/V
+    ``ck``, ``cv`` (written in place; projected once and used for both the
+    attention and the cache, the reference projects twice); the RGLRUState
+    or SSMState after the prompt for "rec" or "ssm". Self-attention applies
+    RoPE in both cross-attention families, as the reference's prefill does
+    (its ``forward`` drops it for encdec)."""
     _require_block(kind)
     cfg = ctx.cfg
     h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
@@ -342,7 +407,14 @@ def apply_block_prefill(kind: str, p, x, cache_entry, ctx: Ctx):
     out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk, window=ctx.window)
     b, hh, s, hd = out.shape
     x = x + dense(p["attn"]["wo"], out.transpose(1, 2).reshape(b, s, hh * hd))
-    if ctx.window is not None:
+    if kind == "xattn":
+        hx = apply_norm(p["ln_x"], x, cfg.norm_type, cfg.norm_eps)
+        mk, mv = _memory_kv(p["xattn"], cfg, ctx.memory)
+        x = x + _cross_attention(p["xattn"], hx, ctx, (mk, mv))
+        _write_memory_kv(cache_entry, mk, mv, cfg)
+        cache_entry = {"self": cache_update(cache_entry["self"], k, v, ctx.policy.kv_bits),
+                       "ck": cache_entry["ck"], "cv": cache_entry["cv"]}
+    elif ctx.window is not None:
         cache_entry = cache_update_window(cache_entry, k, v, ctx.window, ctx.policy.kv_bits)
     else:
         cache_entry = cache_update(cache_entry, k, v, ctx.policy.kv_bits)
@@ -363,16 +435,24 @@ def apply_block_decode(kind: str, p, x, cache_entry, ctx: Ctx):
         y, new_state = rglru_decode_step(p["rec"], h, cache_entry, cfg.rnn_width_)
         return _rec_ffn(p, x, y, cfg), new_state
     q, k_new, v_new = _qkv(p["attn"], h, cfg, ctx.positions, cfg.padded_heads)
+    entry = cache_entry["self"] if kind == "xattn" else cache_entry
     if ctx.window is not None:
-        entry = cache_update_window(cache_entry, k_new, v_new, ctx.window, ctx.policy.kv_bits)
+        entry = cache_update_window(entry, k_new, v_new, ctx.window, ctx.policy.kv_bits)
         length = window_valid_length(entry, ctx.window)
     else:
-        entry = cache_update(cache_entry, k_new, v_new, ctx.policy.kv_bits)
+        entry = cache_update(entry, k_new, v_new, ctx.policy.kv_bits)
         length = entry.length
     k_all, v_all = cache_kv(entry, ctx.policy.kv_bits, x.dtype)
     out = decode_attention(q, k_all, v_all, length=length)
     b, hh, _, hd = out.shape
     x = x + dense(p["attn"]["wo"], out.transpose(1, 2).reshape(b, 1, hh * hd))
+    if kind == "xattn":
+        hx = apply_norm(p["ln_x"], x, cfg.norm_type, cfg.norm_eps)
+        qx = dense(p["xattn"]["wq"], hx).reshape(b, 1, hh, hd).transpose(1, 2)
+        ck, cv = cache_entry["ck"], cache_entry["cv"]
+        ox = decode_attention(qx, ck, cv, length=ck.shape[2])
+        x = x + dense(p["xattn"]["wo"], ox.transpose(1, 2).reshape(b, 1, hh * hd))
+        entry = {"self": entry, "ck": ck, "cv": cv}
     h2 = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
     y, _ = _ffn_apply(p["ffn"], h2, cfg)
     return x + y, entry
@@ -459,9 +539,9 @@ def _write_state(stacked, i: int, new):
 
 def _run_stack(cfg, params, x, cache, block, ctx):
     """Every layer in order with its cache entry (prefill, decode). A slot's
-    KV caches are written in place and its host length updated; a slot's
-    recurrent states are written into it layer by layer (:func:`_write_state`).
-    Returns (x, new cache)."""
+    KV caches (and an "xattn" slot's ck and cv) are written in place and its
+    host length updated; a slot's recurrent states are written into it layer
+    by layer (:func:`_write_state`). Returns (x, new cache)."""
     slots, n_full, tail = _period_info(cfg)
     new_slots = dict(cache["slots"])
     for i in range(n_full):
@@ -471,6 +551,10 @@ def _run_stack(cfg, params, x, cache, block, ctx):
                              _at_layer(cache["slots"][name], i), ctx)
             if isinstance(entry, _RECURRENT_STATES):
                 new_slots[name] = _write_state(new_slots[name], i, entry)
+            elif isinstance(entry, dict):
+                slot = new_slots[name]
+                new_slots[name] = {**slot,
+                                   "self": slot["self"]._replace(length=entry["self"].length)}
             else:
                 new_slots[name] = new_slots[name]._replace(length=entry.length)
     new_cache = {"slots": new_slots, "tail": []}
@@ -504,15 +588,60 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
     return torch.arange(start, start + s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _require_memory(cfg: ModelConfig, what: str, memory) -> None:
+    """The cross-attention families' layers read a memory: raise without one
+    (the reference fails deep inside ``dense`` there)."""
+    if cfg.family in _CROSS and memory is None:
+        raise ValueError(
+            f"{what}: the {cfg.family} family ({cfg.name}) reads a memory in its 'xattn' "
+            f"layers; pass memory= ("
+            + ("the output of encode(cfg, params, frames)" if cfg.family == "encdec" else
+               "the image embeddings, (B, n_image_tokens, d_model)") + ")")
+
+
+def _embed_positions(cfg, x: torch.Tensor, position: Optional[int] = None) -> torch.Tensor:
+    """The encdec family's sinusoidal positions added to its token
+    embeddings x (B, S, d): 0 ... S − 1, or the one ``position`` of a decode
+    step; other families' x unchanged."""
+    if cfg.family != "encdec":
+        return x
+    if position is None:
+        pos = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None]
+    else:
+        pos = sinusoidal_at(position, cfg.d_model, x.device)[None, None]
+    return x + pos.to(x.dtype)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor,
+           policy: QuantPolicy = QuantPolicy()) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, T, d): the frames
+    in the config's dtype plus sinusoidal positions, ``n_encoder_layers``
+    non-causal "attn" blocks without RoPE, the final norm. The memory that
+    the encdec family's ``forward`` and ``prefill`` take."""
+    _require_ported(cfg, "encode")
+    if not cfg.n_encoder_layers:
+        raise ValueError(f"encode: {cfg.name} has no encoder (n_encoder_layers = 0)")
+    dtype = torch_dtype(cfg.dtype)
+    x = frames.to(dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dtype)[None]
+    ctx = Ctx(cfg=cfg, positions=None, policy=policy, causal=False)
+    for p in _unstack(params["encoder"]["blocks"], cfg.n_encoder_layers):
+        x, _ = apply_block_fwd("attn", p, x, ctx)
+    enc = params["encoder"]["final_norm"]
+    return apply_norm(enc, x, cfg.norm_type, cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             policy: QuantPolicy = QuantPolicy(), memory: Optional[torch.Tensor] = None):
     """Teacher-forced logits (B, S, V) in the config's dtype, and the aux dict
-    (``moe_load_loss``, 0 for the dense, hybrid and SSM families). The hybrid
-    family's attention is local, a window of ``cfg.local_window`` keys, as
-    in prefill and decode."""
+    (``moe_load_loss``, 0 for the families ported). The hybrid family's
+    attention is local, a window of ``cfg.local_window`` keys, as in prefill
+    and decode. ``memory`` (B, T, d), required by the encdec and vlm
+    families: the output of :func:`encode`, or image embeddings."""
     _require_ported(cfg, "forward")
+    _require_memory(cfg, "forward", memory)
     b, s = tokens.shape
-    x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
+    x = _embed_positions(cfg, _embed(cfg, params, tokens, torch_dtype(cfg.dtype)))
     ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
               memory=memory, causal=True, window=_window(cfg))
     x = _run_forward(cfg, params, x, ctx)
@@ -523,17 +652,21 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 
 def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()):
     """Mean next-token cross entropy over a float32 log-softmax; labels < 0
-    are padding. batch: ``tokens`` and ``labels`` (B, S), optional
-    ``memory`` (the encdec and vlm families, not ported). Differentiable in
-    the parameters: call it with leaves that require a gradient. The hybrid
-    and SSM families raise: their training is a later slice."""
+    are padding. batch: ``tokens`` and ``labels`` (B, S). Differentiable in
+    the parameters: call it with leaves that require a gradient. The
+    hybrid, SSM, encdec and vlm families raise: their training is a later
+    slice."""
     if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
             f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
             f"ROADMAP.md §1 queues hybrid training and ssm training, the recurrent families' "
             f"(the RG-LRU's, the SSD's and the windowed attention's backward)")
-    logits, aux = forward(cfg, params, batch["tokens"], policy=policy,
-                          memory=batch.get("memory"))
+    if cfg.family in _CROSS:
+        raise NotImplementedError(
+            f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
+            f"ROADMAP.md §1 queues the cross-attention families' training after the recurrent "
+            f"families' and qwen3-moe-30b")
+    logits, aux = forward(cfg, params, batch["tokens"], policy=policy)
     labels = batch["labels"]
     mask = labels >= 0
     labels_safe = torch.clamp_min(labels, 0).to(torch.int64)
@@ -550,37 +683,45 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = Q
     """Stacked cache matching the slot structure, on ``device`` (default
     ``cuda``): each attention slot's KVCache holds (n_full, B, Hkv, S, D)
     tensors and one host length (S at most ``cfg.local_window`` for the
-    hybrid family), each recurrent slot's RGLRUState (n_full, B, d_conv − 1,
-    W) conv and (n_full, B, W) h, float32 until a prefill, or SSMState
-    (n_full, B, d_conv − 1, conv_dim) conv and (n_full, B, H, hd, ds) ssm,
-    float32."""
+    hybrid family); each "xattn" slot a dict of that KVCache (``"self"``)
+    and the memory's K/V, ``"ck"`` and ``"cv"`` (n_full, B, Hkv, mem_len, D)
+    in the config's dtype; each recurrent slot's RGLRUState (n_full, B,
+    d_conv − 1, W) conv and (n_full, B, W) h, float32 until a prefill, or
+    SSMState (n_full, B, d_conv − 1, conv_dim) conv and (n_full, B, H, hd,
+    ds) ssm, float32."""
     _require_ported(cfg, "init_cache")
-    del mem_len   # encoder memory: the encdec/vlm slices
     device = resolve_device(device)
     slots, n_full, tail = _period_info(cfg)
     dtype = torch_dtype(cfg.dtype)
 
+    def stack(a):
+        return None if a is None else a.expand((n_full,) + a.shape).clone()
+
     def stacked(kind):
-        one = _empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device)
+        one = _empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device, mem_len)
         if isinstance(one, _RECURRENT_STATES):
-            return type(one)(*(a.expand((n_full,) + a.shape).clone() for a in one))
-        return KVCache(*(None if a is None else a.expand((n_full,) + a.shape).clone()
-                         for a in one[:4]), length=0)
+            return type(one)(*(stack(a) for a in one))
+        if kind != "xattn":
+            return KVCache(*(stack(a) for a in one[:4]), length=0)
+        return {"self": KVCache(*(stack(a) for a in one["self"][:4]), length=0),
+                "ck": stack(one["ck"]), "cv": stack(one["cv"])}
 
     return {
         "slots": {f"slot{j}": stacked(kind) for j, kind in enumerate(slots)},
-        "tail": [_empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device)
-                 for kind in tail],
+        "tail": [_empty_cache_entry(kind, cfg, b, cache_len, dtype, policy.kv_bits, device,
+                                    mem_len) for kind in tail],
     }
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
             policy: QuantPolicy = QuantPolicy(), memory=None):
     """Run the prompt, fill the cache (in place). Returns (last-position
-    logits (B, V), cache)."""
+    logits (B, V), cache). ``memory`` (B, T, d), required by the encdec and
+    vlm families, must match the cache's ``mem_len``."""
     _require_ported(cfg, "prefill")
+    _require_memory(cfg, "prefill", memory)
     b, s = tokens.shape
-    x = _embed(cfg, params, tokens, torch_dtype(cfg.dtype))
+    x = _embed_positions(cfg, _embed(cfg, params, tokens, torch_dtype(cfg.dtype)))
     ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
               memory=memory, causal=True, window=_window(cfg))
     x, new_cache = _run_stack(cfg, params, x, cache, apply_block_prefill, ctx)
@@ -592,11 +733,13 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
                 policy: QuantPolicy = QuantPolicy(), position=None):
     """One serving step. token: (B,) integer → logits (B, V), updated cache
-    (in place). ``position`` defaults to the cache's length."""
+    (in place). ``position`` defaults to the cache's length. The "xattn"
+    layers read the memory's K/V that the prefill cached."""
     _require_ported(cfg, "decode_step")
     b = token.shape[0]
-    x = _embed(cfg, params, token[:, None], torch_dtype(cfg.dtype))
     position = _cache_length(cfg, cache) if position is None else int(position)
+    x = _embed_positions(cfg, _embed(cfg, params, token[:, None], torch_dtype(cfg.dtype)),
+                         position)
     ctx = Ctx(cfg=cfg, positions=_positions(b, 1, position, token.device), policy=policy,
               causal=True, window=_window(cfg))
     x, new_cache = _run_stack(cfg, params, x, cache, apply_block_decode, ctx)
@@ -606,11 +749,13 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
 
 
 def _cache_length(cfg, cache) -> int:
-    """Current length from the first attention cache (a host integer); a
-    recurrent slot holds none, and an attention-free stack has length 0, as
-    the reference's (no layer of it reads a position)."""
+    """Current length from the first attention cache (a host integer; an
+    "xattn" entry's self cache); a recurrent slot holds none, and an
+    attention-free stack has length 0, as the reference's (no layer of it
+    reads a position)."""
     for v in cache["slots"].values():
         if isinstance(v, KVCache):
             return v.length
+        if isinstance(v, dict) and "self" in v:
+            return v["self"].length
     return 0
-

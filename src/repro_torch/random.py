@@ -177,10 +177,13 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 
 def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv as XLA computes it; log1p is taken in float64 and
-    rounded, so the branch and w do not depend on the device's log1p."""
+    rounded, so the branch and w do not depend on the device's log1p, and so
+    is the square root (rounded, it is the correctly rounded float32 root;
+    PyTorch's vectorized float32 sqrt on the CPU is not always, and not
+    always the same from one call to the next)."""
     w = (-torch.log1p(-(x * x).to(torch.float64))).to(torch.float32)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.to(torch.float64)).to(torch.float32) - 3.0)
 
     def coef(i):
         return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),

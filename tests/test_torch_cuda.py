@@ -1121,6 +1121,67 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda, bits):
     assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
 
 
+def test_chunked_attention_casts_float32_kv_to_q_dtype(cuda):
+    """A bf16 query over float32 K/V (the vlm's cross-attention over float32
+    image embeddings) takes the counted cast (ATTENTION_KV_CAST) and one
+    FLASH_TC launch, and agrees with the plain version on the cast K/V."""
+    from repro_torch.models import layers as lm_layers
+
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    q = torch.randn(2, 8, 40, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, 2, 300, 128, generator=gen, device=cuda) for _ in range(2))
+    before = (fa_kernel.FLASH_TC.launches, lm_layers.ATTENTION_KV_CAST.launches)
+    out = lm_layers.chunked_attention(q, k, v, causal=False)
+    assert (fa_kernel.FLASH_TC.launches, lm_layers.ATTENTION_KV_CAST.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = lm_layers.chunked_attention_plain(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
+                                            causal=False, chunk=128)
+    assert out.dtype == torch.bfloat16
+    assert torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "llama32_vision_11b"])
+@pytest.mark.parametrize("bits", [None, 4])
+def test_cross_attention_smoke_model_on_the_card_matches_the_cpu(cuda, arch, bits):
+    """The cross-attention SMOKE models in float32, full precision and W4:
+    encode (whisper), prefill over the memory and decode steps on the card
+    (FLASH for every attention, causal and not; qmm for the decode
+    products) against the same weights and inputs on the CPU, within
+    1e-4·max|logits|."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, encode, init_cache, init_params, prefill
+    from repro_torch.models.quantized import quantize_params, tree_to
+    from repro_torch.quant.policy import QuantPolicy
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, prng.PRNGKey(0), device=cuda)
+    if bits:
+        params = quantize_params(params, bits)
+    policy = QuantPolicy(weight_bits=bits)
+    toks = prng.randint(prng.PRNGKey(1), (2, 12), 0, cfg.vocab_size, device=cuda)
+    rows = cfg.encoder_seq if cfg.family == "encdec" else cfg.n_image_tokens
+    source = prng.normal(prng.PRNGKey(2), (2, rows, cfg.d_model), device=cuda)
+
+    def run(tree, t, src):
+        mem = encode(cfg, tree, src, policy) if cfg.family == "encdec" else src
+        cache = init_cache(cfg, 2, 16, policy, mem_len=rows, device=t.device)
+        out, cache = prefill(cfg, tree, t[:, :8], cache, policy=policy, memory=mem)
+        outs = [out]
+        for i in range(8, 12):
+            out, cache = decode_step(cfg, tree, t[:, i], cache, policy=policy)
+            outs.append(out)
+        return torch.stack(outs, dim=1)
+
+    flash_before = fa_kernel.FLASH.launches
+    card = run(params, toks, source)
+    cross = sum(kind == "xattn" for kind in cfg.pattern_for_layers())
+    assert fa_kernel.FLASH.launches - flash_before == cfg.n_encoder_layers + cfg.n_layers + cross
+    cpu = run(tree_to(params, "cpu"), toks.cpu(), source.cpu())
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
 def test_hybrid_smoke_generate_kernel_routes_match_plain_routes(cuda, monkeypatch):
     """recurrentgemma-2b's SMOKE config cut to 5 layers (a period and two
     tail layers), bf16 under W4KV8: generate from a 40-token prompt, past

@@ -328,9 +328,13 @@ def test_decode_attention(window):
 
 
 def test_unported_blocks_raise():
-    """llama-3.2-vision's cross-attention 'xattn' blocks are not ported yet
-    (the 'rec' blocks of recurrentgemma-2b and the 'ssm' blocks of
-    mamba2-370m are: tests/test_torch_hybrid.py, tests/test_torch_ssm.py)."""
+    """Every block kind of the reference is ported ('xattn':
+    tests/test_torch_xattn.py; 'rec', 'ssm': tests/test_torch_hybrid.py,
+    tests/test_torch_ssm.py); the mixture-of-experts FFN of qwen3-moe is
+    not yet, and an unknown kind raises as in the reference."""
+    cfg = tconfigs.get_smoke_config("qwen3_moe_30b")
+    with pytest.raises(NotImplementedError, match="mixture-of-experts FFN"):
+        tmodel._block_init(prng.PRNGKey(0), cfg, "attn", device="cpu")
     cfg = tconfigs.get_smoke_config("llama32_vision_11b")
-    with pytest.raises(NotImplementedError, match="'xattn' blocks"):
-        tmodel._block_init(prng.PRNGKey(0), cfg, "xattn", device="cpu")
+    with pytest.raises(ValueError, match="cross"):
+        tmodel._block_init(prng.PRNGKey(0), cfg, "cross", device="cpu")

@@ -195,9 +195,9 @@ def test_generate_is_greedy_over_prefill_and_decode():
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if a not in DENSE])
 def test_unported_families_raise(arch):
-    """Every entry point raises for a family not ported yet; the hybrid
-    (recurrentgemma-2b) and SSM (mamba2-370m) families serve, and only their
-    training raises."""
+    """Every entry point raises for a family not ported yet (MoE); the hybrid
+    (recurrentgemma-2b), SSM (mamba2-370m), encdec (whisper-tiny) and vlm
+    (llama-3.2-vision-11b) families serve, and only their training raises."""
     cfg = tconfigs.get_smoke_config(arch)
     toks = torch.zeros((1, 4), dtype=torch.int64)
     calls = {
@@ -207,7 +207,7 @@ def test_unported_families_raise(arch):
         "prefill": lambda: prefill(cfg, {}, toks, {}),
         "decode_step": lambda: decode_step(cfg, {}, toks[:, 0], {}),
     }
-    if cfg.family in ("hybrid", "ssm"):
+    if cfg.family in ("hybrid", "ssm", "encdec", "vlm"):
         calls = {"loss_fn": lambda: loss_fn(cfg, {}, {"tokens": toks, "labels": toks})}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=rf"{name}: the {cfg.family} family"):
