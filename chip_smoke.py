@@ -266,10 +266,10 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     flash at B = 8, S = 1,024 beside SDPA.
 22. training the dense LM (phase ``train``): starcoder2-3b at full width,
     ``init_state`` from PRNGKey(0) on the card, then ``train_loop`` over
-    ``make_train_step`` for 4 steps of B = 8 × 1,024 synthetic tokens
+    ``make_train_step`` for 3 steps of B = 8 × 1,024 synthetic tokens
     (the card's tokens the CPU's), AdamW with the launcher's schedule, Q8
     gradients and IHT at 50% (``examples/train_lm_sparse.py``'s operators).
-    Gated: every loss finite; per step ``FLASH_TC`` 60 launches (forward
+    Gated: every loss finite; in each step ``FLASH_TC`` 60 launches (forward
     and remat recompute), the attention backward route 30, ``HSTHRESH`` 8
     (one per eligible leaf), ``SQROUND`` 213 (one per 2²⁴-entry chunk of
     every gradient leaf), no other kernel, and the plain
@@ -365,6 +365,29 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     and the cross-attention's wq, ``FLASH_TC`` cross (with the cast's gap to
     float32 K/V) and causal beside SDPA and the bound. Two layers (xattn,
     attn) in float32, card against CPU within 1e-4·max|logits|.
+27. training recurrentgemma-2b (phase ``train_hybrid``, run after
+    ``train``) at full width on train_4k's rows: 3 steps of B = 4 × 4,096
+    in 4 microbatches of one row (``accum_steps``; the global batch of 256
+    cut for the phase's time), Q8 gradients and IHT at 50%, gated as phase
+    22 in each step: ``FLASH_TC`` 64 launches (8 attention layers, forward
+    and remat recompute, 4 microbatches), every one at the run's shape with
+    the 2,048-key window, the backward route 32, ``HSTHRESH`` 41,
+    ``SQROUND`` one per chunk. Beside it: the attention Function at B = 1,
+    10/1 heads of 256, bf16, the window at S = 4,096 and with a query offset
+    of 2,048 (Sq 2,048 over 4,096 keys), against autograd through the plain
+    forward within 2⁻⁶; three float32 layers (rec, rec, attn; the window cut
+    to 64 keys so that it bites at 128 tokens) card against CPU within 1e-4;
+    a small model of the family stepped card against CPU and resumed bit
+    for bit; the fused H_s on the embedding and the largest MLP leaf,
+    ``sqround`` and the windowed ``FLASH_TC`` (beside SDPA with the band as
+    a mask) on the run's inputs; the RG-LRU scan's forward and backward a
+    layer.
+28. training mamba2-370m (phase ``train_ssm``, after ``train_hybrid``):
+    3 steps of B = 8 × 4,096 in one microbatch, gated as phase 27 (no
+    attention: no ``FLASH_TC``, no backward route; ``HSTHRESH`` 4), two
+    float32 layers card against CPU, a small model stepped and resumed, the
+    fused H_s on the embedding and the in_proj leaf, and the chunked SSD's
+    forward and backward a layer.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -392,6 +415,13 @@ and each fault of ``FLASH_MUTANTS`` launched as ``FLASH_TC``. It passes when
 the real kernels meet every gate and the ×1.1 fault and the logic faults of
 flash (``LM_FLASH_FAULTS``) fail one, and writes ``lm_faults.json`` to
 ``--out``.
+
+``python3 chip_smoke.py --train-faults`` (~2 min) runs only phase
+``train_hybrid``'s attention check and card-vs-CPU gradients with faults
+planted (``train_faults``): the attention backward route ignoring the
+window, and the RG-LRU scan on the card taking one step's a as 1. It passes
+when every planted fault fails its gate, and writes ``train_faults.json``
+to ``--out``.
 """
 from __future__ import annotations
 
@@ -511,7 +541,7 @@ RESUME_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-ph
 # width, all 30 layers, served to 8 prompts of 1,024 tokens, 32 decode steps
 LM_ARCH = "starcoder2-3b"
 LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 1024, 32
-LM_TIMING_PASSES = 3
+LM_TIMING_PASSES = 2            # timed decode passes a run: the script's time limit bounds them
 # Logits, as a share of max|logits|. tests/test_models_smoke.py:96 bounds the
 # reference's SMOKE model by 2e-2 (LM_TOL): the kernel routes against the plain
 # routes, and serving against forward at full precision. W4KV8 serving reads
@@ -533,8 +563,10 @@ LM_SCALE_FAULTS = (1.1, 1.03, 1.01)
 # flash faults of FLASH_MUTANTS the lm gates must catch: the logic faults. A
 # fault of bf16's size (bf16_acc) is phase 12's elementwise check's to catch.
 LM_FLASH_FAULTS = ("diagonal_tile", "own_key")
-# the card against the port's CPU: two layers at full width, float32
-LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE_STEPS = 2, 2, 128, 8
+# the card against the port's CPU: two layers at full width, float32, a
+# prefill and two decode steps (each of the CPU's W4 steps dequantizes every
+# layer and the unembedding again: 6 s a step at recurrentgemma-2b)
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE_STEPS = 2, 2, 128, 2
 LM_CPU_TOL = 1e-4
 # The hybrid phase: recurrentgemma-2b (src/repro/configs/recurrentgemma_2b.py)
 # at full width, all 26 layers ((rec, rec, attn) × 8, then rec, rec), served
@@ -5226,7 +5258,7 @@ def lm_faults(torch, mods):
 
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024  # the serving slice's prompt shape
-TRAIN_STEPS = 4                # the step time is the median of the steps after the first
+TRAIN_STEPS = 3                # the step time is the median of the steps after the first
 TRAIN_LR = 3e-3                # launch/train.py's default, cosine with a 20-step warm-up
 TRAIN_SPARSITY, TRAIN_GRAD_BITS = 0.5, 8    # examples/train_lm_sparse.py's defaults
 TRAIN_NBINS = 4096             # optim/iht.py's bins
@@ -5255,78 +5287,164 @@ TRAIN_PLAIN = (("lm_layers", "chunked_attention_plain"), ("hs_ops", "hsthresh_re
 # leaves whose dense input to the first step's projection is kept (on the
 # host) and held, after the run, kernel against plain on the card
 TRAIN_HS_LEAVES = {"embed": "['embed']['w']", "wi": "['slots']['slot0']['ffn']['wi']['w']"}
+# The recurrent families trained at full width on train_4k's rows
+# (configs/shapes.py: 4,096 tokens; there recurrentgemma-2b's 2,048-key
+# window covers half of each late row). train_4k's global batch of 256 is
+# cut to 4 rows (recurrentgemma-2b) and 8 (mamba2-370m) for the phases'
+# time. recurrentgemma-2b's params, gradients and AdamW's m and v are
+# 4 × 14.2 GB, and one row's float32 logits 4.19 GB (vocab 256,000), their
+# log-softmax and its gradient about three times that: one row a
+# microbatch. mamba2-370m's 1.68 GB of parameters and 6.6 GB of float32
+# logits at 8 rows fit in one.
+TRAIN_4K_SEQ = TRAIN_4K_LEN
+TRAIN_HYBRID_ARCH, TRAIN_SSM_ARCH = "recurrentgemma-2b", "mamba2-370m"
+TRAIN_HYBRID_BATCH, TRAIN_HYBRID_ACCUM = 4, 4
+TRAIN_SSM_BATCH, TRAIN_SSM_ACCUM = 8, 1
+TRAIN_RECURRENT_STEPS = 3
+# card against CPU: 3 float32 layers of recurrentgemma-2b (one (rec, rec,
+# attn) period, so that its attention layer is in) with the window cut to
+# 64 keys, so that it bites at TRAIN_CPU_SEQ; 2 of mamba2-370m
+TRAIN_HYBRID_CPU_LAYERS, TRAIN_HYBRID_CPU_WINDOW, TRAIN_SSM_CPU_LAYERS = 3, 64, 2
+# the resume models: a (rec, rec, attn) period of recurrentgemma-2b's block
+# at d = 512, 2 heads of 256 on 1, the window 128 (it bites at
+# TRAIN_RESUME_SEQ); two mamba2-370m blocks at d = 512 (16 SSD heads of 64,
+# state 128, chunk 64); vocab 4,096
+TRAIN_HYBRID_RESUME = dict(n_layers=3, d_model=512, n_heads=2, n_kv_heads=1, head_dim=256,
+                           d_ff=1536, rnn_width=512, local_window=128, vocab_size=4096)
+TRAIN_SSM_RESUME = dict(n_layers=2, d_model=512, vocab_size=4096)
+# the windowed attention's gradient checks at recurrentgemma-2b's heads:
+# (label, Sq, Sk, query offset), B = 1, window 2,048, bf16
+TRAIN_HYBRID_ATTN_CASES = (("window", TRAIN_4K_LEN, TRAIN_4K_LEN, 0),
+                           ("window+offset", TRAIN_4K_LEN // 2, TRAIN_4K_LEN, TRAIN_4K_LEN // 2))
+# leaves held kernel against plain after the run: the embedding and the
+# largest MLP (hybrid) or SSD (ssm) leaf
+TRAIN_HYBRID_HS_LEAVES = {"embed": "['embed']['w']",
+                          "wi": "['slots']['slot0']['ffn']['wi_gate']['w']"}
+TRAIN_SSM_HS_LEAVES = {"embed": "['embed']['w']",
+                       "wi": "['slots']['slot0']['ssm']['in_proj']['w']"}
+
+
+def train_spec(arch):
+    """The shape of each training phase's run: rows, row length, microbatches,
+    steps, the attention check's cases, the leaves held after the run, and
+    the card-vs-CPU and resume models."""
+    if arch == TRAIN_HYBRID_ARCH:
+        return dict(tag="train_hybrid", batch=TRAIN_HYBRID_BATCH, seq=TRAIN_4K_SEQ,
+                    accum=TRAIN_HYBRID_ACCUM, steps=TRAIN_RECURRENT_STEPS,
+                    attn_cases=TRAIN_HYBRID_ATTN_CASES, hs_leaves=TRAIN_HYBRID_HS_LEAVES,
+                    cpu_layers=TRAIN_HYBRID_CPU_LAYERS,
+                    cpu_replace=dict(local_window=TRAIN_HYBRID_CPU_WINDOW),
+                    resume=TRAIN_HYBRID_RESUME)
+    if arch == TRAIN_SSM_ARCH:
+        return dict(tag="train_ssm", batch=TRAIN_SSM_BATCH, seq=TRAIN_4K_SEQ,
+                    accum=TRAIN_SSM_ACCUM, steps=TRAIN_RECURRENT_STEPS, attn_cases=(),
+                    hs_leaves=TRAIN_SSM_HS_LEAVES, cpu_layers=TRAIN_SSM_CPU_LAYERS,
+                    cpu_replace={}, resume=TRAIN_SSM_RESUME)
+    return dict(tag="train", batch=TRAIN_BATCH, seq=TRAIN_SEQ, accum=1, steps=TRAIN_STEPS,
+                attn_cases=(("causal", TRAIN_SEQ, TRAIN_SEQ, 0),), hs_leaves=TRAIN_HS_LEAVES,
+                cpu_layers=TRAIN_CPU_LAYERS, cpu_replace={}, resume=TRAIN_RESUME)
 
 
 def train_flops(mods, cfg, params, b, s):
-    """Operations a training step must do with per-layer remat: the layers'
-    products 4× (forward, recompute, two in the backward), the unembedding
-    3×, and per layer causal attention, 4·D flops a (query, key) pair a
-    product: QKᵀ and PV twice (forward and recompute) and the backward's
-    five (S, dP, dV, dQ, dK). Returns (total, the attention backward's)."""
-    slot = params["slots"]["slot0"]
-    layer_w = sum(leaf.numel() for path, leaf in mods["tree_flatten_with_path"](slot)
-                  if mods["last_key"](path) == "w")
+    """Operations a training step must do with per-layer remat, as (at the
+    bf16 tensor-core peak, at the f32 CUDA-core peak, the attention
+    backward's): the layers' products 4× (forward, recompute, two in the
+    backward), the unembedding 3×, per attention layer 4·D flops a visible
+    (query, key) pair a product (the causal triangle, or the window's band):
+    QKᵀ and PV twice (forward and recompute) and the backward's five (S, dP,
+    dV, dQ, dK). The RG-LRU's gates (float32 x on float32 weights, TF32 off)
+    and the chunked SSD (``ssd_flops``, float32) count at the f32 peak, 4×
+    (forward, recompute, a backward of twice the forward)."""
+    f32_names = ("w_r", "w_i")
+    bf16_w = f32_w = 0
+    for path, leaf in mods["tree_flatten_with_path"]({"slots": params["slots"],
+                                                       "tail": params["tail"]}):
+        if mods["last_key"](path) != "w":
+            continue
+        if any(f"['{n}']" in mods["keystr"](path) for n in f32_names):
+            f32_w += leaf.numel()
+        else:
+            bf16_w += leaf.numel()
     unembed = params["unembed"]["w"].numel() if "unembed" in params else 0
-    pairs = s * (s + 1) // 2
-    per_product = 2 * b * cfg.padded_heads * cfg.head_dim_ * pairs * cfg.n_layers
+    pairs = attention_pairs(s, s, True, mods["lm_model"]._window(cfg), 0)
+    per_product = 2 * b * cfg.padded_heads * cfg.head_dim_ * pairs * lm_attention_layers(cfg)
     attn_bwd = 5 * per_product
-    return 2 * b * s * (4 * layer_w + 3 * unembed) + 4 * per_product + attn_bwd, attn_bwd
+    n_ssm = sum(kind == "ssm" for kind in cfg.pattern_for_layers())
+    bf16 = 2 * b * s * (4 * bf16_w + 3 * unembed) + 4 * per_product + attn_bwd
+    f32 = 2 * b * s * 4 * f32_w + (4 * n_ssm * ssd_flops(cfg, b, s) if n_ssm else 0)
+    return bf16, f32, attn_bwd
 
 
-def train_attention_check(torch, mods, cfg):
-    """The attention Function at one layer's shape (B = 8, S = 1,024, 32
-    padded query heads on 2, D = 128, bf16, causal) against autograd through
-    the all-plain forward on the card: dq, dk, dv within TRAIN_ATTN_REL in
-    2-norm. One FLASH_TC launch and one backward-route call."""
+def train_attention_check(torch, mods, cfg, spec):
+    """The attention Function at one layer's heads, per case of
+    ``spec["attn_cases"]`` (B = the run's microbatch, bf16, causal, cfg's
+    window, Sq ≠ Sk with a query offset) against autograd through the
+    all-plain forward on the card: dq, dk, dv within TRAIN_ATTN_REL in
+    2-norm. One FLASH_TC launch and one backward-route call a case; the
+    plain backward timed beside the kernel forward."""
     dev = torch.device(mods["device"])
     layers = mods["lm_layers"]
     gen = torch.Generator(device=dev).manual_seed(22)
     hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
-    shapes = ((hq, TRAIN_SEQ), (hkv, TRAIN_SEQ), (hkv, TRAIN_SEQ))
-    base = [torch.randn(TRAIN_BATCH, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
-            for h, s in shapes]
-    dout = torch.randn(TRAIN_BATCH, hq, TRAIN_SEQ, d, generator=gen, device=dev).to(torch.bfloat16)
-    grads = {}
-    for label in ("kernel", "plain"):
-        q, k, v = (t.clone().requires_grad_(True) for t in base)
-        before = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
-        if label == "kernel":
-            out = layers.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-        else:
-            out = layers.chunked_attention_plain(q, k, v, causal=True, chunk=cfg.attn_chunk)
-        out.backward(dout)
-        after = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
-        want = (1, 1) if label == "kernel" else (0, 0)
-        if (after[0] - before[0], after[1] - before[1]) != want:
-            raise AssertionError(f"train attention {label}: launches (FLASH_TC, backward) "
-                                 f"{(after[0] - before[0], after[1] - before[1])}, want {want}")
-        grads[label] = (q.grad, k.grad, v.grad)
-        del q, k, v, out
-    out = {}
-    for name, a, b in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
-        rel = float((a.float() - b.float()).norm() / b.float().norm())
-        out[name] = {"rel": rel, "max_abs_err": float((a.float() - b.float()).abs().max()),
-                     "finite": bool(torch.isfinite(a).all())}
-        if not (rel <= TRAIN_ATTN_REL and out[name]["finite"]):
-            raise AssertionError(f"train attention {name}: ‖Δ‖/‖ref‖ {rel} > "
-                                 f"{TRAIN_ATTN_REL}")
-    print("[chip_smoke]   train attention Function vs all-plain autograd (B=8 S=1024 bf16): "
-          + ", ".join(f"{n} ‖Δ‖/‖ref‖ {v['rel']:.3g}" for n, v in out.items())
-          + f" (limit {TRAIN_ATTN_REL:.4g})", flush=True)
+    window = mods["lm_model"]._window(cfg)
+    b = spec["batch"] // spec["accum"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    q, k, v = base
-    o = layers.attention_kernel(q, k, v, True)
-    out["backward_ms"] = time_ms(torch, lambda: layers.attention_backward_plain(
-        q, k, v, o, dout, causal=True, chunk=cfg.attn_chunk), 3, flush)
+    out = {}
+    for label, sq, sk, off in spec["attn_cases"]:
+        shapes = ((hq, sq), (hkv, sk), (hkv, sk))
+        base = [torch.randn(b, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
+                for h, s in shapes]
+        dout = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(torch.bfloat16)
+        kw = dict(causal=True, chunk=cfg.attn_chunk, window=window, q_offset=off)
+        grads = {}
+        for route in ("kernel", "plain"):
+            q, k, v = (t.clone().requires_grad_(True) for t in base)
+            before = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
+            fn = layers.chunked_attention if route == "kernel" else layers.chunked_attention_plain
+            fn(q, k, v, **kw).backward(dout)
+            after = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
+            want = (1, 1) if route == "kernel" else (0, 0)
+            if (after[0] - before[0], after[1] - before[1]) != want:
+                raise AssertionError(f"train attention {label} {route}: launches (FLASH_TC, "
+                                     f"backward) {(after[0] - before[0], after[1] - before[1])}, "
+                                     f"want {want}")
+            grads[route] = (q.grad, k.grad, v.grad)
+            del q, k, v
+        row = {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "window": window,
+               "q_offset": off}
+        for name, x, y in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
+            rel = float((x.float() - y.float()).norm() / y.float().norm())
+            row[name] = {"rel": rel, "max_abs_err": float((x.float() - y.float()).abs().max()),
+                         "finite": bool(torch.isfinite(x).all())}
+            if not (rel <= TRAIN_ATTN_REL and row[name]["finite"]):
+                raise AssertionError(f"train attention {label} {name}: ‖Δ‖/‖ref‖ {rel} > "
+                                     f"{TRAIN_ATTN_REL}")
+        del grads
+        q, k, v = base
+        o = layers.attention_kernel(q, k, v, True, window, off)
+        row["forward_ms"] = time_ms(torch, lambda: layers.attention_kernel(q, k, v, True, window,
+                                                                           off), 5, flush)
+        row["backward_ms"] = time_ms(torch, lambda: layers.attention_backward_plain(
+            q, k, v, o, dout, **kw), 3, flush)
+        print(f"[chip_smoke]   {spec['tag']} attention Function vs all-plain autograd ({label}: "
+              f"B={b} Sq={sq} Sk={sk} {hq}/{hkv} heads D={d} window {window} q_offset {off} "
+              f"bf16): " + ", ".join(f"{n} ‖Δ‖/‖ref‖ {row[n]['rel']:.3g}"
+                                     for n in ("dq", "dk", "dv"))
+              + f" (limit {TRAIN_ATTN_REL:.4g}); forward (FLASH_TC) {row['forward_ms']:.3f} ms, "
+              f"the plain backward {row['backward_ms']:.2f} ms", flush=True)
+        out[label] = row
+        del base, dout, o
     return out
 
 
-def train_card_vs_cpu(torch, mods, cfg):
-    """TRAIN_CPU_LAYERS layers of cfg at full width in float32, the same
-    weights (drawn on the card, copied) and tokens: loss_fn and every
-    gradient on the card and on the port's CPU, within TRAIN_CPU_TOL."""
+def train_card_vs_cpu(torch, mods, cfg, spec):
+    """``spec["cpu_layers"]`` layers of cfg at full width in float32 (with
+    ``spec["cpu_replace"]``), the same weights (drawn on the card, copied)
+    and tokens: loss_fn and every gradient on the card and on the port's
+    CPU, within TRAIN_CPU_TOL; then whole steps of the resume model."""
     dev = torch.device(mods["device"])
-    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    n_layers = spec["cpu_layers"]
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32", **spec["cpu_replace"])
     params = mods["lm_model"].init_params(cfg2, mods["prng"].PRNGKey(0), device=dev)
     batch = mods["SyntheticStream"](0, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, cfg2.vocab_size,
                                     device=dev).at_step(0)
@@ -5346,30 +5464,37 @@ def train_card_vs_cpu(torch, mods, cfg):
         out[f"{where}_s"] = time.perf_counter() - t0
         runs[where] = (float(loss.detach()), [p.grad.cpu() for p in leaves])
         del tree, leaves, loss
+    names = [mods["keystr"](path) for path, _ in mods["tree_flatten_with_path"](params)]
+    del params
     loss_rel = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
-    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                for a, b in zip(runs["card"][1], runs["cpu"][1]))
+    rels = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(runs["card"][1], runs["cpu"][1])]
+    worst = max(rels)
+    worst_leaf = names[rels.index(worst)]
     out.update(loss_card=runs["card"][0], loss_cpu=runs["cpu"][0], loss_rel=loss_rel,
-               grad_worst_rel=worst)
-    print(f"[chip_smoke]   train card vs CPU, {TRAIN_CPU_LAYERS} layers float32 B="
-          f"{TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}: loss {runs['card'][0]:.6f} / "
-          f"{runs['cpu'][0]:.6f} (rel {loss_rel:.3g}), worst gradient leaf max|Δ|/max|g| "
-          f"{worst:.3g} (limit {TRAIN_CPU_TOL}; CPU {out['cpu_s']:.1f} s)", flush=True)
+               grad_worst_rel=worst, grad_worst_leaf=worst_leaf, layers=n_layers,
+               replace=spec["cpu_replace"])
+    print(f"[chip_smoke]   {spec['tag']} card vs CPU, {n_layers} layers float32 B="
+          f"{TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}"
+          + "".join(f" {k}={v}" for k, v in spec["cpu_replace"].items())
+          + f": loss {runs['card'][0]:.6f} / {runs['cpu'][0]:.6f} (rel {loss_rel:.3g}), worst "
+          f"gradient leaf max|Δ|/max|g| {worst:.3g} ({worst_leaf}; limit {TRAIN_CPU_TOL}; CPU "
+          f"{out['cpu_s']:.1f} s)", flush=True)
     if not (loss_rel <= TRAIN_CPU_TOL and worst <= TRAIN_CPU_TOL):
-        raise AssertionError(f"train card vs CPU: loss rel {loss_rel}, gradients {worst} > "
-                             f"{TRAIN_CPU_TOL}")
-    out["steps"] = train_steps_card_vs_cpu(torch, mods, cfg)
+        raise AssertionError(f"{spec['tag']} card vs CPU: loss rel {loss_rel}, gradients {worst} "
+                             f"({worst_leaf}) > {TRAIN_CPU_TOL}")
+    out["steps"] = train_steps_card_vs_cpu(torch, mods, cfg, spec)
     return out
 
 
-def train_steps_card_vs_cpu(torch, mods, cfg):
+def train_steps_card_vs_cpu(torch, mods, cfg, spec):
     """TRAIN_CPU_STEPS whole training steps (Q8 gradients, AdamW, IHT) of the
-    TRAIN_RESUME model in float32 on the card and on the port's CPU from the
-    same state: the loss at each step within TRAIN_CPU_TOL relative and the
-    sparsity the same. A Q8 code whose uniform sits on its rounding edge can
-    flip between the devices, so the weights are held by the loss."""
+    spec's resume model in float32 on the card and on the port's CPU from
+    the same state: the loss at each step within TRAIN_CPU_TOL relative and
+    the sparsity the same. A Q8 code whose uniform sits on its rounding edge
+    can flip between the devices, so the weights are held by the loss."""
     dev = torch.device(mods["device"])
-    rcfg = dataclasses.replace(cfg, name=f"{cfg.name}-resume", dtype="float32", **TRAIN_RESUME)
+    rcfg = dataclasses.replace(cfg, name=f"{cfg.name}-resume", dtype="float32", **spec["resume"])
     cfg_iht = mods["IHTConfig"](sparsity=TRAIN_SPARSITY)
     opt = mods["adamw"](mods["cosine_schedule"](TRAIN_LR, warmup=2, total=TRAIN_CPU_STEPS))
     step = mods["make_train_step"](rcfg, opt, policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
@@ -5386,24 +5511,25 @@ def train_steps_card_vs_cpu(torch, mods, cfg):
             losses.append(float(m["loss"]))
         runs[where] = (losses, mods["sparsity_report"](state.params, cfg_iht))
     rel = [abs(a - b) / abs(b) for a, b in zip(runs["card"][0], runs["cpu"][0])]
-    print(f"[chip_smoke]   train {TRAIN_CPU_STEPS} steps card vs CPU ({rcfg.name}, float32, "
-          f"Q{TRAIN_GRAD_BITS}, IHT): losses {runs['card'][0]} / {runs['cpu'][0]}, max rel "
-          f"{max(rel):.3g} (limit {TRAIN_CPU_TOL}); sparsity {runs['card'][1]} / "
+    print(f"[chip_smoke]   {spec['tag']} {TRAIN_CPU_STEPS} steps card vs CPU ({rcfg.name}, "
+          f"float32, Q{TRAIN_GRAD_BITS}, IHT): losses {runs['card'][0]} / {runs['cpu'][0]}, max "
+          f"rel {max(rel):.3g} (limit {TRAIN_CPU_TOL}); sparsity {runs['card'][1]} / "
           f"{runs['cpu'][1]}", flush=True)
     if not (max(rel) <= TRAIN_CPU_TOL and runs["card"][1] == runs["cpu"][1]):
-        raise AssertionError(f"train steps card vs CPU: {runs}")
+        raise AssertionError(f"{spec['tag']} steps card vs CPU: {runs}")
     return {"card": runs["card"], "cpu": runs["cpu"], "max_rel": max(rel)}
 
 
-def train_resume_check(torch, mods, cfg):
-    """A run of the TRAIN_RESUME model on the card, killed after TRAIN_RESUME_KILL
-    steps (checkpoints every TRAIN_RESUME_EVERY) and restarted through
-    run_with_restarts, must end with the bits of an uninterrupted run (Q8
-    gradients and the projection on, as the full run)."""
+def train_resume_check(torch, mods, cfg, spec):
+    """A run of the spec's resume model on the card, killed after
+    TRAIN_RESUME_KILL steps (checkpoints every TRAIN_RESUME_EVERY) and
+    restarted through run_with_restarts, must end with the bits of an
+    uninterrupted run (Q8 gradients and the projection on, as the full
+    run)."""
     import tempfile
 
     dev = torch.device(mods["device"])
-    rcfg = dataclasses.replace(cfg, name=f"{cfg.name}-resume", **TRAIN_RESUME)
+    rcfg = dataclasses.replace(cfg, name=f"{cfg.name}-resume", **spec["resume"])
     opt = mods["adamw"](TRAIN_LR)
     step = mods["make_train_step"](rcfg, opt, policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
                                    iht=mods["IHTConfig"](sparsity=TRAIN_SPARSITY))
@@ -5443,12 +5569,13 @@ def train_resume_check(torch, mods, cfg):
     last_ckpt = TRAIN_RESUME_KILL // TRAIN_RESUME_EVERY * TRAIN_RESUME_EVERY
     expect_log = [f"[loop] resumed from checkpoint step {last_ckpt}"]
     n_params = sum(p.numel() for p in mods["tree_leaves"](want.params))
-    print(f"[chip_smoke]   train resume ({rcfg.name}: {n_params:,} params, B="
+    print(f"[chip_smoke]   {spec['tag']} resume ({rcfg.name}: {n_params:,} params, B="
           f"{TRAIN_RESUME_BATCH} S={TRAIN_RESUME_SEQ}, {TRAIN_RESUME_STEPS} steps, checkpoints "
           f"every {TRAIN_RESUME_EVERY}, killed after {TRAIN_RESUME_KILL}; {ckpt_bytes:,} bytes "
           f"of checkpoints kept): bit for bit {same}, {logs} ({seconds:.1f} s)", flush=True)
     if not same or logs != expect_log or int(got.step) != TRAIN_RESUME_STEPS:
-        raise AssertionError(f"train resume: bitwise {same}, log {logs}, step {int(got.step)}")
+        raise AssertionError(f"{spec['tag']} resume: bitwise {same}, log {logs}, step "
+                             f"{int(got.step)}")
     return {"bitwise": same, "params": n_params, "checkpoint_bytes": ckpt_bytes,
             "seconds": seconds, "log": logs}
 
@@ -5465,21 +5592,27 @@ def _timed(torch, record, name, fn):
     return call
 
 
-def train_projection_gate(torch, mods, params, cfg_iht, project, dense):
+def train_projection_gate(torch, mods, params, cfg_iht, project, dense, hs_leaves):
     """project(params) with every eligible leaf held: exactly keep nonzeros,
     the kept entries the leaf's own values, and the smallest kept |w| no
     smaller than the largest dropped |w| less one histogram bin (ties in
-    the threshold bin are kept by index). The leaves of TRAIN_HS_LEAVES go
+    the threshold bin are kept by index). The leaves of ``hs_leaves`` go
     into ``dense`` on the host as (the dense input, the path's kept mask).
-    Returns the per-leaf readings."""
+    Each leaf's dense copy is kept only while it is checked, so that the
+    gate adds one leaf's bytes to the step's peak. Returns the per-leaf
+    readings."""
     iht = mods["iht"]
     before = {}
     for path, leaf in mods["tree_flatten_with_path"](params):
         if iht.eligible(path, leaf, cfg_iht):
-            before[mods["keystr"](path)] = (leaf, leaf.clone())
+            before[mods["keystr"](path)] = (path, leaf.to("cpu", copy=True))
     project(params)
+    current = {mods["keystr"](path): leaf for path, leaf in
+               mods["tree_flatten_with_path"](params)}
     rows = []
-    for name, (leaf, old) in before.items():
+    for name, (path, host) in before.items():
+        leaf = current[name]
+        old = host.to(leaf.device)
         keep = iht.keep_count(leaf, cfg_iht)
         kept = leaf != 0
         n_kept = int(kept.sum())
@@ -5491,9 +5624,9 @@ def train_projection_gate(torch, mods, params, cfg_iht, project, dense):
         rows.append({"leaf": name, "N": leaf.numel(), "keep": keep, "kept": n_kept,
                      "values_kept": same, "kept_min": kept_min, "dropped_max": dropped_max,
                      "bin": binw})
-        if name in TRAIN_HS_LEAVES.values():
-            dense[name] = (old.cpu(), kept.cpu())
-        del kept, mag, old
+        if name in hs_leaves.values():
+            dense[name] = (host, kept.cpu())
+        del kept, mag, old, host
         if n_kept != keep or not same or kept_min < dropped_max - binw:
             raise AssertionError(f"train projection {name}: kept {n_kept} of keep {keep}, "
                                  f"values kept {same}, kept min {kept_min} vs dropped max "
@@ -5517,27 +5650,33 @@ def train_sqround_check(torch, mods, captured, bits):
     return out
 
 
-def train_run(torch, mods, cfg):
+def train_run(torch, mods, cfg, spec):
     """The full-width run: init_state, then train_loop over make_train_step
-    (Q8 gradients, IHT at TRAIN_SPARSITY) for TRAIN_STEPS steps, timed and
-    split, gated on the loss, the launches, the plain versions' calls and
+    (Q8 gradients, IHT at TRAIN_SPARSITY, ``spec["accum"]`` microbatches)
+    for ``spec["steps"]`` steps of ``spec["batch"]`` rows of
+    ``spec["seq"]`` tokens, timed and split, gated on the loss, the
+    launches (FLASH_TC with cfg's window twice per attention layer a
+    microbatch, the backward route once), the plain versions' calls and
     (first step) the projection and one chunk of the compression. Returns
     (state, readings, the path's inputs: the first step's dense leaves of
-    TRAIN_HS_LEAVES before its projection and its captured sqround chunk)."""
+    ``spec["hs_leaves"]`` before its projection and its captured sqround
+    chunk)."""
     dev = torch.device(mods["device"])
+    tag, b, s, n_steps, accum = (spec["tag"], spec["batch"], spec["seq"], spec["steps"],
+                                 spec["accum"])
     steps_mod, prng = mods["train_steps"], mods["prng"]
     cfg_iht = mods["IHTConfig"](sparsity=TRAIN_SPARSITY)
-    opt = mods["adamw"](mods["cosine_schedule"](TRAIN_LR, warmup=20, total=TRAIN_STEPS))
+    opt = mods["adamw"](mods["cosine_schedule"](TRAIN_LR, warmup=20, total=n_steps))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state = mods["init_state"](cfg, opt, prng.PRNGKey(0), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    stream = mods["SyntheticStream"](0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, device=dev)
-    on_cpu = mods["SyntheticStream"](0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, device="cpu")
+    stream = mods["SyntheticStream"](0, b, s, cfg.vocab_size, device=dev)
+    on_cpu = mods["SyntheticStream"](0, b, s, cfg.vocab_size, device="cpu")
     if not all(torch.equal(stream.at_step(i)["tokens"].cpu(), on_cpu.at_step(i)["tokens"])
-               for i in range(TRAIN_STEPS)):
-        raise AssertionError("train: the card's tokens differ from the CPU's")
+               for i in range(n_steps)):
+        raise AssertionError(f"{tag}: the card's tokens differ from the CPU's")
     n_eligible = sum(mods["iht"].eligible(path, leaf, cfg_iht)
                      for path, leaf in mods["tree_flatten_with_path"](state.params))
     chunk = mods["collectives"].CHUNK
@@ -5564,21 +5703,30 @@ def train_run(torch, mods, cfg):
         if count["step"] > 0:
             return _timed(torch, record, "projection_ms", real_project)(params, step, cfg_)
         checks["projection"] = train_projection_gate(
-            torch, mods, params, cfg_, lambda p: real_project(p, step, cfg_), dense)
+            torch, mods, params, cfg_, lambda p: real_project(p, step, cfg_), dense,
+            spec["hs_leaves"])
         return params
 
     timed_opt = mods["Optimizer"](opt.init, _timed(torch, record, "adamw_ms", opt.update))
     losses = []
+
+    def launch_counts():
+        counts = {k.entry: k.launches for k in mods["KERNELS"]}
+        counts["attention_backward"] = mods["ATTENTION_BACKWARD"].launches
+        return counts
 
     def stepped(state, batch):
         if count["step"] == 1:      # the peak of the steps without the first one's checks
             record["first_step_peak_bytes"].append(torch.cuda.max_memory_allocated(dev))
             torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
+        before = launch_counts()
         t = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         record["step_ms"].append((time.perf_counter() - t) * 1e3)
+        record["launches_by_step"].append({k: n - before[k] for k, n in launch_counts().items()
+                                           if n != before[k]})
         losses.append(float(metrics["loss"]))
         count["step"] += 1
         return state, metrics
@@ -5597,32 +5745,39 @@ def train_run(torch, mods, cfg):
             stack.enter_context(stand_in(mods[m], **fns))
         step = mods["make_train_step"](cfg, timed_opt,
                                        policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
-                                       iht=cfg_iht)
+                                       iht=cfg_iht, accum_steps=accum)
         reset_counts(mods)
         mods["ATTENTION_BACKWARD"].reset_counts()
         t_run = time.perf_counter()
         state = mods["train_loop"](stepped, state, stream,
-                                   mods["LoopConfig"](total_steps=TRAIN_STEPS, log_every=1),
-                                   log=lambda s: print(f"[chip_smoke]   train {s}", flush=True))
+                                   mods["LoopConfig"](total_steps=n_steps, log_every=1),
+                                   log=lambda m: print(f"[chip_smoke]   {tag} {m}", flush=True))
         run_s = time.perf_counter() - t_run
-    launches = {k.entry: k.launches for k in mods["KERNELS"]}
-    launches["attention_backward"] = mods["ATTENTION_BACKWARD"].launches
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"repro_flash_attention_tc": 2 * cfg.n_layers * TRAIN_STEPS,
-            "attention_backward": cfg.n_layers * TRAIN_STEPS,
-            "repro_hsthresh": n_eligible * TRAIN_STEPS,
-            "repro_sqround": sq_chunks * TRAIN_STEPS}
-    failed = [f"{k} launched {launches.get(k, 0)} times, want {v}" for k, v in want.items()
-              if launches.get(k, 0) != v]
-    failed += [f"{k} launched {v} times, want 0" for k, v in launches.items()
-               if k not in want and v]
+    n_attn, window = lm_attention_layers(cfg), mods["lm_model"]._window(cfg)
+    per_step = {"repro_flash_attention_tc": 2 * n_attn * accum,
+                "attention_backward": n_attn * accum,
+                "repro_hsthresh": n_eligible,
+                "repro_sqround": sq_chunks}
+    per_step = {k: v for k, v in per_step.items() if v}
+    failed = [f"step {i + 1} launched {got}, want {per_step}"
+              for i, got in enumerate(record["launches_by_step"]) if got != per_step]
+    if len(record["launches_by_step"]) != n_steps:
+        failed.append(f"{len(record['launches_by_step'])} steps run, want {n_steps}")
+    shape = (b // accum, cfg.padded_heads, cfg.padded_kv_heads, s, s, cfg.head_dim_, 0,
+             window or 0)
+    by_shape = mods["FLASH_TC"].launches_by_shape
+    if sum(by_shape.values()) != by_shape.get(shape, 0):
+        failed.append(f"FLASH_TC launched at {dict(by_shape)}, want only {shape}")
     failed += [f"the plain {k} ran {v} times" for k, v in calls.items() if v]
     if not all(math.isfinite(x) for x in losses):
         failed.append(f"losses {losses} not all finite")
-    if "projection" not in checks or not captured or len(dense) != len(TRAIN_HS_LEAVES):
+    if ("projection" not in checks or not captured
+            or len(dense) != len(spec["hs_leaves"])):
         failed.append("the first step's projection or compression was not checked")
     if failed:
-        raise AssertionError("train: " + "; ".join(failed))
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
     checks["sqround"] = train_sqround_check(torch, mods, captured[0], TRAIN_GRAD_BITS)
 
     def median(xs):
@@ -5630,73 +5785,82 @@ def train_run(torch, mods, cfg):
     # steps 2.. (the first carries the checks); the projection's record starts at step 2
     later = list(zip(record["step_ms"][1:], record["compression_ms"], record["adamw_ms"][1:],
                      record["projection_ms"]))
-    split = {"step_ms": median([s for s, _, _, _ in later]),
-             "forward_backward_ms": median([s - c - a - p for s, c, a, p in later]),
+    split = {"step_ms": median([x for x, _, _, _ in later]),
+             "forward_backward_ms": median([x - c - a - p for x, c, a, p in later]),
              "compression_ms": median([c for _, c, _, _ in later]),
              "adamw_ms": median([a for _, _, a, _ in later]),
              "projection_ms": median([p for _, _, _, p in later])}
-    flops, attn_bwd = train_flops(mods, cfg, state.params, TRAIN_BATCH, TRAIN_SEQ)
-    bound_ms = flops / BF16_FLOP_PER_S * 1e3
-    out = {"config": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+    bf16_flops, f32_flops, attn_bwd = train_flops(mods, cfg, state.params, b, s)
+    bound_ms = (bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S) * 1e3
+    out = {"config": cfg.name, "batch": b, "seq": s, "accum_steps": accum, "steps": n_steps,
            "init_s": init_s, "run_s": run_s, "losses": losses, "record": dict(record),
-           "split": split, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / split["step_ms"],
-           "step_flops": flops, "attention_backward_flops": attn_bwd,
-           "step_bound_ms": bound_ms, "peak_bytes": peak,
+           "split": split, "tokens_per_s": b * s * 1e3 / split["step_ms"],
+           "step_flops": bf16_flops + f32_flops, "step_f32_flops": f32_flops,
+           "attention_backward_flops": attn_bwd, "step_bound_ms": bound_ms, "peak_bytes": peak,
            "first_step_peak_bytes": record["first_step_peak_bytes"][0], "launches": launches,
-           "launches_per_step": {k: v // TRAIN_STEPS for k, v in want.items()},
+           "launches_per_step": per_step, "flash_tc_shape": str(shape),
            "plain_calls": dict(calls), "eligible_leaves": n_eligible,
            "sqround_chunks_per_step": sq_chunks, "checks": checks}
-    print(f"[chip_smoke]   train {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ}, Q{TRAIN_GRAD_BITS} "
-          f"gradients, IHT {TRAIN_SPARSITY:.0%}: init {init_s:.1f} s; losses "
+    print(f"[chip_smoke]   {tag} {cfg.name} B={b} S={s} ({accum} microbatch"
+          f"{'es' if accum > 1 else ''}), Q{TRAIN_GRAD_BITS} gradients, IHT "
+          f"{TRAIN_SPARSITY:.0%}: init {init_s:.1f} s; losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; step {split['step_ms']:.1f} ms (median of "
-          f"steps 2..{TRAIN_STEPS}; all {', '.join(f'{x:.1f}' for x in record['step_ms'])}), "
-          f"{out['tokens_per_s']:.0f} tokens/s; FLOP bound {bound_ms:.1f} ms ({flops:.4g} flops "
-          f"at the bf16 peak, {attn_bwd:.3g} of them the attention backward's)", flush=True)
-    print(f"[chip_smoke]   train split of a step (medians of steps 2..{TRAIN_STEPS}): forward + "
+          f"steps 2..{n_steps}; all {', '.join(f'{x:.1f}' for x in record['step_ms'])}), "
+          f"{out['tokens_per_s']:.0f} tokens/s; FLOP bound {bound_ms:.1f} ms "
+          f"({bf16_flops:.4g} flops at the bf16 peak, {attn_bwd:.3g} of them the attention "
+          f"backward's; {f32_flops:.3g} at the f32 peak)", flush=True)
+    print(f"[chip_smoke]   {tag} split of a step (medians of steps 2..{n_steps}): forward + "
           f"backward {split['forward_backward_ms']:.1f} ms, compression "
           f"{split['compression_ms']:.1f} ms, AdamW {split['adamw_ms']:.1f} ms, projection "
           f"{split['projection_ms']:.1f} ms; peak max_memory_allocated {peak:,} bytes over "
-          f"steps 2..{TRAIN_STEPS} ({record['first_step_peak_bytes'][0]:,} with init_state and "
+          f"steps 2..{n_steps} ({record['first_step_peak_bytes'][0]:,} with init_state and "
           f"the first step's checks)", flush=True)
-    print(f"[chip_smoke]   train launches per step: FLASH_TC {2 * cfg.n_layers}, the attention "
-          f"backward route {cfg.n_layers}, HSTHRESH {n_eligible} (eligible leaves), SQROUND "
-          f"{sq_chunks} (chunks of {chunk:,}); plain versions run: none", flush=True)
+    print(f"[chip_smoke]   {tag} launches in each step: FLASH_TC "
+          f"{per_step.get('repro_flash_attention_tc', 0)} (window {window}), the attention "
+          f"backward route {per_step.get('attention_backward', 0)}, "
+          f"HSTHRESH {n_eligible} (eligible leaves), SQROUND {sq_chunks} (chunks of {chunk:,}); "
+          f"plain versions run: none", flush=True)
     for row in checks["projection"]:
-        print(f"[chip_smoke]   train projection {row['leaf']}: N={row['N']:,}, kept "
-              f"{row['kept']:,} = keep, kept min {row['kept_min']:.4g} >= dropped max "
-              f"{row['dropped_max']:.4g} - bin {row['bin']:.3g}", flush=True)
-    print(f"[chip_smoke]   train sqround on {checks['sqround']['N']:,} entries of the largest "
-          f"gradient leaf: codes bitwise the plain version's, the path's values bitwise them "
-          f"dequantized", flush=True)
+        if row["leaf"] in spec["hs_leaves"].values():
+            print(f"[chip_smoke]   {tag} projection {row['leaf']}: N={row['N']:,}, kept "
+                  f"{row['kept']:,} = keep, kept min {row['kept_min']:.4g} >= dropped max "
+                  f"{row['dropped_max']:.4g} - bin {row['bin']:.3g}", flush=True)
+    print(f"[chip_smoke]   {tag} projection: all {len(checks['projection'])} eligible leaves kept "
+          f"exactly keep; sqround on {checks['sqround']['N']:,} entries of the largest gradient "
+          f"leaf: codes bitwise the plain version's, the path's values bitwise them dequantized",
+          flush=True)
     return state, out, {"hs": dense, "sqround": captured[0],
                         "sqround_err": checks["sqround"]["max_abs_err"]}
 
 
-def train_kernel_rows(torch, mods, cfg, inputs):
+def train_kernel_rows(torch, mods, cfg, inputs, spec):
     """The training kernels on the path's own inputs, after the run: the fused
-    H_s on the first step's dense embedding and MLP wi leaves, each bit for
-    bit against hsthresh_ref and its support the path's, timed; sqround on
-    the captured gradient chunk; FLASH_TC at B = 8, S = 1,024 beside SDPA."""
+    H_s on the first step's dense leaves of ``spec["hs_leaves"]``, each bit
+    for bit against hsthresh_ref and its support the path's, timed; sqround
+    on the captured gradient chunk; FLASH_TC at the run's microbatch shape
+    with cfg's window, beside SDPA (the band as a boolean mask where there
+    is a window) and its bound."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     dev = torch.device(mods["device"])
+    tag = spec["tag"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     cfg_iht = mods["IHTConfig"](sparsity=TRAIN_SPARSITY)
     HSTHRESH, ref = mods["HSTHRESH"], mods["hsthresh_ref_mod"].hsthresh_ref
     rows = {}
-    for name, path in TRAIN_HS_LEAVES.items():
+    for name, path in spec["hs_leaves"].items():
         old, kept = inputs["hs"].pop(path)
         x = old.to(dev).view(1, -1)
         del old
         keep = mods["iht"].keep_count(x, cfg_iht)
         got = HSTHRESH(x, keep, TRAIN_NBINS)
         want = ref(x, keep, TRAIN_NBINS)
-        row = {"N": x.numel(), "keep": keep, "bitwise": bool(torch.equal(got, want)),
+        row = {"leaf": path, "N": x.numel(), "keep": keep, "bitwise": bool(torch.equal(got, want)),
                "max_abs_err": float((got - want).abs().max()),
                "path_support": bool(torch.equal(got.view(-1) != 0, kept.to(dev).view(-1)))}
         del got, want, kept
         if not (row["bitwise"] and row["path_support"]):
-            raise AssertionError(f"train: the fused H_s on the dense {path} leaf: bitwise "
+            raise AssertionError(f"{tag}: the fused H_s on the dense {path} leaf: bitwise "
                                  f"hsthresh_ref {row['bitwise']} (max|Δ| {row['max_abs_err']}), "
                                  f"support the path's {row['path_support']}")
         row["ms"] = time_ms(torch, lambda: HSTHRESH(x, keep, TRAIN_NBINS), 2, flush)
@@ -5715,55 +5879,214 @@ def train_kernel_rows(torch, mods, cfg, inputs):
               mods["prng"].PRNGKey(5), 0, v.numel(), dev), 3, flush),
           "bound_ms": 9 * v.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     del v, words, w32
+    emb, wi = rows["embed"], rows["wi"]
+    print(f"[chip_smoke]   {tag} fused H_s on the first step's dense leaves, bit for bit "
+          f"hsthresh_ref and the path's support: embed N={emb['N']:,} {emb['ms']:.2f} ms (plain "
+          f"{emb['plain_ms']:.1f} ms, bound {emb['bound_ms']:.2f} ms), {wi['leaf']} "
+          f"N={wi['N']:,} {wi['ms']:.1f} ms (plain {wi['plain_ms']:.1f} ms, bound "
+          f"{wi['bound_ms']:.2f} ms); sqround on the captured gradient chunk of {sq['N']:,}: "
+          f"{sq['ms']:.4f} ms (plain {sq['plain_ms']:.3f}, its threefry words "
+          f"{sq['words_ms']:.2f}, bound {sq['bound_ms']:.4f})", flush=True)
+    out = {"hsthresh": rows, "sqround": sq}
+    if not lm_attention_layers(cfg):
+        return out
     hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    w = mods["lm_model"]._window(cfg)
+    b, s = spec["batch"] // spec["accum"], spec["seq"]
     gen = torch.Generator(device=dev).manual_seed(23)
-    q, kk, vv = (torch.randn(TRAIN_BATCH, h, TRAIN_SEQ, d, generator=gen, device=dev)
+    q, kk, vv = (torch.randn(b, h, s, d, generator=gen, device=dev)
                  .to(torch.bfloat16) for h in (hq, hkv, hkv))
     FLASH_TC = mods["FLASH_TC"]
-    o = FLASH_TC(q, kk, vv, True, d ** -0.5)
-    refo = mods["attention_plain"](q, kk, vv, causal=True, scale=d ** -0.5)
-    gap = held(torch, "train forward", o, refo, 2e-2, rows=True)
+    o = FLASH_TC(q, kk, vv, True, d ** -0.5, 0, w or 0)
+    refo = mods["attention_plain"](q, kk, vv, causal=True, scale=d ** -0.5, window=w, q_offset=0)
+    gap = held(torch, f"{tag} forward", o, refo, 2e-2, rows=True)
+    del o, refo
+    if w is None:
+        def sdpa():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+                return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                                        enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < w)
 
-    def sdpa():
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-            return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, attn_mask=band,
                                                                     enable_gqa=True)
-    b_ms, b_by, _ = attention_bound(TRAIN_BATCH, hq, hkv, TRAIN_SEQ, TRAIN_SEQ, d, 2, True)
-    fl = {"B": TRAIN_BATCH, "Hq": hq, "Hkv": hkv, "S": TRAIN_SEQ, "D": d,
+    b_ms, b_by, _ = attention_bound(b, hq, hkv, s, s, d, 2, True, w, 0)
+    fl = {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "window": w,
           "max_abs_err": gap["max_abs_err"], "max_row_rel": gap["max_row_rel"],
-          "ms": time_ms(torch, lambda: FLASH_TC(q, kk, vv, True, d ** -0.5), 10, flush),
+          "ms": time_ms(torch, lambda: FLASH_TC(q, kk, vv, True, d ** -0.5, 0, w or 0), 10, flush),
           "plain_ms": time_ms(torch, lambda: mods["lm_layers"].chunked_attention_plain(
-              q, kk, vv, causal=True, chunk=cfg.attn_chunk), 3, flush),
+              q, kk, vv, causal=True, chunk=cfg.attn_chunk, window=w), 3, flush),
           "library_ms": time_ms(torch, sdpa, 10, flush), "bound_ms": b_ms, "bound_by": b_by}
-    emb, wi = rows["embed"], rows["wi"]
-    print(f"[chip_smoke]   train fused H_s on the first step's dense leaves, bit for bit "
-          f"hsthresh_ref and the path's support: embed N={emb['N']:,} {emb['ms']:.2f} ms (plain "
-          f"{emb['plain_ms']:.1f} ms), MLP wi N={wi['N']:,} {wi['ms']:.1f} ms (plain "
-          f"{wi['plain_ms']:.1f} ms, bound {wi['bound_ms']:.2f} ms); sqround on the captured "
-          f"gradient chunk of {sq['N']:,}: "
-          f"{sq['ms']:.4f} ms (plain {sq['plain_ms']:.3f}, its threefry words "
-          f"{sq['words_ms']:.2f}, bound {sq['bound_ms']:.4f}); FLASH_TC B={TRAIN_BATCH} "
-          f"S={TRAIN_SEQ}: {fl['ms']:.4f} ms (plain {fl['plain_ms']:.2f}, SDPA "
-          f"{fl['library_ms']:.4f}, bound {b_ms:.4f} {b_by})", flush=True)
-    return {"hsthresh": rows, "sqround": sq, "flash": fl}
+    print(f"[chip_smoke]   {tag} FLASH_TC B={b} S={s} {hq}/{hkv} heads D={d} window {w}: "
+          f"{fl['ms']:.4f} ms (plain {fl['plain_ms']:.2f}, SDPA"
+          f"{' with the band as a mask' if w else ''} {fl['library_ms']:.4f}, bound {b_ms:.4f} "
+          f"{b_by})", flush=True)
+    out["flash"] = fl
+    return out
+
+
+def train_recurrent_layers(torch, mods, cfg, spec):
+    """Forward and backward ms of one layer's recurrent core at the run's
+    microbatch shape (bf16 activations as the path hands them): the RG-LRU's
+    log-depth scan (``rglru.linear_scan`` on float32 a and b) or the chunked
+    SSD (``ssm.ssd_chunked``, its parameters and inputs requiring a
+    gradient); the backward is autograd's, timed as forward + backward less
+    the forward."""
+    dev = torch.device(mods["device"])
+    gen = torch.Generator(device=dev).manual_seed(25)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    b, s = spec["batch"] // spec["accum"], spec["seq"]
+    if cfg.family == "hybrid":
+        what = "RG-LRU scan"
+        w = cfg.rnn_width_
+        a = torch.rand(b, s, w, generator=gen, device=dev).requires_grad_(True)
+        x = torch.randn(b, s, w, generator=gen, device=dev).requires_grad_(True)
+        g = torch.randn(b, s, w, generator=gen, device=dev)
+        scan = mods["rglru"].linear_scan
+
+        def fwd():
+            with torch.no_grad():
+                return scan(a, x)
+
+        def fwd_bwd():
+            return torch.autograd.grad(scan(a, x), (a, x), g)
+    else:
+        what = "SSD"
+        ssm = mods["ssm"]
+        h, ds = cfg.ssm_heads, cfg.ssm_state
+        p = {"dt_bias": torch.zeros(h, device=dev), "d_skip": torch.ones(h, device=dev),
+             "a_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev))}
+        xr = torch.randn(b, s, cfg.d_inner, generator=gen, device=dev).to(torch.bfloat16)
+        bb, cc = (torch.randn(b, s, ds, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        dt = torch.randn(b, s, h, generator=gen, device=dev).to(torch.bfloat16)
+        leaves = [xr, bb, cc, dt, *p.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        gy = torch.randn(b, s, h, cfg.ssm_headdim, generator=gen, device=dev)
+
+        def fwd():
+            with torch.no_grad():
+                return ssm.ssd_chunked(p, xr, bb, cc, dt, cfg)
+
+        def fwd_bwd():
+            y, _ = ssm.ssd_chunked(p, xr, bb, cc, dt, cfg)
+            return torch.autograd.grad(y, leaves, gy)
+    grads = fwd_bwd()
+    if not all(bool(torch.isfinite(t).all()) for t in grads):
+        raise AssertionError(f"{spec['tag']} {what} B={b} S={s}: non-finite gradients")
+    del grads
+    f_ms = time_ms(torch, fwd, 5, flush)
+    fb_ms = time_ms(torch, fwd_bwd, 5, flush)
+    n = sum(kind in ("rec", "ssm") for kind in cfg.pattern_for_layers())
+    row = {"what": what, "B": b, "S": s, "forward_ms": f_ms, "backward_ms": fb_ms - f_ms,
+           "layers": n}
+    print(f"[chip_smoke]   {spec['tag']} {what} B={b} S={s}, a layer: forward {f_ms:.3f} ms, "
+          f"backward {fb_ms - f_ms:.3f} ms (autograd; forward + backward {fb_ms:.3f}), "
+          f"{n} layers", flush=True)
+    return row
+
+
+def phase_train_family(torch, mods, arch):
+    """``arch`` trained at full width on the card: the attention Function's
+    gradient checks (cfg's heads and window), card against CPU, resume bit
+    for bit, the full-width run, the kernels on its inputs, and (recurrent
+    families) one layer's recurrent core forward and backward."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = mods["lm_get_config"](arch)
+    spec = train_spec(arch)
+    out = {"attention": train_attention_check(torch, mods, cfg, spec)}
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, mods, cfg, spec)
+    torch.cuda.empty_cache()
+    out["resume"] = train_resume_check(torch, mods, cfg, spec)
+    torch.cuda.empty_cache()
+    state, out["run"], inputs = train_run(torch, mods, cfg, spec)
+    del state
+    torch.cuda.empty_cache()
+    out["kernels"] = train_kernel_rows(torch, mods, cfg, inputs, spec)
+    if cfg.family in ("hybrid", "ssm"):
+        torch.cuda.empty_cache()
+        out["recurrent_layer"] = train_recurrent_layers(torch, mods, cfg, spec)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   {spec['tag']} phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def train_faults(torch, mods):
+    """Faults planted in recurrentgemma-2b's training path, each of which a
+    gate of phase train_hybrid must fail on: (1) the attention backward
+    route ignoring the window (``attention_backward_plain`` called without
+    it): the attention check and the card-vs-CPU gradients; (2) the RG-LRU
+    scan on the card dropping one step's a (a_t taken as 1 at t = S/2, as
+    if the decay of that step were lost): the card-vs-CPU gradients.
+    Returns what each gate read; raises if a gate passed its fault."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mods["lm_get_config"](TRAIN_HYBRID_ARCH)
+    spec = train_spec(TRAIN_HYBRID_ARCH)
+    layers, rglru = mods["lm_layers"], mods["rglru"]
+    real_backward, real_scan = layers.attention_backward_plain, rglru.linear_scan
+
+    def backward_without_window(*args, window=None, **kw):
+        return real_backward(*args, **kw)
+
+    def scan_dropping_one_a(a, b):
+        if a.is_cuda:
+            a = a.clone()
+            a[:, a.shape[1] // 2] = 1.0
+        return real_scan(a, b)
+
+    def attention():
+        return train_attention_check(torch, mods, cfg, spec)
+
+    def card_vs_cpu():
+        return train_card_vs_cpu(torch, mods, cfg, spec)
+    faults = (("backward_ignores_window", layers,
+               dict(attention_backward_plain=backward_without_window),
+               (("attention", attention), ("card_vs_cpu", card_vs_cpu))),
+              ("scan_drops_one_a", rglru, dict(linear_scan=scan_dropping_one_a),
+               (("card_vs_cpu", card_vs_cpu),)))
+    results, missed = {}, []
+    for fault, module, fns, gates in faults:
+        for gate, run in gates:
+            with stand_in(module, **fns):
+                try:
+                    run()
+                except AssertionError as e:
+                    results[f"{fault}: {gate}"] = f"caught: {e}"
+                else:
+                    results[f"{fault}: {gate}"] = "missed"
+                    missed.append(f"{fault}: {gate}")
+            torch.cuda.empty_cache()
+            print(f"[chip_smoke]   train fault {fault}, gate {gate}: "
+                  f"{results[f'{fault}: {gate}']}", flush=True)
+    if missed:
+        raise AssertionError(f"planted faults no gate caught: {missed}")
+    return results
 
 
 def phase_train(torch, mods):
     """starcoder2-3b trained at full width on the card (phase ``train``)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = mods["lm_get_config"](TRAIN_ARCH)
-    out = {"attention": train_attention_check(torch, mods, cfg)}
-    torch.cuda.empty_cache()
-    out["card_vs_cpu"] = train_card_vs_cpu(torch, mods, cfg)
-    torch.cuda.empty_cache()
-    out["resume"] = train_resume_check(torch, mods, cfg)
-    torch.cuda.empty_cache()
-    state, out["run"], inputs = train_run(torch, mods, cfg)
-    del state
-    torch.cuda.empty_cache()
-    out["kernels"] = train_kernel_rows(torch, mods, cfg, inputs)
-    return out
+    return phase_train_family(torch, mods, TRAIN_ARCH)
+
+
+def phase_train_hybrid(torch, mods):
+    """recurrentgemma-2b trained at full width on train_4k's rows (phase
+    ``train_hybrid``): 4 rows of 4,096 tokens a step in 4 microbatches, the
+    window of 2,048 keys biting in the 8 attention layers."""
+    return phase_train_family(torch, mods, TRAIN_HYBRID_ARCH)
+
+
+def phase_train_ssm(torch, mods):
+    """mamba2-370m trained at full width on train_4k's rows (phase
+    ``train_ssm``): 8 rows of 4,096 tokens a step, 48 SSD layers."""
+    return phase_train_family(torch, mods, TRAIN_SSM_ARCH)
+
 
 def load_port() -> dict:
     """Import the port from ``src/`` (the only imports of the program)."""
@@ -5939,6 +6262,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-faults", action="store_true",
                     help="only check that faults planted in the lm phase's W4KV8 run (qmm "
                          "scales of one layer, the flash mutants) fail its gates")
+    ap.add_argument("--train-faults", action="store_true",
+                    help="only check that faults planted in recurrentgemma-2b's training path "
+                         "(a backward that ignores the window, a scan that drops one step's a) "
+                         "fail the train_hybrid phase's gates")
     args = ap.parse_args(argv)
     import torch
 
@@ -5964,6 +6291,13 @@ def main(argv=None) -> int:
         result = phases.run("lm-faults", lm_faults, torch, mods)
         mods["out_dir"].mkdir(parents=True, exist_ok=True)
         (mods["out_dir"] / "lm_faults.json").write_text(json.dumps(result, indent=1))
+        print(nvidia_smi_line(), flush=True)
+        return 1 if phases.failed else 0
+    if args.train_faults:
+        phases.run("build", phase_build, mods["LIBRARIES"])
+        result = phases.run("train-faults", train_faults, torch, mods)
+        mods["out_dir"].mkdir(parents=True, exist_ok=True)
+        (mods["out_dir"] / "train_faults.json").write_text(json.dumps(result, indent=1))
         print(nvidia_smi_line(), flush=True)
         return 1 if phases.failed else 0
     report = {"device": kind}
@@ -5993,6 +6327,8 @@ def main(argv=None) -> int:
     report["hybrid"] = phases.run("hybrid", phase_hybrid, torch, mods)
     report["ssm"] = phases.run("ssm", phase_ssm, torch, mods)
     report["train"] = phases.run("train", phase_train, torch, mods)
+    report["train_hybrid"] = phases.run("train_hybrid", phase_train_hybrid, torch, mods)
+    report["train_ssm"] = phases.run("train_ssm", phase_train_ssm, torch, mods)
     report["encdec"] = phases.run("encdec", phase_encdec, torch, mods)
     report["vlm"] = phases.run("vlm", phase_vlm, torch, mods)
     card = nvidia_smi_line()
@@ -6418,6 +6754,74 @@ def main(argv=None) -> int:
                  "and the remat recompute; the reference trains through chunked_attention's "
                  "custom VJP, src/repro/models/layers.py:145-200)",
     })
+    for tag, arch in (("train_hybrid", TRAIN_HYBRID_ARCH), ("train_ssm", TRAIN_SSM_ARCH)):
+        run, ks = report[tag]["run"], report[tag]["kernels"]
+        hs, sq = ks["hsthresh"], ks["sqround"]
+        kernels.append({
+            "name": f"hsthresh[{tag}: {arch} IHT projection, {hs['wi']['leaf']}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/hsthresh/csrc/hsthresh_fused.cu",
+            "entry": "repro_hsthresh",
+            "replaces": "src/repro/kernels/hsthresh/kernel.py:48 and :69 (hist_pallas, "
+                        "mask_pallas and the jnp pick and fill between them)",
+            "launches": run["launches"]["repro_hsthresh"],
+            "max_abs_err": max(hs["wi"]["max_abs_err"], hs["embed"]["max_abs_err"]),
+            "ms": hs["wi"]["ms"],
+            "plain_ms": hs["wi"]["plain_ms"],
+            "bound_ms": hs["wi"]["bound_ms"],
+            "bound_by": hs["wi"]["bound_by"],
+            "library_ms": None,
+            "embed_ms": hs["embed"]["ms"],
+            "embed_plain_ms": hs["embed"]["plain_ms"],
+            "embed_bound_ms": hs["embed"]["bound_ms"],
+            "shape": f"B=1 N={hs['wi']['N']} s={hs['wi']['keep']} nbins={TRAIN_NBINS} (one "
+                     f"cluster), the first step's dense leaf; embed_*: N={hs['embed']['N']}; both "
+                     f"held bit for bit against hsthresh_ref; launches: every eligible leaf "
+                     f"({run['eligible_leaves']}) of every step of the {tag} phase's run",
+        })
+        kernels.append({
+            "name": f"sqround[{tag}: {arch} Q8 gradient chunks]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/sqround/csrc/sqround.cu",
+            "replaces": "src/repro/kernels/sqround/kernel.py:49",
+            "launches": run["launches"]["repro_sqround"],
+            "max_abs_err": sq["max_abs_err"],
+            "ms": sq["ms"],
+            "plain_ms": sq["plain_ms"],
+            "bound_ms": sq["bound_ms"],
+            "bound_by": sq["bound_by"],
+            "library_ms": None,
+            "words_ms": sq["words_ms"],
+            "shape": f"R=1 C={sq['N']} bits={TRAIN_GRAD_BITS} (the first step's first chunk of "
+                     f"the largest gradient leaf); launches: every chunk "
+                     f"({run['sqround_chunks_per_step']} a step) of every step of the {tag} "
+                     f"phase's run; words_ms: the threefry words of one chunk",
+        })
+        if "flash" not in ks:
+            continue
+        row = ks["flash"]
+        kernels.append({
+            "name": (f"flash_attention_tc[{tag} forward: {arch} B={row['B']} S={row['S']} "
+                     f"window {row['window']}]"),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+            "entry": "repro_flash_attention_tc",
+            "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+            "launches": run["launches"]["repro_flash_attention_tc"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "max_row_rel": row["max_row_rel"],
+            "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['S']} D={row['D']} "
+                     f"bf16 causal, window {row['window']}; launches: the {tag} phase's run, two "
+                     f"per attention layer a microbatch (the forward and the remat recompute; "
+                     f"the reference trains through chunked_attention's custom VJP, "
+                     f"src/repro/models/layers.py:145-200); library: SDPA with the band as a "
+                     f"boolean mask; bound: the band's pairs",
+        })
     for tag, arch in (("encdec", ENCDEC_ARCH), ("vlm", VLM_ARCH)):
         phase = report[tag]
         by_shape = phase["w4kv8"]["qmm_launches_by_shape"]

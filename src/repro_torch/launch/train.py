@@ -2,14 +2,19 @@
 
     python -m repro_torch.launch.train --arch starcoder2_3b --steps 3 --batch 8 \\
         --seq 1024 --grad-bits 8 --iht-sparsity 0.5
+    python -m repro_torch.launch.train --arch recurrentgemma-2b --steps 3 --batch 1 \\
+        --seq 4096 --grad-bits 8 --iht-sparsity 0.5
+
+Every family the port trains takes it: the dense, the hybrid
+(recurrentgemma-2b) and the SSM (mamba2-370m) ones.
 
 The reference's flags, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 plain versions of the kernels). ``--smoke`` takes the reduced config. The
 state starts from PRNGKey(0) and the data stream from seed 0, as the
 reference's; ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps and a
 rerun resumes from the newest complete checkpoint there. One device only:
-a ``--mesh`` other than ``1x1`` exits 2 (sharding over several devices is
-ROADMAP.md queue 1 item 9).
+a ``--mesh`` other than ``1x1`` exits 2 (ROADMAP.md queue 1's sharding item,
+"Sharding over several devices").
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         ap.exit(2, f"train: --mesh {args.mesh} is not ported: training runs on one device; "
-                   "sharding over several devices is ROADMAP.md queue 1 item 9\n")
+                   "sharding over several devices is ROADMAP.md queue 1's sharding item\n")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

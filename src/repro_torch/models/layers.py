@@ -17,7 +17,7 @@ draws from :mod:`repro_torch.random` (the reference's threefry), on the
   With a gradient (training) it is :class:`KernelAttention`: that kernel
   forward and the reference's flash-style backward as a fixed plain route
   (:func:`attention_backward_plain`, counted in ``ATTENTION_BACKWARD``),
-  which takes no window and no offset yet. K/V of another dtype than q (the
+  with the same window and offset. K/V of another dtype than q (the
   vlm's cross-attention: a bf16 query over K/V projected from float32 image
   embeddings) are cast to q's dtype first, a fixed route counted in
   ``ATTENTION_KV_CAST`` (the kernels take one dtype; the reference casts
@@ -245,21 +245,22 @@ ATTENTION_KV_CAST = RouteCounter("attention_kv_cast")
 _BWD_BLOCK = 1 << 26
 
 
-def _logsumexp_plain(qf, kf, q_pos, k_pos, scale, causal):
+def _logsumexp_plain(qf, kf, q_pos, k_pos, scale, causal, window):
     """Row logsumexp of the masked scores, (b, h, nq, cq): one chunked Q·Kᵀ
     pass with a running max, as the reference's forward keeps it."""
     m_run = torch.full(qf.shape[:-1], -1e30, dtype=torch.float32, device=qf.device)
     l_run = torch.zeros_like(m_run)
     for j in range(kf.shape[2]):
         s = torch.einsum("bhncd,bhkd->bhnck", qf, kf[:, :, j]) * scale
-        s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, None)[None, None], -1e30)
+        s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, window)[None, None], -1e30)
         m_new = torch.maximum(m_run, s.amax(dim=-1))
         l_run = torch.exp(m_run - m_new) * l_run + torch.exp(s - m_new[..., None]).sum(dim=-1)
         m_run = m_new
     return m_run + torch.log(torch.clamp_min(l_run, 1e-30))
 
 
-def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1024):
+def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1024,
+                             window: Optional[int] = None, q_offset: int = 0):
     """(dq, dk, dv) of the reference's chunked attention, as its flash-style
     custom VJP computes them (``_flash_core_bwd``, float32): the logsumexp
     from one chunked Q·Kᵀ pass, δ = Σ dout·out, then per key chunk
@@ -267,15 +268,16 @@ def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1
     dk += dsᵀ·q. K/V are repeated over each GQA group, as the reference
     repeats them before the core, and their gradients summed back over it.
     Batch rows go in groups so that one score block stays near 256 MB.
-    Query i sits at position i, no window: :func:`chunked_attention` takes
-    this route only then."""
+    Query i sits at position q_offset + i and sees the keys of
+    :func:`_attn_mask` (causal, within ``window``), in the logsumexp pass and
+    in the key loop, as ``_flash_core_bwd`` masks both."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = hq // hkv
     scale = 1.0 / math.sqrt(d)
     cq, ck = _pick_chunk(sq, chunk), _pick_chunk(sk, chunk)
     nq, nk = sq // cq, sk // ck
-    q_pos = torch.arange(sq, device=q.device).reshape(nq, cq)
+    q_pos = q_offset + torch.arange(sq, device=q.device).reshape(nq, cq)
     k_pos = torch.arange(sk, device=q.device).reshape(nk, ck)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -292,7 +294,7 @@ def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1
             vf = vf.repeat_interleave(rep, dim=1)
         of = out[sl].to(torch.float32).reshape(bb, hq, nq, cq, d)
         gf = dout[sl].to(torch.float32).reshape(bb, hq, nq, cq, d)
-        lse = _logsumexp_plain(qf, kf, q_pos, k_pos, scale, causal)
+        lse = _logsumexp_plain(qf, kf, q_pos, k_pos, scale, causal, window)
         delta = (gf * of).sum(dim=-1, keepdim=True)
         dqf = torch.zeros_like(qf)
         dkf = torch.empty_like(kf)
@@ -300,7 +302,7 @@ def attention_backward_plain(q, k, v, out, dout, *, causal: bool, chunk: int = 1
         for j in range(nk):
             kj, vj = kf[:, :, j], vf[:, :, j]
             s = torch.einsum("bhncd,bhkd->bhnck", qf, kj) * scale
-            s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, None)[None, None], -1e30)
+            s = s.masked_fill(~_attn_mask(q_pos, k_pos[j], causal, window)[None, None], -1e30)
             p = torch.exp(s - lse[..., None])
             dvf[:, :, j] = torch.einsum("bhnck,bhncd->bhkd", p, gf)
             dp = torch.einsum("bhncd,bhkd->bhnck", gf, vj)
@@ -317,13 +319,15 @@ class KernelAttention(torch.autograd.Function):
     """Attention with a gradient on the card: the forward is the
     ``flash_attention`` kernel (:func:`attention_kernel`), the backward
     :func:`attention_backward_plain` from q, k, v, the kernel's output and
-    the output's gradient, counted in ``ATTENTION_BACKWARD``."""
+    the output's gradient, counted in ``ATTENTION_BACKWARD``; both with the
+    call's window and query offset."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, chunk: int):
-        out = attention_kernel(q, k, v, causal)
+    def forward(ctx, q, k, v, causal: bool, chunk: int, window: Optional[int] = None,
+                q_offset: int = 0):
+        out = attention_kernel(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal, ctx.chunk = causal, chunk
+        ctx.causal, ctx.chunk, ctx.window, ctx.q_offset = causal, chunk, window, q_offset
         return out
 
     @staticmethod
@@ -331,8 +335,9 @@ class KernelAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         ATTENTION_BACKWARD.launches += 1
         dq, dk, dv = attention_backward_plain(q, k, v, out, dout, causal=ctx.causal,
-                                              chunk=ctx.chunk)
-        return dq, dk, dv, None, None
+                                              chunk=ctx.chunk, window=ctx.window,
+                                              q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def chunked_attention(
@@ -351,8 +356,8 @@ def chunked_attention(
     attention kernel (:func:`attention_kernel`) with that window and offset;
     arguments under which a query row would see no key raise. Where q, k or
     v require a gradient it runs :class:`KernelAttention` (the kernel
-    forward, the plain backward), which takes no window and no offset yet.
-    K/V of another dtype than q are cast to q's first on the card
+    forward, the plain backward), with the same window and offset. K/V of
+    another dtype than q are cast to q's first on the card
     (``ATTENTION_KV_CAST``). On the CPU it runs
     :func:`chunked_attention_plain` (float32 throughout, as the reference),
     and autograd differentiates that."""
@@ -363,13 +368,7 @@ def chunked_attention(
         ATTENTION_KV_CAST.launches += 1
         k, v = k.to(q.dtype), v.to(q.dtype)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if window is not None or q_offset:
-            raise NotImplementedError(
-                f"attention with a gradient on the card takes no window and no q_offset "
-                f"(got window={window}, q_offset={q_offset}): attention_backward_plain has "
-                f"neither; hybrid training (the RG-LRU's and the windowed attention's "
-                f"backward) is a later slice, ROADMAP.md §1")
-        return KernelAttention.apply(q, k, v, causal, chunk)
+        return KernelAttention.apply(q, k, v, causal, chunk, window, q_offset)
     return attention_kernel(q, k, v, causal, window, q_offset)
 
 

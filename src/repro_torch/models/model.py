@@ -29,8 +29,8 @@ Three execution paths share the block code:
     loop the paper's technique speeds up with weight/KV quantization).
 
 The MoE family raises ``NotImplementedError`` naming the later slice that
-ports it; so does :func:`loss_fn` for the hybrid, SSM, encoder-decoder and
-VLM families (their training is a later slice). The reference's SPMD hooks
+ports it; so does :func:`loss_fn` for the encoder-decoder and VLM families
+(their training is a later slice). The reference's SPMD hooks
 (``constrain``, ``constrain_kv``) have no counterpart on one GPU.
 """
 from __future__ import annotations
@@ -653,19 +653,13 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()):
     """Mean next-token cross entropy over a float32 log-softmax; labels < 0
     are padding. batch: ``tokens`` and ``labels`` (B, S). Differentiable in
-    the parameters: call it with leaves that require a gradient. The
-    hybrid, SSM, encdec and vlm families raise: their training is a later
-    slice."""
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
-            f"ROADMAP.md §1 queues hybrid training and ssm training, the recurrent families' "
-            f"(the RG-LRU's, the SSD's and the windowed attention's backward)")
+    the parameters: call it with leaves that require a gradient. The dense,
+    hybrid and SSM families train; the encdec and vlm families raise: their
+    training is a later slice."""
     if cfg.family in _CROSS:
         raise NotImplementedError(
             f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
-            f"ROADMAP.md §1 queues the cross-attention families' training after the recurrent "
-            f"families' and qwen3-moe-30b")
+            f"ROADMAP.md §1 queues the cross-attention families' training after qwen3-moe-30b")
     logits, aux = forward(cfg, params, batch["tokens"], policy=policy)
     labels = batch["labels"]
     mask = labels >= 0

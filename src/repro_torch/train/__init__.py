@@ -1,6 +1,6 @@
 """Training runtime of the port (``repro.train`` on one device): the step,
 the loop, checkpoints and fault handling. The sharded step builders and
-input specs wait for the sharding slice (ROADMAP.md queue 1 item 9)."""
+input specs wait for the sharding slice (ROADMAP.md queue 1's sharding item)."""
 from repro_torch.train.checkpoint import (
     available_steps,
     latest_step,

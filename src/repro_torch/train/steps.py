@@ -10,7 +10,7 @@ temporaries have their room. A caller that wants the state before a step
 keeps a copy of it.
 
 The sharded builders, the decode and prefill builders and the input specs
-wait for the sharding slice (ROADMAP.md queue 1 item 9).
+wait for the sharding slice (ROADMAP.md queue 1's sharding item).
 """
 from __future__ import annotations
 

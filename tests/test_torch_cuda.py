@@ -1060,8 +1060,10 @@ def test_qweight_product_on_qmm_matches_materialize(cuda, shape):
 def test_chunked_attention_on_flash(cuda, dtype, tol, causal, sq, sk):
     """chunked_attention launches one flash kernel (FLASH_TC for bf16, FLASH
     for f32) and agrees with its plain version, also with a window and, for
-    causal Sq ≠ Sk, with query i at key q_offset + i; with a gradient, a
-    window still raises."""
+    causal Sq ≠ Sk, with query i at key q_offset + i; with a gradient and a
+    window it takes KernelAttention (one kernel launch, one call of the
+    backward route), its gradients those of autograd through the plain
+    forward."""
     from repro_torch.models import layers as lm_layers
 
     gen = torch.Generator(device=cuda).manual_seed(sq + sk)
@@ -1080,8 +1082,17 @@ def test_chunked_attention_on_flash(cuda, dtype, tol, causal, sq, sk):
         assert kernel.launches == before + 1
         ref = lm_layers.chunked_attention_plain(qq, k, v, causal=True, chunk=128, **kw)
         assert torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol), kw
-    with pytest.raises(NotImplementedError, match="hybrid training"):
-        lm_layers.chunked_attention(q[:, :, :sk].requires_grad_(), k, v, causal=True, window=64)
+    qg = q[:, :, :sk].detach().clone().requires_grad_(True)
+    before = (kernel.launches, lm_layers.ATTENTION_BACKWARD.launches)
+    out = lm_layers.chunked_attention(qg, k, v, causal=True, window=64, chunk=128)
+    out.float().sum().backward()
+    moved = (kernel.launches - before[0], lm_layers.ATTENTION_BACKWARD.launches - before[1])
+    assert moved == (1, 1)
+    qp = q[:, :, :sk].detach().clone().requires_grad_(True)
+    ref = lm_layers.chunked_attention_plain(qp, k, v, causal=True, window=64, chunk=128)
+    ref.float().sum().backward()
+    assert float((qg.grad.float() - qp.grad.float()).norm()) <= (
+        2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * float(qp.grad.float().norm())
 
 
 @pytest.mark.parametrize("bits", [None, 4])
@@ -1255,6 +1266,85 @@ def test_attention_function_gradients_on_the_card(cuda, dtype, rel, causal):
     for a, b in zip(*grads):
         assert a.dtype == dtype and bool(torch.isfinite(a).all())
         assert float((a.float() - b.float()).norm()) <= rel * float(b.float().norm())
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -6), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("window,sq,q_offset", [(64, 384, 0), (None, 200, 184), (64, 200, 184)])
+def test_windowed_attention_gradients_on_the_card(cuda, dtype, rel, window, sq, q_offset):
+    """chunked_attention with a window, a query offset (Sq ≠ Sk) or both, and
+    inputs that require a gradient: the kernel forward (one launch) and the
+    plain backward route with the same window and offset (one call of
+    ATTENTION_BACKWARD); dq, dk, dv agree with autograd through the plain
+    forward within ``rel`` in 2-norm."""
+    from repro_torch.models import layers as lm_layers
+
+    gen = torch.Generator(device=cuda).manual_seed(sq + (window or 0))
+    base = [torch.randn(2, h, s, 128, generator=gen, device=cuda).to(dtype)
+            for h, s in ((8, sq), (2, 384), (2, 384))]
+    dout = torch.randn(2, 8, sq, 128, generator=gen, device=cuda).to(dtype)
+    kernel = fa_kernel.FLASH_TC if dtype == torch.bfloat16 else fa_kernel.FLASH
+    kw = dict(causal=True, chunk=128, window=window, q_offset=q_offset)
+    grads = []
+    for plain in (False, True):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        before = (kernel.launches, lm_layers.ATTENTION_BACKWARD.launches)
+        fn = lm_layers.chunked_attention_plain if plain else lm_layers.chunked_attention
+        fn(q, k, v, **kw).backward(dout)
+        moved = (kernel.launches - before[0], lm_layers.ATTENTION_BACKWARD.launches - before[1])
+        assert moved == ((0, 0) if plain else (1, 1))
+        grads.append((q.grad, k.grad, v.grad))
+    for a, b in zip(*grads):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).norm()) <= rel * float(b.float().norm())
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_370m"])
+def test_recurrent_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two make_train_step steps of the SMOKE config in float32 (Q8
+    gradients, IHT at 50%) on the card and on the CPU from the same state:
+    the losses within 1e-4 relative, the sparsity the same; on the card the
+    projection is one HSTHRESH launch per eligible leaf, Q8 takes SQROUND,
+    and the hybrid's attention layer one windowed FLASH launch forward and
+    one in the remat recompute with one backward-route call a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.optim import IHTConfig, adamw, iht, sparsity_report
+    from repro_torch.quant.policy import QuantPolicy
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import tree_flatten_with_path, tree_map
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg_iht = IHTConfig(sparsity=0.5, min_size=2048)
+    opt = adamw(3e-3)
+    step = make_train_step(cfg, opt, policy=QuantPolicy(grad_bits=8), iht=cfg_iht)
+    card = init_state(cfg, opt, prng.PRNGKey(0), device=cuda)
+    cpu = tree_map(lambda t: t.cpu(), card)
+    n_eligible = sum(iht.eligible(p, leaf, cfg_iht) for p, leaf in
+                     tree_flatten_with_path(card.params))
+    runs = {}
+    for where, state in (("card", card), ("cpu", cpu)):
+        stream = SyntheticStream(0, 2, 64, cfg.vocab_size,
+                                 device=cuda if where == "card" else "cpu")
+        before = (hs_kernel.HSTHRESH.launches, sq_kernel.SQROUND.launches,
+                  fa_kernel.FLASH.launches, lm_layers.ATTENTION_BACKWARD.launches)
+        losses = []
+        for i in range(2):
+            state, m = step(state, stream.at_step(i))
+            losses.append(float(m["loss"]))
+        moved = (hs_kernel.HSTHRESH.launches - before[0], sq_kernel.SQROUND.launches - before[1],
+                 fa_kernel.FLASH.launches - before[2],
+                 lm_layers.ATTENTION_BACKWARD.launches - before[3])
+        runs[where] = (losses, sparsity_report(state.params, cfg_iht), moved)
+    attn = 1 if cfg.family == "hybrid" else 0
+    assert runs["card"][2][0] == 2 * n_eligible and runs["card"][2][1] > 0
+    assert runs["card"][2][2:] == (2 * 2 * attn, 2 * attn)
+    assert runs["cpu"][2] == (0, 0, 0, 0)
+    for a, b in zip(runs["card"][0], runs["cpu"][0]):
+        assert math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)
+    assert runs["card"][1] == runs["cpu"][1] == 0.5
 
 
 def test_fused_hsthresh_on_a_row_past_two_to_the_thirty(cuda):

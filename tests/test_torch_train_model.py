@@ -286,7 +286,7 @@ def test_train_cli_refuses_a_mesh_and_defaults_to_the_card(capsys):
     with pytest.raises(SystemExit) as e:
         train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--mesh", "2x4"])
     assert e.value.code == 2
-    assert "ROADMAP.md queue 1 item 9" in capsys.readouterr().err
+    assert "ROADMAP.md queue 1's sharding item" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_cli.main(["--arch", ARCH, "--smoke", "--steps", "1"])
