@@ -15,8 +15,9 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    ``hsthresh_fused.cu``: the whole H_s in one cluster launch; ``sqround.cu``;
    ``flashattn.cu``, float32 attention on the CUDA cores (aligned, and views
    off a 16-byte boundary); ``flashattn_wgmma.cu``, bf16/fp16 attention on
-   the tensor cores at every head dim, aligned and off a 16-byte boundary),
-   one nvcc per source, started together;
+   the tensor cores at every head dim, aligned and off a 16-byte boundary;
+   ``qmm_wgmma.cu`` also holds ``qmm_batched``, a stack of expert kernels in
+   one launch), one nvcc per source, started together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
@@ -260,7 +261,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     full precision and W4, float cache): logits within 1e-4·max|logits|.
     ``qmm`` at M = 8 on layer 0's six products beside ``torch.matmul`` on the
     dequantized bf16 weight and the bound (``lm_qmm_bound_ms``: bf16 x and y,
-    the three bf16 pieces at the tensor-core peak), at the prefill's M =
+    one bf16 pass at the tensor-core peak), at the prefill's M =
     8,192 beside materialize + matmul, a layer's six products on both routes
     of ``dense`` at 8 to 1,024 rows (where ``QMM_MAX_ROWS`` should sit), and
     flash at B = 8, S = 1,024 beside SDPA.
@@ -388,6 +389,32 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     float32 layers card against CPU, a small model stepped and resumed, the
     fused H_s on the embedding and the in_proj leaf, and the chunked SSD's
     forward and backward a layer.
+29. the MoE LM (phase ``moe``, run after ``vlm``): qwen3-moe-30b-a3b at
+    full width (48 layers, d = 2,048, 32/4 heads of 128, 128 experts of
+    d_ff 768, top-8, vocab 151,936), its W4 tree built leaf by leaf from
+    PRNGKey(0) (``init_quantized_params``; the float32 tree, ~122 GB, does
+    not fit the card, so there is no full-precision run), prompts of 1,024
+    tokens and 32 decode steps under W4KV8, gated as phase 21 with the MoE
+    changes: each prefill ``FLASH_TC`` 48 times and ``QMM_BATCHED`` 288
+    times (two groups of 4,096 tokens, capacity 320), each decode step
+    ``QMM`` 192 and ``QMM_BATCHED`` 144 times (one group of 8 tokens,
+    capacity 1); the prefill's logits against ``forward`` over the prompt
+    (the serving path and ``forward`` over prompt + generated tokens route
+    other groups); the plain routes and the truth, the float32 serving path
+    with exact K/V, over the prefill and the first 8 decode steps; the
+    limits ``MOE_*`` from the family's noise floor; every ``QMM_BATCHED``
+    call of the prefill and the first decode step held against
+    ``qmm_batched_ref`` within 1e-5 per row; the picks that differ between
+    the kernel routes, the plain routes and the truth, and the drops per
+    layer; the first prefill group's dispatch and combine against the
+    reference's one-hot tensors (kept set and xe bit for bit, y within 2⁻⁷
+    per row). Readings: set-up seconds, W4 ``param_bytes``, peak memory,
+    prefill and decode ms, the decode step's bytes bound with all experts'
+    codes and with the routed ones, the dispatch's and combine's ms a layer,
+    ``QMM_BATCHED`` at C = 1 and 320 beside its plain version, ``torch.bmm``
+    on the stack materialized to bf16 and the bound. Two float32 layers,
+    card against CPU within 1e-4·max|logits|, over a prefill and one decode
+    step.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -422,6 +449,14 @@ planted (``train_faults``): the attention backward route ignoring the
 window, and the RG-LRU scan on the card taking one step's a as 1. It passes
 when every planted fault fails its gate, and writes ``train_faults.json``
 to ``--out``.
+
+``python3 chip_smoke.py --moe-faults`` (~4 min) runs only phase ``moe``'s
+W4KV8 run, its gates, its held batched-qmm calls and its dispatch check,
+first on the real path, then with each fault planted (``moe_faults``): one
+layer's expert multiplying by another expert's codes inside the kernel's
+route, and the gate weights left unrenormalized. It passes when the real
+path meets every gate and each fault fails one, names what caught each,
+and writes ``moe_faults.json`` to ``--out``.
 """
 from __future__ import annotations
 
@@ -646,6 +681,43 @@ ENCDEC_FAULT_KEYS = 1472
 # to two layers with cross_attn_every = 2, (xattn, attn), and two decode steps
 # (each W4 step dequantizes the 128,256 × 4,096 unembedding on the CPU, ~6 s)
 VLM_CPU_EVERY, VLM_CPU_DECODE_STEPS = 2, 2
+# The moe phase: qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b.py) at
+# full width, all 48 layers of 128 experts, top-8, served as phase lm serves
+# starcoder2-3b, W4KV8 only: its float32 tree (~122 GB) does not fit the
+# card, so the W4 tree is built leaf by leaf (init_quantized_params) and
+# there is no full-precision run. A decode step routes its 8 tokens as one
+# group of capacity 1; the 8 × 1,024 prefill as two groups of 4,096, capacity
+# 320; forward over prompt + generated tokens would route other groups, so
+# the prefill is held against forward over the prompt alone.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# Logits, as a share of max|logits|, from this family's own noise floor
+# (scripts/lm_noise_floor.py --arch qwen3-moe-30b-a3b on an H100; PERF.md
+# §6): every bf16 route (kernel, plain, with or without the int8
+# cache) sits up to 0.0287 from the truth, the float32 serving path with
+# exact K/V (the int8 cache alone moves the float32 path 0.0234), and two
+# may sit that far on opposite sides, so the kernel routes are held to
+# twice that against the plain routes. The prefill and forward over the
+# prompt run the same routes and groups (they read 0 apart): they are held
+# to two roundings of the logits to bf16.
+MOE_BF16_FLOOR = 0.0287
+MOE_TOL = 2 * MOE_BF16_FLOOR
+MOE_FORWARD_TOL = 2.0 ** -7
+# the kernel run's prefill and first decode steps held against the plain
+# routes and the float32 truth, teacher-forced (the script's time limit: a
+# plain-route step dequantizes all 128 experts' codes of every layer)
+MOE_HELD_STEPS = 8
+# each batched qmm call of the prefill and of the first decode step against
+# qmm_batched_ref on the same inputs, ‖Δ‖/‖ref‖ of every (expert, slot) row:
+# the kernel sums exact bf16 pieces of x in float32, the plain version the
+# float32 products, so rows part by float32 rounding alone
+MOE_QMM_ROW_TOL = 1e-5
+# the reference's one-hot dispatch and combine, transcribed, go over this
+# many experts at a time (a (4,096, 8, 8, 320) bf16 slot tensor, 168 MB)
+MOE_DISPATCH_CHUNK = 8
+# --moe-faults: layer 15's expert 0 multiplies by expert 1's codes in all
+# three products (inside the kernel's route), and the gate weights left
+# unrenormalized over the k picks
+MOE_FAULT_LAYER, MOE_FAULT_EXPERT = 15, 0
 BF16_ROW_REL = 2.0 ** -7       # one bf16 ulp, relative: the most that rounding two nearly
                                # equal rows to bf16 sets them apart, in 2-norm
 # Faults planted in copies of flashattn_wgmma.cu by --flash-mutants: name ->
@@ -685,11 +757,13 @@ class Phases:
 def lm_qmm_bound_ms(m, n, k, kp, x_bytes=2):
     """Least time for the LM's QWeight product x (M, K) @ dequant(w)ᵀ with bf16
     activations (``x_bytes`` 4: float32, as the RG-LRU's gates): codes,
-    per-row scales, x and y moved once, or the three exact bf16 pieces of x
-    that qmm_wgmma.cu multiplies at the bf16 tensor-core peak. Returns (ms,
-    bound_by, bytes-only ms)."""
+    per-row scales, x and y moved once, or the products at the bf16
+    tensor-core peak: one bf16 pass for bf16 x, the three exact bf16 pieces
+    that qmm_wgmma.cu splits float32 x into. Returns (ms, bound_by,
+    bytes-only ms)."""
     nbytes = n * kp + 4 * n + x_bytes * m * k + x_bytes * m * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * 2 * m * n * k / BF16_FLOP_PER_S
+    pieces = 1 if x_bytes == 2 else 3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, pieces * 2 * m * n * k / BF16_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
             t_bytes * 1e3)
 
@@ -3953,19 +4027,24 @@ def phase_sanitize(torch, mods):
     return out
 
 
-LM_KERNELS = ("QMM", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "FLASH", "FLASH_TC",
-              "FLASH_TC_UNALIGNED", "FLASH_UNALIGNED")
+LM_KERNELS = ("QMM", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "QMM_BATCHED", "FLASH",
+              "FLASH_TC", "FLASH_TC_UNALIGNED", "FLASH_UNALIGNED")
+# fixed plain routes on the card, counted as kernels are: the vlm's K/V cast,
+# the MoE expert products' materialize + bmm
+LM_ROUTES = ("ATTENTION_KV_CAST", "EXPERT_BMM")
 # plain versions the kernel routes must not run, by (module key in mods, name)
 LM_PLAIN = (("lm_layers", "chunked_attention_plain"), ("qmm_ops", "qmm_ref"),
-            ("fa_ops", "attention_plain"))
+            ("qmm_ops", "qmm_batched_ref"), ("fa_ops", "attention_plain"))
 
 
 @contextlib.contextmanager
 def counting_plain(mods, calls):
     """Count, in ``calls``, the calls of the LM path's plain versions
     (``LM_PLAIN``) and of ``materialize`` (layers: the products; model: the
-    unembedding): each stands in for itself through :func:`stand_in`."""
-    targets = LM_PLAIN + (("lm_layers", "materialize"), ("lm_model", "materialize"))
+    unembedding; moe: the router, and the expert stacks on the bmm route):
+    each stands in for itself through :func:`stand_in`."""
+    targets = LM_PLAIN + (("lm_layers", "materialize"), ("lm_model", "materialize"),
+                          ("lm_moe", "materialize"))
 
     def counted(key, fn):
         def call(*args, **kw):
@@ -3983,8 +4062,7 @@ def counting_plain(mods, calls):
 
 
 def lm_snapshot(mods, calls):
-    snap = {name: mods[name].launches for name in LM_KERNELS}
-    snap["ATTENTION_KV_CAST"] = mods["ATTENTION_KV_CAST"].launches
+    snap = {name: mods[name].launches for name in LM_KERNELS + LM_ROUTES}
     snap.update(calls)
     return snap
 
@@ -4096,8 +4174,9 @@ def lm_products(cfg, stage="decode") -> int:
     layer's two (in_proj, out_proj; it has no MLP); a cross-attention
     layer's self-attention four, its MLP's, and its cross-attention's wq and
     wo in a decode step, wq, wk, wv and wo in the prefill (the memory's K/V
-    projected once)."""
-    mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    projected once). A MoE layer's experts are not among them
+    (:func:`moe_counts`)."""
+    mlp = 0 if cfg.n_experts else (3 if cfg.mlp_type == "swiglu" else 2)
     own = {"attn": 4 + mlp, "rec": 5 + mlp, "ssm": 2,
            "xattn": 4 + mlp + (2 if stage == "decode" else 4)}
     return sum(own[kind] for kind in cfg.pattern_for_layers())
@@ -4115,6 +4194,29 @@ def lm_cross_layers(cfg) -> int:
 def lm_encoder_products(cfg) -> int:
     """The encoder's products: each "attn" block's four and its MLP's."""
     return cfg.n_encoder_layers * (4 + (3 if cfg.mlp_type == "swiglu" else 2))
+
+
+def moe_groups(cfg, n_tok):
+    """The token groups of a pass over n_tok tokens and their capacity."""
+    g = min(cfg.moe_group_size, n_tok)
+    return -(-n_tok // g), max(1, int(g * cfg.experts_per_token / cfg.n_experts
+                                      * cfg.moe_capacity_factor))
+
+
+def moe_counts(cfg, n_tok, quantized, max_rows):
+    """What the expert layers of one pass over n_tok tokens launch and call:
+    per layer and group, the three expert products on QMM_BATCHED (W4 codes
+    and a capacity of at most ``max_rows``) or on materialize + bmm
+    (EXPERT_BMM, each product's stack materialized), and the router's
+    materialize; nothing without experts."""
+    if not cfg.n_experts:
+        return {}
+    groups, cap = moe_groups(cfg, n_tok)
+    calls = cfg.n_layers * groups
+    batched = quantized and cap <= max_rows
+    return {"QMM_BATCHED": 3 * calls if batched else 0,
+            "EXPERT_BMM": 0 if batched else 3 * calls,
+            "lm_moe.materialize": calls * (1 if batched else 4)}
 
 
 def lm_quantized(mods, cfg):
@@ -4137,7 +4239,8 @@ def lm_state_bytes(cfg, b, act_bytes=2) -> int:
     return 2 * b * sum(per_layer[kind] for kind in cfg.pattern_for_layers())
 
 
-def lm_launch_gates(label, cfg, deltas, quantized, tag="lm", enc=None):
+def lm_launch_gates(label, cfg, deltas, quantized, tag="lm", enc=None, shape=(LM_BATCH, 0),
+                    max_rows=512):
     """The launch and call gates of one generate run, as failure messages:
     prefill FLASH_TC once per attention layer and once more per
     cross-attention layer (none for an attention-free stack), the K/V cast
@@ -4147,16 +4250,18 @@ def lm_launch_gates(label, cfg, deltas, quantized, tag="lm", enc=None):
     for the prefill's products, per decode step only for the unembedding
     (W4) and every product (full precision, whose f32 weights are cast);
     ``encode`` (``enc``, encdec) FLASH_TC once per encoder layer and
-    materialize once per encoder product. A count the gates do not name must
-    be 0."""
+    materialize once per encoder product; a MoE layer's experts as
+    :func:`moe_counts` says for the prompt's ``shape`` (B, S) and a step's B
+    tokens. A count the gates do not name must be 0."""
     cross = lm_cross_layers(cfg)
     want_pre = {"FLASH_TC": lm_attention_layers(cfg) + cross,
                 "ATTENTION_KV_CAST": cross if cfg.family == "vlm" else 0,
-                "lm_layers.materialize": lm_products(cfg, "prefill"), "lm_model.materialize": 1}
+                "lm_layers.materialize": lm_products(cfg, "prefill"), "lm_model.materialize": 1,
+                **moe_counts(cfg, shape[0] * shape[1], quantized, max_rows)}
     n = lm_products(cfg)
     want_dec = {"QMM": n if quantized else 0,
                 "lm_layers.materialize": 0 if quantized else n,
-                "lm_model.materialize": 1}
+                "lm_model.materialize": 1, **moe_counts(cfg, shape[0], quantized, max_rows)}
     stages = [("prefill", want_pre, deltas[0])] + [
         (f"decode step {step}", want_dec, d) for step, d in enumerate(deltas[1:], 1)]
     if enc is not None:
@@ -4216,6 +4321,80 @@ def attention_witness(mods, calls):
         yield
 
 
+@contextlib.contextmanager
+def moe_witness(torch, mods, record, hold=None):
+    """Record, in ``record``, what the expert layers of a pass did: each
+    group's top-k picks (``picks``, (g, k) per call in call order), its
+    dropped picks and capacity (``drops``), and the first group's input and
+    router (``first``, kept once). With a ``hold`` dict, hold each
+    ``qmm_batched`` call of the prefill and of the first decode step (the
+    first 3·L calls at a decode step's capacity, ``hold["decode_cap"]``)
+    against ``qmm_batched_ref`` on the same
+    inputs, row by row: ‖Δ‖/‖ref‖ of every (expert, slot) row into
+    ``hold["gaps"]``. ``record`` None: no witness."""
+    if record is None:
+        yield
+        return
+    moe = mods["lm_moe"]
+    route, slots, batched = moe.route, moe.slots, moe.qmm_batched
+    record.setdefault("picks", [])
+    record.setdefault("drops", [])
+
+    def routed(xg, router_w, top_k):
+        out = route(xg, router_w, top_k)
+        record["picks"].append(out[2])
+        if "first" not in record:
+            record["first"] = (xg.clone(), router_w)
+        return out
+
+    def slotted(gate_idx, n_experts, cap):
+        slot, kept = slots(gate_idx, n_experts, cap)
+        record["drops"].append((kept.numel() - kept.sum(), cap))
+        return slot, kept
+
+    def held_call(x, w_packed, scale, bits, k_dim):
+        y = batched(x, w_packed, scale, bits, k_dim)
+        decode = x.shape[1] == hold["decode_cap"]
+        if not decode or hold.setdefault("decode", 0) < 3 * hold["layers"]:
+            if decode:
+                hold["decode"] += 1
+            ref = mods["qmm_batched_ref"](x, w_packed, scale, bits, k_dim)
+            num = torch.linalg.vector_norm(y - ref, dim=-1)
+            den = torch.linalg.vector_norm(ref, dim=-1)
+            hold["gaps"].append(torch.where(den > 0, num / den.clamp_min(1e-30), num).max())
+        return y
+    stands = dict(route=routed, slots=slotted)
+    if hold is not None:
+        hold.setdefault("gaps", [])
+        stands["qmm_batched"] = held_call
+    with stand_in(moe, **stands):
+        yield
+
+
+def moe_drops(torch, cfg, record, shape):
+    """Dropped picks per layer of the kernel run: the prefill's (its groups
+    summed) and each decode step's, with their capacities."""
+    groups, cap = moe_groups(cfg, shape[0] * shape[1])
+    d = [int(v) for v in torch.stack([c for c, _ in record["drops"]]).cpu()]
+    n_pre, k = cfg.n_layers * groups, cfg.experts_per_token
+    pre = [sum(d[i * groups:(i + 1) * groups]) for i in range(cfg.n_layers)]
+    dec = d[n_pre:]
+    return {"prefill": {"capacity": cap, "groups": groups, "picks_per_layer": shape[0] * shape[1]
+                        * k, "mean_per_layer": sum(pre) / len(pre), "max_per_layer": max(pre)},
+            "decode": {"capacity": moe_groups(cfg, shape[0])[1], "picks_per_layer": shape[0] * k,
+                       "mean_per_layer": sum(dec) / max(len(dec), 1),
+                       "max_per_layer": max(dec, default=0), "layer_steps": len(dec)}}
+
+
+def picks_differ(torch, a, b):
+    """The picks of run a that run b did not make, call by call (the same
+    sequence of groups): {"differ", "picks"}."""
+    if len(a) != len(b):
+        raise AssertionError(f"the runs routed {len(a)} and {len(b)} groups")
+    differ = sum(int((~(x[:, :, None] == y[:, None, :]).any(-1)).sum()) for x, y in zip(a, b))
+    return {"differ": differ, "picks": sum(x.numel() for x in a)}
+
+
 def held_witness(torch, mods, label, calls, tag):
     """Each call of ``attention_witness`` against ``attention_plain`` on its
     inputs (2e-2 and the 2⁻⁷ row rule): {"Sq x Sk": gap}, and failure
@@ -4233,7 +4412,7 @@ def held_witness(torch, mods, label, calls, tag):
 
 
 def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limits=None,
-                 tag="lm", source=None):
+                 tag="lm", source=None, record=None):
     """One generate run on the kernel routes, held to every gate of phase lm:
     the launch and call counts per step, the logits against the plain routes
     on the card (teacher-forced on the run's tokens) and against ``forward``
@@ -4244,17 +4423,36 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
     LM_KV8_FORWARD_TOL) bound the logits against the plain routes and
     against ``forward``. With a ``source`` (the cross-attention families'
     frames or image rows) the run also holds each non-causal attention call
-    it made (``attention_witness``) against the plain version. Returns (run,
-    with its failed gates in ``gates_failed``; tokens)."""
+    it made (``attention_witness``) against the plain version. A MoE
+    family's serving and ``forward`` route other groups (a decode step's B
+    tokens are one group of capacity 1): its prefill's logits are held
+    against ``forward`` over the prompt alone (the same groups), its truth
+    is the float32 serving path with exact K/V, the plain routes and the
+    truth go over the prefill and the first MOE_HELD_STEPS decode steps,
+    each of its batched qmm calls in the prefill and the first decode step
+    is held against the plain version (``moe_witness``, MOE_QMM_ROW_TOL),
+    and the runs' picks are compared; ``record`` (a dict) keeps the kernel
+    run's picks, drops and first group. Returns (run, with its failed gates in
+    ``gates_failed``; tokens)."""
     m = mods["lm_model"]
     kv8 = policy.kv_bits is not None
     s = prompt.shape[1]
+    experts = bool(cfg.n_experts)
     witnessed = {}
-    with attention_witness(mods, witnessed):
+    kernel_record = {} if experts else None
+    hold = ({"layers": cfg.n_layers, "decode_cap": moe_groups(cfg, prompt.shape[0])[1]}
+            if experts else None)
+    with attention_witness(mods, witnessed), moe_witness(torch, mods, kernel_record, hold):
         toks, logits, ms, deltas, wall, enc = lm_generate(torch, mods, cfg, tree, prompt, policy,
                                                           source)
     by_shape = dict(mods["QMM"].launches_by_shape)
+    batched_by_shape = dict(mods["QMM_BATCHED"].launches_by_shape)
     run = {"qmm_launches": sum(d["QMM"] for d in deltas),
+           "qmm_batched_launches": sum(d["QMM_BATCHED"] for d in deltas),
+           "qmm_batched_per_decode_step": deltas[1]["QMM_BATCHED"],
+           "qmm_batched_per_prefill": deltas[0]["QMM_BATCHED"],
+           "qmm_batched_launches_by_shape": {"x".join(map(str, key)): c
+                                             for key, c in batched_by_shape.items()},
            "qmm_launches_by_shape": {f"{n}x{k}": c for (n, k), c in by_shape.items()},
            "flash_tc_launches": sum(d["FLASH_TC"] for d in deltas),
            "flash_tc_launches_by_shape": {str(key): c for key, c in
@@ -4267,21 +4465,38 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
     if enc is not None:
         run["first_encode_ms"] = enc["ms"]
         run["flash_per_encode"] = enc["delta"]["FLASH_TC"]
-    fails = lm_launch_gates(label, cfg, deltas, quantized, tag, enc)
+    fails = lm_launch_gates(label, cfg, deltas, quantized, tag, enc, tuple(prompt.shape),
+                            mods["lm_layers"].QMM_MAX_ROWS)
+    if experts:
+        gaps = torch.stack(hold["gaps"]).cpu() if hold["gaps"] else torch.zeros(0)
+        want = 3 * cfg.n_layers * (moe_groups(cfg, prompt.numel())[0] + 1) if quantized else 0
+        run["held_qmm_batched"] = {"calls": len(gaps), "expected": want,
+                                   "max_row_rel": float(gaps.max()) if len(gaps) else None,
+                                   "limit": MOE_QMM_ROW_TOL}
+        if len(gaps) != want or (len(gaps) and not float(gaps.max()) <= MOE_QMM_ROW_TOL):
+            fails.append(f"{tag} {label}: held batched qmm calls {run['held_qmm_batched']}")
+        run["drops"] = moe_drops(torch, cfg, kernel_record, prompt.shape)
+        if record is not None:
+            record.update(kernel_record)
     if source is not None:
         run["witness"], witness_fails = held_witness(torch, mods, label, witnessed, tag)
         fails += witness_fails
     del witnessed
     before = {name: mods[name].launches for name in LM_KERNELS}
-    with stand_in(mods["lm_layers"], **lm_plain_routes(mods, cfg)):
-        plain_logits = lm_teacher_forced(torch, mods, cfg, tree, prompt, toks, policy, source)
+    plain_record = {} if experts else None
+    held = toks[:, :MOE_HELD_STEPS + 1] if experts else toks
+    with stand_in(mods["lm_layers"], **lm_plain_routes(mods, cfg)), \
+            stand_in(mods["lm_moe"], qmm_batched=mods["qmm_batched_ref"]), \
+            moe_witness(torch, mods, plain_record):
+        plain_logits = lm_teacher_forced(torch, mods, cfg, tree, prompt, held, policy, source)
     launched = {name: mods[name].launches - before[name] for name in LM_KERNELS}
     if any(launched.values()):
         fails.append(f"{tag} {label}: the plain routes launched {launched}")
-    run["vs_plain_per_step"] = lm_gap(torch, logits, plain_logits)
-    run["vs_plain_max_rel"] = lm_rel(logits, plain_logits)
-    run["greedy_agree_with_plain"] = float((plain_logits.argmax(-1) == toks).float().mean())
-    seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    kernel_held = logits[:, :held.shape[1]]
+    run["vs_plain_per_step"] = lm_gap(torch, kernel_held, plain_logits)
+    run["vs_plain_max_rel"] = lm_rel(kernel_held, plain_logits)
+    run["greedy_agree_with_plain"] = float((plain_logits.argmax(-1) == held).float().mean())
+    seq = prompt if experts else torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
     memory = lm_memory(mods, cfg, tree, policy, source)
     before = mods["FLASH_TC"].launches
     fwd = m.forward(cfg, tree, seq, policy=policy, memory=memory)[0][:, s - 1:]
@@ -4289,18 +4504,30 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
         fails.append(f"{tag} {label}: forward launched FLASH_TC "
                      f"{mods['FLASH_TC'].launches - before} times")
     del memory
-    run["vs_forward_max_rel"] = lm_rel(logits, fwd)
+    served = logits[:, :fwd.shape[1]]                    # MoE: the prefill's logits alone
+    run["vs_forward_max_rel"] = lm_rel(served, fwd)
     before = mods["FLASH"].launches
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    if cfg.family == "encdec":
-        truth = lm_teacher_forced(torch, mods, cfg32, tree, prompt, toks,
-                                  dataclasses.replace(policy, kv_bits=None), source)
+    truth_record = {} if experts else None
+    if cfg.family == "encdec" or experts:
+        with moe_witness(torch, mods, truth_record):
+            truth = lm_teacher_forced(torch, mods, cfg32, tree, prompt, held,
+                                      dataclasses.replace(policy, kv_bits=None), source)
     else:
         truth = m.forward(cfg32, tree, seq, policy=policy,
                           memory=lm_memory(mods, cfg32, tree, policy, source))[0][:, s - 1:]
     run["truth_flash_f32_launches"] = mods["FLASH"].launches - before
-    run["truth"] = {name: lm_rel(a, truth) for name, a in (
+    run["truth"] = {name: lm_rel(a[:, :truth.shape[1]], truth[:, :a.shape[1]]) for name, a in (
         ("kernel", logits), ("plain", plain_logits), ("forward", fwd))}
+    if experts:
+        n = len(plain_record["picks"])           # the groups of the held steps
+        run["held_steps"] = held.shape[1] - 1
+        run["picks_differ"] = {
+            "kernel_vs_plain": picks_differ(torch, kernel_record["picks"][:n],
+                                            plain_record["picks"]),
+            "kernel_vs_truth": picks_differ(torch, kernel_record["picks"][:n],
+                                            truth_record["picks"])}
+    del kernel_record, plain_record, truth_record
     del plain_logits, fwd, truth, logits
     run["gates_failed"] = fails + lm_logit_gates(label, run, kv8, tag)
     print(f"[chip_smoke]   {tag} {label}: qmm {run['qmm_per_decode_step']} per decode step, "
@@ -4316,8 +4543,10 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
           f"kernel routes {run['truth']['kernel']:.4g}, plain routes {run['truth']['plain']:.4g}"
           f" (ratio {run['truth']['kernel'] / run['truth']['plain']:.3f}, limit "
           f"{LM_TRUTH_RATIO}), forward {run['truth']['forward']:.4g} (greedy tokens agree with "
-          f"the plain routes' argmax {run['greedy_agree_with_plain']:.0%}); gates failed: "
-          f"{len(run['gates_failed'])}", flush=True)
+          f"the plain routes' argmax {run['greedy_agree_with_plain']:.0%})"
+          + (f"; batched qmm calls held against the plain version: {run['held_qmm_batched']}; "
+             f"picks that differ: {run['picks_differ']}; drops {run['drops']}" if experts else "")
+          + f"; gates failed: {len(run['gates_failed'])}", flush=True)
     return run, toks
 
 
@@ -4618,9 +4847,9 @@ def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="l
                      if isinstance(w, mods["QWeight"]))
     out["layer_codes_read_bytes"] = read_codes          # of layer_codes: all but cross wk, wv
     out["layer_codes_bound_ms"] = read_codes / HBM_BYTES_PER_S * 1e3
-    fp_bytes = mods["param_bytes"](lm_decode_weights(params))
-    out["full_step_bound_ms"] = ((fp_bytes + 2 * kv_elems + cross_bytes + state_bytes)
-                                 / HBM_BYTES_PER_S * 1e3)
+    out["full_step_bound_ms"] = None if params is None else (
+        (mods["param_bytes"](lm_decode_weights(params)) + 2 * kv_elems + cross_bytes
+         + state_bytes) / HBM_BYTES_PER_S * 1e3)
     unembed = qparams["unembed"]["w"]
     out["unembed_dequantize_ms"] = time_ms(
         torch, lambda: mods["lm_materialize"](unembed, torch.bfloat16), 5, flush)
@@ -4630,25 +4859,29 @@ def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="l
           f"cross K/V {cross_bytes:,} bytes); "
           f"the unembedding's dequantize "
           f"{out['unembed_dequantize_ms']:.3f} ms per step; full precision bound "
-          f"{out['full_step_bound_ms']:.3f} ms", flush=True)
+          f"{out['full_step_bound_ms']} ms", flush=True)
     return out
 
 
 def lm_serve_runs(torch, mods, cfg, params, qparams, prompt, limits=None, tag="lm",
-                  source=None):
+                  source=None, record=None):
     """The quantized run (``lm_quantized``: W4KV8, or W4 for an
-    attention-free stack) on the kernel routes and full precision, each a
-    run held to lm_check_run's gates (``limits``: its logit limits by label,
-    default LM_TOL and LM_KV8_FORWARD_TOL; ``source``: a cross-attention
-    family's stub frames or image rows), then LM_TIMING_PASSES more runs
+    attention-free stack) on the kernel routes and full precision (none
+    where ``params`` is None: a model whose float32 tree does not fit the
+    card), each a run held to lm_check_run's gates (``limits``: its logit
+    limits by label, default LM_TOL and LM_KV8_FORWARD_TOL; ``source``: a
+    cross-attention family's stub frames or image rows; ``record``: the
+    quantized run's expert-layer record), then LM_TIMING_PASSES more runs
     timed and one decode step profiled. Returns {label: run}."""
     out = {}
-    for label, policy, tree, quantized in (
-            lm_quantized(mods, cfg) + (qparams, True),
-            ("full", mods["QuantPolicy"](), params, False)):
+    variants = [lm_quantized(mods, cfg) + (qparams, True)]
+    if params is not None:
+        variants.append(("full", mods["QuantPolicy"](), params, False))
+    for label, policy, tree, quantized in variants:
         reset_counts(mods)
         run, toks = lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized,
-                                 (limits or {}).get(label), tag, source)
+                                 (limits or {}).get(label), tag, source,
+                                 record if quantized else None)
         if run["gates_failed"]:
             raise AssertionError("; ".join(run["gates_failed"]))
         # timing: LM_TIMING_PASSES more runs
@@ -5167,6 +5400,379 @@ def phase_vlm(torch, mods):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[chip_smoke]   vlm phase {out['seconds']:.1f} s", flush=True)
     return out
+
+
+def moe_setup(torch, mods, arch=MOE_ARCH, tag="moe"):
+    """``arch``'s config and its W4 tree (nearest codes), built leaf by leaf
+    from PRNGKey(0) on the card (init_quantized_params: one layer's float32
+    leaves at a time), with the set-up's readings (the seconds in
+    quantize_params and outside it, W4 param_bytes, the float32 tree's size,
+    peak memory), and LM_BATCH prompts of LM_PROMPT tokens from PRNGKey(1).
+    Every layer's three expert stacks must take the batched kernel (3-D,
+    contiguous, on a 16-byte boundary; both capacities at most QMM_MAX_ROWS)
+    and every attention product route to QMM."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(mods["device"])
+    prng, m, QWeight = mods["prng"], mods["lm_model"], mods["QWeight"]
+    cfg = mods["lm_get_config"](arch)
+    caps = {"decode": moe_groups(cfg, LM_BATCH)[1],
+            "prefill": moe_groups(cfg, LM_BATCH * LM_PROMPT)[1]}
+    out = {"config": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "decode_steps": LM_DECODE_STEPS, "capacity": caps,
+           "reduced": "no full-precision run: the float32 tree does not fit one card"}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["allocated_before_bytes"] = torch.cuda.memory_allocated()
+    spent = [0.0]
+    real = m.quantize_params
+
+    def timed(tree, bits):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        q = real(tree, bits)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return q
+    t0 = time.perf_counter()
+    with stand_in(m, quantize_params=timed):
+        qparams = m.init_quantized_params(cfg, prng.PRNGKey(0), 4, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["quantize_s"], out["init_s"] = spent[0], out["build_s"] - spent[0]
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["param_bytes"] = {"w4": mods["param_bytes"](qparams)}
+    leaves = mods["tree_leaves"](qparams)
+    out["f32_param_bytes"] = 4 * sum(
+        (math.prod(w.packed.shape[:-1]) * w.k_dim) if isinstance(w, QWeight) else w.numel()
+        for w in leaves)
+    if max(caps.values()) > mods["lm_layers"].QMM_MAX_ROWS:
+        raise AssertionError(f"{tag}: capacities {caps} exceed QMM_MAX_ROWS")
+    slot = qparams["slots"]["slot0"]
+    for name in ("wi_gate", "wi_up", "wo"):
+        stack = slot["ffn"][name]
+        for i in range(cfg.n_layers):
+            w = stack[i]
+            if not (isinstance(w, QWeight) and w.packed.ndim == 3 and w.packed.is_contiguous()
+                    and mods["tc_aligned"](w.packed)):
+                raise AssertionError(f"{tag}: layer {i}'s {name} does not take QMM_BATCHED")
+    for name in ("wq", "wk", "wv", "wo"):
+        for i in range(cfg.n_layers):
+            if mods["cuda_kernel"](slot["attn"][name]["w"][i].packed_weights()) is not mods["QMM"]:
+                raise AssertionError(f"{tag}: layer {i}'s attention {name} does not route to QMM")
+    codes = [w for w in mods["tree_leaves"](qparams["slots"]) if isinstance(w, QWeight)]
+    out["layer_code_bytes"] = sum(w.packed.numel() for w in codes)
+    out["expert_code_bytes"] = sum(slot["ffn"][n].packed.numel() for n in ("wi_gate", "wi_up",
+                                                                          "wo"))
+    print(f"[chip_smoke]   {tag} {cfg.name}: built W4 leaf by leaf in {out['build_s']:.1f} s "
+          f"(quantize {out['quantize_s']:.1f} s, init {out['init_s']:.1f} s); param bytes "
+          f"{out['param_bytes']['w4']:,} (W4; float32 {out['f32_param_bytes']:,}), layer codes "
+          f"{out['layer_code_bytes']:,} (experts {out['expert_code_bytes']:,}); peak "
+          f"max_memory_allocated {out['peak_memory_bytes']:,} bytes (allocated before "
+          f"{out['allocated_before_bytes']:,}); capacities {caps}; {out['reduced']}", flush=True)
+    prompt = prng.randint(prng.PRNGKey(1), (LM_BATCH, LM_PROMPT), 0, cfg.vocab_size, device=dev)
+    return cfg, qparams, prompt, out
+
+
+def moe_layer(qparams, i=0):
+    """Layer i's expert layer: its router and its three expert stacks."""
+    ffn = qparams["slots"]["slot0"]["ffn"]
+    return {"router": {"w": ffn["router"]["w"][i]},
+            **{n: ffn[n][i] for n in ("wi_gate", "wi_up", "wo")}}
+
+
+def moe_reference_group(torch, mods, cfg, xg, router_w, cap, ye):
+    """The reference's _group_moe (src/repro/models/moe.py:36-59) transcribed
+    literally, its one-hot tensors and einsums, over MOE_DISPATCH_CHUNK
+    experts at a time: the router in float32, top-k of a stable descending
+    sort, the gate renormalized with the 1e-9 floor, slot positions from the
+    cumsum of the one-hot picks, and, given the experts' outputs ``ye``, the
+    combine in float32 rounded to xg's dtype. Returns (xe, the token in each
+    (expert, slot), -1 where none, y)."""
+    F = torch.nn.functional
+    g, d = xg.shape
+    e, k, dtype = cfg.n_experts, cfg.experts_per_token, xg.dtype
+    logits = xg.float() @ mods["lm_materialize"](router_w, torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gv, gi = top.values[:, :k], top.indices[:, :k]
+    gv = gv / torch.clamp_min(gv.sum(-1, keepdim=True), 1e-9)
+    onehot = F.one_hot(gi, e).to(torch.int32)                        # (g, k, E)
+    flat = onehot.reshape(g * k, e)
+    pos = (torch.cumsum(flat, dim=0) * flat - 1).reshape(g, k, e)
+    within = (pos >= 0) & (pos < cap)
+    xe = torch.zeros((e, cap, d), dtype=dtype, device=xg.device)
+    token = torch.full((e, cap), -1, dtype=torch.int64, device=xg.device)
+    y = torch.zeros((g, d), dtype=torch.float32, device=xg.device)
+    for e0 in range(0, e, MOE_DISPATCH_CHUNK):
+        sl = slice(e0, e0 + MOE_DISPATCH_CHUNK)
+        slot = F.one_hot(torch.clamp(pos[:, :, sl], 0, cap - 1).long(), cap).to(dtype)
+        keep = within[:, :, sl, None].to(dtype) * onehot[:, :, sl, None].to(dtype)
+        disp = torch.sum(slot * keep, dim=1)                          # (g, ec, C)
+        comb = torch.sum(slot * keep * gv[:, :, None, None].to(dtype), dim=1)
+        xe[sl] = torch.einsum("td,tec->ecd", xg.to(dtype), disp)
+        if int(disp.sum(0).max()) > 1:
+            raise AssertionError("the reference's dispatch puts two tokens in one slot")
+        token[sl] = torch.where(disp.sum(0) > 0, disp.argmax(0), -1)
+        y += torch.einsum("ecd,tec->td", ye[sl].float(), comb.float())
+        del slot, keep, disp, comb
+    return xe, token, y.to(dtype)
+
+
+def moe_dispatch_check(torch, mods, cfg, qparams, record, flush, tag="moe"):
+    """The first prefill group of the kernel run (layer 0, g = 4,096 tokens,
+    capacity 320) through the port's dispatch and combine (index gathers)
+    and through the reference's one-hot tensors transcribed
+    (:func:`moe_reference_group`), on the same experts' outputs: the kept
+    set (which token holds each expert's slot) and xe bit for bit, y within
+    BF16_ROW_REL per row; and the dispatch's and combine's device ms per
+    layer at the prefill (two groups) and at a decode step (one group of
+    LM_BATCH, capacity 1)."""
+    moe = mods["lm_moe"]
+    F = torch.nn.functional
+    xg, router_w = record["first"]
+    g, d = xg.shape
+    e, k, dtype = cfg.n_experts, cfg.experts_per_token, xg.dtype
+    groups, cap = moe_groups(cfg, LM_BATCH * LM_PROMPT)
+    p = moe_layer(qparams, 0)
+    xe, (_, gate_vals, gate_idx, slot, kept) = moe.dispatch(xg, router_w, top_k=k, n_experts=e,
+                                                            cap=cap, dtype=dtype)
+    h = F.silu(moe.expert_product(xe, p["wi_gate"], dtype)) * moe.expert_product(
+        xe, p["wi_up"], dtype)
+    ye = moe.expert_product(h, p["wo"], dtype)
+    y = moe.combine(ye, slot, kept, gate_vals)
+    token = torch.full((e * cap + 1,), -1, dtype=torch.int64, device=xg.device)
+    token[slot] = torch.arange(g, device=xg.device).repeat_interleave(k)
+    token = torch.where(token[:e * cap] >= 0, token[:e * cap], -1).reshape(e, cap)
+    ref_xe, ref_token, ref_y = moe_reference_group(torch, mods, cfg, xg, router_w, cap, ye)
+    row = (torch.linalg.vector_norm((y - ref_y).float(), dim=-1)
+           / torch.linalg.vector_norm(ref_y.float(), dim=-1).clamp_min(1e-30))
+    out = {"g": g, "E": e, "C": cap, "kept": int(kept.sum()), "dropped": int((~kept).sum()),
+           "kept_set_bitwise": bool(torch.equal(token, ref_token)),
+           "xe_bitwise": bool(torch.equal(xe, ref_xe)), "y_max_row_rel": float(row.max()),
+           "y_limit": BF16_ROW_REL}
+    fails = [] if out["kept_set_bitwise"] and out["xe_bitwise"] and out["y_max_row_rel"] <= \
+        BF16_ROW_REL else [f"{tag} dispatch and combine against the reference's one-hot "
+                           f"tensors: {out}"]
+    del ref_xe, ref_y, h
+    x8 = xg[:LM_BATCH].contiguous()
+    dec_cap = moe_groups(cfg, LM_BATCH)[1]
+    xe8, r8 = moe.dispatch(x8, router_w, top_k=k, n_experts=e, cap=dec_cap, dtype=dtype)
+    ye8 = torch.randn(xe8.shape, device=xg.device).to(dtype)
+    timings = {
+        "prefill_dispatch_ms": groups * time_ms(torch, lambda: moe.dispatch(
+            xg, router_w, top_k=k, n_experts=e, cap=cap, dtype=dtype), 5, flush),
+        "prefill_combine_ms": groups * time_ms(torch, lambda: moe.combine(
+            ye, slot, kept, gate_vals), 5, flush),
+        "decode_dispatch_ms": time_ms(torch, lambda: moe.dispatch(
+            x8, router_w, top_k=k, n_experts=e, cap=dec_cap, dtype=dtype), 20, flush),
+        "decode_combine_ms": time_ms(torch, lambda: moe.combine(ye8, r8[3], r8[4], r8[1]), 20,
+                                     flush)}
+    out.update(timings)
+    out["gates_failed"] = fails
+    print(f"[chip_smoke]   {tag} dispatch and combine of layer 0's first prefill group (g={g}, "
+          f"E={e}, C={cap}; {out['dropped']} of {g * k} picks dropped) against the reference's "
+          f"one-hot tensors: kept set bitwise {out['kept_set_bitwise']}, xe bitwise "
+          f"{out['xe_bitwise']}, y max row ‖Δ‖/‖ref‖ {out['y_max_row_rel']:.3g} (limit "
+          f"{BF16_ROW_REL:.3g}); per layer: prefill dispatch {timings['prefill_dispatch_ms']:.3f} "
+          f"ms + combine {timings['prefill_combine_ms']:.3f} ms ({groups} groups), decode "
+          f"dispatch {timings['decode_dispatch_ms']:.3f} ms + combine "
+          f"{timings['decode_combine_ms']:.3f} ms", flush=True)
+    return out
+
+
+def moe_kernel_rows(torch, mods, cfg, qparams, flush, tag="moe"):
+    """QMM_BATCHED on layer 0's wi_gate (and wi_up's shape) and wo stacks at
+    a decode step's C = 1 and a prefill group's C = 320, bf16 x read as
+    float32, as on the path: the kernel, its plain version (qmm_batched_ref),
+    torch.bmm on the stack materialized to bf16 (the library; the
+    materialize not timed) and the bound (codes, scales, x and y moved once,
+    or one bf16 pass at the tensor-core peak: x is bf16; the kernel, handed
+    its float32 widening, multiplies two more pieces that are zero), held to
+    qmm's rule;
+    and QMM at M = LM_BATCH on layer 0's attention wq (lm_qmm_row)."""
+    dev = torch.device(mods["device"])
+    gen = torch.Generator(device=dev).manual_seed(27)
+    QMMB, ref = mods["QMM_BATCHED"], mods["qmm_batched_ref"]
+    p = moe_layer(qparams, 0)
+    rows = []
+    for name in ("wi_gate", "wo"):
+        w = p[name]
+        e, n, kp = w.packed.shape
+        k, bits = w.k_dim, w.bits
+        wb = mods["lm_materialize"](w, torch.bfloat16)
+        wabs = mods["unpack_codes"](w.packed, bits, k).float().abs() * (
+            w.scale / mods["BY_BITS"][bits].half_steps)
+        for c in (moe_groups(cfg, LM_BATCH)[1], moe_groups(cfg, LM_BATCH * LM_PROMPT)[1]):
+            xt = torch.randn(e, c, k, generator=gen, device=dev).to(torch.bfloat16)
+            x = xt.float()
+            before = QMMB.launches
+            y = mods["qmm_batched"](xt, w.packed, w.scale, bits, k)
+            if QMMB.launches != before + 1:
+                raise AssertionError(f"{tag} qmm_batched {name}: QMM_BATCHED was not launched")
+            plain = ref(x, w.packed, w.scale, bits, k)
+            err = (y - plain).abs()
+            if not bool((err <= 1e-5 * plain.abs() + 1e-5 * torch.matmul(
+                    x.abs(), wabs.transpose(-1, -2))).all()):
+                raise AssertionError(f"{tag} qmm_batched {name} C={c}: max |Δ| "
+                                     f"{float(err.max())} exceeds the tolerance")
+            nbytes = e * (n * kp + 4 * n + 2 * c * k + 2 * c * n)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * e * c * n * k / BF16_FLOP_PER_S
+            reps = 20 if c == 1 else 5
+            row = {"shape": name, "E": e, "C": c, "N": n, "K": k, "bits": bits,
+                   "max_abs_err": float(err.max()),
+                   "ms": time_ms(torch, lambda: QMMB(x, w.packed, w.scale, bits, k), reps, flush),
+                   "plain_ms": time_ms(torch, lambda: ref(x, w.packed, w.scale, bits, k), 3,
+                                       flush),
+                   "library_ms": time_ms(torch, lambda: torch.bmm(xt, wb), reps, flush),
+                   "library": "torch.bmm on the stack materialized to bf16",
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes_bound_ms": t_bytes * 1e3}
+            rows.append(row)
+            print(f"[chip_smoke]   {tag} qmm_batched {name:7s} E={e} C={c:3d} N={n} K={k}: "
+                  f"max|Δ|={row['max_abs_err']:.3g} kernel {row['ms']:.4f} ms  plain "
+                  f"{row['plain_ms']:.3f} ms  bmm(bf16 stack) {row['library_ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            del xt, x, y, plain, err
+        del wb, wabs
+    wq = qparams["slots"]["slot0"]["attn"]["wq"]["w"][0]
+    return {"batched": rows, "attention": lm_qmm_row(torch, mods, tag, "wq", wq, gen, flush)}
+
+
+def moe_routed_bound(torch, mods, cfg, qparams, record, bounds, tag="moe"):
+    """The decode step's bytes bound with only the routed experts' codes:
+    each decode step's layers read the codes and scales of the distinct
+    experts their LM_BATCH tokens picked (the kernel run's picks), in place
+    of all 128."""
+    p = moe_layer(qparams, 0)
+    per_expert = sum(p[n].packed[0].numel() + 4 * p[n].scale[0].numel()
+                     for n in ("wi_gate", "wi_up", "wo"))
+    all_experts = cfg.n_layers * cfg.n_experts * per_expert
+    n_pre = cfg.n_layers * moe_groups(cfg, LM_BATCH * LM_PROMPT)[0]
+    distinct = [int(torch.unique(picks).numel()) for picks in record["picks"][n_pre:]]
+    steps = len(distinct) / cfg.n_layers
+    mean = sum(distinct) / len(distinct)
+    step_bytes = bounds["w4kv8_step_bytes"] - all_experts + sum(distinct) / steps * per_expert
+    out = {"distinct_experts_per_layer_mean": mean, "distinct_experts_per_layer_max": max(distinct),
+           "expert_bytes_all": all_experts, "routed_step_bytes": step_bytes,
+           "routed_step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"[chip_smoke]   {tag} W4KV8 bytes bound of a decode step with only the routed "
+          f"experts' codes: {out['routed_step_bound_ms']:.3f} ms ({step_bytes:,.0f} bytes; "
+          f"{mean:.1f} distinct experts a layer on average, at most "
+          f"{out['distinct_experts_per_layer_max']}), all 128 experts' codes: "
+          f"{bounds['w4kv8_step_bound_ms']:.3f} ms", flush=True)
+    return out
+
+
+def phase_moe(torch, mods):
+    """qwen3-moe-30b-a3b at full width (48 layers, 128 experts, top-8) served
+    on the card in W4KV8 from a W4 tree built leaf by leaf: 8 prompts of
+    1,024 tokens, 32 decode steps, every expert product on QMM_BATCHED (3 ×
+    48 a decode step, 288 a prefill), gated per step as phase lm gates
+    starcoder2-3b, with the MoE changes of lm_check_run (the prefill against
+    forward over the prompt; the float32 serving path as the truth; every
+    batched call of the prefill and the first decode step held against its
+    plain version), the first prefill group's dispatch and combine against
+    the reference's one-hot tensors, and two float32 layers card vs CPU."""
+    t_phase = time.perf_counter()
+    dev = torch.device(mods["device"])
+    cfg, qparams, prompt, out = moe_setup(torch, mods)
+    record = {}
+    limits = {"w4kv8": {"vs_plain_max_rel": MOE_TOL, "vs_forward_max_rel": MOE_FORWARD_TOL}}
+    out.update(lm_serve_runs(torch, mods, cfg, None, qparams, prompt, limits, "moe",
+                             record=record))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out.update(lm_step_bounds(torch, mods, cfg, None, qparams, out["layer_code_bytes"], flush,
+                              "moe"))
+    out["routed_bound"] = moe_routed_bound(torch, mods, cfg, qparams, record, out)
+    out["dispatch"] = moe_dispatch_check(torch, mods, cfg, qparams, record, flush)
+    del record
+    out["qmm_rows"] = moe_kernel_rows(torch, mods, cfg, qparams, flush)
+    out["flash_row"] = xattn_flash_row(
+        torch, mods, "moe self", (LM_BATCH, cfg.padded_heads, cfg.padded_kv_heads, LM_PROMPT,
+                                  LM_PROMPT, cfg.head_dim_), flush,
+        torch.Generator(device=dev).manual_seed(28), causal=True)
+    del qparams, flush
+    torch.cuda.empty_cache()
+    if out["dispatch"]["gates_failed"]:
+        raise AssertionError("; ".join(out["dispatch"]["gates_failed"]))
+    reset_counts(mods)
+    out["card_vs_cpu"] = lm_card_vs_cpu(torch, mods, cfg, "moe", decode_steps=1)
+    if not mods["QMM_BATCHED"].launches:
+        raise AssertionError("moe card vs CPU: QMM_BATCHED was not launched")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   moe phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def moe_faults(torch, mods):
+    """Phase moe's W4KV8 run, its gates, its held batched-qmm calls and its
+    dispatch check with faults planted: layer MOE_FAULT_LAYER's expert
+    MOE_FAULT_EXPERT multiplying by the next expert's codes inside the
+    kernel's route (``wrong_expert_codes``), and the gate weights left
+    unrenormalized (``unrenormalized_gates``). Passes when the real path
+    meets every gate and each fault fails one; which ones is the reading
+    (a fault that only a held check catches is recorded as such)."""
+    dev = torch.device(mods["device"])
+    cfg, qparams, prompt, _ = moe_setup(torch, mods)
+    policy = mods["QuantPolicy"](weight_bits=4, kv_bits=8)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    limits = {"vs_plain_max_rel": MOE_TOL, "vs_forward_max_rel": MOE_FORWARD_TOL}
+    results = {}
+
+    def check(name):
+        reset_counts(mods)
+        record = {}
+        try:
+            run, _ = lm_check_run(torch, mods, cfg, name, policy, qparams, prompt, True, limits,
+                                  "moe", record=record)
+            disp = moe_dispatch_check(torch, mods, cfg, qparams, record, flush)
+            fails = run["gates_failed"] + disp["gates_failed"]
+            results[name] = {k: run[k] for k in ("vs_plain_max_rel", "vs_forward_max_rel",
+                                                 "truth", "held_qmm_batched", "picks_differ")}
+            results[name]["dispatch"] = {k: disp[k] for k in ("kept_set_bitwise", "xe_bitwise",
+                                                              "y_max_row_rel")}
+        except Exception as e:  # noqa: BLE001 -- a fault that stops the run is caught
+            traceback.print_exc()
+            fails, results[name] = [f"raised {type(e).__name__}: {e}"], {}
+        results[name]["gates_failed"] = fails
+        results[name]["caught_by"] = sorted({
+            "held batched qmm calls" if "held batched" in f else
+            "dispatch check" if "dispatch and combine" in f else
+            "launch counts" if " ran " in f else "logit gates" for f in fails})
+        torch.cuda.empty_cache()
+
+    check("kernel")
+    ffn = qparams["slots"]["slot0"]["ffn"]
+    targets = {ffn[n][MOE_FAULT_LAYER].packed.data_ptr() for n in ("wi_gate", "wi_up", "wo")}
+    real = mods["qmm_ops"].QMM_BATCHED
+
+    def wrong_codes(x, w_packed, scale, bits, k_dim):
+        if w_packed.data_ptr() in targets:
+            w_packed = w_packed.clone()
+            w_packed[MOE_FAULT_EXPERT] = w_packed[MOE_FAULT_EXPERT + 1]
+        return real(x, w_packed, scale, bits, k_dim)
+    with stand_in(mods["qmm_ops"], QMM_BATCHED=wrong_codes):
+        check("wrong_expert_codes")
+    moe = mods["lm_moe"]
+
+    def unrenormalized(xg, router_w, top_k):
+        probs = torch.softmax(xg.float() @ moe.materialize(router_w, torch.float32), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        return probs, top.values[:, :top_k], top.indices[:, :top_k]
+    with stand_in(moe, route=unrenormalized):
+        check("unrenormalized_gates")
+    for name, r in results.items():
+        print(f"[chip_smoke]   moe fault {name:22s}: {len(r['gates_failed'])} gates failed, "
+              f"caught by {r['caught_by']}"
+              + (f" ({r['gates_failed'][0][:300]})" if r["gates_failed"] else ""), flush=True)
+    missed = [n for n in ("wrong_expert_codes", "unrenormalized_gates")
+              if not results[n]["gates_failed"]]
+    if results["kernel"]["gates_failed"] or missed:
+        raise AssertionError(f"moe faults: the real path failed a gate: "
+                             f"{results['kernel']['gates_failed']}; faults nothing caught: "
+                             f"{missed}")
+    return {"layer": MOE_FAULT_LAYER, "expert": MOE_FAULT_EXPERT, "results": results}
 
 
 def flash_mutant_libraries(mods, tmp):
@@ -6117,7 +6723,14 @@ def load_port() -> dict:
     from repro_torch.kernels.sqround.ops import sqround
     from repro_torch.kernels.sqround.ref import sqround_ref
     from repro_torch.kernels.qmm import kernel as qmm_kernel
-    from repro_torch.kernels.qmm.kernel import QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE
+    from repro_torch.kernels.qmm.kernel import (
+        QMM,
+        QMM_BATCHED,
+        QMM_CORE,
+        QMM_GROUP,
+        QMM_GROUP_CORE,
+        tc_aligned,
+    )
     from repro_torch.kernels.qmm import ops as qmm_ops
     from repro_torch.kernels.qmm.ops import (
         PackedWeights,
@@ -6126,8 +6739,9 @@ def load_port() -> dict:
         pack_operator,
         pack_weights,
         qmm,
+        qmm_batched,
     )
-    from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
+    from repro_torch.kernels.qmm.ref import qmm_batched_ref, qmm_group_ref, qmm_ref
     from repro_torch.quant.quantize import expand_block_scale
     from repro_torch.launch.recover import (
         gaussian_batch_instance,
@@ -6160,7 +6774,7 @@ def load_port() -> dict:
     from repro_torch.configs import get_config as lm_get_config
     from repro_torch.kernels.flashattn import ops as fa_ops
     from repro_torch.models import generate, layers as lm_layers, model as lm_model
-    from repro_torch.models import rglru, ssm
+    from repro_torch.models import moe as lm_moe, rglru, ssm
     from repro_torch.models.quantized import (
         QWeight,
         materialize as lm_materialize,
@@ -6195,7 +6809,9 @@ def load_port() -> dict:
                 tree_leaves=tree_leaves, tree_map=tree_map, sparsity_report=sparsity_report,
                 lm_get_config=lm_get_config, fa_ops=fa_ops, generate=generate,
                 lm_layers=lm_layers, lm_model=lm_model, rglru=rglru, ssm=ssm, QWeight=QWeight,
-                ATTENTION_KV_CAST=lm_layers.ATTENTION_KV_CAST,
+                ATTENTION_KV_CAST=lm_layers.ATTENTION_KV_CAST, lm_moe=lm_moe,
+                EXPERT_BMM=lm_moe.EXPERT_BMM, QMM_BATCHED=QMM_BATCHED, qmm_batched=qmm_batched,
+                qmm_batched_ref=qmm_batched_ref, tc_aligned=tc_aligned,
                 lm_materialize=lm_materialize, param_bytes=param_bytes,
                 quantize_params=quantize_params,
                 lm_tree_to=lm_tree_to,
@@ -6231,7 +6847,8 @@ def load_port() -> dict:
                 source_recovery=source_recovery,
                 relative_error=relative_error, parallel=parallel, SERVE_CONFIGS=SERVE_CONFIGS,
                 serve=serve, Request=Request, PackedStreamingOperator=PackedStreamingOperator,
-                KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, hs_kernel.HIST, hs_kernel.MASK,
+                KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, QMM_BATCHED, hs_kernel.HIST,
+                         hs_kernel.MASK,
                          hs_kernel.HSTHRESH, sq_kernel.SQROUND, fa_kernel.FLASH,
                          fa_kernel.FLASH_TC, fa_kernel.FLASH_TC_UNALIGNED,
                          fa_kernel.FLASH_UNALIGNED),
@@ -6262,6 +6879,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-faults", action="store_true",
                     help="only check that faults planted in the lm phase's W4KV8 run (qmm "
                          "scales of one layer, the flash mutants) fail its gates")
+    ap.add_argument("--moe-faults", action="store_true",
+                    help="only check that faults planted in the moe phase's W4KV8 run (one "
+                         "layer's expert on another's codes, unrenormalized gates) fail its "
+                         "gates or held checks")
     ap.add_argument("--train-faults", action="store_true",
                     help="only check that faults planted in recurrentgemma-2b's training path "
                          "(a backward that ignores the window, a scan that drops one step's a) "
@@ -6291,6 +6912,14 @@ def main(argv=None) -> int:
         result = phases.run("lm-faults", lm_faults, torch, mods)
         mods["out_dir"].mkdir(parents=True, exist_ok=True)
         (mods["out_dir"] / "lm_faults.json").write_text(json.dumps(result, indent=1))
+        print(nvidia_smi_line(), flush=True)
+        return 1 if phases.failed else 0
+    if args.moe_faults:
+        phases.run("build", phase_build, [mods["QMM"].library, mods["FLASH_TC"].library,
+                                          mods["FLASH"].library])
+        result = phases.run("moe-faults", moe_faults, torch, mods)
+        mods["out_dir"].mkdir(parents=True, exist_ok=True)
+        (mods["out_dir"] / "moe_faults.json").write_text(json.dumps(result, indent=1, default=str))
         print(nvidia_smi_line(), flush=True)
         return 1 if phases.failed else 0
     if args.train_faults:
@@ -6331,6 +6960,7 @@ def main(argv=None) -> int:
     report["train_ssm"] = phases.run("train_ssm", phase_train_ssm, torch, mods)
     report["encdec"] = phases.run("encdec", phase_encdec, torch, mods)
     report["vlm"] = phases.run("vlm", phase_vlm, torch, mods)
+    report["moe"] = phases.run("moe", phase_moe, torch, mods)
     card = nvidia_smi_line()
     report["nvidia_smi"] = card
     report["seconds"] = time.perf_counter() - t0
@@ -6586,7 +7216,7 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"],
             "shape": f"M={row['M']} N={row['N']} K={row['K']} bits={row['bits']}, layer 0's "
                      "codes (timed); launches: the W4KV8 run's decode steps, all layers; "
-                     "bound: codes, scales, bf16 x and y, or three bf16 pieces of x at the "
+                     "bound: codes, scales, bf16 x and y, or one bf16 pass at the "
                      "tensor-core peak; library: torch.matmul on the dequantized bf16 weight "
                      "(the reference computes materialize, src/repro/models/quantized.py:71, "
                      "then x @ w)",
@@ -6875,6 +7505,70 @@ def main(argv=None) -> int:
                            "bf16 inputs (the reference computes chunked_attention, "
                            "src/repro/models/layers.py:203)",
             })
+    moe = report["moe"]
+    for row in moe["qmm_rows"]["batched"]:
+        kernels.append({
+            "name": f"qmm_batched[moe: {MOE_ARCH} W4 {row['shape']} E={row['E']} C={row['C']}]",
+            "route": "cuda",
+            "source": lm_source,
+            "entry": "repro_qmm_tc_batched",
+            "replaces": "src/repro/kernels/qmm/kernel.py:265",
+            "launches": moe["w4kv8"]["qmm_batched_launches_by_shape"].get(
+                f"{row['E']}x{row['N']}x{row['K']}", 0),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "bytes_bound_ms": row["bytes_bound_ms"],
+            "library_ms": row["library_ms"],
+            "shape": f"E={row['E']} C={row['C']} N={row['N']} K={row['K']} bits={row['bits']}, "
+                     f"layer 0's {row['shape']} stack on bf16 x (timed); launches: the W4KV8 "
+                     "run's prefill and decode steps, every expert product of this shape "
+                     "(wi_gate's is also wi_up's; the reference computes materialize, then "
+                     "einsum('ecd,edf->ecf'), src/repro/models/moe.py:56-58); library: "
+                     "torch.bmm on the stack materialized to bf16; bound: codes, scales, bf16 "
+                     "x and y, or one bf16 pass at the tensor-core peak",
+        })
+    row = moe["qmm_rows"]["attention"]
+    kernels.append({
+        "name": f"qmm[moe decode: {MOE_ARCH} W4 attention wq]",
+        "route": "cuda",
+        "source": lm_source,
+        "entry": report["kernel"]["entry"],
+        "replaces": "src/repro/kernels/qmm/kernel.py:265",
+        "launches": moe["w4kv8"]["qmm_launches"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "bytes_bound_ms": row["bytes_bound_ms"],
+        "library_ms": row["library_ms"],
+        "shape": f"M={row['M']} N={row['N']} K={row['K']} bits={row['bits']}, layer 0's wq "
+                 "codes on bf16 x (timed); launches: the W4KV8 run's decode steps, all four "
+                 "attention products of all 48 layers; library: torch.matmul on the dequantized "
+                 "bf16 weight",
+    })
+    row = moe["flash_row"]
+    kernels.append({
+        "name": f"flash_attention_tc[moe prefill: {MOE_ARCH} B={row['B']} S={row['Sq']}]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+        "entry": row["kernel"],
+        "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+        "launches": moe["w4kv8"]["flash_tc_launches"],
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library_backend": row["library_backend"],
+        "max_row_rel": row["max_row_rel"],
+        "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} S={row['Sq']} D={row['D']} bf16 "
+                 "causal; launches: the W4KV8 run's prefill, one per layer",
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,18 +5,23 @@ LM twin: a bandwidth-bound iteration re-streaming a fixed large operand).
     PYTHONPATH=src python examples/serve_quantized_torch.py [--bits 4] [--device cpu]
     PYTHONPATH=src python examples/serve_quantized_torch.py --arch recurrentgemma_2b --device cpu
     PYTHONPATH=src python examples/serve_quantized_torch.py --arch mamba2_370m --device cpu
+    PYTHONPATH=src python examples/serve_quantized_torch.py --arch qwen3_moe_30b --device cpu --bits 4
 
 The port's twin of ``examples/serve_quantized.py``: the same SMOKE config,
 the same parameters and prompt (the reference's threefry draws from
 PRNGKey(0)), greedy tokens at full precision and under W<bits> + KV8. The
 dense archs, the hybrid recurrentgemma_2b (RG-LRU blocks and local
 attention) and the attention-free mamba2_370m (SSD blocks; no KV cache for
-KV8 to act on) run. whisper_tiny and llama32_vision_11b are refused: their
+KV8 to act on) and the mixture-of-experts qwen3_moe_30b (top-k routing
+with a capacity; its W<bits> tree is built leaf by leaf with
+``init_quantized_params``, the way a full-width model whose float32 tree
+does not fit the card is served) run. whisper_tiny and llama32_vision_11b are refused: their
 layers read a memory (encoded audio frames, image embeddings) that the
 reference's example does not make (``generate(..., memory=...)`` serves
 them; ``tests/test_torch_xattn.py`` and ``chip_smoke.py``'s encdec and vlm
 phases do). On the GPU (the default device) the decode products go
-through the ``qmm`` kernel and the prefill's attention through
+through the ``qmm`` kernel (a MoE layer's expert stacks through
+``qmm_batched``, one launch each) and the prefill's attention through
 ``flash_attention`` (with the hybrid's window).
 """
 import argparse
@@ -27,7 +32,13 @@ import torch
 from repro_torch import random as prng
 from repro_torch.configs import get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models import generate, init_params, param_bytes, quantize_params
+from repro_torch.models import (
+    generate,
+    init_params,
+    init_quantized_params,
+    param_bytes,
+    quantize_params,
+)
 from repro_torch.quant.policy import QuantPolicy
 
 
@@ -52,7 +63,10 @@ def main(argv=None):
 
     out_full, _ = generate(cfg, params, prompt, args.new_tokens, QuantPolicy())
 
-    qparams = quantize_params(params, args.bits)
+    if cfg.n_experts:
+        qparams = init_quantized_params(cfg, key, args.bits, device=device)
+    else:
+        qparams = quantize_params(params, args.bits)
     qpol = QuantPolicy(weight_bits=args.bits, kv_bits=8)
     t0 = time.perf_counter()
     out_q, _ = generate(cfg, qparams, prompt, args.new_tokens, qpol)

@@ -1,6 +1,6 @@
 // Packed low-precision matmul (qmm) on the tensor cores of NVIDIA Hopper, sm_90a.
 //
-// Two entries share one kernel:
+// Three entries share one kernel:
 //
 // repro_qmm_tc replaces repro/kernels/qmm/kernel.py::qmm_pallas (def :238,
 // pallas_call :265), the per-tensor / per-channel packed Φ̂:
@@ -12,6 +12,18 @@
 // multiple of 16 codes (other g keep the CUDA-core row walk of qmm.cu):
 //
 //     y[m, n] = (sum_k x[m, k] * (c[n, k] - K_h) * scale[n, k / g]) / K_h
+//
+// repro_qmm_tc_batched applies repro_qmm_tc's function to a stack of E
+// kernels in one launch (the expert products of a mixture-of-experts layer,
+// the reference's einsum("ecd,edf->ecf", xe, materialize(W)) at
+// repro/models/moe.py:56-58):
+//
+//     y[e, m, n] = (sum_k x[e, m, k] * (c[e, n, k] - K_h)) * scale[e, n] / K_h
+//
+// The expert rides on the work items: x and y are read as (E * M, K) and
+// (E * M, N), the codes as (E * N, Kp), and each m-tile of x belongs to one
+// expert, whose code rows, scales, split-K partials and tickets it uses. A
+// 2-D call is the case E = 1.
 //
 // x is (M, K) float32, c is (N, Kp) uint8 with Kp = ceil(K / vpb) and vpb =
 // 8 / bits codes per byte (code i of a byte at bit bits*i, biased by +K_h).
@@ -127,9 +139,9 @@
 // encode the tensor map (cuTensorMapEncodeTiled, looked up at run time
 // through the CUDA runtime), launch on the given stream, do not synchronise
 // and return a cudaError_t. The caller passes the split-K workspace (S * M * N
-// floats, S from repro_qmm_tc_splits) and ticket counters that are zero; the
-// kernel leaves them zero again. Launches that share counters must run on
-// one stream.
+// floats, S from repro_qmm_tc_batched_splits at E = 1) and ticket counters
+// that are zero; the kernel leaves them zero again. Launches that share
+// counters must run on one stream.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -548,6 +560,7 @@ struct Args {
   int S, m_tiles, chunks;  // split-K parts, m-tiles, 64-byte code chunks per row
   int G, group_size;       // group kernel: scale is (N, G)
   int tma, xvec;           // codes by TMA; x rows read as float4
+  int E, Mb;               // kernels in the stack (1 for a 2-D call), x rows of each
 };
 
 // The largest |x| (its bits, sign cleared) of each of the rows m0 .. m0 + mv
@@ -606,9 +619,10 @@ __device__ __forceinline__ void range_max(const Args& a, int m0, int mv, int k_l
   else range_max_units<1>(a.x, a.K, m0, mv, k_lo, k_hi, wid, nw, rmax);
 }
 
-// Work item w = mt + m_tiles * (split + S * tile): m-tile mt of x, split-K
-// part `split` of 128-row tile `tile` of Φ̂. A block walks items w =
-// blockIdx.x, + gridDim.x, ...; its ring runs on across items, so the
+// Work item w = mt + E * m_tiles * (split + S * tile): m-tile mt of x
+// (m-tile mt % m_tiles of kernel mt / m_tiles of the stack), split-K part
+// `split` of 128-row tile `tile` of that kernel's Φ̂. A block walks items w
+// = blockIdx.x, + gridDim.x, ...; its ring runs on across items, so the
 // producer loads the next item's stages while the consumers finish one.
 struct Work {
   int mt, split, tile, c_begin, n_iter;
@@ -616,14 +630,28 @@ struct Work {
 
 __device__ __forceinline__ Work work_item(const Args& a, int w) {
   Work k;
-  const int ts = w / a.m_tiles;
-  k.mt = w - ts * a.m_tiles;
+  const int mts = a.E * a.m_tiles;
+  const int ts = w / mts;
+  k.mt = w - ts * mts;
   k.tile = ts / a.S;
   k.split = ts - k.tile * a.S;
   const int q = a.chunks / a.S, r = a.chunks - q * a.S;   // parts of q or q + 1 chunks
   k.c_begin = k.split * q + min(k.split, r);
   k.n_iter = q + (k.split < r ? 1 : 0);
   return k;
+}
+
+// The x rows of m-tile mt of MT rows: the first, m0, of the (E * Mb, K) x
+// and y, the valid ones, mv, and the first code row, nb, of its kernel in
+// the (E * N, Kp) codes.
+struct Span {
+  int m0, mv, nb;
+};
+
+template <int MT>
+__device__ __forceinline__ Span span(const Args& a, int mt) {
+  const int e = mt / a.m_tiles, ml = (mt - e * a.m_tiles) * MT;
+  return Span{e * a.Mb + ml, min(MT, a.Mb - ml), e * a.N};
 }
 
 template <int BITS, int NB, int U, bool GROUP>
@@ -642,7 +670,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   uint64_t* empty = full + L::kStages;
   int* last_flag = reinterpret_cast<int*>(empty + L::kStages);
-  const int n_work = ((args.N + kRows - 1) / kRows) * args.S * args.m_tiles;
+  const int n_work = ((args.N + kRows - 1) / kRows) * args.S * args.E * args.m_tiles;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::kStages; ++s) {
@@ -675,7 +703,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
     using St = Stage<BITS, NB, U, GROUP>;
     const int tid = threadIdx.x;
     const uintptr_t c_lo = reinterpret_cast<uintptr_t>(args.c);
-    const uintptr_t c_hi = c_lo + static_cast<size_t>(args.N) * args.Kp;
+    const uintptr_t c_hi = c_lo + static_cast<size_t>(args.E) * args.N * args.Kp;
     struct Cursor {
       int wi, it;
       Work wk;
@@ -696,7 +724,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
           mbar_wait(empty + slot, ((j / L::kStages) & 1) ^ 1);
           mbar_expect_tx(full + slot, kCodeStage);
           tma_load(smem + L::kC + slot * kCodeStage, &map, full + slot,
-                   (out.wk.c_begin + out.it) * kRowBytes, out.wk.tile * kRows);
+                   (out.wk.c_begin + out.it) * kRowBytes,
+                   span<kMt>(args, out.wk.mt).nb + out.wk.tile * kRows);
           ++out.it;
           settle(out);
         }
@@ -720,8 +749,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
         // ---- write out stage j from its staging slot
         const int slot = j % L::kStages;
         const Work& wk = out.wk;
-        const int n0 = wk.tile * kRows, m0 = wk.mt * kMt;
-        const int mv = min(kMt, args.M - m0);
+        const Span sp = span<kMt>(args, wk.mt);
+        const int n0 = wk.tile * kRows, m0 = sp.m0, mv = sp.mv;
         const int chunk = wk.c_begin + out.it;
         if (out.it == 0 && (wk.mt != e_mt || wk.split != e_split)) {
           // a new x range (m-tile, split): the largest |x| of each of its
@@ -778,7 +807,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
             uint4 v = make_uint4(0u, 0u, 0u, 0u);
             if (valid > 0) {
               const uint32_t o = static_cast<uint32_t>(
-                  (c_lo + static_cast<size_t>(n) * args.Kp + chunk * kRowBytes) & 15) + 16 * u;
+                  (c_lo + static_cast<size_t>(sp.nb + n) * args.Kp + chunk * kRowBytes) & 15) +
+                  16 * u;
               const uint32_t* wsrc = reinterpret_cast<const uint32_t*>(
                   pst + St::kW + (5 * r) * 16 + (o & ~3u));
               uint32_t w5[5];
@@ -830,8 +860,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
       // ---- copy stage j + kStages into the slot stage j has just left
       if (pf.wi < n_work) {
         const Work& wk = pf.wk;
-        const int n0 = wk.tile * kRows, m0 = wk.mt * kMt;
-        const int mv = min(kMt, args.M - m0);
+        const Span sp = span<kMt>(args, wk.mt);
+        const int n0 = wk.tile * kRows, m0 = sp.m0, mv = sp.mv;
         const int chunk = wk.c_begin + pf.it;
         const int slot = (j + L::kStages) % L::kStages;
         const uint32_t st = smem_u32(smem + L::kP + slot * L::kPStage);
@@ -858,7 +888,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
             const int r = item / 5, i = item - 5 * r, n = n0 + r;
             const int col = chunk * kRowBytes;
             if (n >= args.N || col >= args.Kp) continue;
-            const uintptr_t at = c_lo + static_cast<size_t>(n) * args.Kp + col;
+            const uintptr_t at = c_lo + static_cast<size_t>(sp.nb + n) * args.Kp + col;
             const uintptr_t ca = (at & ~static_cast<uintptr_t>(15)) + 16 * i;
             const uintptr_t end = at + min(kRowBytes, args.Kp - col);   // the window's end
             if (ca >= end) continue;
@@ -873,7 +903,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
             const int grp = (k_first + 16 * U * u) / args.group_size;
             const bool ok = n < args.N && grp < args.G;
             cp_async4(st + St::kS + item * 4,
-                      args.scale + (ok ? static_cast<size_t>(n) * args.G + grp : 0), ok ? 4 : 0);
+                      args.scale + (ok ? static_cast<size_t>(sp.nb + n) * args.G + grp : 0),
+                      ok ? 4 : 0);
           }
         }
         ++pf.it;
@@ -904,10 +935,11 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
     asm volatile("bar.sync 4, %0;\n" ::"n"(kConsumers) : "memory");
     const int q = args.chunks / args.S, r = args.chunks - q * args.S;
     for (int p = 0; p < *pre_n; ++p) {
-      const int mt = pre_key[p].x, split = pre_key[p].y;
-      const int m0 = mt * kMt, c_begin = split * q + min(split, r);
+      const int split = pre_key[p].y;
+      const Span sp = span<kMt>(args, pre_key[p].x);
+      const int c_begin = split * q + min(split, r);
       const int c_end = c_begin + q + (split < r ? 1 : 0);
-      range_max(args, m0, min(kMt, args.M - m0), c_begin * F::kCodes,
+      range_max(args, sp.m0, sp.mv, c_begin * F::kCodes,
                 min(args.K, c_end * F::kCodes), ct / 32, kConsumers / 32, maxima + p * kMt);
     }
     asm volatile("bar.arrive 3, %0;\n" ::"n"(kHandOver) : "memory");
@@ -964,7 +996,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
   int g = 0;                                         // ring position, across work items
   for (int wi = blockIdx.x; wi < n_work; wi += gridDim.x) {
     const Work wk = work_item(args, wi);
-    const int n0 = wk.tile * kRows, m0 = wk.mt * kMt;
+    const Span sp = span<kMt>(args, wk.mt);
+    const int n0 = wk.tile * kRows, m0 = sp.m0, mv = sp.mv;
     float part[kMpt][2];                             // per x row and row half
     int ex[kMpt];                                    // E of each x row, from the item's last stage
 #pragma unroll
@@ -1078,7 +1111,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + r0 + 8 * h;
-      mult[h] = GROUP ? 1.0f : (n < args.N ? __ldg(args.scale + n) : 0.f);
+      mult[h] = GROUP ? 1.0f : (n < args.N ? __ldg(args.scale + sp.nb + n) : 0.f);
     }
 #pragma unroll
     for (int i = 0; i < kMpt; ++i)
@@ -1091,8 +1124,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
       for (int i = 0; i < kMpt; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int m = m0 + t * kMpt + i, n = n0 + r0 + 8 * h;
-          if (m < args.M && n < args.N)
+          const int ml = t * kMpt + i, m = m0 + ml, n = n0 + r0 + 8 * h;
+          if (ml < mv && n < args.N)
             args.y[static_cast<size_t>(m) * args.N + n] = part[i][h] * mult[h];
         }
       continue;
@@ -1102,14 +1135,14 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
     for (int i = 0; i < kMpt; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + t * kMpt + i, n = n0 + r0 + 8 * h;
-        if (m < args.M && n < args.N)
+        const int ml = t * kMpt + i, m = m0 + ml, n = n0 + r0 + 8 * h;
+        if (ml < mv && n < args.N)
           args.ws[wk.split * MN + static_cast<size_t>(m) * args.N + n] = part[i][h];
       }
     __threadfence();
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
     if (threadIdx.x == kProducers) {
-      int* ticket = args.counters + wk.tile * args.m_tiles + wk.mt;
+      int* ticket = args.counters + wk.tile * args.E * args.m_tiles + wk.mt;
       const int got = atomicAdd(ticket, 1);
       *last_flag = got == args.S - 1;
       if (got == args.S - 1) *ticket = 0;           // zero again for the next launch
@@ -1126,8 +1159,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Args args) {
     for (int i = 0; i < kMpt; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + t * kMpt + i, n = n0 + r0 + 8 * h;
-        ok[i][h] = m < args.M && n < args.N;
+        const int ml = t * kMpt + i, m = m0 + ml, n = n0 + r0 + 8 * h;
+        ok[i][h] = ml < mv && n < args.N;
         at[i][h] = ok[i][h] ? static_cast<size_t>(m) * args.N + n : 0;
         sum[i][h] = 0.f;
       }
@@ -1211,14 +1244,16 @@ int n_chunks(int Kp) { return (Kp + kRowBytes - 1) / kRowBytes; }
 
 // Split-K parts: as many as fill the SMs twice with the row tiles (two
 // blocks share an SM where they fit), keeping at least four stages per
-// part. A function of N, Kp and the card, never of M.
-int splits(int N, int Kp) {
-  const int tiles = (N + kRows - 1) / kRows;
+// part. A function of the tiles (E * ceil(N / 128)), Kp and the card, never
+// of M.
+int splits_for(int tiles, int Kp) {
   const int most = n_chunks(Kp) / 4;
   int s = 2 * num_sms() / tiles;
   if (s > most) s = most;
   return s < 1 ? 1 : s;
 }
+
+int splits(int N, int Kp) { return splits_for((N + kRows - 1) / kRows, Kp); }
 
 template <int BITS, int NB, int U, bool GROUP>
 cudaError_t launch(Args a, cudaStream_t stream) {
@@ -1237,12 +1272,13 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   }
   CUtensorMap map;
   if (a.tma) {
-    if (!encode_codes(&map, a.c, a.N, a.Kp)) return cudaErrorInvalidValue;
+    if (!encode_codes(&map, a.c, a.E * a.N, a.Kp)) return cudaErrorInvalidValue;
   } else {
     memset(&map, 0, sizeof(map));
   }
-  a.m_tiles = (a.M + Cols<NB>::kMt - 1) / Cols<NB>::kMt;
-  const long long work = static_cast<long long>((a.N + kRows - 1) / kRows) * a.S * a.m_tiles;
+  a.m_tiles = (a.Mb + Cols<NB>::kMt - 1) / Cols<NB>::kMt;
+  const long long work =
+      static_cast<long long>((a.N + kRows - 1) / kRows) * a.S * a.E * a.m_tiles;
   if (work > 0x7FFFFFFFll) return cudaErrorInvalidValue;
   const long long room = static_cast<long long>(per_sm[dev]) * num_sms();
   const unsigned grid = static_cast<unsigned>(work < room ? work : room);
@@ -1250,13 +1286,13 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The B width for M: n = 16, 24, 48 or 96 columns (x rows per block 4, 8,
-// 16, 32); the group kernel stops at 48.
+// The B width for the x rows of one kernel, Mb: n = 16, 24, 48 or 96
+// columns (x rows per block 4, 8, 16, 32); the group kernel stops at 48.
 template <int BITS, int U, bool GROUP>
 cudaError_t launch_nb(const Args& a, cudaStream_t stream) {
-  if (a.M <= 4) return launch<BITS, 16, U, GROUP>(a, stream);
-  if (a.M <= 8) return launch<BITS, 24, U, GROUP>(a, stream);
-  if (GROUP || a.M <= 16) return launch<BITS, 48, U, GROUP>(a, stream);
+  if (a.Mb <= 4) return launch<BITS, 16, U, GROUP>(a, stream);
+  if (a.Mb <= 8) return launch<BITS, 24, U, GROUP>(a, stream);
+  if (GROUP || a.Mb <= 16) return launch<BITS, 48, U, GROUP>(a, stream);
   return launch<BITS, GROUP ? 48 : 96, U, GROUP>(a, stream);
 }
 
@@ -1286,15 +1322,18 @@ Args make_args(const float* x, const unsigned char* c, const float* scale, float
   a.group_size = 16;
   a.tma = Kp > 0 && Kp % 16 == 0;
   a.xvec = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  a.E = 1;
+  a.Mb = M;
   return a;
 }
 
 }  // namespace
 
-// Split-K parts of a call at (N, Kp): the workspace holds S * M * N floats.
-extern "C" int repro_qmm_tc_splits(int N, int Kp) {
-  if (N <= 0 || Kp < 0) return 0;
-  return splits(N, Kp);
+// Split-K parts of a call at (E, N, Kp), E = 1 for a 2-D call: the workspace
+// holds S * E * M * N floats.
+extern "C" int repro_qmm_tc_batched_splits(int E, int N, int Kp) {
+  if (E <= 0 || N <= 0 || Kp < 0) return 0;
+  return splits_for(E * ((N + kRows - 1) / kRows), Kp);
 }
 
 // x (M, K) f32, c (N, Kp) uint8 starting on a 16-byte boundary, scale (N,)
@@ -1332,5 +1371,27 @@ extern "C" int repro_qmm_group_tc(const float* x, const unsigned char* c, const 
                                                : launch_nb<4, 1, true>(a, s));
     default: return static_cast<int>(j % 2 == 0 ? launch_nb<8, 2, true>(a, s)
                                                 : launch_nb<8, 1, true>(a, s));
+  }
+}
+
+// x (E, M, K) f32, c (E, N, Kp) uint8 starting on a 16-byte boundary, scale
+// (E, N) f32, y (E, M, N) f32, ws S * E * M * N f32 (S from
+// repro_qmm_tc_batched_splits), counters ceil(N / 128) * E * ceil(M / 4)
+// int32 that are zero: y[e] = x[e] @ dequant(c[e])^T * scale[e], one launch.
+extern "C" int repro_qmm_tc_batched(const float* x, const unsigned char* c, const float* scale,
+                                    float* y, float* ws, int* counters, int E, int M, int N,
+                                    int K, int Kp, int bits, void* stream) {
+  if (E <= 0 || bad_shape(c, M, N, K, Kp, bits)) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(E) * M > 0x7FFFFFFFll || static_cast<long long>(E) * N > 0x7FFFFFFFll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a = make_args(x, c, scale, y, ws, counters, E * M, N, K, Kp);
+  a.E = E;
+  a.Mb = M;
+  a.S = splits_for(E * ((N + kRows - 1) / kRows), Kp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return static_cast<int>(launch_nb<2, 4, false>(a, s));
+    case 4: return static_cast<int>(launch_nb<4, 4, false>(a, s));
+    default: return static_cast<int>(launch_nb<8, 2, false>(a, s));
   }
 }

@@ -8,7 +8,9 @@ Two libraries:
   scale per output row (per_tensor is the broadcast special case);
   ``repro_qmm_group_tc`` (:data:`QMM_GROUP`) replaces ``qmm_group_pallas``:
   an (N, ⌈K/g⌉) slab of scales, one per g contiguous codes along K
-  (``per_block``), for g a multiple of 16 codes.
+  (``per_block``), for g a multiple of 16 codes; ``repro_qmm_tc_batched``
+  (:data:`QMM_BATCHED`) applies ``repro_qmm_tc``'s function to a stack of E
+  kernels in one launch: the expert products of a mixture-of-experts layer.
 * ``csrc/qmm.cu`` (:data:`CORE_LIBRARY`), the CUDA-core row walk, which
   reads the codes byte by byte: ``repro_qmm_group`` (:data:`QMM_GROUP_CORE`)
   for the group sizes the tensor-core kernel does not take (g not a multiple
@@ -43,7 +45,8 @@ from repro_torch.quant.formats import BY_BITS
 from repro_torch.quant.pack import packed_len
 
 __all__ = ["NVCC_FLAGS", "SOURCE", "CORE_SOURCE", "LIBRARY", "CORE_LIBRARY", "QMM",
-           "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE", "build_dir",
+           "QMM_BATCHED", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE",
+           "build_dir",
            "ROW_LOCAL_ROWS", "qmm_cuda", "qmm_group_cuda", "tc_aligned"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm_wgmma.cu"
@@ -57,12 +60,14 @@ TC_GROUP_MULTIPLE = 16          # the tensor-core group kernel takes g = 16·j
 ROW_LOCAL_ROWS = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(SOURCE, {
-    # N, Kp -> split-K parts S of a call (the workspace is S·M·N floats)
-    "repro_qmm_tc_splits": [_I, _I],
     # x, codes, scale, y, workspace, counters, M, N, K, Kp, bits, stream
     "repro_qmm_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, codes, scale, y, workspace, counters, M, N, K, Kp, bits, group_size, stream
     "repro_qmm_group_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # E, N, Kp -> split-K parts S of a call, E = 1 for a 2-D one (the workspace is S·E·M·N floats)
+    "repro_qmm_tc_batched_splits": [_I, _I, _I],
+    # x, codes, scale, y, workspace, counters, E, M, N, K, Kp, bits, stream
+    "repro_qmm_tc_batched": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 })
 CORE_LIBRARY = CudaLibrary(CORE_SOURCE, {
     # x, codes, scale, y, M, N, K, Kp, bits, stream
@@ -71,7 +76,7 @@ CORE_LIBRARY = CudaLibrary(CORE_SOURCE, {
     "repro_qmm_group": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 })
 _ROWS = 128                     # Φ̂ rows of one block of qmm_wgmma.cu
-_SPLITS: dict = {}              # (device, N, Kp) -> split-K parts
+_SPLITS: dict = {}              # (device, E, N, Kp) -> split-K parts (E = 1: a 2-D call)
 _SCRATCH: dict = {}             # device -> [workspace f32, tickets int32 (zero between launches)]
 
 
@@ -106,22 +111,23 @@ def _check_aligned(who, w_packed):
                          "that do not take the byte-load route of qmm_cuda)")
 
 
-def _scratch(device, m, n, kp, lib):
-    """The split-K workspace (S·M·N floats) and the zeroed tickets of a call,
-    kept per device and grown as needed; launches on one stream share them."""
-    key = (device, n, kp)
+def _scratch(device, m, n, kp, lib, e=1):
+    """The split-K workspace (S·E·M·N floats for a stack of E kernels, E = 1
+    for a 2-D call) and the zeroed tickets of a call, kept per device and
+    grown as needed; launches on one stream share them."""
+    key = (device, e, n, kp)
     parts = _SPLITS.get(key)
     if parts is None:
-        parts = lib.repro_qmm_tc_splits(n, kp)
+        parts = lib.repro_qmm_tc_batched_splits(e, n, kp)
         if parts < 1:
-            raise RuntimeError(f"repro_qmm_tc_splits({n}, {kp}) returned {parts}")
+            raise RuntimeError(f"split-K parts of (E={e}, N={n}, Kp={kp}): {parts}")
         _SPLITS[key] = parts
     buf = _SCRATCH.get(device)
     if buf is None:
         buf = _SCRATCH[device] = [torch.empty(0, dtype=torch.float32, device=device),
                                   torch.zeros(0, dtype=torch.int32, device=device)]
-    need_ws = parts * m * n if parts > 1 else 1
-    need_t = -(-n // _ROWS) * -(-m // 4)
+    need_ws = parts * e * m * n if parts > 1 else 1
+    need_t = -(-n // _ROWS) * e * -(-m // 4)
     if buf[0].numel() < need_ws:
         buf[0] = torch.empty(need_ws, dtype=torch.float32, device=device)
     if buf[1].numel() < need_t:
@@ -207,7 +213,36 @@ class QmmGroupKernel(CudaKernel):
         return y
 
 
+class QmmBatchedKernel(CudaKernel):
+    """``repro_qmm_tc_batched``: y[e] = x[e] @ dequant(w[e])ᵀ with one scale
+    per row of each w[e], for a stack of E kernels in one launch."""
+
+    def __call__(self, x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+                 bits: int, k_dim: int) -> torch.Tensor:
+        """x (E, M, K) f32, w_packed (E, N, Kp) uint8 on a 16-byte boundary,
+        scale (E, N) or (E, N, 1) f32, all CUDA and contiguous; returns y
+        (E, M, N) f32."""
+        if x.ndim != 3 or w_packed.ndim != 3 or x.shape[0] != w_packed.shape[0]:
+            raise ValueError(f"qmm_batched_cuda: x must be (E, M, K) and w_packed (E, N, Kp), "
+                             f"got {tuple(x.shape)} and {tuple(w_packed.shape)}")
+        _, k, _, kp = _check("qmm_batched_cuda", x.reshape(-1, x.shape[-1]),
+                             w_packed.reshape(-1, w_packed.shape[-1]), scale, bits, k_dim)
+        e, m, n = x.shape[0], x.shape[1], w_packed.shape[1]
+        _check_aligned("qmm_batched_cuda", w_packed)
+        if scale.numel() != e * n:
+            raise ValueError(f"qmm_batched_cuda: scale has {scale.numel()} entries, E·N={e * n}")
+        y = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
+        if e == 0 or m == 0 or n == 0:
+            return y
+        ws, counters = _scratch(x.device, m, n, kp, self.build(), e)
+        self.launch(x.device, (e, n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+                    y.data_ptr(), ws.data_ptr(), counters.data_ptr(), e, m, n, k, kp, bits,
+                    out=y)
+        return y
+
+
 QMM = QmmKernel(LIBRARY, "repro_qmm_tc")
+QMM_BATCHED = QmmBatchedKernel(LIBRARY, "repro_qmm_tc_batched")
 QMM_CORE = QmmCoreKernel(CORE_LIBRARY, "repro_qmm")
 QMM_GROUP = QmmGroupKernel(LIBRARY, "repro_qmm_group_tc", TC_GROUP_MULTIPLE, split_k=True)
 QMM_GROUP_CORE = QmmGroupKernel(CORE_LIBRARY, "repro_qmm_group", 1, split_k=False)

@@ -5,6 +5,10 @@
   plain PyTorch version (:func:`qmm_ref`) for a CPU tensor. Block-scaled
   weights (``per_block``) go to a group kernel or :func:`qmm_group_ref`.
   There is no padding: the kernels mask the ragged edges themselves.
+* :func:`qmm_batched` — ``x[e] @ dequant(w[e])ᵀ`` for a stack of E kernels
+  with per-row scales (a mixture-of-experts layer's expert products): one
+  ``QMM_BATCHED`` launch for a CUDA tensor, :func:`qmm_batched_ref` for a
+  CPU tensor.
 * :func:`cuda_kernel` / :func:`group_kernel` — the card's kernel for a packed
   operand, a fixed route by group size and the codes' alignment: per-row
   scales and g = 16·j run on the tensor cores (``QMM``, ``QMM_GROUP``,
@@ -31,6 +35,7 @@ import torch
 from repro_torch.kernels.cudalib import CudaKernel
 from repro_torch.kernels.qmm.kernel import (
     QMM,
+    QMM_BATCHED,
     QMM_CORE,
     QMM_GROUP,
     QMM_GROUP_CORE,
@@ -38,7 +43,7 @@ from repro_torch.kernels.qmm.kernel import (
     qmm_cuda,
     tc_aligned,
 )
-from repro_torch.kernels.qmm.ref import qmm_group_ref, qmm_ref
+from repro_torch.kernels.qmm.ref import qmm_batched_ref, qmm_group_ref, qmm_ref
 from repro_torch.quant.formats import (
     BY_BITS,
     PER_CHANNEL,
@@ -162,6 +167,23 @@ def qmm(x: torch.Tensor, w: PackedWeights, *, w_t: Optional[PackedWeights] = Non
     if x.is_cuda:
         return qmm_cuda(x.to(torch.float32).contiguous(), w.packed, w.scale, w.bits, w.k_dim)
     return qmm_ref(x, w.packed, w.scale, w.bits, w.k_dim)
+
+
+def qmm_batched(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
+                k_dim: int) -> torch.Tensor:
+    """y[e] = x[e] @ dequant(w[e])ᵀ, (E, M, K) → (E, M, N) float32, for codes
+    (E, N, Kp) with one scale per row, (E, N) or (E, N, 1). A CUDA ``x``
+    launches ``QMM_BATCHED`` once (which raises for codes off a 16-byte
+    boundary: there is no per-kernel route); a CPU ``x`` runs
+    :func:`qmm_batched_ref`."""
+    if x.shape[-1] != k_dim:
+        raise ValueError(f"x K dim {x.shape[-1]} != packed k_dim {k_dim}")
+    if x.device != w_packed.device:
+        raise ValueError(f"x is on {x.device} but the packed weights on {w_packed.device}")
+    if x.is_cuda:
+        return QMM_BATCHED(x.to(torch.float32).contiguous(), w_packed, scale.contiguous(), bits,
+                           k_dim)
+    return qmm_batched_ref(x, w_packed, scale, bits, k_dim)
 
 
 def _zero_byte(bits: int) -> int:

@@ -40,3 +40,13 @@ def qmm_group_ref(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, 
     w = (codes.to(torch.float32) * expand_block_scale(scale, group_size, k_dim)
          / BY_BITS[bits].half_steps)
     return torch.matmul(x.to(torch.float32), w.T)
+
+
+def qmm_batched_ref(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
+                    k_dim: int) -> torch.Tensor:
+    """:func:`qmm_ref` of each kernel of a stack: x (E, M, K), w_packed (E, N,
+    Kp), scale (E, N) or (E, N, 1). Returns (E, M, N) float32."""
+    codes = unpack_codes(w_packed, bits, k_dim)                    # (E, N, K) int8
+    w = codes.to(torch.float32) / BY_BITS[bits].half_steps
+    y = torch.matmul(x.to(torch.float32), w.transpose(-1, -2))
+    return y * scale.reshape(scale.shape[0], 1, -1)

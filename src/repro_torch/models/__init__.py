@@ -1,13 +1,14 @@
-"""The LM side of the port (port of ``repro.models``): the dense family —
-parameters, ``forward`` and its training ``loss_fn``, ``prefill`` and
-``decode_step`` with an optional int8 KV cache, weight-only quantized
-parameters (``QWeight``, ``quantize_params``) and greedy :func:`generate` —
-the hybrid family's serving (RG-LRU blocks, :mod:`.rglru`, and local
-attention), the SSM family's (Mamba-2's SSD blocks, :mod:`.ssm`), and the
-cross-attention families' (whisper-tiny's ``encode`` and decoder,
-llama-3.2-vision-11b's image layers). The training of the recurrent and
-cross-attention families and the MoE family come in later slices
-(ROADMAP.md §1)."""
+"""The LM side of the port (port of ``repro.models``), every family of the
+reference: parameters (``init_params``, or ``init_quantized_params`` for a
+W<bits> tree built leaf by leaf), ``forward`` and its training ``loss_fn``,
+``prefill`` and ``decode_step`` with an optional int8 KV cache, weight-only
+quantized parameters (``QWeight``, ``quantize_params``) and greedy
+:func:`generate` — dense decoders, Qwen3-MoE's experts (:mod:`.moe`), the
+hybrid family (RG-LRU blocks, :mod:`.rglru`, and local attention), the SSM
+family (Mamba-2's SSD blocks, :mod:`.ssm`), and the cross-attention
+families (whisper-tiny's ``encode`` and decoder, llama-3.2-vision-11b's
+image layers). The cross-attention families' training comes in a later
+slice (ROADMAP.md §1)."""
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.generate import generate
 from repro_torch.models.model import (
@@ -16,6 +17,7 @@ from repro_torch.models.model import (
     forward,
     init_cache,
     init_params,
+    init_quantized_params,
     loss_fn,
     prefill,
 )
@@ -36,6 +38,7 @@ __all__ = [
     "generate",
     "init_cache",
     "init_params",
+    "init_quantized_params",
     "loss_fn",
     "prefill",
     "QWeight",

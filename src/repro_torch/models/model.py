@@ -1,7 +1,8 @@
-"""Model assembly (port of ``repro.models.model``), the dense, hybrid, SSM,
-encoder-decoder and VLM families: decoder LMs of "attn" blocks (GQA or MHA,
-RoPE, optional QKV bias, RMSNorm or LayerNorm, SwiGLU, tanh-GELU or
-squared-ReLU MLP), RecurrentGemma's hybrid of "rec" blocks (the RG-LRU,
+"""Model assembly (port of ``repro.models.model``), every family of the
+reference: decoder LMs of "attn" blocks (GQA or MHA, RoPE, optional QKV
+bias, RMSNorm or LayerNorm, SwiGLU, tanh-GELU or squared-ReLU MLP, or
+Qwen3-MoE's mixture of SwiGLU experts, :mod:`.moe`), RecurrentGemma's
+hybrid of "rec" blocks (the RG-LRU,
 :mod:`.rglru`) and local-attention "attn" blocks (a sliding window of
 ``cfg.local_window`` keys, cached in a ring of that many slots), Mamba-2's
 attention-free stack of "ssm" blocks (the SSD, :mod:`.ssm`; no MLP, a state
@@ -28,10 +29,12 @@ Three execution paths share the block code:
   * :func:`decode_step` — one token against the cache (the bandwidth-bound
     loop the paper's technique speeds up with weight/KV quantization).
 
-The MoE family raises ``NotImplementedError`` naming the later slice that
-ports it; so does :func:`loss_fn` for the encoder-decoder and VLM families
-(their training is a later slice). The reference's SPMD hooks
+:func:`loss_fn` raises ``NotImplementedError`` for the encoder-decoder and
+VLM families (their training is a later slice). The reference's SPMD hooks
 (``constrain``, ``constrain_kv``) have no counterpart on one GPU.
+:func:`init_quantized_params` builds a W<bits> tree leaf by leaf, so that a
+model whose float32 tree does not fit the card (qwen3-moe-30b-a3b, ~122 GB)
+is served from its ~16 GB of codes.
 """
 from __future__ import annotations
 
@@ -64,7 +67,8 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     window_valid_length,
 )
-from repro_torch.models.quantized import QWeight, materialize
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.quantized import QWeight, materialize, quantize_params
 from repro_torch.models.rglru import (
     RGLRUState,
     init_rglru_state,
@@ -84,21 +88,9 @@ from repro_torch.models.ssm import (
 from repro_torch.quant.policy import QuantPolicy
 from repro_torch.tree import tree_leaves
 
-# The item of ROADMAP.md §1 (queue 1) that ports each family this one does not.
-_LATER = {"moe": "queue 1's MoE item: qwen3-moe-30b, models/moe.py"}
-
-
-_PORTED = ("dense", "hybrid", "ssm", "encdec", "vlm")
 _CROSS = ("encdec", "vlm")            # families whose "xattn" layers read a memory
 _BLOCKS = ("attn", "xattn", "rec", "ssm")
 _RECURRENT_STATES = (RGLRUState, SSMState)
-
-
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{what}: the {cfg.family} family ({cfg.name}) is not ported yet; "
-            f"ROADMAP.md §1 queues it ({_LATER.get(cfg.family, cfg.family)})")
 
 
 # ---------------------------------------------------------------------------
@@ -119,8 +111,7 @@ def _attn_init(key, cfg: ModelConfig, device=None):
 
 def _ffn_init(key, cfg: ModelConfig, device=None):
     if cfg.n_experts:
-        raise NotImplementedError(f"mixture-of-experts FFN ({cfg.name}): ROADMAP.md §1 "
-                                  f"queues it ({_LATER['moe']})")
+        return moe_init(key, cfg.d_model, cfg.d_ff, cfg.n_experts, device=device)
     return mlp_init(key, cfg.d_model, cfg.d_ff, cfg.mlp_type, device=device)
 
 
@@ -176,6 +167,16 @@ def _stack_into(stacked, tree, i: int, n: int):
         for k, v in tree.items():
             stacked[k] = _stack_into(stacked.get(k), v, i, n)
         return stacked
+    if isinstance(tree, QWeight):
+        if stacked is None:
+            stacked = QWeight(
+                torch.empty((n,) + tuple(tree.packed.shape), dtype=tree.packed.dtype,
+                            device=tree.packed.device),
+                torch.empty((n,) + tuple(tree.scale.shape), dtype=tree.scale.dtype,
+                            device=tree.scale.device), tree.bits, tree.k_dim)
+        stacked.packed[i] = tree.packed
+        stacked.scale[i] = tree.scale
+        return stacked
     if stacked is None:
         stacked = torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
     stacked[i] = tree
@@ -189,7 +190,24 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
     A stacked slot is drawn layer by layer from ``split(fold_in(keys[2], j),
     n_full)``, as the reference's ``vmap`` draws it; an encoder's "attn"
     blocks (``params["encoder"]``) from ``split(keys[4], n_encoder_layers)``."""
-    _require_ported(cfg, "init_params")
+    return _build_params(cfg, key, device, lambda tree: tree)
+
+
+def init_quantized_params(cfg: ModelConfig, key: torch.Tensor, bits: int, device=None):
+    """``quantize_params(init_params(cfg, key, device), bits)``, bit for bit,
+    built leaf by leaf: each layer is drawn in float32 with init_params's
+    keys, quantized and written into the stacked codes and scales before the
+    next is drawn, and the unembedding is quantized as it is drawn. At no time
+    does it hold more than one layer's float32 leaves beside the codes and
+    the float32 token embedding (which stays dense). It rounds to nearest:
+    stochastic rounding draws its uniforms in the order of the whole tree's
+    kernels, so build that tree with init_params and quantize_params."""
+    return _build_params(cfg, key, device, lambda tree: quantize_params(tree, bits))
+
+
+def _build_params(cfg: ModelConfig, key: torch.Tensor, device, leaves):
+    """init_params's tree with ``leaves`` applied to the unembedding and to
+    each block as it is drawn, before it is stacked."""
     device = resolve_device(device)
     slots, n_full, tail = _period_info(cfg)
     keys = prng.split(key, 8)
@@ -200,12 +218,12 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
         "final_norm": norm_init(d, cfg.norm_type, device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = {"w": prng.normal(keys[1], (v, d), device=device) * 0.02}
+        params["unembed"] = leaves({"w": prng.normal(keys[1], (v, d), device=device) * 0.02})
 
     def stack_init(base_key, kind, n):
         stacked = None
         for i, k in enumerate(prng.split(base_key, n)):
-            stacked = _stack_into(stacked, _block_init(k, cfg, kind, device), i, n)
+            stacked = _stack_into(stacked, leaves(_block_init(k, cfg, kind, device)), i, n)
         return _sorted_tree(stacked)
 
     params["slots"] = {
@@ -213,7 +231,7 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device=None):
         for j, kind in enumerate(slots)
     }
     params["tail"] = [
-        _block_init(prng.fold_in(keys[3], i), cfg, kind, device)
+        leaves(_block_init(prng.fold_in(keys[3], i), cfg, kind, device))
         for i, kind in enumerate(tail)
     ]
     if cfg.n_encoder_layers:
@@ -291,6 +309,11 @@ def _cross_attention(p, x, ctx: Ctx, kv=None):
 
 
 def _ffn_apply(p, x, cfg: ModelConfig):
+    """The block's FFN: (y, aux), aux the MoE load loss for the MoE family."""
+    if cfg.n_experts:
+        return moe_apply(p, x, top_k=cfg.experts_per_token,
+                         capacity_factor=cfg.moe_capacity_factor, group_size=cfg.moe_group_size,
+                         remat=cfg.remat)
     return mlp_apply(p, x, cfg.mlp_type), {}
 
 
@@ -489,12 +512,14 @@ def _unstack(tree, n: int) -> list:
 
 
 def _block_x(kind, p, x, ctx):
-    return apply_block_fwd(kind, p, x, ctx)[0]
+    x, aux = apply_block_fwd(kind, p, x, ctx)
+    return x, aux.get("moe_load_loss")
 
 
 def _run_forward(cfg, params, x, ctx):
     """Every layer's full-sequence forward in order (slots period by period,
-    then the tail). Where autograd records and ``cfg.remat``, each layer is
+    then the tail), and the sum of the layers' MoE load losses (float32, 0
+    without experts). Where autograd records and ``cfg.remat``, each layer is
     checkpointed (``torch.utils.checkpoint``, non-reentrant), as the
     reference wraps its period body in ``jax.checkpoint``: only the layer
     inputs stay alive, and the backward runs each layer's forward again."""
@@ -513,12 +538,14 @@ def _run_forward(cfg, params, x, ctx):
                                                      preserve_rng_state=False)
         return _block_x(kind, p, x, ctx)
 
-    for i in range(n_full):
-        for j, kind in enumerate(slots):
-            x = block(kind, layers[f"slot{j}"][i], x)
-    for i, kind in enumerate(tail):
-        x = block(kind, params["tail"][i], x)
-    return x
+    load = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in ([(kind, layers[f"slot{j}"][i]) for i in range(n_full)
+                     for j, kind in enumerate(slots)]
+                    + [(kind, params["tail"][i]) for i, kind in enumerate(tail)]):
+        x, aux = block(kind, p, x)
+        if aux is not None:
+            load = load + aux
+    return x, load
 
 
 def _write_state(stacked, i: int, new):
@@ -618,7 +645,6 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor,
     in the config's dtype plus sinusoidal positions, ``n_encoder_layers``
     non-causal "attn" blocks without RoPE, the final norm. The memory that
     the encdec family's ``forward`` and ``prefill`` take."""
-    _require_ported(cfg, "encode")
     if not cfg.n_encoder_layers:
         raise ValueError(f"encode: {cfg.name} has no encoder (n_encoder_layers = 0)")
     dtype = torch_dtype(cfg.dtype)
@@ -634,32 +660,31 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor,
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             policy: QuantPolicy = QuantPolicy(), memory: Optional[torch.Tensor] = None):
     """Teacher-forced logits (B, S, V) in the config's dtype, and the aux dict
-    (``moe_load_loss``, 0 for the families ported). The hybrid family's
-    attention is local, a window of ``cfg.local_window`` keys, as in prefill
-    and decode. ``memory`` (B, T, d), required by the encdec and vlm
+    (``moe_load_loss``: the layers' load losses summed, 0 without experts).
+    The hybrid family's attention is local, a window of ``cfg.local_window``
+    keys, as in prefill and decode. ``memory`` (B, T, d), required by the encdec and vlm
     families: the output of :func:`encode`, or image embeddings."""
-    _require_ported(cfg, "forward")
     _require_memory(cfg, "forward", memory)
     b, s = tokens.shape
     x = _embed_positions(cfg, _embed(cfg, params, tokens, torch_dtype(cfg.dtype)))
     ctx = Ctx(cfg=cfg, positions=_positions(b, s, 0, tokens.device), policy=policy,
               memory=memory, causal=True, window=_window(cfg))
-    x = _run_forward(cfg, params, x, ctx)
+    x, load = _run_forward(cfg, params, x, ctx)
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-    return _unembed(cfg, params, x), {
-        "moe_load_loss": torch.zeros((), dtype=torch.float32, device=tokens.device)}
+    return _unembed(cfg, params, x), {"moe_load_loss": load}
 
 
 def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()):
     """Mean next-token cross entropy over a float32 log-softmax; labels < 0
     are padding. batch: ``tokens`` and ``labels`` (B, S). Differentiable in
     the parameters: call it with leaves that require a gradient. The dense,
-    hybrid and SSM families train; the encdec and vlm families raise: their
-    training is a later slice."""
+    MoE (with the load term 0.01·moe_load_loss/n_layers), hybrid and SSM
+    families train; the encdec and vlm families raise: their training is a
+    later slice."""
     if cfg.family in _CROSS:
         raise NotImplementedError(
             f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
-            f"ROADMAP.md §1 queues the cross-attention families' training after qwen3-moe-30b")
+            f"ROADMAP.md §1 queues the cross-attention families' training next")
     logits, aux = forward(cfg, params, batch["tokens"], policy=policy)
     labels = batch["labels"]
     mask = labels >= 0
@@ -683,7 +708,6 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, policy: QuantPolicy = Q
     d_conv − 1, W) conv and (n_full, B, W) h, float32 until a prefill, or
     SSMState (n_full, B, d_conv − 1, conv_dim) conv and (n_full, B, H, hd,
     ds) ssm, float32."""
-    _require_ported(cfg, "init_cache")
     device = resolve_device(device)
     slots, n_full, tail = _period_info(cfg)
     dtype = torch_dtype(cfg.dtype)
@@ -712,7 +736,6 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *,
     """Run the prompt, fill the cache (in place). Returns (last-position
     logits (B, V), cache). ``memory`` (B, T, d), required by the encdec and
     vlm families, must match the cache's ``mem_len``."""
-    _require_ported(cfg, "prefill")
     _require_memory(cfg, "prefill", memory)
     b, s = tokens.shape
     x = _embed_positions(cfg, _embed(cfg, params, tokens, torch_dtype(cfg.dtype)))
@@ -729,7 +752,6 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache, *,
     """One serving step. token: (B,) integer → logits (B, V), updated cache
     (in place). ``position`` defaults to the cache's length. The "xattn"
     layers read the memory's K/V that the prefill cached."""
-    _require_ported(cfg, "decode_step")
     b = token.shape[0]
     position = _cache_length(cfg, cache) if position is None else int(position)
     x = _embed_positions(cfg, _embed(cfg, params, token[:, None], torch_dtype(cfg.dtype)),

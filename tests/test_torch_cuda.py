@@ -89,6 +89,51 @@ def test_kernel_matches_plain_version(cuda, bits, shape):
     assert bool(((y - ref).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("c", [1, 320])
+@pytest.mark.parametrize("enk", [(16, 768, 2048), (16, 2048, 768), (3, 333, 1001)])
+def test_batched_kernel_matches_plain_version(cuda, bits, c, enk):
+    """QMM_BATCHED over a stack of E expert kernels (qwen3-moe-30b's wi and wo
+    shapes; a ragged one whose rows are not 16-byte multiples) at a decode
+    step's C = 1 and a prefill group's C = 320 slots an expert, one launch,
+    held to qmm's rule against the per-expert plain version."""
+    from repro_torch.kernels.qmm.ops import qmm_batched
+    from repro_torch.kernels.qmm.ref import qmm_batched_ref
+    from repro_torch.models.quantized import quantize_weight
+
+    e, n, k = enk
+    gen = torch.Generator(device=cuda).manual_seed(e + n + k + c)
+    qw = quantize_weight(torch.randn(e, k, n, generator=gen, device=cuda) * 0.02, bits)
+    x = torch.randn(e, c, k, generator=gen, device=cuda)
+    x[0, 0] = 0.0                                  # an empty slot
+    before = qmm_kernel.QMM_BATCHED.launches
+    y = qmm_batched(x, qw.packed, qw.scale, bits, k)
+    assert qmm_kernel.QMM_BATCHED.launches == before + 1 and y.shape == (e, c, n)
+    ref = qmm_batched_ref(x, qw.packed, qw.scale, bits, k)
+    wabs = unpack_codes(qw.packed, bits, k).float().abs() * (qw.scale / (2 ** (bits - 1) // 2))
+    tol = 1e-5 * ref.abs() + 1e-5 * torch.matmul(x.abs(), wabs.transpose(-1, -2))
+    assert bool(((y - ref).abs() <= tol).all())
+    assert bool((y[0, 0] == 0).all())
+
+
+def test_batched_kernel_rejects_bad_inputs(cuda):
+    """Codes off a 16-byte boundary raise (there is no per-expert route), as
+    do a scale of the wrong size and a stack of another length than x's."""
+    from repro_torch.models.quantized import quantize_weight
+
+    qw = quantize_weight(torch.randn(4, 64, 48, device=cuda), 4)
+    x = torch.randn(4, 2, 64, device=cuda)
+    raw = torch.empty(qw.packed.numel() + 16, dtype=torch.uint8, device=cuda)
+    off = raw[1:1 + qw.packed.numel()].view(qw.packed.shape)
+    off.copy_(qw.packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        qmm_kernel.QMM_BATCHED(x, off, qw.scale, 4, 64)
+    with pytest.raises(ValueError, match="scale"):
+        qmm_kernel.QMM_BATCHED(x, qw.packed, qw.scale[:3], 4, 64)
+    with pytest.raises(ValueError):
+        qmm_kernel.QMM_BATCHED(x[:3], qw.packed, qw.scale, 4, 64)
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     w = pack_weights(torch.randn(16, 40, device=cuda), 4)
     with pytest.raises(TypeError):

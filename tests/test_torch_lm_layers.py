@@ -330,11 +330,14 @@ def test_decode_attention(window):
 def test_unported_blocks_raise():
     """Every block kind of the reference is ported ('xattn':
     tests/test_torch_xattn.py; 'rec', 'ssm': tests/test_torch_hybrid.py,
-    tests/test_torch_ssm.py); the mixture-of-experts FFN of qwen3-moe is
-    not yet, and an unknown kind raises as in the reference."""
+    tests/test_torch_ssm.py), and so is the mixture-of-experts FFN of
+    qwen3-moe (tests/test_torch_moe.py): its block draws the router and the
+    expert stacks. An unknown kind raises as in the reference."""
     cfg = tconfigs.get_smoke_config("qwen3_moe_30b")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts FFN"):
-        tmodel._block_init(prng.PRNGKey(0), cfg, "attn", device="cpu")
+    ffn = tmodel._block_init(prng.PRNGKey(0), cfg, "attn", device="cpu")["ffn"]
+    assert ffn["router"]["w"].shape == (cfg.d_model, cfg.n_experts)
+    assert ffn["wi_gate"].shape == (cfg.n_experts, cfg.d_model, cfg.d_ff)
+    assert ffn["wo"].shape == (cfg.n_experts, cfg.d_ff, cfg.d_model)
     cfg = tconfigs.get_smoke_config("llama32_vision_11b")
     with pytest.raises(ValueError, match="cross"):
         tmodel._block_init(prng.PRNGKey(0), cfg, "cross", device="cpu")

@@ -195,27 +195,26 @@ def test_generate_is_greedy_over_prefill_and_decode():
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if a not in DENSE])
 def test_unported_families_raise(arch):
-    """Every entry point raises for a family not ported yet (MoE); the encdec
-    (whisper-tiny) and vlm (llama-3.2-vision-11b) families serve, and only
-    their training raises; the hybrid (recurrentgemma-2b) and SSM
-    (mamba2-370m) families serve and train: loss_fn gives a finite loss
-    (tests/test_torch_train_recurrent.py holds it and its gradients to the
+    """Only training raises, for the encdec (whisper-tiny) and vlm
+    (llama-3.2-vision-11b) families, which serve; the hybrid
+    (recurrentgemma-2b) and SSM (mamba2-370m) families serve and train:
+    loss_fn gives a finite loss (tests/test_torch_train_recurrent.py holds it
+    and its gradients to the reference); so does the MoE family (qwen3-moe),
+    which also serves here: a prefill and a decode step give finite logits
+    (tests/test_torch_moe.py holds both, loss_fn and its gradients to the
     reference)."""
     cfg = tconfigs.get_smoke_config(arch)
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    if cfg.family in ("hybrid", "ssm"):
+    if cfg.family in ("hybrid", "ssm", "moe"):
         params = init_params(cfg, prng.PRNGKey(0), device="cpu")
         assert bool(torch.isfinite(loss_fn(cfg, params, {"tokens": toks, "labels": toks})))
+        if cfg.family == "moe":
+            cache = init_cache(cfg, 1, 8, device="cpu")
+            logits, cache = prefill(cfg, params, toks, cache)
+            step, _ = decode_step(cfg, params, toks[:, 0], cache)
+            assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
         return
-    calls = {
-        "init_params": lambda: init_params(cfg, prng.PRNGKey(0), device="cpu"),
-        "init_cache": lambda: init_cache(cfg, 1, 8, device="cpu"),
-        "forward": lambda: forward(cfg, {}, toks),
-        "prefill": lambda: prefill(cfg, {}, toks, {}),
-        "decode_step": lambda: decode_step(cfg, {}, toks[:, 0], {}),
-    }
-    if cfg.family in ("encdec", "vlm"):
-        calls = {"loss_fn": lambda: loss_fn(cfg, {}, {"tokens": toks, "labels": toks})}
+    calls = {"loss_fn": lambda: loss_fn(cfg, {}, {"tokens": toks, "labels": toks})}
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=rf"{name}: the {cfg.family} family"):
             call()

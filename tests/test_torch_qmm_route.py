@@ -99,8 +99,10 @@ def test_per_row_entry_is_in_the_tensor_core_library():
     assert qmm_kernel.QMM.library is qmm_kernel.LIBRARY
     assert qmm_kernel.LIBRARY.source.name == "qmm_wgmma.cu"
     assert qmm_kernel.SOURCE.is_file() and qmm_kernel.CORE_SOURCE.is_file()
-    assert set(qmm_kernel.LIBRARY.entries) == {"repro_qmm_tc_splits", "repro_qmm_tc",
-                                               "repro_qmm_group_tc"}
+    assert set(qmm_kernel.LIBRARY.entries) == {"repro_qmm_tc", "repro_qmm_group_tc",
+                                               "repro_qmm_tc_batched_splits",
+                                               "repro_qmm_tc_batched"}
+    assert qmm_kernel.QMM_BATCHED.library is qmm_kernel.LIBRARY
     assert set(qmm_kernel.CORE_LIBRARY.entries) == {"repro_qmm", "repro_qmm_group"}
 
 
