@@ -17,7 +17,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
    off a 16-byte boundary); ``flashattn_wgmma.cu``, bf16/fp16 attention on
    the tensor cores at every head dim, aligned and off a 16-byte boundary;
    ``qmm_wgmma.cu`` also holds ``qmm_batched``, a stack of expert kernels in
-   one launch), one nvcc per source, started together;
+   one launch, on float32 x; ``qmm_experts.cu``, the stack on bf16 x at the
+   slots in use), one nvcc per source, started together;
 2. hold the ``qmm`` kernel against its plain PyTorch version ``qmm_ref`` on the card
    (TF32 off, asserted) at bits 2/4/8 × M ∈ {1, 8, 64} × the LOFAR CS302
    forward (870×65,536) and adjoint (65,536×870) shapes of the main path's
@@ -395,26 +396,30 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     PRNGKey(0) (``init_quantized_params``; the float32 tree, ~122 GB, does
     not fit the card, so there is no full-precision run), prompts of 1,024
     tokens and 32 decode steps under W4KV8, gated as phase 21 with the MoE
-    changes: each prefill ``FLASH_TC`` 48 times and ``QMM_BATCHED`` 288
+    changes: each prefill ``FLASH_TC`` 48 times and ``QMM_EXPERTS`` 288
     times (two groups of 4,096 tokens, capacity 320), each decode step
-    ``QMM`` 192 and ``QMM_BATCHED`` 144 times (one group of 8 tokens,
-    capacity 1); the prefill's logits against ``forward`` over the prompt
+    ``QMM`` 192 and ``QMM_EXPERTS`` 144 times (one group of 8 tokens,
+    capacity 1), ``QMM_BATCHED`` none (it takes the float32 truth's expert
+    products); the prefill's logits against ``forward`` over the prompt
     (the serving path and ``forward`` over prompt + generated tokens route
     other groups); the plain routes and the truth, the float32 serving path
     with exact K/V, over the prefill and the first 8 decode steps; the
-    limits ``MOE_*`` from the family's noise floor; every ``QMM_BATCHED``
+    limits ``MOE_*`` from the family's noise floor; every ``QMM_EXPERTS``
     call of the prefill and the first decode step held against
-    ``qmm_batched_ref`` within 1e-5 per row; the picks that differ between
+    ``qmm_batched_ref`` on the full xe (without the rows in use, so a wrong
+    ``rows`` shows) within 1e-5 per row; the picks that differ between
     the kernel routes, the plain routes and the truth, and the drops per
     layer; the first prefill group's dispatch and combine against the
     reference's one-hot tensors (kept set and xe bit for bit, y within 2⁻⁷
     per row). Readings: set-up seconds, W4 ``param_bytes``, peak memory,
     prefill and decode ms, the decode step's bytes bound with all experts'
     codes and with the routed ones, the dispatch's and combine's ms a layer,
-    ``QMM_BATCHED`` at C = 1 and 320 beside its plain version, ``torch.bmm``
-    on the stack materialized to bf16 and the bound. Two float32 layers,
-    card against CPU within 1e-4·max|logits|, over a prefill and one decode
-    step.
+    ``QMM_EXPERTS`` at C = 1 (the run's routed rows, and all rows) and 320
+    beside its plain version, ``torch.bmm`` on the stack materialized to
+    bf16 and the bound, and ``QMM_BATCHED`` on float32 x at C = 320 for the
+    record. Two float32 layers, card against CPU within 1e-4·max|logits|,
+    over a prefill and one decode step (their expert products on
+    ``QMM_BATCHED``).
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -4027,8 +4032,8 @@ def phase_sanitize(torch, mods):
     return out
 
 
-LM_KERNELS = ("QMM", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "QMM_BATCHED", "FLASH",
-              "FLASH_TC", "FLASH_TC_UNALIGNED", "FLASH_UNALIGNED")
+LM_KERNELS = ("QMM", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "QMM_BATCHED", "QMM_EXPERTS",
+              "FLASH", "FLASH_TC", "FLASH_TC_UNALIGNED", "FLASH_UNALIGNED")
 # fixed plain routes on the card, counted as kernels are: the vlm's K/V cast,
 # the MoE expert products' materialize + bmm
 LM_ROUTES = ("ATTENTION_KV_CAST", "EXPERT_BMM")
@@ -4205,16 +4210,17 @@ def moe_groups(cfg, n_tok):
 
 def moe_counts(cfg, n_tok, quantized, max_rows):
     """What the expert layers of one pass over n_tok tokens launch and call:
-    per layer and group, the three expert products on QMM_BATCHED (W4 codes
-    and a capacity of at most ``max_rows``) or on materialize + bmm
-    (EXPERT_BMM, each product's stack materialized), and the router's
-    materialize; nothing without experts."""
+    per layer and group, the three expert products on QMM_EXPERTS (W4 codes,
+    a capacity of at most ``max_rows`` and bf16 activations; QMM_BATCHED on
+    float32 ones) or on materialize + bmm (EXPERT_BMM, each product's stack
+    materialized), and the router's materialize; nothing without experts."""
     if not cfg.n_experts:
         return {}
     groups, cap = moe_groups(cfg, n_tok)
     calls = cfg.n_layers * groups
     batched = quantized and cap <= max_rows
-    return {"QMM_BATCHED": 3 * calls if batched else 0,
+    kernel = "QMM_EXPERTS" if cfg.dtype == "bfloat16" else "QMM_BATCHED"
+    return {kernel: 3 * calls if batched else 0,
             "EXPERT_BMM": 0 if batched else 3 * calls,
             "lm_moe.materialize": calls * (1 if batched else 4)}
 
@@ -4329,9 +4335,10 @@ def moe_witness(torch, mods, record, hold=None):
     router (``first``, kept once). With a ``hold`` dict, hold each
     ``qmm_batched`` call of the prefill and of the first decode step (the
     first 3·L calls at a decode step's capacity, ``hold["decode_cap"]``)
-    against ``qmm_batched_ref`` on the same
-    inputs, row by row: ‖Δ‖/‖ref‖ of every (expert, slot) row into
-    ``hold["gaps"]``. ``record`` None: no witness."""
+    against ``qmm_batched_ref`` on the same inputs without the rows in use
+    (the full xe: a ``rows`` that drops a slot in use shows), row by row:
+    ‖Δ‖/‖ref‖ of every (expert, slot) row into ``hold["gaps"]``. ``record``
+    None: no witness."""
     if record is None:
         yield
         return
@@ -4348,12 +4355,12 @@ def moe_witness(torch, mods, record, hold=None):
         return out
 
     def slotted(gate_idx, n_experts, cap):
-        slot, kept = slots(gate_idx, n_experts, cap)
+        slot, kept, rows = slots(gate_idx, n_experts, cap)
         record["drops"].append((kept.numel() - kept.sum(), cap))
-        return slot, kept
+        return slot, kept, rows
 
-    def held_call(x, w_packed, scale, bits, k_dim):
-        y = batched(x, w_packed, scale, bits, k_dim)
+    def held_call(x, w_packed, scale, bits, k_dim, rows=None):
+        y = batched(x, w_packed, scale, bits, k_dim, rows)
         decode = x.shape[1] == hold["decode_cap"]
         if not decode or hold.setdefault("decode", 0) < 3 * hold["layers"]:
             if decode:
@@ -4446,13 +4453,14 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
         toks, logits, ms, deltas, wall, enc = lm_generate(torch, mods, cfg, tree, prompt, policy,
                                                           source)
     by_shape = dict(mods["QMM"].launches_by_shape)
-    batched_by_shape = dict(mods["QMM_BATCHED"].launches_by_shape)
+    experts_by_shape = dict(mods["QMM_EXPERTS"].launches_by_shape)
     run = {"qmm_launches": sum(d["QMM"] for d in deltas),
            "qmm_batched_launches": sum(d["QMM_BATCHED"] for d in deltas),
-           "qmm_batched_per_decode_step": deltas[1]["QMM_BATCHED"],
-           "qmm_batched_per_prefill": deltas[0]["QMM_BATCHED"],
-           "qmm_batched_launches_by_shape": {"x".join(map(str, key)): c
-                                             for key, c in batched_by_shape.items()},
+           "qmm_experts_launches": sum(d["QMM_EXPERTS"] for d in deltas),
+           "qmm_experts_per_decode_step": deltas[1]["QMM_EXPERTS"],
+           "qmm_experts_per_prefill": deltas[0]["QMM_EXPERTS"],
+           "qmm_experts_launches_by_shape": {"x".join(map(str, key)): c
+                                             for key, c in experts_by_shape.items()},
            "qmm_launches_by_shape": {f"{n}x{k}": c for (n, k), c in by_shape.items()},
            "flash_tc_launches": sum(d["FLASH_TC"] for d in deltas),
            "flash_tc_launches_by_shape": {str(key): c for key, c in
@@ -4507,6 +4515,7 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
     served = logits[:, :fwd.shape[1]]                    # MoE: the prefill's logits alone
     run["vs_forward_max_rel"] = lm_rel(served, fwd)
     before = mods["FLASH"].launches
+    batched_before = collections.Counter(mods["QMM_BATCHED"].launches_by_shape)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     truth_record = {} if experts else None
     if cfg.family == "encdec" or experts:
@@ -4517,6 +4526,9 @@ def lm_check_run(torch, mods, cfg, label, policy, tree, prompt, quantized, limit
         truth = m.forward(cfg32, tree, seq, policy=policy,
                           memory=lm_memory(mods, cfg32, tree, policy, source))[0][:, s - 1:]
     run["truth_flash_f32_launches"] = mods["FLASH"].launches - before
+    run["truth_qmm_batched_launches_by_shape"] = {
+        "x".join(map(str, key)): c - batched_before[key]
+        for key, c in mods["QMM_BATCHED"].launches_by_shape.items() if c > batched_before[key]}
     run["truth"] = {name: lm_rel(a[:, :truth.shape[1]], truth[:, :a.shape[1]]) for name, a in (
         ("kernel", logits), ("plain", plain_logits), ("forward", fwd))}
     if experts:
@@ -5453,8 +5465,9 @@ def moe_setup(torch, mods, arch=MOE_ARCH, tag="moe"):
         for i in range(cfg.n_layers):
             w = stack[i]
             if not (isinstance(w, QWeight) and w.packed.ndim == 3 and w.packed.is_contiguous()
-                    and mods["tc_aligned"](w.packed)):
-                raise AssertionError(f"{tag}: layer {i}'s {name} does not take QMM_BATCHED")
+                    and mods["tc_aligned"](w.packed)
+                    and mods["experts_shape_ok"](w.packed, w.k_dim)):
+                raise AssertionError(f"{tag}: layer {i}'s {name} does not take QMM_EXPERTS")
     for name in ("wq", "wk", "wv", "wo"):
         for i in range(cfg.n_layers):
             if mods["cuda_kernel"](slot["attn"][name]["w"][i].packed_weights()) is not mods["QMM"]:
@@ -5534,11 +5547,11 @@ def moe_dispatch_check(torch, mods, cfg, qparams, record, flush, tag="moe"):
     e, k, dtype = cfg.n_experts, cfg.experts_per_token, xg.dtype
     groups, cap = moe_groups(cfg, LM_BATCH * LM_PROMPT)
     p = moe_layer(qparams, 0)
-    xe, (_, gate_vals, gate_idx, slot, kept) = moe.dispatch(xg, router_w, top_k=k, n_experts=e,
-                                                            cap=cap, dtype=dtype)
-    h = F.silu(moe.expert_product(xe, p["wi_gate"], dtype)) * moe.expert_product(
-        xe, p["wi_up"], dtype)
-    ye = moe.expert_product(h, p["wo"], dtype)
+    xe, (_, gate_vals, gate_idx, slot, kept, rows) = moe.dispatch(
+        xg, router_w, top_k=k, n_experts=e, cap=cap, dtype=dtype)
+    h = F.silu(moe.expert_product(xe, p["wi_gate"], dtype, rows)) * moe.expert_product(
+        xe, p["wi_up"], dtype, rows)
+    ye = moe.expert_product(h, p["wo"], dtype, rows)
     y = moe.combine(ye, slot, kept, gate_vals)
     token = torch.full((e * cap + 1,), -1, dtype=torch.int64, device=xg.device)
     token[slot] = torch.arange(g, device=xg.device).repeat_interleave(k)
@@ -5580,21 +5593,39 @@ def moe_dispatch_check(torch, mods, cfg, qparams, record, flush, tag="moe"):
     return out
 
 
-def moe_kernel_rows(torch, mods, cfg, qparams, flush, tag="moe"):
-    """QMM_BATCHED on layer 0's wi_gate (and wi_up's shape) and wo stacks at
-    a decode step's C = 1 and a prefill group's C = 320, bf16 x read as
-    float32, as on the path: the kernel, its plain version (qmm_batched_ref),
+def moe_decode_rows(torch, cfg, record):
+    """The rows in use of layer 0's expert products in the kernel run's first
+    decode step: each expert's kept picks of its LM_BATCH tokens (int32 on
+    the card), from the run's recorded picks."""
+    n_pre = cfg.n_layers * moe_groups(cfg, LM_BATCH * LM_PROMPT)[0]
+    picks = record["picks"][n_pre].reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64, device=picks.device)
+    counts.scatter_add_(0, picks, torch.ones_like(picks))
+    return counts.clamp(max=moe_groups(cfg, LM_BATCH)[1]).to(torch.int32)
+
+
+def moe_kernel_rows(torch, mods, cfg, qparams, flush, routed_rows, tag="moe"):
+    """QMM_EXPERTS on layer 0's wi_gate (and wi_up's shape) and wo stacks on
+    bf16 x, as on the path: at a decode step's C = 1 with the kernel run's
+    routed rows (``routed_rows``, layer 0's first decode step) and with
+    every row, and at a prefill group's C = 320 with every row. Each row:
+    the kernel, its plain version (qmm_batched_ref at the same rows),
     torch.bmm on the stack materialized to bf16 (the library; the
-    materialize not timed) and the bound (codes, scales, x and y moved once,
-    or one bf16 pass at the tensor-core peak: x is bf16; the kernel, handed
-    its float32 widening, multiplies two more pieces that are zero), held to
-    qmm's rule;
-    and QMM at M = LM_BATCH on layer 0's attention wq (lm_qmm_row)."""
+    materialize not timed; x's rows past the rows in use are zero, as
+    dispatch leaves them, so it computes the same function) and the bound
+    (the codes and scales of the experts with a row in use, x's rows in
+    use, f32 y written once; or one bf16 pass over the rows in use at the
+    tensor-core peak), held to qmm's rule. Then QMM_BATCHED, the route of
+    float32 activations (the truth's), on the same stack at C = 320, for
+    the record; and QMM at M = LM_BATCH on layer 0's attention wq
+    (lm_qmm_row)."""
     dev = torch.device(mods["device"])
     gen = torch.Generator(device=dev).manual_seed(27)
-    QMMB, ref = mods["QMM_BATCHED"], mods["qmm_batched_ref"]
+    kernels = {"QMM_EXPERTS": mods["QMM_EXPERTS"], "QMM_BATCHED": mods["QMM_BATCHED"]}
+    ref = mods["qmm_batched_ref"]
     p = moe_layer(qparams, 0)
-    rows = []
+    c_dec, c_pre = moe_groups(cfg, LM_BATCH)[1], moe_groups(cfg, LM_BATCH * LM_PROMPT)[1]
+    rows_out = []
     for name in ("wi_gate", "wo"):
         w = p[name]
         e, n, kp = w.packed.shape
@@ -5602,41 +5633,59 @@ def moe_kernel_rows(torch, mods, cfg, qparams, flush, tag="moe"):
         wb = mods["lm_materialize"](w, torch.bfloat16)
         wabs = mods["unpack_codes"](w.packed, bits, k).float().abs() * (
             w.scale / mods["BY_BITS"][bits].half_steps)
-        for c in (moe_groups(cfg, LM_BATCH)[1], moe_groups(cfg, LM_BATCH * LM_PROMPT)[1]):
+        every = {c: torch.full((e,), c, dtype=torch.int32, device=dev) for c in (c_dec, c_pre)}
+        cases = (("QMM_EXPERTS", "routed", c_dec, routed_rows.clamp(max=c_dec)),
+                 ("QMM_EXPERTS", "all", c_dec, every[c_dec]),
+                 ("QMM_EXPERTS", "all", c_pre, every[c_pre]),
+                 ("QMM_BATCHED", "all", c_pre, every[c_pre]))
+        for kname, label, c, rows in cases:
+            kernel = kernels[kname]
+            in_use = torch.arange(c, device=dev) < rows[:, None]
             xt = torch.randn(e, c, k, generator=gen, device=dev).to(torch.bfloat16)
+            xt[~in_use] = 0
             x = xt.float()
-            before = QMMB.launches
-            y = mods["qmm_batched"](xt, w.packed, w.scale, bits, k)
-            if QMMB.launches != before + 1:
-                raise AssertionError(f"{tag} qmm_batched {name}: QMM_BATCHED was not launched")
-            plain = ref(x, w.packed, w.scale, bits, k)
+            xk = xt if kname == "QMM_EXPERTS" else x
+            before = {kn: kk.launches for kn, kk in kernels.items()}
+            y = mods["qmm_batched"](xk, w.packed, w.scale, bits, k, rows)
+            if {kn: kk.launches - before[kn] for kn, kk in kernels.items()} != {
+                    kn: int(kn == kname) for kn in kernels}:
+                raise AssertionError(f"{tag} qmm_batched {name}: {kname} was not launched alone")
+            plain = ref(x, w.packed, w.scale, bits, k, rows)
             err = (y - plain).abs()
             if not bool((err <= 1e-5 * plain.abs() + 1e-5 * torch.matmul(
                     x.abs(), wabs.transpose(-1, -2))).all()):
-                raise AssertionError(f"{tag} qmm_batched {name} C={c}: max |Δ| "
+                raise AssertionError(f"{tag} qmm_batched {name} C={c} rows={label}: max |Δ| "
                                      f"{float(err.max())} exceeds the tolerance")
-            nbytes = e * (n * kp + 4 * n + 2 * c * k + 2 * c * n)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * e * c * n * k / BF16_FLOP_PER_S
+            used, experts = int(rows.sum()), int((rows > 0).sum())   # read off the path
+            nbytes = experts * (n * kp + 4 * n) + 2 * used * k + 4 * e * c * n
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * used * n * k / BF16_FLOP_PER_S
             reps = 20 if c == 1 else 5
-            row = {"shape": name, "E": e, "C": c, "N": n, "K": k, "bits": bits,
+            if kname == "QMM_EXPERTS":
+                call = lambda: kernel(xt, w.packed, w.scale, bits, k, rows)   # noqa: E731
+            else:
+                call = lambda: kernel(x, w.packed, w.scale, bits, k)          # noqa: E731
+            row = {"kernel": kname, "shape": name, "rows": label, "rows_in_use": used,
+                   "experts_in_use": experts, "E": e, "C": c, "N": n, "K": k, "bits": bits,
                    "max_abs_err": float(err.max()),
-                   "ms": time_ms(torch, lambda: QMMB(x, w.packed, w.scale, bits, k), reps, flush),
-                   "plain_ms": time_ms(torch, lambda: ref(x, w.packed, w.scale, bits, k), 3,
-                                       flush),
+                   "ms": time_ms(torch, call, reps, flush),
+                   "plain_ms": time_ms(torch, lambda: ref(x, w.packed, w.scale, bits, k, rows),
+                                       3, flush),
                    "library_ms": time_ms(torch, lambda: torch.bmm(xt, wb), reps, flush),
                    "library": "torch.bmm on the stack materialized to bf16",
                    "bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes_bound_ms": t_bytes * 1e3}
-            rows.append(row)
-            print(f"[chip_smoke]   {tag} qmm_batched {name:7s} E={e} C={c:3d} N={n} K={k}: "
-                  f"max|Δ|={row['max_abs_err']:.3g} kernel {row['ms']:.4f} ms  plain "
-                  f"{row['plain_ms']:.3f} ms  bmm(bf16 stack) {row['library_ms']:.4f} ms  bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            rows_out.append(row)
+            print(f"[chip_smoke]   {tag} {kname} {name:7s} E={e} C={c:3d} N={n} K={k} rows "
+                  f"{label} ({used} in use, {experts} experts): max|Δ|={row['max_abs_err']:.3g} "
+                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  bmm(bf16 stack) "
+                  f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
             del xt, x, y, plain, err
         del wb, wabs
     wq = qparams["slots"]["slot0"]["attn"]["wq"]["w"][0]
-    return {"batched": rows, "attention": lm_qmm_row(torch, mods, tag, "wq", wq, gen, flush)}
+    return {"batched": rows_out,
+            "attention": lm_qmm_row(torch, mods, tag, "wq", wq, gen, flush)}
 
 
 def moe_routed_bound(torch, mods, cfg, qparams, record, bounds, tag="moe"):
@@ -5667,7 +5716,7 @@ def moe_routed_bound(torch, mods, cfg, qparams, record, bounds, tag="moe"):
 def phase_moe(torch, mods):
     """qwen3-moe-30b-a3b at full width (48 layers, 128 experts, top-8) served
     on the card in W4KV8 from a W4 tree built leaf by leaf: 8 prompts of
-    1,024 tokens, 32 decode steps, every expert product on QMM_BATCHED (3 ×
+    1,024 tokens, 32 decode steps, every expert product on QMM_EXPERTS (3 ×
     48 a decode step, 288 a prefill), gated per step as phase lm gates
     starcoder2-3b, with the MoE changes of lm_check_run (the prefill against
     forward over the prompt; the float32 serving path as the truth; every
@@ -5686,8 +5735,9 @@ def phase_moe(torch, mods):
                               "moe"))
     out["routed_bound"] = moe_routed_bound(torch, mods, cfg, qparams, record, out)
     out["dispatch"] = moe_dispatch_check(torch, mods, cfg, qparams, record, flush)
+    routed_rows = moe_decode_rows(torch, cfg, record)
     del record
-    out["qmm_rows"] = moe_kernel_rows(torch, mods, cfg, qparams, flush)
+    out["qmm_rows"] = moe_kernel_rows(torch, mods, cfg, qparams, flush, routed_rows)
     out["flash_row"] = xattn_flash_row(
         torch, mods, "moe self", (LM_BATCH, cfg.padded_heads, cfg.padded_kv_heads, LM_PROMPT,
                                   LM_PROMPT, cfg.head_dim_), flush,
@@ -5745,14 +5795,14 @@ def moe_faults(torch, mods):
     check("kernel")
     ffn = qparams["slots"]["slot0"]["ffn"]
     targets = {ffn[n][MOE_FAULT_LAYER].packed.data_ptr() for n in ("wi_gate", "wi_up", "wo")}
-    real = mods["qmm_ops"].QMM_BATCHED
+    real = mods["qmm_ops"].QMM_EXPERTS
 
-    def wrong_codes(x, w_packed, scale, bits, k_dim):
+    def wrong_codes(x, w_packed, scale, bits, k_dim, rows):
         if w_packed.data_ptr() in targets:
             w_packed = w_packed.clone()
             w_packed[MOE_FAULT_EXPERT] = w_packed[MOE_FAULT_EXPERT + 1]
-        return real(x, w_packed, scale, bits, k_dim)
-    with stand_in(mods["qmm_ops"], QMM_BATCHED=wrong_codes):
+        return real(x, w_packed, scale, bits, k_dim, rows)
+    with stand_in(mods["qmm_ops"], QMM_EXPERTS=wrong_codes):
         check("wrong_expert_codes")
     moe = mods["lm_moe"]
 
@@ -6727,8 +6777,10 @@ def load_port() -> dict:
         QMM,
         QMM_BATCHED,
         QMM_CORE,
+        QMM_EXPERTS,
         QMM_GROUP,
         QMM_GROUP_CORE,
+        experts_shape_ok,
         tc_aligned,
     )
     from repro_torch.kernels.qmm import ops as qmm_ops
@@ -6811,6 +6863,7 @@ def load_port() -> dict:
                 lm_layers=lm_layers, lm_model=lm_model, rglru=rglru, ssm=ssm, QWeight=QWeight,
                 ATTENTION_KV_CAST=lm_layers.ATTENTION_KV_CAST, lm_moe=lm_moe,
                 EXPERT_BMM=lm_moe.EXPERT_BMM, QMM_BATCHED=QMM_BATCHED, qmm_batched=qmm_batched,
+                QMM_EXPERTS=QMM_EXPERTS, experts_shape_ok=experts_shape_ok,
                 qmm_batched_ref=qmm_batched_ref, tc_aligned=tc_aligned,
                 lm_materialize=lm_materialize, param_bytes=param_bytes,
                 quantize_params=quantize_params,
@@ -6847,12 +6900,14 @@ def load_port() -> dict:
                 source_recovery=source_recovery,
                 relative_error=relative_error, parallel=parallel, SERVE_CONFIGS=SERVE_CONFIGS,
                 serve=serve, Request=Request, PackedStreamingOperator=PackedStreamingOperator,
-                KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, QMM_BATCHED, hs_kernel.HIST,
+                KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, QMM_BATCHED, QMM_EXPERTS,
+                         hs_kernel.HIST,
                          hs_kernel.MASK,
                          hs_kernel.HSTHRESH, sq_kernel.SQROUND, fa_kernel.FLASH,
                          fa_kernel.FLASH_TC, fa_kernel.FLASH_TC_UNALIGNED,
                          fa_kernel.FLASH_UNALIGNED),
-                LIBRARIES=(qmm_kernel.LIBRARY, qmm_kernel.CORE_LIBRARY, hs_kernel.LIBRARY,
+                LIBRARIES=(qmm_kernel.LIBRARY, qmm_kernel.CORE_LIBRARY,
+                           qmm_kernel.EXPERTS_LIBRARY, hs_kernel.LIBRARY,
                            hs_kernel.FUSED_LIBRARY, sq_kernel.LIBRARY, fa_kernel.LIBRARY,
                            fa_kernel.TC_LIBRARY))
     return mods
@@ -7507,14 +7562,18 @@ def main(argv=None) -> int:
             })
     moe = report["moe"]
     for row in moe["qmm_rows"]["batched"]:
+        experts = row["kernel"] == "QMM_EXPERTS"
+        key = f"{row['E']}x{row['N']}x{row['K']}"
         kernels.append({
-            "name": f"qmm_batched[moe: {MOE_ARCH} W4 {row['shape']} E={row['E']} C={row['C']}]",
+            "name": (f"{'qmm_experts' if experts else 'qmm_batched'}[moe: {MOE_ARCH} W4 "
+                     f"{row['shape']} E={row['E']} C={row['C']} rows={row['rows']}]"),
             "route": "cuda",
-            "source": lm_source,
-            "entry": "repro_qmm_tc_batched",
+            "source": ("src/repro_torch/kernels/qmm/csrc/qmm_experts.cu" if experts
+                       else lm_source),
+            "entry": "repro_qmm_experts" if experts else "repro_qmm_tc_batched",
             "replaces": "src/repro/kernels/qmm/kernel.py:265",
-            "launches": moe["w4kv8"]["qmm_batched_launches_by_shape"].get(
-                f"{row['E']}x{row['N']}x{row['K']}", 0),
+            "launches": (moe["w4kv8"]["qmm_experts_launches_by_shape"].get(key, 0) if experts
+                         else moe["w4kv8"]["truth_qmm_batched_launches_by_shape"].get(key, 0)),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -7523,12 +7582,17 @@ def main(argv=None) -> int:
             "bytes_bound_ms": row["bytes_bound_ms"],
             "library_ms": row["library_ms"],
             "shape": f"E={row['E']} C={row['C']} N={row['N']} K={row['K']} bits={row['bits']}, "
-                     f"layer 0's {row['shape']} stack on bf16 x (timed); launches: the W4KV8 "
-                     "run's prefill and decode steps, every expert product of this shape "
-                     "(wi_gate's is also wi_up's; the reference computes materialize, then "
-                     "einsum('ecd,edf->ecf'), src/repro/models/moe.py:56-58); library: "
-                     "torch.bmm on the stack materialized to bf16; bound: codes, scales, bf16 "
-                     "x and y, or one bf16 pass at the tensor-core peak",
+                     f"layer 0's {row['shape']} stack, rows in use {row['rows_in_use']} "
+                     f"({row['experts_in_use']} experts; {row['rows']}), bf16 x"
+                     + ("" if experts else " read as float32 (the route of float32 "
+                        "activations)")
+                     + "; launches: the W4KV8 run's "
+                     + ("prefill and decode steps" if experts else "float32 truth")
+                     + ", every expert product of this shape (wi_gate's is also wi_up's; the "
+                     "reference computes materialize, then einsum('ecd,edf->ecf'), "
+                     "src/repro/models/moe.py:56-58); library: torch.bmm on the stack "
+                     "materialized to bf16; bound: the codes and scales of the experts in use, "
+                     "x's rows in use and f32 y, or one bf16 pass over the rows in use",
         })
     row = moe["qmm_rows"]["attention"]
     kernels.append({

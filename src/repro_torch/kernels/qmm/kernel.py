@@ -1,6 +1,6 @@
 """ctypes binding of the Hopper ``qmm`` kernels.
 
-Two libraries:
+Three libraries:
 
 * ``csrc/qmm_wgmma.cu`` (:data:`LIBRARY`), the tensor-core kernel (``wgmma``,
   x split exactly into three bf16 pieces, split-K). ``repro_qmm_tc``
@@ -10,7 +10,15 @@ Two libraries:
   an (N, ⌈K/g⌉) slab of scales, one per g contiguous codes along K
   (``per_block``), for g a multiple of 16 codes; ``repro_qmm_tc_batched``
   (:data:`QMM_BATCHED`) applies ``repro_qmm_tc``'s function to a stack of E
-  kernels in one launch: the expert products of a mixture-of-experts layer.
+  kernels in one launch, on float32 x (a mixture-of-experts layer's float32
+  expert products).
+* ``csrc/qmm_experts.cu`` (:data:`EXPERTS_LIBRARY`), ``repro_qmm_experts``
+  (:data:`QMM_EXPERTS`): ``qmm_pallas``'s function per expert of a stack on
+  bf16 x, the expert products of a bf16 mixture-of-experts layer, designed
+  for them: x by TMA in one bf16 piece, up to 160 x rows of an expert to a
+  block, and only the slots in use (``rows``, an (E,) int32 tensor on the
+  card that the host never reads: y's rows past rows[e] are 0, and items
+  past them read nothing).
 * ``csrc/qmm.cu`` (:data:`CORE_LIBRARY`), the CUDA-core row walk, which
   reads the codes byte by byte: ``repro_qmm_group`` (:data:`QMM_GROUP_CORE`)
   for the group sizes the tensor-core kernel does not take (g not a multiple
@@ -44,13 +52,14 @@ from repro_torch.kernels.cudalib import (
 from repro_torch.quant.formats import BY_BITS
 from repro_torch.quant.pack import packed_len
 
-__all__ = ["NVCC_FLAGS", "SOURCE", "CORE_SOURCE", "LIBRARY", "CORE_LIBRARY", "QMM",
-           "QMM_BATCHED", "QMM_CORE", "QMM_GROUP", "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE",
-           "build_dir",
+__all__ = ["NVCC_FLAGS", "SOURCE", "CORE_SOURCE", "EXPERTS_SOURCE", "LIBRARY", "CORE_LIBRARY",
+           "EXPERTS_LIBRARY", "QMM", "QMM_BATCHED", "QMM_CORE", "QMM_EXPERTS", "QMM_GROUP",
+           "QMM_GROUP_CORE", "TC_GROUP_MULTIPLE", "build_dir", "experts_shape_ok",
            "ROW_LOCAL_ROWS", "qmm_cuda", "qmm_group_cuda", "tc_aligned"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm_wgmma.cu"
 CORE_SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
+EXPERTS_SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm_experts.cu"
 TC_GROUP_MULTIPLE = 16          # the tensor-core group kernel takes g = 16·j
 # The most x rows of one call for which every qmm kernel gives row b the bits
 # of a call on row b alone. Up to 16 rows the tensor-core kernels sum each row
@@ -75,9 +84,16 @@ CORE_LIBRARY = CudaLibrary(CORE_SOURCE, {
     # x, codes, scale, y, M, N, K, Kp, bits, group_size, stream
     "repro_qmm_group": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 })
-_ROWS = 128                     # Φ̂ rows of one block of qmm_wgmma.cu
+EXPERTS_LIBRARY = CudaLibrary(EXPERTS_SOURCE, {
+    # x, codes, scale, rows, y, counters, E, C, N, K, Kp, bits, stream
+    "repro_qmm_experts": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+})
+_ROWS = 128                     # Φ̂ rows of one block of qmm_wgmma.cu (and code rows of qmm_experts.cu)
 _SPLITS: dict = {}              # (device, E, N, Kp) -> split-K parts (E = 1: a 2-D call)
 _SCRATCH: dict = {}             # device -> [workspace f32, tickets int32 (zero between launches)]
+_EXPERT_COUNTERS: dict = {}     # device -> QMM_EXPERTS' counters (zero between launches)
+EXPERT_X_MULTIPLE = 8           # QMM_EXPERTS reads x rows by TMA: K a multiple of 8 (16 bytes)
+EXPERT_CODE_MULTIPLE = 16       # ... and code rows: Kp a multiple of 16 bytes
 
 
 def _check(who, x, w_packed, scale, bits, k_dim):
@@ -241,9 +257,71 @@ class QmmBatchedKernel(CudaKernel):
         return y
 
 
+def experts_shape_ok(w_packed: torch.Tensor, k_dim: int) -> bool:
+    """Whether QMM_EXPERTS takes codes of this shape: rows of x and of the
+    codes whole multiples of 16 bytes (TMA's strides), K a multiple of 8
+    and Kp of 16."""
+    return k_dim % EXPERT_X_MULTIPLE == 0 and w_packed.shape[-1] % EXPERT_CODE_MULTIPLE == 0
+
+
+def _expert_counters(device):
+    """The two zeroed counters a QMM_EXPERTS launch takes its work items
+    with, kept per device; launches on one stream share them."""
+    counters = _EXPERT_COUNTERS.get(device)
+    if counters is None:
+        counters = _EXPERT_COUNTERS[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return counters
+
+
+class QmmExpertsKernel(CudaKernel):
+    """``repro_qmm_experts``: y[e] = x[e] @ dequant(w[e])ᵀ with one scale per
+    row of each w[e], for a stack of E kernels and bf16 x in one launch, at
+    the rows in use: y[e, m] = 0 for m ≥ rows[e]."""
+
+    def __call__(self, x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+                 bits: int, k_dim: int, rows: torch.Tensor) -> torch.Tensor:
+        """x (E, C, K) bf16 and w_packed (E, N, Kp) uint8, both on a 16-byte
+        boundary, K a multiple of 8 and Kp of 16; scale (E, N) or (E, N, 1)
+        f32; rows (E,) int32 on x's device; all CUDA and contiguous. Returns
+        y (E, C, N) f32. The host never reads ``rows``."""
+        who = "qmm_experts_cuda"
+        if bits not in BY_BITS:
+            raise ValueError(f"bits must be one of {tuple(BY_BITS)}, got {bits}")
+        check_cuda_tensors(who, ("x", x, torch.bfloat16), ("w_packed", w_packed, torch.uint8),
+                           ("scale", scale, torch.float32), ("rows", rows, torch.int32))
+        if x.ndim != 3 or w_packed.ndim != 3 or x.shape[0] != w_packed.shape[0]:
+            raise ValueError(f"{who}: x must be (E, C, K) and w_packed (E, N, Kp), got "
+                             f"{tuple(x.shape)} and {tuple(w_packed.shape)}")
+        e, c, k = x.shape
+        n, kp = w_packed.shape[1:]
+        if k != k_dim or kp != packed_len(k_dim, bits):
+            raise ValueError(f"{who}: x is (E, C, {k}) and w_packed (E, N, {kp}); k_dim={k_dim} "
+                             f"at {bits} bits needs Kp={packed_len(k_dim, bits)}")
+        if not experts_shape_ok(w_packed, k_dim):
+            raise ValueError(f"{who}: K={k} must be a multiple of {EXPERT_X_MULTIPLE} and "
+                             f"Kp={kp} of {EXPERT_CODE_MULTIPLE} (x and code rows are read by "
+                             "TMA)")
+        if x.data_ptr() % 16 or not tc_aligned(w_packed):
+            raise ValueError(f"{who}: x and w_packed must start on a 16-byte boundary")
+        if scale.numel() != e * n:
+            raise ValueError(f"{who}: scale has {scale.numel()} entries, E·N={e * n}")
+        if tuple(rows.shape) != (e,):
+            raise ValueError(f"{who}: rows must be (E,) = ({e},), got {tuple(rows.shape)}")
+        if max(e * c * -(-n // _ROWS), e * n, k) >= 2**31:
+            raise ValueError(f"{who}: dimensions must fit a 32-bit int")
+        y = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+        if e == 0 or c == 0 or n == 0:
+            return y
+        self.launch(x.device, (e, n, k), x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+                    rows.data_ptr(), y.data_ptr(), _expert_counters(x.device).data_ptr(), e, c,
+                    n, k, kp, bits, out=y)
+        return y
+
+
 QMM = QmmKernel(LIBRARY, "repro_qmm_tc")
 QMM_BATCHED = QmmBatchedKernel(LIBRARY, "repro_qmm_tc_batched")
 QMM_CORE = QmmCoreKernel(CORE_LIBRARY, "repro_qmm")
+QMM_EXPERTS = QmmExpertsKernel(EXPERTS_LIBRARY, "repro_qmm_experts")
 QMM_GROUP = QmmGroupKernel(LIBRARY, "repro_qmm_group_tc", TC_GROUP_MULTIPLE, split_k=True)
 QMM_GROUP_CORE = QmmGroupKernel(CORE_LIBRARY, "repro_qmm_group", 1, split_k=False)
 

@@ -6,9 +6,10 @@
   weights (``per_block``) go to a group kernel or :func:`qmm_group_ref`.
   There is no padding: the kernels mask the ragged edges themselves.
 * :func:`qmm_batched` — ``x[e] @ dequant(w[e])ᵀ`` for a stack of E kernels
-  with per-row scales (a mixture-of-experts layer's expert products): one
-  ``QMM_BATCHED`` launch for a CUDA tensor, :func:`qmm_batched_ref` for a
-  CPU tensor.
+  with per-row scales (a mixture-of-experts layer's expert products), at
+  each kernel's rows in use: one launch for a CUDA tensor, ``QMM_EXPERTS``
+  (``csrc/qmm_experts.cu``) for bf16 x, ``QMM_BATCHED`` for float32 x;
+  :func:`qmm_batched_ref` for a CPU tensor.
 * :func:`cuda_kernel` / :func:`group_kernel` — the card's kernel for a packed
   operand, a fixed route by group size and the codes' alignment: per-row
   scales and g = 16·j run on the tensor cores (``QMM``, ``QMM_GROUP``,
@@ -37,6 +38,7 @@ from repro_torch.kernels.qmm.kernel import (
     QMM,
     QMM_BATCHED,
     QMM_CORE,
+    QMM_EXPERTS,
     QMM_GROUP,
     QMM_GROUP_CORE,
     TC_GROUP_MULTIPLE,
@@ -170,20 +172,30 @@ def qmm(x: torch.Tensor, w: PackedWeights, *, w_t: Optional[PackedWeights] = Non
 
 
 def qmm_batched(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
-                k_dim: int) -> torch.Tensor:
+                k_dim: int, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[e] = x[e] @ dequant(w[e])ᵀ, (E, M, K) → (E, M, N) float32, for codes
-    (E, N, Kp) with one scale per row, (E, N) or (E, N, 1). A CUDA ``x``
-    launches ``QMM_BATCHED`` once (which raises for codes off a 16-byte
-    boundary: there is no per-kernel route); a CPU ``x`` runs
+    (E, N, Kp) with one scale per row, (E, N) or (E, N, 1). ``rows`` (E,)
+    int32, each kernel's rows in use (None: all M): rows m ≥ rows[e] of y[e]
+    are 0. A fixed route by x's dtype on the card: bf16 x launches
+    ``QMM_EXPERTS`` once (rows on the card, never read by the host); float32
+    x launches ``QMM_BATCHED`` once, which computes every row and ignores
+    ``rows`` (both raise for codes off a 16-byte boundary: there is no
+    per-kernel route); any other dtype raises. A CPU ``x`` runs
     :func:`qmm_batched_ref`."""
     if x.shape[-1] != k_dim:
         raise ValueError(f"x K dim {x.shape[-1]} != packed k_dim {k_dim}")
     if x.device != w_packed.device:
         raise ValueError(f"x is on {x.device} but the packed weights on {w_packed.device}")
-    if x.is_cuda:
-        return QMM_BATCHED(x.to(torch.float32).contiguous(), w_packed, scale.contiguous(), bits,
-                           k_dim)
-    return qmm_batched_ref(x, w_packed, scale, bits, k_dim)
+    if not x.is_cuda:
+        return qmm_batched_ref(x, w_packed, scale, bits, k_dim, rows)
+    if x.dtype == torch.bfloat16:
+        if rows is None:
+            rows = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+        return QMM_EXPERTS(x.contiguous(), w_packed, scale.contiguous(), bits, k_dim, rows)
+    if x.dtype == torch.float32:
+        return QMM_BATCHED(x.contiguous(), w_packed, scale.contiguous(), bits, k_dim)
+    raise TypeError(f"qmm_batched: x must be bfloat16 (QMM_EXPERTS) or float32 (QMM_BATCHED) "
+                    f"on the card, got {x.dtype}")
 
 
 def _zero_byte(bits: int) -> int:

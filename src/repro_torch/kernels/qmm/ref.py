@@ -16,6 +16,8 @@ Code c dequantizes to ``scale · c / K``; group-scaled code (n, k) uses
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.quant.formats import BY_BITS
@@ -43,10 +45,16 @@ def qmm_group_ref(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, 
 
 
 def qmm_batched_ref(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, bits: int,
-                    k_dim: int) -> torch.Tensor:
+                    k_dim: int, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`qmm_ref` of each kernel of a stack: x (E, M, K), w_packed (E, N,
-    Kp), scale (E, N) or (E, N, 1). Returns (E, M, N) float32."""
+    Kp), scale (E, N) or (E, N, 1). Returns (E, M, N) float32. With ``rows``
+    (E,), the rows in use of each kernel: the full product with rows m ≥
+    rows[e] of y[e] zeroed (the batched kernel's rows contract)."""
     codes = unpack_codes(w_packed, bits, k_dim)                    # (E, N, K) int8
     w = codes.to(torch.float32) / BY_BITS[bits].half_steps
     y = torch.matmul(x.to(torch.float32), w.transpose(-1, -2))
-    return y * scale.reshape(scale.shape[0], 1, -1)
+    y = y * scale.reshape(scale.shape[0], 1, -1)
+    if rows is None:
+        return y
+    in_use = torch.arange(y.shape[1], device=y.device) < rows.to(y.device).reshape(-1, 1)
+    return torch.where(in_use[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))

@@ -16,12 +16,18 @@ dtype, the SwiGLU expert products in that dtype, and the load loss over all
 picks.
 
 Expert products (:func:`expert_product`), each a fixed route on the card: a
-stack of W4 codes with at most ``QMM_MAX_ROWS`` slots per expert takes the
-``qmm_batched`` kernel, one launch for all experts; more slots, or float
-weights, take materialize + ``torch.bmm`` (the reference's computation),
-counted in ``EXPERT_BMM``. On the CPU, the plain versions.
+stack of W4 codes with at most ``QMM_MAX_ROWS`` slots per expert takes
+``qmm_batched``, one launch for all experts (``QMM_EXPERTS`` on bf16
+activations, ``QMM_BATCHED`` on float32); more slots, or float weights, take
+materialize + ``torch.bmm`` (the reference's computation), counted in
+``EXPERT_BMM``. On the CPU, the plain versions. Slots fill from 0 upward, so
+expert e's slots in use are a prefix of ``rows[e]`` = min(its picks, cap)
+(:func:`slots`, on the group's device); the kernel route is handed it and
+skips the empty slots' work without the host reading it.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,13 +60,16 @@ def n_experts_of(p) -> int:
     return rw.packed.shape[-2] if isinstance(rw, QWeight) else rw.shape[1]
 
 
-def expert_product(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
+def expert_product(x: torch.Tensor, w, dtype: torch.dtype,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, in) times each expert's kernel of ``w`` (E, in, out), a
     tensor or a QWeight stack → (E, C, out) in ``dtype``. On the card a
-    QWeight stack with C ≤ QMM_MAX_ROWS launches ``qmm_batched`` once;
-    anything else is materialize + ``torch.bmm``, counted in EXPERT_BMM."""
+    QWeight stack with C ≤ QMM_MAX_ROWS launches ``qmm_batched`` once, at
+    ``rows`` (E,) slots in use an expert (x's rows past them are zero, as
+    :func:`dispatch` leaves them, so the product is the same); anything else
+    is materialize + ``torch.bmm``, counted in EXPERT_BMM."""
     if x.is_cuda and isinstance(w, QWeight) and x.shape[1] <= QMM_MAX_ROWS:
-        return qmm_batched(x, w.packed, w.scale, w.bits, w.k_dim).to(dtype)
+        return qmm_batched(x, w.packed, w.scale, w.bits, w.k_dim, rows).to(dtype)
     if x.is_cuda:
         EXPERT_BMM.launches += 1
     return torch.bmm(x.to(dtype), materialize(w, dtype))
@@ -81,8 +90,10 @@ def route(xg: torch.Tensor, router_w, top_k: int):
 def slots(gate_idx: torch.Tensor, n_experts: int, cap: int):
     """Each pick's slot: its place among the picks of its expert in the
     flattened (token, pick) order (the reference's cumsum, ``moe.py:48``),
-    kept where it is below ``cap``. Returns (slot, kept), (g·k,) each: slot
-    e·cap + place for a kept pick, else E·cap (a row that is never read)."""
+    kept where it is below ``cap``. Returns (slot, kept, rows): slot and
+    kept (g·k,), slot e·cap + place for a kept pick, else E·cap (a row that
+    is never read); rows (E,) int32, each expert's kept picks, min(count,
+    cap): its slots in use, a prefix."""
     flat = gate_idx.reshape(-1)
     order = torch.sort(flat, stable=True).indices          # by expert, (token, pick) order kept
     counts = torch.zeros(n_experts, dtype=torch.int64, device=flat.device).scatter_add_(
@@ -92,7 +103,7 @@ def slots(gate_idx: torch.Tensor, n_experts: int, cap: int):
     place[order] = torch.arange(flat.numel(), device=flat.device) - starts[flat[order]]
     kept = place < cap
     slot = torch.where(kept, flat * cap + place, torch.full_like(flat, n_experts * cap))
-    return slot, kept
+    return slot, kept, counts.clamp(max=cap).to(torch.int32)
 
 
 def dispatch(xg: torch.Tensor, router_w, *, top_k: int, n_experts: int, cap: int, dtype):
@@ -100,16 +111,17 @@ def dispatch(xg: torch.Tensor, router_w, *, top_k: int, n_experts: int, cap: int
     d) in ``dtype``, expert e's slot c holding the token whose kept pick took
     it, zeros where no pick did (the reference's xe, einsum("td,tec->ecd")
     over its 0/1 dispatch tensor). Returns (xe, route): route is (probs,
-    gate_vals, gate_idx, slot, kept) for :func:`combine` and the load loss."""
+    gate_vals, gate_idx, slot, kept, rows) for :func:`combine`, the load
+    loss and the expert products (rows: :func:`slots`)."""
     g, d = xg.shape
     probs, gate_vals, gate_idx = route(xg, router_w, top_k)
-    slot, kept = slots(gate_idx, n_experts, cap)
+    slot, kept, rows_in_use = slots(gate_idx, n_experts, cap)
     token = torch.arange(g, device=xg.device).repeat_interleave(top_k)
     holder = torch.full((n_experts * cap + 1,), g, dtype=torch.int64, device=xg.device)
     holder[slot] = token                       # slot E·cap takes every dropped pick
     rows = torch.cat([xg.to(dtype), torch.zeros((1, d), dtype=dtype, device=xg.device)])
     xe = rows[holder[:n_experts * cap]].reshape(n_experts, cap, d)
-    return xe, (probs, gate_vals, gate_idx, slot, kept)
+    return xe, (probs, gate_vals, gate_idx, slot, kept, rows_in_use)
 
 
 def combine(ye: torch.Tensor, slot: torch.Tensor, kept: torch.Tensor,
@@ -131,10 +143,12 @@ def _group_moe(p, xg: torch.Tensor, *, top_k: int, cap: int, dtype):
     """One token group. xg: (g, d) → (y (g, d), the group's load loss)."""
     g = xg.shape[0]
     e = n_experts_of(p)
-    xe, (probs, gate_vals, gate_idx, slot, kept) = dispatch(
+    xe, (probs, gate_vals, gate_idx, slot, kept, rows) = dispatch(
         xg, p["router"]["w"], top_k=top_k, n_experts=e, cap=cap, dtype=dtype)
-    h = F.silu(expert_product(xe, p["wi_gate"], dtype)) * expert_product(xe, p["wi_up"], dtype)
-    y = combine(expert_product(h, p["wo"], dtype), slot, kept, gate_vals)
+    # h's rows past `rows` are silu(0)·0 = 0, as xe's are
+    h = (F.silu(expert_product(xe, p["wi_gate"], dtype, rows))
+         * expert_product(xe, p["wi_up"], dtype, rows))
+    y = combine(expert_product(h, p["wo"], dtype, rows), slot, kept, gate_vals)
     me = probs.mean(0)
     ce = torch.zeros(e, dtype=torch.float32, device=xg.device).scatter_add_(
         0, gate_idx.reshape(-1), torch.ones(g * top_k, dtype=torch.float32,

@@ -134,6 +134,131 @@ def test_batched_kernel_rejects_bad_inputs(cuda):
         qmm_kernel.QMM_BATCHED(x[:3], qw.packed, qw.scale, 4, 64)
 
 
+# rows of each expert in use for the QMM_EXPERTS cases, from C and E: all C,
+# none, a ragged prefix per expert (0 .. C), and values past either end
+# (clamped to [0, C])
+def _expert_rows(case, e, c, device):
+    gen = torch.Generator().manual_seed(e + c)
+    rows = {"full": torch.full((e,), c),
+            "zero": torch.zeros(e, dtype=torch.int64),
+            "ragged": torch.randint(0, c + 1, (e,), generator=gen),
+            "past": torch.tensor([c + 5, -3, c, 2 ** 30] * (e // 4 + 1))[:e]}[case]
+    return rows.to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("c", [1, 7, 64, 160, 320, 512])
+@pytest.mark.parametrize("rows_case", ["full", "zero", "ragged", "past"])
+@pytest.mark.parametrize("enk", [(16, 768, 2048), (8, 2048, 768)])
+def test_expert_kernel_matches_plain_version(cuda, bits, c, rows_case, enk):
+    """QMM_EXPERTS over a stack of expert kernels (qwen3-moe-30b's wi and wo
+    shapes) on bf16 x, one launch, held to qmm's rule against the plain
+    version with the same rows in use; x's rows past them hold random
+    values, which the rows contract writes as 0."""
+    from repro_torch.kernels.qmm.ops import qmm_batched
+    from repro_torch.kernels.qmm.ref import qmm_batched_ref
+    from repro_torch.models.quantized import quantize_weight
+
+    e, n, k = enk
+    gen = torch.Generator(device=cuda).manual_seed(e + n + k + c + bits)
+    qw = quantize_weight(torch.randn(e, k, n, generator=gen, device=cuda) * 0.02, bits)
+    x = torch.randn(e, c, k, generator=gen, device=cuda).to(torch.bfloat16)
+    rows = _expert_rows(rows_case, e, c, cuda)
+    launched = (qmm_kernel.QMM_EXPERTS.launches, qmm_kernel.QMM_BATCHED.launches)
+    y = qmm_batched(x, qw.packed, qw.scale, bits, k, rows)
+    assert (qmm_kernel.QMM_EXPERTS.launches, qmm_kernel.QMM_BATCHED.launches) == (
+        launched[0] + 1, launched[1]) and y.shape == (e, c, n) and y.dtype == torch.float32
+    ref = qmm_batched_ref(x.float(), qw.packed, qw.scale, bits, k, rows)
+    wabs = unpack_codes(qw.packed, bits, k).float().abs() * (qw.scale / (2 ** (bits - 1) // 2))
+    tol = 1e-5 * ref.abs() + 1e-5 * torch.matmul(x.float().abs(), wabs.transpose(-1, -2))
+    assert bool(((y - ref).abs() <= tol).all())
+    in_use = torch.arange(c, device=cuda) < rows.clamp(0, c)[:, None]
+    assert bool((y[~in_use] == 0).all())
+
+
+@pytest.mark.parametrize("c", [1, 320])
+def test_expert_kernel_is_deterministic_and_equals_the_full_product(cuda, c):
+    """Two launches on the same inputs give the same bits (split-K parts at
+    C = 1 are summed in a fixed order), and on x whose rows past ``rows``
+    are zero, as dispatch leaves them, the result is the full product's."""
+    from repro_torch.kernels.qmm.ops import qmm_batched
+    from repro_torch.models.quantized import quantize_weight
+
+    e, n, k = 128, 768, 2048
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    qw = quantize_weight(torch.randn(e, k, n, generator=gen, device=cuda) * 0.02, 4)
+    rows = _expert_rows("ragged", e, c, cuda)
+    x = torch.randn(e, c, k, generator=gen, device=cuda).to(torch.bfloat16)
+    x[~(torch.arange(c, device=cuda) < rows[:, None])] = 0
+    y1 = qmm_batched(x, qw.packed, qw.scale, 4, k, rows)
+    y2 = qmm_batched(x, qw.packed, qw.scale, 4, k, rows)
+    full = qmm_batched(x, qw.packed, qw.scale, 4, k)
+    assert torch.equal(y1, y2) and torch.equal(y1, full)
+
+
+def test_expert_route_by_dtype_and_refusals(cuda):
+    """qmm_batched routes bf16 x to QMM_EXPERTS, float32 x to QMM_BATCHED
+    (rows ignored), and refuses other dtypes; QMM_EXPERTS refuses f16 x,
+    codes off a 16-byte boundary, rows on the CPU or of another shape, and
+    rows of x or codes that TMA cannot stride."""
+    from repro_torch.kernels.qmm.ops import qmm_batched
+    from repro_torch.kernels.qmm.ref import qmm_batched_ref
+    from repro_torch.models.quantized import quantize_weight
+
+    qw = quantize_weight(torch.randn(4, 64, 48, device=cuda), 4)
+    x = torch.randn(4, 3, 64, device=cuda)
+    rows = torch.tensor([3, 0, 1, 2], dtype=torch.int32, device=cuda)
+    kernels = (qmm_kernel.QMM_EXPERTS, qmm_kernel.QMM_BATCHED)
+    before = [kk.launches for kk in kernels]
+    y32 = qmm_batched(x, qw.packed, qw.scale, 4, 64, rows)
+    assert [kk.launches for kk in kernels] == [before[0], before[1] + 1]
+    assert bool((y32[1] != 0).any())                    # float32 computes every row
+    yb = qmm_batched(x.to(torch.bfloat16), qw.packed, qw.scale, 4, 64, rows)
+    assert [kk.launches for kk in kernels] == [before[0] + 1, before[1] + 1]
+    ref = qmm_batched_ref(x.to(torch.bfloat16).float(), qw.packed, qw.scale, 4, 64, rows)
+    assert bool(((yb - ref).abs() <= 1e-5 * ref.abs() + 1e-6).all())
+    with pytest.raises(TypeError):
+        qmm_batched(x.half(), qw.packed, qw.scale, 4, 64, rows)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        qmm_kernel.QMM_EXPERTS(x.half(), qw.packed, qw.scale, 4, 64, rows)
+    raw = torch.empty(qw.packed.numel() + 16, dtype=torch.uint8, device=cuda)
+    off = raw[1:1 + qw.packed.numel()].view(qw.packed.shape)
+    off.copy_(qw.packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        qmm_kernel.QMM_EXPERTS(xb, off, qw.scale, 4, 64, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmm_kernel.QMM_EXPERTS(xb, qw.packed, qw.scale, 4, 64, rows.cpu())
+    with pytest.raises(ValueError, match="rows"):
+        qmm_kernel.QMM_EXPERTS(xb, qw.packed, qw.scale, 4, 64, rows[:3])
+    with pytest.raises(TypeError):
+        qmm_kernel.QMM_EXPERTS(xb, qw.packed, qw.scale, 4, 64, rows.long())
+    odd = quantize_weight(torch.randn(4, 36, 48, device=cuda), 4)      # K = 36, Kp = 18
+    with pytest.raises(ValueError, match="multiple"):
+        qmm_kernel.QMM_EXPERTS(torch.zeros(4, 3, 36, dtype=torch.bfloat16, device=cuda),
+                               odd.packed, odd.scale, 4, 36, rows)
+
+
+def test_expert_products_make_no_host_sync(cuda):
+    """moe.expert_product on the kernel route (a W4 stack, bf16 x, rows on
+    the card) makes no device-to-host copy: the host never reads rows."""
+    from repro_torch.models import moe
+    from repro_torch.models.quantized import quantize_weight
+
+    w = quantize_weight(torch.randn(8, 256, 128, device=cuda) * 0.02, 4)
+    x = torch.randn(8, 5, 256, device=cuda).to(torch.bfloat16)
+    rows = torch.tensor([5, 0, 3, 1, 5, 2, 0, 4], dtype=torch.int32, device=cuda)
+    moe.expert_product(x, w, torch.bfloat16, rows)               # build and warm up
+    before = qmm_kernel.QMM_EXPERTS.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe.expert_product(x, w, torch.bfloat16, rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert qmm_kernel.QMM_EXPERTS.launches == before + 1 and y.dtype == torch.bfloat16
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     w = pack_weights(torch.randn(16, 40, device=cuda), 4)
     with pytest.raises(TypeError):

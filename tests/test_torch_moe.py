@@ -222,7 +222,7 @@ def test_moe_apply(layer_params, case):
     cap = max(1, int(g * K / E * cf))
     xg = torch.from_numpy(x).reshape(-1, D)[:g]
     _, _, idx = tmoe.route(xg, pt["router"]["w"], K)
-    _, kept = tmoe.slots(idx, E, cap)
+    _, kept, _ = tmoe.slots(idx, E, cap)
     if case == "capacity_drops":
         assert cap == 4 and int(kept.sum()) < g * K
     if case == "router_ties":
@@ -403,3 +403,79 @@ def test_batched_qmm_on_the_cpu_is_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         qmm_kernel.QMM_BATCHED(x, qw.packed, qw.scale, 4, 40)
 
+
+
+@pytest.mark.parametrize("case", ["one_group", "capacity_drops", "router_ties"])
+def test_slots_rows_are_each_experts_kept_picks(layer_params, case):
+    """``slots``' rows (the expert products' rows in use) are each expert's
+    kept picks on the reference's group: the sum of its one-hot dispatch
+    tensor (transcribed from src/repro/models/moe.py:46-53) over tokens and
+    slots; the port's xe equals the reference's, and its rows past them are
+    zero, so the kernel route may skip them."""
+    shape, zeros, group, cf, _, _, _ = APPLY_CASES[case]
+    pj, pt = layer_params[None]
+    x = _x(len(case), shape, zeros)
+    g = min(group, shape[0] * shape[1])
+    cap = max(1, int(g * K / E * cf))
+    xg = x.reshape(-1, D)[:g]
+    probs = jax.nn.softmax(_j(xg) @ pj["router"]["w"], axis=-1)
+    onehot = jax.nn.one_hot(jax.lax.top_k(probs, K)[1], E, dtype=jnp.int32)
+    flat = onehot.reshape(g * K, E)
+    pos = (jnp.cumsum(flat, axis=0) * flat - 1).reshape(g, K, E)
+    keep = ((pos >= 0) & (pos < cap))[..., None].astype(jnp.float32) * onehot[..., None]
+    disp = jnp.sum(jax.nn.one_hot(jnp.clip(pos, 0, cap - 1), cap) * keep, axis=1)  # (g, E, C)
+    xe, route = tmoe.dispatch(torch.from_numpy(xg), pt["router"]["w"], top_k=K, n_experts=E,
+                              cap=cap, dtype=torch.float32)
+    rows = route[5]
+    assert rows.dtype == torch.int32 and tuple(rows.shape) == (E,)
+    assert rows.tolist() == np.asarray(disp.sum((0, 2))).astype(int).tolist()
+    assert int(rows.sum()) == int(route[4].sum())                   # kept picks
+    np.testing.assert_array_equal(xe.numpy(), np.asarray(jnp.einsum("td,tec->ecd", _j(xg), disp)))
+    in_use = torch.arange(cap) < rows[:, None]
+    assert bool((xe[~in_use] == 0).all())
+    if case == "capacity_drops":
+        assert int(rows.max()) == cap and int(rows.sum()) < g * K
+
+
+def test_batched_ref_with_rows_is_the_product_at_the_rows_in_use():
+    """qmm_batched_ref with ``rows`` is the full product at each expert's rows
+    in use and 0 past them (rows past C take them all), whatever x holds
+    there; on x whose rows past ``rows`` are zero it equals the full
+    product; qmm_batched on CPU tensors runs it and launches nothing."""
+    from repro_torch.kernels.qmm import kernel as qmm_kernel
+    from repro_torch.kernels.qmm.ops import qmm_batched
+    from repro_torch.kernels.qmm.ref import qmm_batched_ref
+    from repro_torch.models.quantized import quantize_weight
+
+    gen = torch.Generator().manual_seed(11)
+    qw = quantize_weight(torch.randn(4, 40, 24, generator=gen), 4)
+    x = torch.randn(4, 6, 40, generator=gen)
+    rows = torch.tensor([6, 0, 3, 9], dtype=torch.int32)
+    full = qmm_batched_ref(x, qw.packed, qw.scale, 4, 40)
+    got = qmm_batched_ref(x, qw.packed, qw.scale, 4, 40, rows)
+    in_use = torch.arange(6) < rows[:, None]
+    assert torch.equal(got[in_use], full[in_use]) and bool((got[~in_use] == 0).all())
+    assert bool((full[~in_use] != 0).any())
+    xz = x * in_use[..., None]
+    assert torch.equal(qmm_batched_ref(xz, qw.packed, qw.scale, 4, 40, rows),
+                       qmm_batched_ref(xz, qw.packed, qw.scale, 4, 40))
+    launched = (qmm_kernel.QMM_EXPERTS.launches, qmm_kernel.QMM_BATCHED.launches)
+    assert torch.equal(qmm_batched(x, qw.packed, qw.scale, 4, 40, rows), got)
+    assert torch.equal(qmm_batched(x.to(torch.bfloat16), qw.packed, qw.scale, 4, 40, rows),
+                       qmm_batched_ref(x.to(torch.bfloat16), qw.packed, qw.scale, 4, 40, rows))
+    assert (qmm_kernel.QMM_EXPERTS.launches, qmm_kernel.QMM_BATCHED.launches) == launched
+
+
+def test_expert_kernel_refuses_cpu_tensors():
+    """QMM_EXPERTS launches only on CUDA tensors: a CPU x or rows raises
+    before any build."""
+    from repro_torch.kernels.qmm import kernel as qmm_kernel
+    from repro_torch.models.quantized import quantize_weight
+
+    qw = quantize_weight(torch.randn(2, 64, 16), 4)
+    x = torch.zeros(2, 3, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmm_kernel.QMM_EXPERTS(x, qw.packed, qw.scale, 4, 64,
+                               torch.tensor([3, 1], dtype=torch.int32))
+    assert qmm_kernel.experts_shape_ok(qw.packed, 64)
+    assert not qmm_kernel.experts_shape_ok(quantize_weight(torch.randn(2, 36, 16), 4).packed, 36)

@@ -106,6 +106,13 @@ def test_per_row_entry_is_in_the_tensor_core_library():
     assert set(qmm_kernel.CORE_LIBRARY.entries) == {"repro_qmm", "repro_qmm_group"}
 
 
+def test_expert_entry_is_in_its_own_library():
+    assert qmm_kernel.QMM_EXPERTS.library is qmm_kernel.EXPERTS_LIBRARY
+    assert qmm_kernel.EXPERTS_LIBRARY.source.name == "qmm_experts.cu"
+    assert qmm_kernel.EXPERTS_SOURCE.is_file()
+    assert set(qmm_kernel.EXPERTS_LIBRARY.entries) == {"repro_qmm_experts"}
+
+
 @pytest.mark.parametrize("granularity", ["per_channel", "per_block:64", "per_block:8"])
 def test_cpu_tensors_launch_no_kernel(granularity):
     kernels = (qmm_kernel.QMM, qmm_kernel.QMM_GROUP, qmm_kernel.QMM_GROUP_CORE)
