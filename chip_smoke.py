@@ -237,8 +237,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 21. the dense LM (``repro_torch.models``, phase ``lm``): starcoder2-3b at
     full width, all 30 layers, ``init_params`` from PRNGKey(0) on the card
     and ``quantize_params(params, 4)`` (nearest); 8 prompts of 1,024 tokens
-    (``randint`` of PRNGKey(1)) through ``generate`` (a prefill and 32
-    greedy decode steps, cache 1,024 + 33 + 8), under W4KV8 on the kernel
+    (``randint`` of PRNGKey(1)) through ``generate`` (a prefill and 16
+    greedy decode steps, cache 1,024 + 17 + 8), under W4KV8 on the kernel
     routes and at full precision (bf16 over the f32 weights). Gated per
     step: the prefill launches ``FLASH_TC`` once per layer and no ``qmm``,
     each W4KV8 decode step ``QMM`` 6 per layer (180) and nothing else, full
@@ -254,8 +254,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     (``LM_KV8_FORWARD_TOL``). The kernel routes must be no farther than
     1.25× the plain routes from the float32 truth (``forward`` of the
     float32 model on the same weights and tokens).
-    Readings: prefill ms, decode ms per token (median of 32 steps × 3
-    passes) and tokens/s, ``param_bytes``, one profiled decode step (device
+    Readings: prefill ms, decode ms per token (median of the 16 steps of
+    one timed pass) and tokens/s, ``param_bytes``, one profiled decode step (device
     busy, ``qmm``'s share), the W4KV8 step's bytes bound and the
     unembedding's per-step dequantize. Two layers at full width in float32
     on the card and on the port's CPU (same weights, the card's tokens,
@@ -268,7 +268,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     flash at B = 8, S = 1,024 beside SDPA.
 22. training the dense LM (phase ``train``): starcoder2-3b at full width,
     ``init_state`` from PRNGKey(0) on the card, then ``train_loop`` over
-    ``make_train_step`` for 3 steps of B = 8 × 1,024 synthetic tokens
+    ``make_train_step`` for 2 steps of B = 8 × 1,024 synthetic tokens
     (the card's tokens the CPU's), AdamW with the launcher's schedule, Q8
     gradients and IHT at 50% (``examples/train_lm_sparse.py``'s operators).
     Gated: every loss finite; in each step ``FLASH_TC`` 60 launches (forward
@@ -286,7 +286,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     float32 layers at full width, loss and every gradient card against
     CPU within 1e-4 (``TRAIN_CPU_TOL``), and 3 whole steps of a small
     model (``TRAIN_RESUME``) card against CPU, loss within 1e-4 and the
-    same sparsity; that small model killed after 6 of 12 steps
+    same sparsity; that small model killed after 6 of 8 steps
     (checkpoints every 4) and restarted, bit for bit the uninterrupted
     run; after the run, the fused H_s on the first step's dense inputs to
     the projection (the embedding leaf, 151M entries, and the MLP wi leaf,
@@ -301,14 +301,14 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     then rec, rec; d = 2,560, 10 query heads on 1, D = 256, RG-LRU width
     2,560, window 2,048, vocab 256,000),
     set up, served and gated as phase 21 serves starcoder2-3b (run A: 8
-    prompts of 1,024 tokens, 32 decode steps, W4KV8 and full precision):
+    prompts of 1,024 tokens, 16 decode steps, W4KV8 and full precision):
     each W4KV8 decode step ``QMM`` once per product (an RG-LRU layer's five,
     the gates on float32 x, an attention layer's four, each swiglu MLP's
     three: 200), each prefill ``FLASH_TC`` once per attention layer (8) with
     the window, the logit limits ``HYBRID_TOL`` and
     ``HYBRID_KV8_FORWARD_TOL`` from this family's own noise floor
     (``scripts/lm_noise_floor.py --arch recurrentgemma-2b``). Run B: one
-    prompt of 4,096 tokens and 32 decode steps under W4KV8, where the window
+    prompt of 4,096 tokens and 16 decode steps under W4KV8, where the window
     bites: 8 windowed ``FLASH_TC`` launches in the prefill (their shape key
     names the window), the cache's 2,048 slots shifting every step, the
     logits held as in run A (``forward`` over the same 4,128 tokens, whose
@@ -324,12 +324,12 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     width, all 48 layers (attention-free SSD blocks, no MLP; d = 1,024,
     d_inner 2,048 in 32 heads of 64, state 128, conv 4, chunk 64, vocab
     50,432), set up, served and gated as phase 21 serves starcoder2-3b (run
-    A: 8 prompts of 1,024 tokens, 32 decode steps, W4 and full precision;
+    A: 8 prompts of 1,024 tokens, 16 decode steps, W4 and full precision;
     no KV cache for KV8 to act on): each W4 decode step ``QMM`` once per
     product (in_proj and out_proj of every layer: 96), no ``FLASH_TC``
     anywhere, the logit limit ``SSM_TOL`` from this family's own noise floor
     (``scripts/lm_noise_floor.py --arch mamba2-370m``). Run B: one prompt of
-    16,384 tokens (256 chunks chain in the prefill) and 32 decode steps
+    16,384 tokens (256 chunks chain in the prefill) and 16 decode steps
     under W4, held as run A (``forward`` over the same 16,416 tokens pads
     its last chunk), its decode beside a B = 1 decode after 1,024 tokens
     (the state does not grow). Readings as phase 21's, ``qmm`` at M = 8 on
@@ -340,7 +340,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 25. the encoder-decoder LM (phase ``encdec``, run after ``train``):
     whisper-tiny at full width (4 encoder and 4 decoder layers, d = 384, 6
     heads of 64, vocab 52,096): 8 × 1,500 float32 stub frames through
-    ``encode``, prompts of 224 tokens over its memory and 32 decode steps,
+    ``encode``, prompts of 224 tokens over its memory and 16 decode steps,
     W4KV8 and full precision, set up, served and gated as phase 21 serves
     starcoder2-3b: each ``encode`` ``FLASH_TC`` 4 times (non-causal,
     S = 1,500), each prefill 8 times (4 causal, 4 cross-attention 224 ×
@@ -357,7 +357,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
 26. the VLM (phase ``vlm``, run after ``encdec``): llama-3.2-vision-11b at
     full width (40 layers, (attn, attn, attn, xattn, attn) × 8, d = 4,096,
     32/8 heads of 128, vocab 128,256) over 8 × 1,600 float32 stub image
-    rows, prompts of 1,024 tokens, 32 decode steps, W4KV8 and full
+    rows, prompts of 1,024 tokens, 16 decode steps, W4KV8 and full
     precision, gated as phase 21: each prefill ``FLASH_TC`` 48 times (40
     causal, 8 cross-attention 1,024 × 1,600 on K/V cast from float32 to
     bf16, the cast counted 8 times), each W4KV8 decode step ``QMM`` 296
@@ -368,7 +368,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     float32 K/V) and causal beside SDPA and the bound. Two layers (xattn,
     attn) in float32, card against CPU within 1e-4·max|logits|.
 27. training recurrentgemma-2b (phase ``train_hybrid``, run after
-    ``train``) at full width on train_4k's rows: 3 steps of B = 4 × 4,096
+    ``train``) at full width on train_4k's rows: 2 steps of B = 4 × 4,096
     in 4 microbatches of one row (``accum_steps``; the global batch of 256
     cut for the phase's time), Q8 gradients and IHT at 50%, gated as phase
     22 in each step: ``FLASH_TC`` 64 launches (8 attention layers, forward
@@ -385,7 +385,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     a mask) on the run's inputs; the RG-LRU scan's forward and backward a
     layer.
 28. training mamba2-370m (phase ``train_ssm``, after ``train_hybrid``):
-    3 steps of B = 8 × 4,096 in one microbatch, gated as phase 27 (no
+    2 steps of B = 8 × 4,096 in one microbatch, gated as phase 27 (no
     attention: no ``FLASH_TC``, no backward route; ``HSTHRESH`` 4), two
     float32 layers card against CPU, a small model stepped and resumed, the
     fused H_s on the embedding and the in_proj leaf, and the chunked SSD's
@@ -395,7 +395,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     d_ff 768, top-8, vocab 151,936), its W4 tree built leaf by leaf from
     PRNGKey(0) (``init_quantized_params``; the float32 tree, ~122 GB, does
     not fit the card, so there is no full-precision run), prompts of 1,024
-    tokens and 32 decode steps under W4KV8, gated as phase 21 with the MoE
+    tokens and 16 decode steps under W4KV8, gated as phase 21 with the MoE
     changes: each prefill ``FLASH_TC`` 48 times and ``QMM_EXPERTS`` 288
     times (two groups of 4,096 tokens, capacity 320), each decode step
     ``QMM`` 192 and ``QMM_EXPERTS`` 144 times (one group of 8 tokens,
@@ -420,6 +420,35 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     record. Two float32 layers, card against CPU within 1e-4·max|logits|,
     over a prefill and one decode step (their expert products on
     ``QMM_BATCHED``).
+30. training whisper-tiny (phase ``train_encdec``, run after
+    ``train_ssm``) at full width, not cut (4 encoder and 4 decoder layers,
+    d = 384, 6 heads of 64, vocab 51,865) on train_4k's rows: 3 steps of
+    B = 8 × 4,096 in one microbatch, each row over 1,500 float32 stub frames
+    drawn from (seed, step) that ``loss_fn`` encodes (the encoder trains with
+    the decoder, without remat, as the reference's ``encode``), Q8 gradients
+    and IHT at 50%, gated as phase 22 in each step: ``FLASH_TC`` 20 launches
+    (each decoder layer's self- and cross-attention forward and remat
+    recompute, one per encoder layer), each at its shape (4,096 × 4,096
+    causal, 4,096 × 1,500 and 1,500 × 1,500 non-causal), the backward route
+    12, ``HSTHRESH`` one per eligible leaf (the encoder's among them),
+    ``SQROUND`` one per chunk. Beside it: the attention Function (causal,
+    cross, encoder) against autograd through the plain forward within 2⁻⁶;
+    2 encoder and 2 decoder layers in float32 card against CPU (the loss and
+    every gradient leaf, the encoder's included) within 1e-4; a small
+    whisper stepped card against CPU and resumed bit for bit; the fused H_s
+    on the embedding and the unembedding, ``sqround``, and ``FLASH_TC``
+    causal, over the memory and in the encoder, beside SDPA and the bound.
+31. training llama-3.2-vision-11b (phase ``train_vlm``, after
+    ``train_encdec``) at full width, its depth cut from 40 to 10 layers (two
+    periods of (attn, attn, attn, xattn, attn); its float32 parameters,
+    gradients and AdamW state at 40 layers need several cards): 3 steps of
+    B = 4 × 4,096 in 4 microbatches of one row, each row over 1,600 float32
+    image rows, gated as phase 30: ``FLASH_TC`` 96 launches, the backward
+    route 48, the image layers' K/V cast to bf16 16 times (forward and
+    recompute), the peak memory stated. Beside it: the attention Function
+    (causal; the cross call on float32 K/V through the cast, its gradients
+    back to float32); one period of 5 layers card against CPU; a small
+    (xattn, attn) model stepped and resumed; the kernels as phase 30.
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -448,12 +477,14 @@ the real kernels meet every gate and the ×1.1 fault and the logic faults of
 flash (``LM_FLASH_FAULTS``) fail one, and writes ``lm_faults.json`` to
 ``--out``.
 
-``python3 chip_smoke.py --train-faults`` (~2 min) runs only phase
-``train_hybrid``'s attention check and card-vs-CPU gradients with faults
-planted (``train_faults``): the attention backward route ignoring the
-window, and the RG-LRU scan on the card taking one step's a as 1. It passes
-when every planted fault fails its gate, and writes ``train_faults.json``
-to ``--out``.
+``python3 chip_smoke.py --train-faults`` (~3 min) runs only phase
+``train_hybrid``'s and ``train_encdec``'s attention checks and card-vs-CPU
+gradients with faults planted (``train_faults``): the attention backward
+route ignoring the window, the RG-LRU scan on the card taking one step's a
+as 1, whisper-tiny's cross-attention backward run as causal on the card,
+and its memory detached on the card before the decoder (the encoder gets
+no gradient). It passes when every planted fault fails its gate, and
+writes ``train_faults.json`` to ``--out``.
 
 ``python3 chip_smoke.py --moe-faults`` (~4 min) runs only phase ``moe``'s
 W4KV8 run, its gates, its held batched-qmm calls and its dispatch check,
@@ -578,10 +609,11 @@ RESUME_RUNS = (("lofar", ["--config", "lofar", "--backend", "packed", "--bits-ph
                           "--requantize", "fixed", "--batch", "8"]),
                ("mri-wavelet", ["--config", "mri-wavelet"]))
 # The lm phase: starcoder2-3b (src/repro/configs/starcoder2_3b.py) at full
-# width, all 30 layers, served to 8 prompts of 1,024 tokens, 32 decode steps
+# width, all 30 layers, served to 8 prompts of 1,024 tokens, 16 decode steps
+# (the script's time limit bounds the depth of every LM phase)
 LM_ARCH = "starcoder2-3b"
-LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 1024, 32
-LM_TIMING_PASSES = 2            # timed decode passes a run: the script's time limit bounds them
+LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 1024, 16
+LM_TIMING_PASSES = 1            # timed decode passes a run: the script's time limit bounds them
 # Logits, as a share of max|logits|. tests/test_models_smoke.py:96 bounds the
 # reference's SMOKE model by 2e-2 (LM_TOL): the kernel routes against the plain
 # routes, and serving against forward at full precision. W4KV8 serving reads
@@ -604,9 +636,9 @@ LM_SCALE_FAULTS = (1.1, 1.03, 1.01)
 # fault of bf16's size (bf16_acc) is phase 12's elementwise check's to catch.
 LM_FLASH_FAULTS = ("diagonal_tile", "own_key")
 # the card against the port's CPU: two layers at full width, float32, a
-# prefill and two decode steps (each of the CPU's W4 steps dequantizes every
+# prefill and one decode step (each of the CPU's W4 steps dequantizes every
 # layer and the unembedding again: 6 s a step at recurrentgemma-2b)
-LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE_STEPS = 2, 2, 128, 2
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_DECODE_STEPS = 2, 2, 128, 1
 LM_CPU_TOL = 1e-4
 # The hybrid phase: recurrentgemma-2b (src/repro/configs/recurrentgemma_2b.py)
 # at full width, all 26 layers ((rec, rec, attn) × 8, then rec, rec), served
@@ -683,9 +715,9 @@ VLM_BF16_FLOOR, VLM_KV8_FLOOR = 0.1055, 0.2306
 # the ragged last key tile of the memory (keys ENCDEC_FAULT_KEYS and on)
 ENCDEC_FAULT_KEYS = 1472
 # the card against the port's CPU in float32: whisper-tiny whole; the vlm cut
-# to two layers with cross_attn_every = 2, (xattn, attn), and two decode steps
-# (each W4 step dequantizes the 128,256 × 4,096 unembedding on the CPU, ~6 s)
-VLM_CPU_EVERY, VLM_CPU_DECODE_STEPS = 2, 2
+# to two layers with cross_attn_every = 2, (xattn, attn), and one decode step
+# (each W4 step dequantizes the 128,256 × 4,096 unembedding on the CPU, ~9 s)
+VLM_CPU_EVERY, VLM_CPU_DECODE_STEPS = 2, 1
 # The moe phase: qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b.py) at
 # full width, all 48 layers of 128 experts, top-8, served as phase lm serves
 # starcoder2-3b, W4KV8 only: its float32 tree (~122 GB) does not fit the
@@ -4083,14 +4115,19 @@ def lm_memory(mods, cfg, params, policy, source):
     return source
 
 
+def memory_rows(cfg) -> int:
+    """Rows of a cross-attention family's memory: encoder_seq stub frames
+    (encdec) or n_image_tokens image rows (vlm); 0 for the other families."""
+    return {"encdec": cfg.encoder_seq, "vlm": cfg.n_image_tokens}.get(cfg.family, 0)
+
+
 def lm_stub_source(torch, mods, cfg, b, key=4):
     """The stub input of a cross-attention family, float32 from
-    ``PRNGKey(key)`` on the card: b × encoder_seq frames (encdec) or b ×
-    n_image_tokens image rows (vlm), d_model wide; None otherwise."""
-    if cfg.family not in ("encdec", "vlm"):
+    ``PRNGKey(key)`` on the card: b × ``memory_rows(cfg)`` frames or image
+    rows, d_model wide; None otherwise."""
+    if not memory_rows(cfg):
         return None
-    rows = cfg.encoder_seq if cfg.family == "encdec" else cfg.n_image_tokens
-    return mods["prng"].normal(mods["prng"].PRNGKey(key), (b, rows, cfg.d_model),
+    return mods["prng"].normal(mods["prng"].PRNGKey(key), (b, memory_rows(cfg), cfg.d_model),
                                device=torch.device(mods["device"]))
 
 
@@ -4845,8 +4882,7 @@ def lm_step_bounds(torch, mods, cfg, params, qparams, layer_codes, flush, tag="l
     kv_elems = (lm_attention_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * mean_len
                 * cfg.head_dim_)
     kv_bytes = kv_elems + (kv_elems // cfg.head_dim_ * 4 if kv_elems else 0)  # codes, scales
-    mem_rows = {"encdec": cfg.encoder_seq, "vlm": cfg.n_image_tokens}.get(cfg.family, 0)
-    cross_bytes = (lm_cross_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * mem_rows
+    cross_bytes = (lm_cross_layers(cfg) * 2 * LM_BATCH * cfg.padded_kv_heads * memory_rows(cfg)
                    * cfg.head_dim_ * 2)
     state_bytes = lm_state_bytes(cfg, LM_BATCH)
     out = {"state_bytes": state_bytes, "cross_kv_bytes": cross_bytes}
@@ -5300,7 +5336,7 @@ def encdec_fault(torch, mods, cfg, qparams, prompt, source, limits):
 def phase_encdec(torch, mods):
     """whisper-tiny at full width (4 encoder and 4 decoder layers, d = 384)
     served on the card: 8 × 1,500 stub frames through ``encode`` (4
-    non-causal FLASH_TC at S = 1,500), prompts of 224 tokens, 32 decode
+    non-causal FLASH_TC at S = 1,500), prompts of 224 tokens, 16 decode
     steps, W4KV8 on the kernel routes and full precision, gated per step as
     phase lm gates starcoder2-3b (8 FLASH_TC a prefill: 4 causal, 4 cross
     224 × 1,500; 32 qmm a decode step), each non-causal call held against
@@ -5364,7 +5400,7 @@ def vlm_prefill_parts(torch, mods, cfg, qparams, source, flush):
 def phase_vlm(torch, mods):
     """llama-3.2-vision-11b at full width (40 layers, 8 of them
     cross-attention image layers) served on the card: 8 × 1,600 float32
-    image rows, prompts of 1,024 tokens, 32 decode steps, W4KV8 on the
+    image rows, prompts of 1,024 tokens, 16 decode steps, W4KV8 on the
     kernel routes and full precision, gated per step as phase lm gates
     starcoder2-3b (48 FLASH_TC a prefill: 40 causal, 8 cross 1,024 × 1,600
     on K/V cast from float32, 8 casts; 296 qmm a decode step), each
@@ -5716,7 +5752,7 @@ def moe_routed_bound(torch, mods, cfg, qparams, record, bounds, tag="moe"):
 def phase_moe(torch, mods):
     """qwen3-moe-30b-a3b at full width (48 layers, 128 experts, top-8) served
     on the card in W4KV8 from a W4 tree built leaf by leaf: 8 prompts of
-    1,024 tokens, 32 decode steps, every expert product on QMM_EXPERTS (3 ×
+    1,024 tokens, 16 decode steps, every expert product on QMM_EXPERTS (3 ×
     48 a decode step, 288 a prefill), gated per step as phase lm gates
     starcoder2-3b, with the MoE changes of lm_check_run (the prefill against
     forward over the prompt; the float32 serving path as the truth; every
@@ -5914,7 +5950,7 @@ def lm_faults(torch, mods):
 
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024  # the serving slice's prompt shape
-TRAIN_STEPS = 3                # the step time is the median of the steps after the first
+TRAIN_STEPS = 2                # the step time is the median of the steps after the first
 TRAIN_LR = 3e-3                # launch/train.py's default, cosine with a 20-step warm-up
 TRAIN_SPARSITY, TRAIN_GRAD_BITS = 0.5, 8    # examples/train_lm_sparse.py's defaults
 TRAIN_NBINS = 4096             # optim/iht.py's bins
@@ -5936,7 +5972,7 @@ TRAIN_CPU_TOL = 1e-4
 TRAIN_RESUME = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2, head_dim=64, d_ff=2048,
                     vocab_size=4096)
 TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ = 4, 256
-TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_RESUME_KILL = 12, 4, 6
+TRAIN_RESUME_STEPS, TRAIN_RESUME_EVERY, TRAIN_RESUME_KILL = 8, 4, 6
 # plain versions the training path must not run on the card, by (module key in mods, name)
 TRAIN_PLAIN = (("lm_layers", "chunked_attention_plain"), ("hs_ops", "hsthresh_ref"),
                ("collectives", "sqround_ref"))
@@ -5956,7 +5992,7 @@ TRAIN_4K_SEQ = TRAIN_4K_LEN
 TRAIN_HYBRID_ARCH, TRAIN_SSM_ARCH = "recurrentgemma-2b", "mamba2-370m"
 TRAIN_HYBRID_BATCH, TRAIN_HYBRID_ACCUM = 4, 4
 TRAIN_SSM_BATCH, TRAIN_SSM_ACCUM = 8, 1
-TRAIN_RECURRENT_STEPS = 3
+TRAIN_RECURRENT_STEPS = 2
 # card against CPU: 3 float32 layers of recurrentgemma-2b (one (rec, rec,
 # attn) period, so that its attention layer is in) with the window cut to
 # 64 keys, so that it bites at TRAIN_CPU_SEQ; 2 of mamba2-370m
@@ -5969,15 +6005,59 @@ TRAIN_HYBRID_RESUME = dict(n_layers=3, d_model=512, n_heads=2, n_kv_heads=1, hea
                            d_ff=1536, rnn_width=512, local_window=128, vocab_size=4096)
 TRAIN_SSM_RESUME = dict(n_layers=2, d_model=512, vocab_size=4096)
 # the windowed attention's gradient checks at recurrentgemma-2b's heads:
-# (label, Sq, Sk, query offset), B = 1, window 2,048, bf16
-TRAIN_HYBRID_ATTN_CASES = (("window", TRAIN_4K_LEN, TRAIN_4K_LEN, 0),
-                           ("window+offset", TRAIN_4K_LEN // 2, TRAIN_4K_LEN, TRAIN_4K_LEN // 2))
+# (label, Sq, Sk, query offset, causal, K/V float32), B = 1, window 2,048, bf16
+TRAIN_HYBRID_ATTN_CASES = (("window", TRAIN_4K_LEN, TRAIN_4K_LEN, 0, True, False),
+                           ("window+offset", TRAIN_4K_LEN // 2, TRAIN_4K_LEN, TRAIN_4K_LEN // 2,
+                            True, False))
 # leaves held kernel against plain after the run: the embedding and the
 # largest MLP (hybrid) or SSD (ssm) leaf
 TRAIN_HYBRID_HS_LEAVES = {"embed": "['embed']['w']",
                           "wi": "['slots']['slot0']['ffn']['wi_gate']['w']"}
 TRAIN_SSM_HS_LEAVES = {"embed": "['embed']['w']",
                        "wi": "['slots']['slot0']['ssm']['in_proj']['w']"}
+# The cross-attention families trained on train_4k's rows, each batch with
+# its memory: float32 stub frames (whisper-tiny, encoder_seq of them,
+# encoded inside loss_fn, so the encoder trains with the decoder) or image
+# embeddings (the vlm, n_image_tokens rows, read by the image layers as they
+# are), drawn from (seed, step) as the tokens are (MemoryStream), so a
+# resumed run replays them. whisper-tiny is not cut: 8 rows in one
+# microbatch (its 54M parameters and their AdamW state are under 1 GB; the
+# float32 logits 6.8 GB, their log-softmax and its gradient about three
+# times that). llama-3.2-vision-11b at full width, its depth cut from 40 to
+# TRAIN_VLM_LAYERS (two periods of (attn, attn, attn, xattn, attn), both
+# image layers in one stacked slot of two): its 40.4 GB of float32
+# parameters, times 4 with the gradients and AdamW's m and v, need several
+# cards (sharding, ROADMAP.md queue 1); at 10 layers 3.23B parameters × 16 B,
+# and one row a microbatch as train_hybrid (one row's float32 logits 2.1 GB).
+TRAIN_ENCDEC_ARCH, TRAIN_VLM_ARCH = ENCDEC_ARCH, VLM_ARCH
+TRAIN_ENCDEC_BATCH, TRAIN_ENCDEC_ACCUM = 8, 1
+TRAIN_VLM_BATCH, TRAIN_VLM_ACCUM, TRAIN_VLM_LAYERS = 4, 4, 10
+TRAIN_CROSS_STEPS = 3
+TRAIN_MEMORY_FOLD = 1 << 20     # the memory's key: fold_in(PRNGKey(seed), this), then the step
+# the attention Function's checks, (label, Sq, Sk, query offset, causal, K/V
+# float32 through the route's cast), B = the run's microbatch, bf16: the
+# decoder's self-attention, the cross-attention over the memory (Sq ≠ Sk,
+# Sk ragged on the kernel's key tiles) and whisper's encoder (1,500 frames,
+# non-causal)
+TRAIN_ENCDEC_ATTN_CASES = (("causal", TRAIN_4K_LEN, TRAIN_4K_LEN, 0, True, False),
+                           ("cross", TRAIN_4K_LEN, 1500, 0, False, False),
+                           ("encoder", 1500, 1500, 0, False, False))
+TRAIN_VLM_ATTN_CASES = (("causal", TRAIN_4K_LEN, TRAIN_4K_LEN, 0, True, False),
+                        ("cross f32 K/V", TRAIN_4K_LEN, 1600, 0, False, True))
+# card against CPU: whisper-tiny's 2 encoder and 2 decoder layers; one period
+# of the vlm (5 layers), so that its image layer is in
+TRAIN_ENCDEC_CPU_LAYERS, TRAIN_VLM_CPU_LAYERS = 2, 5
+# the resume models: whisper-tiny's blocks at d = 256, 4 heads of 64, 2
+# encoder and 2 decoder layers over 300 frames; a (xattn, attn) period of the
+# vlm's blocks at d = 512, 8 (padded 16) heads of 64 on 2 over 320 image
+# rows; vocab 4,096 (the memory's rows ragged on the kernel's key tiles)
+TRAIN_ENCDEC_RESUME = dict(n_layers=2, n_encoder_layers=2, encoder_seq=300, d_model=256,
+                           n_heads=4, n_kv_heads=4, head_dim=64, d_ff=1024, vocab_size=4096)
+TRAIN_VLM_RESUME = dict(n_layers=2, cross_attn_every=2, n_image_tokens=320, d_model=512,
+                        n_heads=8, n_kv_heads=2, head_dim=64, d_ff=2048, vocab_size=4096)
+# leaves held kernel against plain after the run: the embedding and the
+# largest leaf, the unembedding (vocab × d, as large as the embedding)
+TRAIN_CROSS_HS_LEAVES = {"embed": "['embed']['w']", "wi": "['unembed']['w']"}
 
 
 def train_spec(arch):
@@ -5990,120 +6070,203 @@ def train_spec(arch):
                     attn_cases=TRAIN_HYBRID_ATTN_CASES, hs_leaves=TRAIN_HYBRID_HS_LEAVES,
                     cpu_layers=TRAIN_HYBRID_CPU_LAYERS,
                     cpu_replace=dict(local_window=TRAIN_HYBRID_CPU_WINDOW),
-                    resume=TRAIN_HYBRID_RESUME)
+                    resume=TRAIN_HYBRID_RESUME, replace={})
     if arch == TRAIN_SSM_ARCH:
         return dict(tag="train_ssm", batch=TRAIN_SSM_BATCH, seq=TRAIN_4K_SEQ,
                     accum=TRAIN_SSM_ACCUM, steps=TRAIN_RECURRENT_STEPS, attn_cases=(),
                     hs_leaves=TRAIN_SSM_HS_LEAVES, cpu_layers=TRAIN_SSM_CPU_LAYERS,
-                    cpu_replace={}, resume=TRAIN_SSM_RESUME)
+                    cpu_replace={}, resume=TRAIN_SSM_RESUME, replace={})
+    if arch == TRAIN_ENCDEC_ARCH:
+        return dict(tag="train_encdec", batch=TRAIN_ENCDEC_BATCH, seq=TRAIN_4K_SEQ,
+                    accum=TRAIN_ENCDEC_ACCUM, steps=TRAIN_CROSS_STEPS,
+                    attn_cases=TRAIN_ENCDEC_ATTN_CASES, hs_leaves=TRAIN_CROSS_HS_LEAVES,
+                    cpu_layers=TRAIN_ENCDEC_CPU_LAYERS,
+                    cpu_replace=dict(n_encoder_layers=TRAIN_ENCDEC_CPU_LAYERS),
+                    resume=TRAIN_ENCDEC_RESUME, replace={})
+    if arch == TRAIN_VLM_ARCH:
+        return dict(tag="train_vlm", batch=TRAIN_VLM_BATCH, seq=TRAIN_4K_SEQ,
+                    accum=TRAIN_VLM_ACCUM, steps=TRAIN_CROSS_STEPS,
+                    attn_cases=TRAIN_VLM_ATTN_CASES, hs_leaves=TRAIN_CROSS_HS_LEAVES,
+                    cpu_layers=TRAIN_VLM_CPU_LAYERS, cpu_replace={}, resume=TRAIN_VLM_RESUME,
+                    replace=dict(n_layers=TRAIN_VLM_LAYERS))
     return dict(tag="train", batch=TRAIN_BATCH, seq=TRAIN_SEQ, accum=1, steps=TRAIN_STEPS,
-                attn_cases=(("causal", TRAIN_SEQ, TRAIN_SEQ, 0),), hs_leaves=TRAIN_HS_LEAVES,
-                cpu_layers=TRAIN_CPU_LAYERS, cpu_replace={}, resume=TRAIN_RESUME)
+                attn_cases=(("causal", TRAIN_SEQ, TRAIN_SEQ, 0, True, False),),
+                hs_leaves=TRAIN_HS_LEAVES, cpu_layers=TRAIN_CPU_LAYERS, cpu_replace={},
+                resume=TRAIN_RESUME, replace={})
+
+
+class MemoryStream:
+    """The synthetic token stream of a training run, and for a
+    cross-attention family each step's memory: a float32 (B, T, d_model)
+    normal draw from fold_in(fold_in(PRNGKey(seed), TRAIN_MEMORY_FOLD),
+    step), made on ``draw`` (the card for the full-width runs; the host where
+    card and CPU must get the same values) and moved to ``device``. Each
+    batch is a pure function of (seed, step), so a resumed run replays the
+    same memory."""
+
+    def __init__(self, mods, seed, batch, seq, cfg, device, draw=None):
+        self.tokens = mods["SyntheticStream"](seed, batch, seq, cfg.vocab_size, device=device)
+        self.prng, self.device, self.draw = mods["prng"], device, draw or device
+        self.key = self.prng.fold_in(self.prng.PRNGKey(seed), TRAIN_MEMORY_FOLD)
+        rows = memory_rows(cfg)
+        self.shape = (batch, rows, cfg.d_model) if rows else None
+
+    def at_step(self, step: int) -> dict:
+        out = self.tokens.at_step(step)
+        if self.shape is not None:
+            out["memory"] = self.prng.normal(self.prng.fold_in(self.key, step), self.shape,
+                                             device=self.draw).to(self.device)
+        return out
 
 
 def train_flops(mods, cfg, params, b, s):
     """Operations a training step must do with per-layer remat, as (at the
     bf16 tensor-core peak, at the f32 CUDA-core peak, the attention
-    backward's): the layers' products 4× (forward, recompute, two in the
-    backward), the unembedding 3×, per attention layer 4·D flops a visible
-    (query, key) pair a product (the causal triangle, or the window's band):
-    QKᵀ and PV twice (forward and recompute) and the backward's five (S, dP,
-    dV, dQ, dK). The RG-LRU's gates (float32 x on float32 weights, TF32 off)
-    and the chunked SSD (``ssd_flops``, float32) count at the f32 peak, 4×
-    (forward, recompute, a backward of twice the forward)."""
+    backward's): the decoder's products 4× (forward, recompute, two in the
+    backward) on its b·s rows, the cross-attention's wk and wv on the
+    memory's b·T rows (float32 where the memory is: the vlm's image rows),
+    the encoder's products 3× on b·T rows (forward once: it keeps its
+    activations, as the reference's encode scans without a checkpoint), the
+    unembedding 3×; per attention call 4·D flops a visible (query, key) pair
+    a product (the causal triangle or the window's band; S × T for the
+    cross-attention; T × T for the encoder): QKᵀ and PV twice in the
+    decoder (forward and recompute), once in the encoder, and the
+    backward's five (S, dP, dV, dQ, dK). The RG-LRU's gates (float32 x on
+    float32 weights, TF32 off) and the chunked SSD (``ssd_flops``,
+    float32) count at the f32 peak, 4× (forward, recompute, a backward of
+    twice the forward)."""
     f32_names = ("w_r", "w_i")
-    bf16_w = f32_w = 0
+    t = memory_rows(cfg)
+    bf16_rw = f32_rw = 0             # rows × entries of each weight, summed
     for path, leaf in mods["tree_flatten_with_path"]({"slots": params["slots"],
                                                        "tail": params["tail"]}):
         if mods["last_key"](path) != "w":
             continue
-        if any(f"['{n}']" in mods["keystr"](path) for n in f32_names):
-            f32_w += leaf.numel()
+        name = mods["keystr"](path)
+        memory_side = "['xattn']['wk']" in name or "['xattn']['wv']" in name
+        rows = b * t if memory_side else b * s
+        if any(f"['{n}']" in name for n in f32_names) or (memory_side and cfg.family == "vlm"):
+            f32_rw += rows * leaf.numel()
         else:
-            bf16_w += leaf.numel()
+            bf16_rw += rows * leaf.numel()
+    enc_rw = b * t * sum(leaf.numel() for path, leaf in mods["tree_flatten_with_path"](
+        params.get("encoder", {})) if mods["last_key"](path) == "w")
     unembed = params["unembed"]["w"].numel() if "unembed" in params else 0
+    one = 2 * b * cfg.padded_heads * cfg.head_dim_          # flops a pair, per product
     pairs = attention_pairs(s, s, True, mods["lm_model"]._window(cfg), 0)
-    per_product = 2 * b * cfg.padded_heads * cfg.head_dim_ * pairs * lm_attention_layers(cfg)
-    attn_bwd = 5 * per_product
+    decoder = one * (pairs * lm_attention_layers(cfg) + s * t * lm_cross_layers(cfg))
+    encoder = one * t * t * cfg.n_encoder_layers
+    attn_bwd = 5 * (decoder + encoder)
     n_ssm = sum(kind == "ssm" for kind in cfg.pattern_for_layers())
-    bf16 = 2 * b * s * (4 * bf16_w + 3 * unembed) + 4 * per_product + attn_bwd
-    f32 = 2 * b * s * 4 * f32_w + (4 * n_ssm * ssd_flops(cfg, b, s) if n_ssm else 0)
+    bf16 = (2 * (4 * bf16_rw + 3 * enc_rw + 3 * b * s * unembed) + 4 * decoder + 2 * encoder
+            + attn_bwd)
+    f32 = 2 * 4 * f32_rw + (4 * n_ssm * ssd_flops(cfg, b, s) if n_ssm else 0)
     return bf16, f32, attn_bwd
 
 
 def train_attention_check(torch, mods, cfg, spec):
     """The attention Function at one layer's heads, per case of
-    ``spec["attn_cases"]`` (B = the run's microbatch, bf16, causal, cfg's
-    window, Sq ≠ Sk with a query offset) against autograd through the
-    all-plain forward on the card: dq, dk, dv within TRAIN_ATTN_REL in
-    2-norm. One FLASH_TC launch and one backward-route call a case; the
-    plain backward timed beside the kernel forward."""
+    ``spec["attn_cases"]`` (B = the run's microbatch, bf16; causal with cfg's
+    window, Sq ≠ Sk with a query offset; or non-causal over a memory, its K/V
+    float32 through the route's cast) against autograd through the
+    all-plain forward on the card (on the same cast K/V: the gradient flows
+    back through the cast to the float32 K/V in both): dq, dk, dv within
+    TRAIN_ATTN_REL in 2-norm. One FLASH_TC launch, one backward-route call
+    and, with float32 K/V, one cast a case; the plain backward timed beside
+    the kernel forward. With float32 K/V also the gradients' distance from
+    autograd through the plain forward on the float32 K/V themselves (the
+    reference's arithmetic), reported."""
     dev = torch.device(mods["device"])
     layers = mods["lm_layers"]
     gen = torch.Generator(device=dev).manual_seed(22)
     hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
-    window = mods["lm_model"]._window(cfg)
     b = spec["batch"] // spec["accum"]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    counters = (mods["FLASH_TC"], mods["ATTENTION_BACKWARD"], mods["ATTENTION_KV_CAST"])
     out = {}
-    for label, sq, sk, off in spec["attn_cases"]:
+    for label, sq, sk, off, causal, kv_f32 in spec["attn_cases"]:
+        window = mods["lm_model"]._window(cfg) if causal else None
         shapes = ((hq, sq), (hkv, sk), (hkv, sk))
-        base = [torch.randn(b, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
-                for h, s in shapes]
+        base = [torch.randn(b, h, s, d, generator=gen, device=dev) for h, s in shapes]
+        base = [base[0].to(torch.bfloat16)] + [t if kv_f32 else t.to(torch.bfloat16)
+                                               for t in base[1:]]
         dout = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(torch.bfloat16)
-        kw = dict(causal=True, chunk=cfg.attn_chunk, window=window, q_offset=off)
+        kw = dict(causal=causal, chunk=cfg.attn_chunk, window=window, q_offset=off)
+
+        def to16(t):
+            return t.to(torch.bfloat16)
+        routes = {"kernel": lambda q, k, v: layers.chunked_attention(q, k, v, **kw),
+                  "plain": lambda q, k, v: layers.chunked_attention_plain(q, to16(k), to16(v),
+                                                                          **kw)}
+        if kv_f32:
+            routes["plain f32 K/V"] = lambda q, k, v: layers.chunked_attention_plain(q, k, v,
+                                                                                    **kw)
         grads = {}
-        for route in ("kernel", "plain"):
+        for route, fn in routes.items():
             q, k, v = (t.clone().requires_grad_(True) for t in base)
-            before = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
-            fn = layers.chunked_attention if route == "kernel" else layers.chunked_attention_plain
-            fn(q, k, v, **kw).backward(dout)
-            after = (mods["FLASH_TC"].launches, mods["ATTENTION_BACKWARD"].launches)
-            want = (1, 1) if route == "kernel" else (0, 0)
-            if (after[0] - before[0], after[1] - before[1]) != want:
+            before = [c.launches for c in counters]
+            fn(q, k, v).backward(dout)
+            moved = tuple(c.launches - n for c, n in zip(counters, before))
+            want = (1, 1, int(kv_f32)) if route == "kernel" else (0, 0, 0)
+            if moved != want:
                 raise AssertionError(f"train attention {label} {route}: launches (FLASH_TC, "
-                                     f"backward) {(after[0] - before[0], after[1] - before[1])}, "
-                                     f"want {want}")
+                                     f"backward, K/V cast) {moved}, want {want}")
             grads[route] = (q.grad, k.grad, v.grad)
             del q, k, v
         row = {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "window": window,
-               "q_offset": off}
+               "q_offset": off, "causal": causal, "kv_dtype": str(base[1].dtype)}
         for name, x, y in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
             rel = float((x.float() - y.float()).norm() / y.float().norm())
             row[name] = {"rel": rel, "max_abs_err": float((x.float() - y.float()).abs().max()),
-                         "finite": bool(torch.isfinite(x).all())}
-            if not (rel <= TRAIN_ATTN_REL and row[name]["finite"]):
+                         "finite": bool(torch.isfinite(x).all()), "dtype": str(x.dtype)}
+            if not (rel <= TRAIN_ATTN_REL and row[name]["finite"] and x.dtype == y.dtype):
                 raise AssertionError(f"train attention {label} {name}: ‖Δ‖/‖ref‖ {rel} > "
-                                     f"{TRAIN_ATTN_REL}")
+                                     f"{TRAIN_ATTN_REL}, or not finite, or {x.dtype} where the "
+                                     f"plain route gives {y.dtype}")
+        if kv_f32:
+            row["vs_f32_kv"] = {n: float((x.float() - y.float()).norm() / y.float().norm())
+                                for n, x, y in zip(("dq", "dk", "dv"), grads["kernel"],
+                                                   grads["plain f32 K/V"])}
         del grads
-        q, k, v = base
-        o = layers.attention_kernel(q, k, v, True, window, off)
-        row["forward_ms"] = time_ms(torch, lambda: layers.attention_kernel(q, k, v, True, window,
+        q, k, v = base[0], to16(base[1]), to16(base[2])
+        o = layers.attention_kernel(q, k, v, causal, window, off)
+        row["forward_ms"] = time_ms(torch, lambda: layers.attention_kernel(q, k, v, causal, window,
                                                                            off), 5, flush)
         row["backward_ms"] = time_ms(torch, lambda: layers.attention_backward_plain(
             q, k, v, o, dout, **kw), 3, flush)
         print(f"[chip_smoke]   {spec['tag']} attention Function vs all-plain autograd ({label}: "
-              f"B={b} Sq={sq} Sk={sk} {hq}/{hkv} heads D={d} window {window} q_offset {off} "
-              f"bf16): " + ", ".join(f"{n} ‖Δ‖/‖ref‖ {row[n]['rel']:.3g}"
-                                     for n in ("dq", "dk", "dv"))
-              + f" (limit {TRAIN_ATTN_REL:.4g}); forward (FLASH_TC) {row['forward_ms']:.3f} ms, "
-              f"the plain backward {row['backward_ms']:.2f} ms", flush=True)
+              f"B={b} Sq={sq} Sk={sk} {hq}/{hkv} heads D={d} "
+              f"{'causal, window ' + str(window) if causal else 'non-causal'} q_offset {off} "
+              f"bf16{', K/V float32 cast' if kv_f32 else ''}): "
+              + ", ".join(f"{n} ‖Δ‖/‖ref‖ {row[n]['rel']:.3g}" for n in ("dq", "dk", "dv"))
+              + f" (limit {TRAIN_ATTN_REL:.4g})"
+              + ("; against the plain route on the float32 K/V: "
+                 + ", ".join(f"{n} {v_:.3g}" for n, v_ in row["vs_f32_kv"].items())
+                 if kv_f32 else "")
+              + f"; forward (FLASH_TC) {row['forward_ms']:.3f} ms, the plain backward "
+              f"{row['backward_ms']:.2f} ms", flush=True)
         out[label] = row
-        del base, dout, o
+        del base, dout, o, q, k, v
     return out
 
 
 def train_card_vs_cpu(torch, mods, cfg, spec):
     """``spec["cpu_layers"]`` layers of cfg at full width in float32 (with
-    ``spec["cpu_replace"]``), the same weights (drawn on the card, copied)
-    and tokens: loss_fn and every gradient on the card and on the port's
-    CPU, within TRAIN_CPU_TOL; then whole steps of the resume model."""
+    ``spec["cpu_replace"]``), the same weights (drawn on the card, copied),
+    tokens and (cross-attention families) memory, its full T rows: loss_fn
+    and every gradient on the card and on the port's CPU, within
+    TRAIN_CPU_TOL (a leaf that got no gradient on the card counts as zeros:
+    whisper's encoder, if the memory lost its graph); then whole steps of the
+    resume model."""
     dev = torch.device(mods["device"])
     n_layers = spec["cpu_layers"]
     cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32", **spec["cpu_replace"])
     params = mods["lm_model"].init_params(cfg2, mods["prng"].PRNGKey(0), device=dev)
     batch = mods["SyntheticStream"](0, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, cfg2.vocab_size,
                                     device=dev).at_step(0)
+    memory = lm_stub_source(torch, mods, cfg2, TRAIN_CPU_BATCH, key=6)
+    if memory is not None:
+        batch["memory"] = memory
     out = {}
     runs = {}
     for where, tree, b in (("card", params, batch),
@@ -6118,7 +6281,8 @@ def train_card_vs_cpu(torch, mods, cfg, spec):
         if where == "card":
             torch.cuda.synchronize()
         out[f"{where}_s"] = time.perf_counter() - t0
-        runs[where] = (float(loss.detach()), [p.grad.cpu() for p in leaves])
+        runs[where] = (float(loss.detach()), [torch.zeros(p.shape) if p.grad is None
+                                              else p.grad.cpu() for p in leaves])
         del tree, leaves, loss
     names = [mods["keystr"](path) for path, _ in mods["tree_flatten_with_path"](params)]
     del params
@@ -6127,11 +6291,16 @@ def train_card_vs_cpu(torch, mods, cfg, spec):
             for a, b in zip(runs["card"][1], runs["cpu"][1])]
     worst = max(rels)
     worst_leaf = names[rels.index(worst)]
+    enc = [r for name, r in zip(names, rels) if name.startswith("['encoder']")]
     out.update(loss_card=runs["card"][0], loss_cpu=runs["cpu"][0], loss_rel=loss_rel,
                grad_worst_rel=worst, grad_worst_leaf=worst_leaf, layers=n_layers,
-               replace=spec["cpu_replace"])
+               replace=spec["cpu_replace"], encoder_leaves=len(enc),
+               encoder_worst_rel=max(enc) if enc else None,
+               memory_rows=memory_rows(cfg2))
     print(f"[chip_smoke]   {spec['tag']} card vs CPU, {n_layers} layers float32 B="
           f"{TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}"
+          + (f" over a memory of {memory_rows(cfg2)} rows" if memory is not None else "")
+          + (f" ({len(enc)} encoder leaves, worst {max(enc):.3g})" if enc else "")
           + "".join(f" {k}={v}" for k, v in spec["cpu_replace"].items())
           + f": loss {runs['card'][0]:.6f} / {runs['cpu'][0]:.6f} (rel {loss_rel:.3g}), worst "
           f"gradient leaf max|Δ|/max|g| {worst:.3g} ({worst_leaf}; limit {TRAIN_CPU_TOL}; CPU "
@@ -6146,7 +6315,7 @@ def train_card_vs_cpu(torch, mods, cfg, spec):
 def train_steps_card_vs_cpu(torch, mods, cfg, spec):
     """TRAIN_CPU_STEPS whole training steps (Q8 gradients, AdamW, IHT) of the
     spec's resume model in float32 on the card and on the port's CPU from
-    the same state: the loss at each step within TRAIN_CPU_TOL relative and
+    the same state (and the same memory a step, drawn on the host): the loss at each step within TRAIN_CPU_TOL relative and
     the sparsity the same. A Q8 code whose uniform sits on its rounding edge
     can flip between the devices, so the weights are held by the loss."""
     dev = torch.device(mods["device"])
@@ -6159,8 +6328,8 @@ def train_steps_card_vs_cpu(torch, mods, cfg, spec):
     cpu = mods["tree_map"](lambda t: t.cpu(), card)
     runs = {}
     for where, state in (("card", card), ("cpu", cpu)):
-        stream = mods["SyntheticStream"](2, TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ, rcfg.vocab_size,
-                                         device=dev if where == "card" else "cpu")
+        stream = MemoryStream(mods, 2, TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ, rcfg,
+                              dev if where == "card" else "cpu", draw="cpu")
         losses = []
         for i in range(TRAIN_CPU_STEPS):
             state, m = step(state, stream.at_step(i))
@@ -6181,7 +6350,7 @@ def train_resume_check(torch, mods, cfg, spec):
     TRAIN_RESUME_KILL steps (checkpoints every TRAIN_RESUME_EVERY) and
     restarted through run_with_restarts, must end with the bits of an
     uninterrupted run (Q8 gradients and the projection on, as the full
-    run)."""
+    run; a cross-attention family's stream replays each step's memory)."""
     import tempfile
 
     dev = torch.device(mods["device"])
@@ -6189,8 +6358,7 @@ def train_resume_check(torch, mods, cfg, spec):
     opt = mods["adamw"](TRAIN_LR)
     step = mods["make_train_step"](rcfg, opt, policy=mods["QuantPolicy"](grad_bits=TRAIN_GRAD_BITS),
                                    iht=mods["IHTConfig"](sparsity=TRAIN_SPARSITY))
-    stream = mods["SyntheticStream"](1, TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ, rcfg.vocab_size,
-                                     device=dev)
+    stream = MemoryStream(mods, 1, TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ, rcfg, dev)
     LoopConfig, train_loop = mods["LoopConfig"], mods["train_loop"]
 
     def fresh():
@@ -6310,10 +6478,15 @@ def train_run(torch, mods, cfg, spec):
     """The full-width run: init_state, then train_loop over make_train_step
     (Q8 gradients, IHT at TRAIN_SPARSITY, ``spec["accum"]`` microbatches)
     for ``spec["steps"]`` steps of ``spec["batch"]`` rows of
-    ``spec["seq"]`` tokens, timed and split, gated on the loss, the
-    launches (FLASH_TC with cfg's window twice per attention layer a
-    microbatch, the backward route once), the plain versions' calls and
-    (first step) the projection and one chunk of the compression. Returns
+    ``spec["seq"]`` tokens (and a cross-attention family's memory,
+    MemoryStream), timed and split, gated on the loss, the launches
+    (FLASH_TC twice per decoder attention call a microbatch, the forward and
+    the remat recompute: with cfg's window per self-attention layer, over
+    the memory per cross-attention layer; once per encoder layer; the
+    backward route once per call; the image layers' K/V cast twice each a
+    microbatch where the memory is float32 under a bf16 model), FLASH_TC's
+    shapes, the plain versions' calls and (first step) the projection and
+    one chunk of the compression. Returns
     (state, readings, the path's inputs: the first step's dense leaves of
     ``spec["hs_leaves"]`` before its projection and its captured sqround
     chunk)."""
@@ -6328,9 +6501,9 @@ def train_run(torch, mods, cfg, spec):
     state = mods["init_state"](cfg, opt, prng.PRNGKey(0), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    stream = mods["SyntheticStream"](0, b, s, cfg.vocab_size, device=dev)
+    stream = MemoryStream(mods, 0, b, s, cfg, dev)
     on_cpu = mods["SyntheticStream"](0, b, s, cfg.vocab_size, device="cpu")
-    if not all(torch.equal(stream.at_step(i)["tokens"].cpu(), on_cpu.at_step(i)["tokens"])
+    if not all(torch.equal(stream.tokens.at_step(i)["tokens"].cpu(), on_cpu.at_step(i)["tokens"])
                for i in range(n_steps)):
         raise AssertionError(f"{tag}: the card's tokens differ from the CPU's")
     n_eligible = sum(mods["iht"].eligible(path, leaf, cfg_iht)
@@ -6369,6 +6542,7 @@ def train_run(torch, mods, cfg, spec):
     def launch_counts():
         counts = {k.entry: k.launches for k in mods["KERNELS"]}
         counts["attention_backward"] = mods["ATTENTION_BACKWARD"].launches
+        counts["attention_kv_cast"] = mods["ATTENTION_KV_CAST"].launches
         return counts
 
     def stepped(state, batch):
@@ -6404,6 +6578,7 @@ def train_run(torch, mods, cfg, spec):
                                        iht=cfg_iht, accum_steps=accum)
         reset_counts(mods)
         mods["ATTENTION_BACKWARD"].reset_counts()
+        mods["ATTENTION_KV_CAST"].reset_counts()
         t_run = time.perf_counter()
         state = mods["train_loop"](stepped, state, stream,
                                    mods["LoopConfig"](total_steps=n_steps, log_every=1),
@@ -6412,8 +6587,11 @@ def train_run(torch, mods, cfg, spec):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_attn, window = lm_attention_layers(cfg), mods["lm_model"]._window(cfg)
-    per_step = {"repro_flash_attention_tc": 2 * n_attn * accum,
-                "attention_backward": n_attn * accum,
+    n_cross, n_enc, t = lm_cross_layers(cfg), cfg.n_encoder_layers, memory_rows(cfg)
+    cast = n_cross if cfg.family == "vlm" and cfg.dtype != "float32" else 0
+    per_step = {"repro_flash_attention_tc": (2 * (n_attn + n_cross) + n_enc) * accum,
+                "attention_backward": (n_attn + n_cross + n_enc) * accum,
+                "attention_kv_cast": 2 * cast * accum,
                 "repro_hsthresh": n_eligible,
                 "repro_sqround": sq_chunks}
     per_step = {k: v for k, v in per_step.items() if v}
@@ -6421,11 +6599,15 @@ def train_run(torch, mods, cfg, spec):
               for i, got in enumerate(record["launches_by_step"]) if got != per_step]
     if len(record["launches_by_step"]) != n_steps:
         failed.append(f"{len(record['launches_by_step'])} steps run, want {n_steps}")
-    shape = (b // accum, cfg.padded_heads, cfg.padded_kv_heads, s, s, cfg.head_dim_, 0,
-             window or 0)
+    heads = (b // accum, cfg.padded_heads, cfg.padded_kv_heads)
+    shape = heads + (s, s, cfg.head_dim_, 0, window or 0)
+    want_shapes = {shape: 2 * n_attn * accum * n_steps,
+                   heads + (s, t, cfg.head_dim_, 0, 0): 2 * n_cross * accum * n_steps,
+                   heads + (t, t, cfg.head_dim_, 0, 0): n_enc * accum * n_steps}
+    want_shapes = {k: v for k, v in want_shapes.items() if v}
     by_shape = mods["FLASH_TC"].launches_by_shape
-    if sum(by_shape.values()) != by_shape.get(shape, 0):
-        failed.append(f"FLASH_TC launched at {dict(by_shape)}, want only {shape}")
+    if dict(by_shape) != want_shapes:
+        failed.append(f"FLASH_TC launched at {dict(by_shape)}, want {want_shapes}")
     failed += [f"the plain {k} ran {v} times" for k, v in calls.items() if v]
     if not all(math.isfinite(x) for x in losses):
         failed.append(f"losses {losses} not all finite")
@@ -6455,6 +6637,8 @@ def train_run(torch, mods, cfg, spec):
            "attention_backward_flops": attn_bwd, "step_bound_ms": bound_ms, "peak_bytes": peak,
            "first_step_peak_bytes": record["first_step_peak_bytes"][0], "launches": launches,
            "launches_per_step": per_step, "flash_tc_shape": str(shape),
+           "flash_tc_launches_by_shape": {str(k): v for k, v in by_shape.items()},
+           "memory_rows": t, "encoder_layers": n_enc, "cross_layers": n_cross,
            "plain_calls": dict(calls), "eligible_leaves": n_eligible,
            "sqround_chunks_per_step": sq_chunks, "checks": checks}
     print(f"[chip_smoke]   {tag} {cfg.name} B={b} S={s} ({accum} microbatch"
@@ -6472,9 +6656,12 @@ def train_run(torch, mods, cfg, spec):
           f"steps 2..{n_steps} ({record['first_step_peak_bytes'][0]:,} with init_state and "
           f"the first step's checks)", flush=True)
     print(f"[chip_smoke]   {tag} launches in each step: FLASH_TC "
-          f"{per_step.get('repro_flash_attention_tc', 0)} (window {window}), the attention "
-          f"backward route {per_step.get('attention_backward', 0)}, "
-          f"HSTHRESH {n_eligible} (eligible leaves), SQROUND {sq_chunks} (chunks of {chunk:,}); "
+          f"{per_step.get('repro_flash_attention_tc', 0)} (window {window}"
+          + (f"; {n_cross} cross-attention layers over {t} memory rows" if n_cross else "")
+          + (f"; {n_enc} encoder layers" if n_enc else "")
+          + f"), the attention backward route {per_step.get('attention_backward', 0)}, "
+          + (f"the K/V cast {per_step.get('attention_kv_cast', 0)}, " if cast else "")
+          + f"HSTHRESH {n_eligible} (eligible leaves), SQROUND {sq_chunks} (chunks of {chunk:,}); "
           f"plain versions run: none", flush=True)
     for row in checks["projection"]:
         if row["leaf"] in spec["hs_leaves"].values():
@@ -6495,7 +6682,11 @@ def train_kernel_rows(torch, mods, cfg, inputs, spec):
     for bit against hsthresh_ref and its support the path's, timed; sqround
     on the captured gradient chunk; FLASH_TC at the run's microbatch shape
     with cfg's window, beside SDPA (the band as a boolean mask where there
-    is a window) and its bound."""
+    is a window) and its bound; for a cross-attention family also its
+    non-causal calls at the run's shapes (``xattn_flash_row``: whisper's
+    encoder over its frames, the cross-attention over the memory, the vlm's
+    on float32 K/V through the route's cast), each held against the plain
+    version and timed beside SDPA and its bound."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     dev = torch.device(mods["device"])
@@ -6581,6 +6772,14 @@ def train_kernel_rows(torch, mods, cfg, inputs, spec):
           f"{' with the band as a mask' if w else ''} {fl['library_ms']:.4f}, bound {b_ms:.4f} "
           f"{b_by})", flush=True)
     out["flash"] = fl
+    del q, kk, vv
+    t = memory_rows(cfg)
+    if t:       # the non-causal calls of the training forward, on the run's shapes
+        out["flash_rows"] = ([xattn_flash_row(torch, mods, f"{tag} encoder", (b, hq, hkv, t, t, d),
+                                              flush, gen)] if cfg.n_encoder_layers else [])
+        out["flash_rows"].append(xattn_flash_row(torch, mods, f"{tag} cross",
+                                                 (b, hq, hkv, s, t, d), flush, gen,
+                                                 kv_f32=cfg.family == "vlm"))
     return out
 
 
@@ -6647,16 +6846,19 @@ def train_recurrent_layers(torch, mods, cfg, spec):
 
 
 def phase_train_family(torch, mods, arch):
-    """``arch`` trained at full width on the card: the attention Function's
-    gradient checks (cfg's heads and window), card against CPU, resume bit
-    for bit, the full-width run, the kernels on its inputs, and (recurrent
-    families) one layer's recurrent core forward and backward."""
+    """``arch`` trained at full width on the card (its depth cut by
+    ``spec["replace"]`` where the spec says so): the attention Function's
+    gradient checks (cfg's heads and window; the memory's calls), card
+    against CPU, resume bit for bit, the full-width run, the kernels on its
+    inputs, and (recurrent families) one layer's recurrent core forward and
+    backward."""
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = mods["lm_get_config"](arch)
     spec = train_spec(arch)
-    out = {"attention": train_attention_check(torch, mods, cfg, spec)}
+    cfg = dataclasses.replace(mods["lm_get_config"](arch), **spec["replace"])
+    out = {"config": cfg.name, "replace": spec["replace"],
+           "attention": train_attention_check(torch, mods, cfg, spec)}
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = train_card_vs_cpu(torch, mods, cfg, spec)
     torch.cuda.empty_cache()
@@ -6675,18 +6877,22 @@ def phase_train_family(torch, mods, arch):
 
 
 def train_faults(torch, mods):
-    """Faults planted in recurrentgemma-2b's training path, each of which a
-    gate of phase train_hybrid must fail on: (1) the attention backward
-    route ignoring the window (``attention_backward_plain`` called without
-    it): the attention check and the card-vs-CPU gradients; (2) the RG-LRU
-    scan on the card dropping one step's a (a_t taken as 1 at t = S/2, as
-    if the decay of that step were lost): the card-vs-CPU gradients.
+    """Faults planted in the training paths, each of which a gate of its
+    phase must fail on. In recurrentgemma-2b's (train_hybrid): (1) the
+    attention backward route ignoring the window (``attention_backward_plain``
+    called without it): the attention check and the card-vs-CPU gradients;
+    (2) the RG-LRU scan on the card dropping one step's a (a_t taken as 1 at
+    t = S/2, as if the decay of that step were lost): the card-vs-CPU
+    gradients. In whisper-tiny's (train_encdec): (3) the cross-attention's
+    backward on the card run as causal: the attention check's cross case and
+    the card-vs-CPU gradients; (4) the memory detached on the card before
+    the decoder, so that the encoder gets no gradient: the card-vs-CPU
+    gradients of the encoder's leaves. Each acts on card tensors only.
     Returns what each gate read; raises if a gate passed its fault."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = mods["lm_get_config"](TRAIN_HYBRID_ARCH)
-    spec = train_spec(TRAIN_HYBRID_ARCH)
-    layers, rglru = mods["lm_layers"], mods["rglru"]
+    layers, rglru, model = mods["lm_layers"], mods["rglru"], mods["lm_model"]
     real_backward, real_scan = layers.attention_backward_plain, rglru.linear_scan
+    real_forward = model.forward
 
     def backward_without_window(*args, window=None, **kw):
         return real_backward(*args, **kw)
@@ -6697,19 +6903,31 @@ def train_faults(torch, mods):
             a[:, a.shape[1] // 2] = 1.0
         return real_scan(a, b)
 
-    def attention():
-        return train_attention_check(torch, mods, cfg, spec)
+    def cross_backward_causal(q, k, v, out, dout, *, causal, **kw):
+        if q.is_cuda and not causal and q.shape[2] != k.shape[2]:
+            causal = True
+        return real_backward(q, k, v, out, dout, causal=causal, **kw)
 
-    def card_vs_cpu():
-        return train_card_vs_cpu(torch, mods, cfg, spec)
+    def forward_detaching_memory(*args, memory=None, **kw):
+        if memory is not None and memory.is_cuda:
+            memory = memory.detach()
+        return real_forward(*args, memory=memory, **kw)
+
+    def gates(arch):
+        spec = train_spec(arch)
+        cfg = dataclasses.replace(mods["lm_get_config"](arch), **spec["replace"])
+        return (("attention", lambda: train_attention_check(torch, mods, cfg, spec)),
+                ("card_vs_cpu", lambda: train_card_vs_cpu(torch, mods, cfg, spec)))
+    hybrid, encdec = gates(TRAIN_HYBRID_ARCH), gates(TRAIN_ENCDEC_ARCH)
     faults = (("backward_ignores_window", layers,
-               dict(attention_backward_plain=backward_without_window),
-               (("attention", attention), ("card_vs_cpu", card_vs_cpu))),
-              ("scan_drops_one_a", rglru, dict(linear_scan=scan_dropping_one_a),
-               (("card_vs_cpu", card_vs_cpu),)))
+               dict(attention_backward_plain=backward_without_window), hybrid),
+              ("scan_drops_one_a", rglru, dict(linear_scan=scan_dropping_one_a), hybrid[1:]),
+              ("cross_backward_causal", layers,
+               dict(attention_backward_plain=cross_backward_causal), encdec),
+              ("memory_detached", model, dict(forward=forward_detaching_memory), encdec[1:]))
     results, missed = {}, []
-    for fault, module, fns, gates in faults:
-        for gate, run in gates:
+    for fault, module, fns, fault_gates in faults:
+        for gate, run in fault_gates:
             with stand_in(module, **fns):
                 try:
                     run()
@@ -6742,6 +6960,22 @@ def phase_train_ssm(torch, mods):
     """mamba2-370m trained at full width on train_4k's rows (phase
     ``train_ssm``): 8 rows of 4,096 tokens a step, 48 SSD layers."""
     return phase_train_family(torch, mods, TRAIN_SSM_ARCH)
+
+
+def phase_train_encdec(torch, mods):
+    """whisper-tiny trained at full width (4 encoder and 4 decoder layers, not
+    cut) on train_4k's rows (phase ``train_encdec``): 8 rows of 4,096 tokens
+    a step in one microbatch, each row over 1,500 float32 stub frames that
+    loss_fn encodes, so the encoder trains with the decoder."""
+    return phase_train_family(torch, mods, TRAIN_ENCDEC_ARCH)
+
+
+def phase_train_vlm(torch, mods):
+    """llama-3.2-vision-11b trained at full width on train_4k's rows, its
+    depth cut to TRAIN_VLM_LAYERS (phase ``train_vlm``): 4 rows of 4,096
+    tokens a step in 4 microbatches, the two image layers over 1,600 float32
+    image rows each, their K/V cast to bf16 on the route."""
+    return phase_train_family(torch, mods, TRAIN_VLM_ARCH)
 
 
 def load_port() -> dict:
@@ -6941,7 +7175,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-faults", action="store_true",
                     help="only check that faults planted in recurrentgemma-2b's training path "
                          "(a backward that ignores the window, a scan that drops one step's a) "
-                         "fail the train_hybrid phase's gates")
+                         "and in whisper-tiny's (the cross-attention's backward run as causal, "
+                         "the memory detached before the decoder) fail the train_hybrid and "
+                         "train_encdec phases' gates")
     args = ap.parse_args(argv)
     import torch
 
@@ -7013,6 +7249,8 @@ def main(argv=None) -> int:
     report["train"] = phases.run("train", phase_train, torch, mods)
     report["train_hybrid"] = phases.run("train_hybrid", phase_train_hybrid, torch, mods)
     report["train_ssm"] = phases.run("train_ssm", phase_train_ssm, torch, mods)
+    report["train_encdec"] = phases.run("train_encdec", phase_train_encdec, torch, mods)
+    report["train_vlm"] = phases.run("train_vlm", phase_train_vlm, torch, mods)
     report["encdec"] = phases.run("encdec", phase_encdec, torch, mods)
     report["vlm"] = phases.run("vlm", phase_vlm, torch, mods)
     report["moe"] = phases.run("moe", phase_moe, torch, mods)
@@ -7439,8 +7677,10 @@ def main(argv=None) -> int:
                  "and the remat recompute; the reference trains through chunked_attention's "
                  "custom VJP, src/repro/models/layers.py:145-200)",
     })
-    for tag, arch in (("train_hybrid", TRAIN_HYBRID_ARCH), ("train_ssm", TRAIN_SSM_ARCH)):
+    for tag, arch in (("train_hybrid", TRAIN_HYBRID_ARCH), ("train_ssm", TRAIN_SSM_ARCH),
+                      ("train_encdec", TRAIN_ENCDEC_ARCH), ("train_vlm", TRAIN_VLM_ARCH)):
         run, ks = report[tag]["run"], report[tag]["kernels"]
+        arch = run["config"]
         hs, sq = ks["hsthresh"], ks["sqround"]
         kernels.append({
             "name": f"hsthresh[{tag}: {arch} IHT projection, {hs['wi']['leaf']}]",
@@ -7492,7 +7732,7 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
             "entry": "repro_flash_attention_tc",
             "replaces": "src/repro/kernels/flashattn/kernel.py:87",
-            "launches": run["launches"]["repro_flash_attention_tc"],
+            "launches": run["flash_tc_launches_by_shape"].get(run["flash_tc_shape"], 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -7507,6 +7747,38 @@ def main(argv=None) -> int:
                      f"src/repro/models/layers.py:145-200); library: SDPA with the band as a "
                      f"boolean mask; bound: the band's pairs",
         })
+        for row in ks.get("flash_rows", []):
+            key = str((row["B"], row["Hq"], row["Hkv"], row["Sq"], row["Sk"], row["D"], 0, 0))
+            what = "encoder" if row["Sq"] == row["Sk"] else "cross"
+            kernels.append({
+                "name": (f"flash_attention_tc[{tag} forward: {arch} {what} B={row['B']} "
+                         f"{row['Sq']}x{row['Sk']} non-causal]"),
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_wgmma.cu",
+                "entry": row["kernel"],
+                "replaces": "src/repro/kernels/flashattn/kernel.py:87",
+                "launches": run["flash_tc_launches_by_shape"].get(key, 0),
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "library_backend": row["library_backend"],
+                "route_ms": row["route_ms"],
+                "max_row_rel": row["max_row_rel"],
+                "vs_f32_kv_max_row_rel": row.get("vs_f32_kv", {}).get("max_row_rel"),
+                "shape": f"B={row['B']} Hq={row['Hq']} Hkv={row['Hkv']} Sq={row['Sq']} "
+                         f"Sk={row['Sk']} D={row['D']} bf16 non-causal"
+                         + (", K/V float32 cast to bf16 by the route (route_ms; ms is the "
+                            "kernel alone on the cast K/V)" if row["kv_dtype"] == "float32"
+                            else "")
+                         + f"; launches: the {tag} phase's run, "
+                         + ("one per encoder layer a microbatch (no remat)" if what == "encoder"
+                            else "two per cross-attention layer a microbatch (the forward and "
+                                 "the remat recompute)")
+                         + "; library: SDPA on the bf16 inputs",
+            })
     for tag, arch in (("encdec", ENCDEC_ARCH), ("vlm", VLM_ARCH)):
         phase = report[tag]
         by_shape = phase["w4kv8"]["qmm_launches_by_shape"]

@@ -3,7 +3,7 @@
 :func:`make_batch_mesh` gives the serving path its one device; a request for
 more raises until sharding is ported over ``torch.distributed``. The
 training meshes (``make_production_mesh``, ``make_host_mesh``) come with the
-model side (ROADMAP queue 1 item 8).
+model side (ROADMAP.md queue 1, "Sharding over several devices").
 """
 from __future__ import annotations
 

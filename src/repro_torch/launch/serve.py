@@ -38,7 +38,8 @@ after the whole run (scheduler). ``--profile-dir D`` writes a
 ``torch.profiler`` trace (CPU and CUDA activity, Chrome/Perfetto JSON) of the
 chunked serving loop to ``D``.
 
-Not yet ported: ``--devices N`` for N > 1 (sharding, ROADMAP queue 1 item 5).
+Not yet ported: ``--devices N`` for N > 1 (ROADMAP.md queue 1, "Sharding over several
+devices").
 
 Workloads are the reference's: Φ from ``make_gaussian_problem`` and each
 signal's support and signs from ``permutation`` and ``rademacher`` under the
@@ -63,8 +64,8 @@ from repro_torch.core.recovery import relative_error
 from repro_torch.device import resolve_device
 
 NOT_PORTED = {
-    "--devices": "--devices N > 1 (sharding the batch) is not yet ported: ROADMAP queue 1 "
-                 "item 5, over torch.distributed",
+    "--devices": "--devices N > 1 (sharding the batch) is not yet ported: ROADMAP.md queue 1, "
+                 "\"Sharding over several devices\", over torch.distributed",
 }
 
 

@@ -5,8 +5,11 @@
     python -m repro_torch.launch.train --arch recurrentgemma-2b --steps 3 --batch 1 \\
         --seq 4096 --grad-bits 8 --iht-sparsity 0.5
 
-Every family the port trains takes it: the dense, the hybrid
-(recurrentgemma-2b) and the SSM (mamba2-370m) ones.
+The dense, MoE, hybrid (recurrentgemma-2b) and SSM (mamba2-370m) families
+take it. The cross-attention families (whisper-tiny, llama-3.2-vision-11b)
+train through ``make_train_step`` on batches that carry a ``memory``; their
+stream here has none (the reference's launcher passes ``memory=None``), so
+for them it exits 2 with a message that names the missing memory.
 
 The reference's flags, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 plain versions of the kernels). ``--smoke`` takes the reduced config. The
@@ -51,8 +54,15 @@ def main(argv=None):
         ap.exit(2, f"train: --mesh {args.mesh} is not ported: training runs on one device; "
                    "sharding over several devices is ROADMAP.md queue 1's sharding item\n")
 
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("encdec", "vlm"):
+        what = ("stub audio frames (B, encoder_seq, d_model), encoded in loss_fn"
+                if cfg.family == "encdec" else "image embeddings (B, n_image_tokens, d_model)")
+        ap.exit(2, f"train: the {cfg.family} family ({cfg.name}) reads a memory in its 'xattn' "
+                   f"layers: {what}. The synthetic stream carries tokens only, as the "
+                   "reference's launcher passes memory=None; train it through "
+                   "make_train_step on batches with a 'memory'\n")
+    device = resolve_device(args.device)
     policy = QuantPolicy(grad_bits=args.grad_bits or None)
     iht = IHTConfig(sparsity=args.iht_sparsity) if args.iht_sparsity > 0 else None
     opt = adamw(cosine_schedule(args.lr, warmup=20, total=args.steps))

@@ -29,12 +29,10 @@ Three execution paths share the block code:
   * :func:`decode_step` — one token against the cache (the bandwidth-bound
     loop the paper's technique speeds up with weight/KV quantization).
 
-:func:`loss_fn` raises ``NotImplementedError`` for the encoder-decoder and
-VLM families (their training is a later slice). The reference's SPMD hooks
-(``constrain``, ``constrain_kv``) have no counterpart on one GPU.
-:func:`init_quantized_params` builds a W<bits> tree leaf by leaf, so that a
-model whose float32 tree does not fit the card (qwen3-moe-30b-a3b, ~122 GB)
-is served from its ~16 GB of codes.
+The reference's SPMD hooks (``constrain``, ``constrain_kv``) have no
+counterpart on one GPU. :func:`init_quantized_params` builds a W<bits> tree
+leaf by leaf, so that a model whose float32 tree does not fit the card
+(qwen3-moe-30b-a3b, ~122 GB) is served from its ~16 GB of codes.
 """
 from __future__ import annotations
 
@@ -676,16 +674,18 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 
 def loss_fn(cfg: ModelConfig, params, batch, policy: QuantPolicy = QuantPolicy()):
     """Mean next-token cross entropy over a float32 log-softmax; labels < 0
-    are padding. batch: ``tokens`` and ``labels`` (B, S). Differentiable in
-    the parameters: call it with leaves that require a gradient. The dense,
-    MoE (with the load term 0.01·moe_load_loss/n_layers), hybrid and SSM
-    families train; the encdec and vlm families raise: their training is a
-    later slice."""
-    if cfg.family in _CROSS:
-        raise NotImplementedError(
-            f"loss_fn: the {cfg.family} family ({cfg.name}) serves but does not train yet: "
-            f"ROADMAP.md §1 queues the cross-attention families' training next")
-    logits, aux = forward(cfg, params, batch["tokens"], policy=policy)
+    are padding. batch: ``tokens`` and ``labels`` (B, S), and for the
+    cross-attention families ``memory``: the encdec family's stub frames
+    (B, encoder_seq, d), encoded here (so the encoder trains with the
+    decoder), or the vlm family's image embeddings (B, n_image_tokens, d),
+    read by the image layers as they are. Differentiable in the parameters:
+    call it with leaves that require a gradient. Every family trains; the
+    MoE family's loss adds 0.01·moe_load_loss/n_layers."""
+    memory = batch.get("memory")
+    _require_memory(cfg, "loss_fn", memory)
+    if cfg.family == "encdec":
+        memory = encode(cfg, params, memory, policy)
+    logits, aux = forward(cfg, params, batch["tokens"], policy=policy, memory=memory)
     labels = batch["labels"]
     mask = labels >= 0
     labels_safe = torch.clamp_min(labels, 0).to(torch.int64)

@@ -39,7 +39,8 @@ from repro_torch.parallel.journal import ChunkJournal
 from repro_torch.quant.formats import as_granularity
 
 SHARDING_NOT_PORTED = ("sharding the batch over several devices is not yet ported "
-                       "(ROADMAP queue 1 item 5: over torch.distributed)")
+                       "(ROADMAP.md queue 1, \"Sharding over several devices\": over "
+                       "torch.distributed)")
 
 
 def make_batch_mesh(n_devices: Optional[int] = None, device=None) -> torch.device:

@@ -16,7 +16,8 @@ in place: the largest starcoder2-3b leaf has 1.13e9 entries, whose int64
 words alone would be 9 GB.
 
 ``quantized_allreduce_mean``, ``make_qgrad_allreduce`` and the shard-local
-quantizer wait for the sharding slice (ROADMAP.md queue 1 item 9).
+quantizer wait for the sharding slice (ROADMAP.md queue 1, "Sharding over several
+devices").
 """
 from __future__ import annotations
 

@@ -1,6 +1,9 @@
 """The training step (port of ``repro.train.steps``' ``make_train_step`` and
 ``init_state``) on one device: loss → gradients → optional Q_b gradient
-compression → AdamW → optional IHT projection, the reference's order.
+compression → AdamW → optional IHT projection, the reference's order. A
+batch holds ``tokens`` and ``labels`` (B, S), and for the cross-attention
+families a ``memory`` (B, T, d_model): stub audio frames or image
+embeddings, float32, as the reference's input specs give it.
 
 The step works in place: the gradients are the parameters' ``.grad``
 tensors, AdamW writes m, v and the parameters into their tensors, and the
@@ -30,7 +33,9 @@ from repro_torch.tree import tree_leaves, tree_map
 
 
 def _microbatches(batch: dict, n: int) -> list:
-    """``batch`` split along its leading axis into n equal microbatches."""
+    """``batch`` split along its leading axis into n equal microbatches:
+    every leaf, the memory with the tokens, as the reference's scan splits
+    them; a 0-d leaf or None whole in each."""
     def part(v, i):
         if v is None or v.ndim == 0:
             return v

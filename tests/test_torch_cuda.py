@@ -1517,6 +1517,158 @@ def test_recurrent_train_step_on_the_card_matches_the_cpu(cuda, arch):
     assert runs["card"][1] == runs["cpu"][1] == 0.5
 
 
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2.0 ** -6), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("heads,d,sq,sk,chunk", [((8, 2), 128, 96, 300, 128),
+                                                 ((6, 6), 64, 256, 1500, 1024)])
+def test_noncausal_attention_gradients_with_ragged_keys_on_the_card(cuda, dtype, rel, heads, d,
+                                                                    sq, sk, chunk):
+    """The cross-attention's and the encoder's call with a gradient:
+    non-causal, Sq ≠ Sk, Sk off the kernel's key tiles (300; whisper-tiny's
+    1,500 frames, whose plain backward takes 750-key chunks): one flash
+    launch forward, one call of ATTENTION_BACKWARD; dq, dk, dv within
+    ``rel`` of autograd through the plain forward in 2-norm."""
+    from repro_torch.models import layers as lm_layers
+
+    hq, hkv = heads
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    base = [torch.randn(2, h, s, d, generator=gen, device=cuda).to(dtype)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+    dout = torch.randn(2, hq, sq, d, generator=gen, device=cuda).to(dtype)
+    kernel = fa_kernel.FLASH_TC if dtype == torch.bfloat16 else fa_kernel.FLASH
+    grads = []
+    for plain in (False, True):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        before = (kernel.launches, lm_layers.ATTENTION_BACKWARD.launches)
+        fn = lm_layers.chunked_attention_plain if plain else lm_layers.chunked_attention
+        fn(q, k, v, causal=False, chunk=chunk).backward(dout)
+        moved = (kernel.launches - before[0], lm_layers.ATTENTION_BACKWARD.launches - before[1])
+        assert moved == ((0, 0) if plain else (1, 1))
+        grads.append((q.grad, k.grad, v.grad))
+    for a, b in zip(*grads):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).norm()) <= rel * float(b.float().norm())
+
+
+def test_float32_kv_cast_carries_the_gradient_on_the_card(cuda):
+    """The vlm's image layer under autograd: a bf16 query over K/V projected
+    from float32 image rows by float32 weights. chunked_attention casts K/V
+    to bf16 (one ATTENTION_KV_CAST), launches FLASH_TC once and the backward
+    route once; the gradients reach the float32 weights through the cast,
+    float32, within 2⁻⁶ in 2-norm of autograd through the plain forward on
+    the same cast."""
+    from repro_torch.models import layers as lm_layers
+
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    mem = torch.randn(2, 300, 256, generator=gen, device=cuda)
+    q0 = torch.randn(2, 8, 96, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    w0 = [torch.randn(256, 2 * 128, generator=gen, device=cuda) / 16 for _ in range(2)]
+    dout = torch.randn(2, 8, 96, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        q = q0.clone().requires_grad_(True)
+        wk, wv = (w.clone().requires_grad_(True) for w in w0)
+        k, v = ((mem @ w).reshape(2, 300, 2, 128).transpose(1, 2) for w in (wk, wv))
+        before = (fa_kernel.FLASH_TC.launches, lm_layers.ATTENTION_KV_CAST.launches,
+                  lm_layers.ATTENTION_BACKWARD.launches)
+        if plain:
+            out = lm_layers.chunked_attention_plain(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
+                                                    causal=False, chunk=128)
+        else:
+            out = lm_layers.chunked_attention(q, k, v, causal=False, chunk=128)
+        out.backward(dout)
+        moved = tuple(a - b for a, b in zip((fa_kernel.FLASH_TC.launches,
+                                             lm_layers.ATTENTION_KV_CAST.launches,
+                                             lm_layers.ATTENTION_BACKWARD.launches), before))
+        assert moved == ((0, 0, 0) if plain else (1, 1, 1))
+        grads.append((q.grad, wk.grad, wv.grad))
+    for (a, b), dtype in zip(zip(*grads), (torch.bfloat16, torch.float32, torch.float32)):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+        assert float((a.float() - b.float()).norm()) <= 2.0 ** -6 * float(b.float().norm())
+
+
+@pytest.mark.parametrize("arch", ["whisper_tiny", "llama32_vision_11b"])
+def test_cross_attention_smoke_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
+    """loss_fn of the cross-attention SMOKE models in float32 with a memory
+    (whisper's stub frames, encoded inside; the vlm's image rows) and every
+    gradient leaf, the encoder's included, on the card and on the CPU from
+    the same weights: the loss within 1e-4 relative, each leaf within 1e-4
+    of its max|g|. On the card FLASH runs once per encoder layer (no remat)
+    and twice per decoder self- and cross-attention call (the forward and
+    the remat recompute), the backward route once per call."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.quantized import tree_to
+    from repro_torch.tree import keystr, tree_flatten_with_path, tree_leaves
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_params(cfg, prng.PRNGKey(0), device=cuda)
+    toks = prng.randint(prng.PRNGKey(1), (2, 49), 0, cfg.vocab_size, device=cuda)
+    rows = cfg.encoder_seq if cfg.family == "encdec" else cfg.n_image_tokens
+    memory = prng.normal(prng.PRNGKey(2), (2, rows, cfg.d_model), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "memory": memory}
+    runs = []
+    for tree, b in ((params, batch), (tree_to(params, "cpu"),
+                                      {k: v.cpu() for k, v in batch.items()})):
+        leaves = tree_leaves(tree)
+        for p in leaves:
+            p.requires_grad_(True)
+        before = (fa_kernel.FLASH.launches, lm_layers.ATTENTION_BACKWARD.launches)
+        loss = loss_fn(cfg, tree, b)
+        loss.backward()
+        moved = (fa_kernel.FLASH.launches - before[0],
+                 lm_layers.ATTENTION_BACKWARD.launches - before[1])
+        runs.append((float(loss.detach()), [p.grad.cpu() for p in leaves], moved))
+    cross = sum(kind == "xattn" for kind in cfg.pattern_for_layers())
+    calls = cfg.n_layers + cross
+    assert runs[0][2] == (cfg.n_encoder_layers + 2 * calls, cfg.n_encoder_layers + calls)
+    assert runs[1][2] == (0, 0)
+    assert abs(runs[0][0] - runs[1][0]) <= 1e-4 * abs(runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    names = [keystr(path) for path, _ in tree_flatten_with_path(params)]
+    encoder = [g for name, g in zip(names, runs[0][1]) if name.startswith("['encoder']")]
+    assert all(float(g.abs().max()) > 0 for g in encoder)
+    assert bool(encoder) == (cfg.family == "encdec")
+
+
+def test_vlm_bf16_loss_casts_the_image_kv_with_a_gradient(cuda):
+    """llama-3.2-vision-11b's SMOKE config in bf16 over float32 image rows:
+    loss_fn and its backward cast the image layer's K/V twice (the forward
+    and the remat recompute), launch FLASH_TC twice per attention call and
+    the backward route once; the gradients of the image layer's wk and wv
+    are finite and not all zero."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("llama32_vision_11b")
+    params = init_params(cfg, prng.PRNGKey(0), device=cuda)
+    toks = prng.randint(prng.PRNGKey(1), (2, 33), 0, cfg.vocab_size, device=cuda)
+    memory = prng.normal(prng.PRNGKey(2), (2, cfg.n_image_tokens, cfg.d_model), device=cuda)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    before = (fa_kernel.FLASH_TC.launches, lm_layers.ATTENTION_KV_CAST.launches,
+              lm_layers.ATTENTION_BACKWARD.launches)
+    loss = loss_fn(cfg, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                                 "memory": memory})
+    loss.backward()
+    moved = tuple(a - b for a, b in zip((fa_kernel.FLASH_TC.launches,
+                                         lm_layers.ATTENTION_KV_CAST.launches,
+                                         lm_layers.ATTENTION_BACKWARD.launches), before))
+    calls = cfg.n_layers + 1
+    assert moved == (2 * calls, 2, calls)
+    assert math.isfinite(float(loss))
+    slot = f"slot{cfg.pattern_for_layers().index('xattn')}"
+    for name in ("wk", "wv"):
+        g = params["slots"][slot]["xattn"][name]["w"].grad
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
 def test_fused_hsthresh_on_a_row_past_two_to_the_thirty(cuda):
     """One row of 2³⁰ + 12,345 entries (a stacked MLP leaf of the training
     projection is 1.13e9): the fused kernel equals hsthresh_ref bit for bit

@@ -61,6 +61,7 @@ from repro_torch.quant.quantize import (
     quantize,
     quantize_codes,
 )
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

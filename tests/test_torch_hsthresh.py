@@ -41,6 +41,7 @@ from repro_torch.kernels.hsthresh.ref import (
     select_threshold,
     tie_fill_mask,
 )
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -48,6 +48,7 @@ from repro_torch.models import rglru as trglru
 from repro_torch.models.layers import KVCache
 from repro_torch.models.quantized import QWeight
 from repro_torch.quant.policy import QuantPolicy
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -40,6 +40,7 @@ from repro_torch.models import (
     prefill,
 )
 from repro_torch.quant.policy import QuantPolicy
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -195,29 +196,31 @@ def test_generate_is_greedy_over_prefill_and_decode():
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS if a not in DENSE])
 def test_unported_families_raise(arch):
-    """Only training raises, for the encdec (whisper-tiny) and vlm
-    (llama-3.2-vision-11b) families, which serve; the hybrid
-    (recurrentgemma-2b) and SSM (mamba2-370m) families serve and train:
-    loss_fn gives a finite loss (tests/test_torch_train_recurrent.py holds it
-    and its gradients to the reference); so does the MoE family (qwen3-moe),
-    which also serves here: a prefill and a decode step give finite logits
-    (tests/test_torch_moe.py holds both, loss_fn and its gradients to the
-    reference)."""
+    """No family raises any more: the hybrid (recurrentgemma-2b) and SSM
+    (mamba2-370m) families serve and train: loss_fn gives a finite loss
+    (tests/test_torch_train_recurrent.py holds it and its gradients to the
+    reference); so does the MoE family (qwen3-moe), which also serves here:
+    a prefill and a decode step give finite logits (tests/test_torch_moe.py
+    holds both, loss_fn and its gradients to the reference). The encdec
+    (whisper-tiny) and vlm (llama-3.2-vision-11b) families train with a
+    memory: without one loss_fn raises a ValueError that names it, with one
+    it gives a finite loss (tests/test_torch_train_xattn.py holds it and its
+    gradients to the reference)."""
     cfg = tconfigs.get_smoke_config(arch)
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    if cfg.family in ("hybrid", "ssm", "moe"):
-        params = init_params(cfg, prng.PRNGKey(0), device="cpu")
-        assert bool(torch.isfinite(loss_fn(cfg, params, {"tokens": toks, "labels": toks})))
-        if cfg.family == "moe":
-            cache = init_cache(cfg, 1, 8, device="cpu")
-            logits, cache = prefill(cfg, params, toks, cache)
-            step, _ = decode_step(cfg, params, toks[:, 0], cache)
-            assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
-        return
-    calls = {"loss_fn": lambda: loss_fn(cfg, {}, {"tokens": toks, "labels": toks})}
-    for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match=rf"{name}: the {cfg.family} family"):
-            call()
+    params = init_params(cfg, prng.PRNGKey(0), device="cpu")
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.family in ("encdec", "vlm"):
+        with pytest.raises(ValueError, match=rf"loss_fn: the {cfg.family} family"):
+            loss_fn(cfg, params, batch)
+        rows = cfg.encoder_seq if cfg.family == "encdec" else cfg.n_image_tokens
+        batch["memory"] = torch.zeros((1, rows, cfg.d_model))
+    assert bool(torch.isfinite(loss_fn(cfg, params, batch)))
+    if cfg.family == "moe":
+        cache = init_cache(cfg, 1, 8, device="cpu")
+        logits, cache = prefill(cfg, params, toks, cache)
+        step, _ = decode_step(cfg, params, toks[:, 0], cache)
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
 
 
 def test_entry_points_default_to_the_card():

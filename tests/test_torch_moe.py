@@ -57,6 +57,7 @@ from repro_torch.models import (
 from repro_torch.models import moe as tmoe
 from repro_torch.models.quantized import QWeight
 from repro_torch.quant.policy import QuantPolicy
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -28,6 +28,7 @@ from repro_torch.core.recovery import psnr
 from repro_torch.launch import recover
 from repro_torch.sensing import mri as tmri
 from repro_torch.transforms import wavelet as twav
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

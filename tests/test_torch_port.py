@@ -15,6 +15,7 @@ import torch
 
 import repro_torch
 from repro_torch.launch import recover
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"

@@ -34,6 +34,7 @@ from repro_torch.launch.resilience import Preempted, recover_resilient
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault import PreemptionGuard, StepTimer, run_with_restarts
 from test_torch_niht import gaussian_case
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,7 @@ from repro_torch.core.niht import qniht
 from repro_torch.kernels.cudalib import CudaLibrary
 from repro_torch.launch import recover
 from repro_torch.parallel import BatchServer
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -29,6 +29,7 @@ from repro_torch.core.niht import qniht
 from repro_torch.sensing.gaussian import make_gaussian_problem
 from repro_torch.sensing.sky import make_sky
 from repro_torch.sensing.telescope import Station, measurement_matrix, sky_grid, visibilities
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")

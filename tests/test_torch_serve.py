@@ -37,6 +37,7 @@ from repro_torch.configs import SERVE_CONFIGS, serve_batch
 from repro_torch.core.niht import qniht_batch
 from repro_torch.launch import serve
 from repro_torch.parallel import BatchServer, ContinuousScheduler, Request, pad_batch
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -297,7 +298,7 @@ def test_cli_defaults_to_the_gpu():
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--devices", "2"], "item 5"),
+    (["--devices", "2"], "Sharding over several devices"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, says, capsys):
     with pytest.raises(SystemExit) as exc:

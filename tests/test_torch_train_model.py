@@ -57,6 +57,7 @@ from repro_torch.train import (
     train_loop,
 )
 from repro_torch.tree import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 F32_TOL = 1e-5
 ARCH = "starcoder2_3b"

@@ -34,6 +34,7 @@ from repro_torch.optim.iht import eligible, keep_count, project_matrix_
 from repro_torch.parallel import collectives
 from repro_torch.parallel.collectives import fake_grad_compression
 from repro_torch.tree import keystr, tree_flatten_with_path, tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 ADAMW_TOL = 1e-6
 

@@ -66,6 +66,7 @@ from repro_torch.train import (
     train_loop,
 )
 from repro_torch.tree import keystr, tree_flatten_with_path, tree_leaves, tree_map
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 F32_TOL = 1e-5
 ARCHS = ("recurrentgemma_2b", "mamba2_370m")

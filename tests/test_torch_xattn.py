@@ -50,6 +50,7 @@ from repro_torch.models import (
 from repro_torch.models.layers import KVCache
 from repro_torch.models.quantized import QWeight
 from repro_torch.quant.policy import QuantPolicy
+from torch_threads import one_torch_thread  # noqa: F401 -- autouse: one intra-op thread
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -313,7 +314,8 @@ def test_prefill_against_forward_as_the_reference(reference_params, arch):
 def test_memory_is_required(arch):
     """forward and prefill raise a ValueError without a memory; a cache
     sized for another memory length raises in the prefill; loss_fn raises
-    for both families (their training is a later slice)."""
+    the same ValueError without a memory and with one returns a finite
+    loss (both families train)."""
     cfg = _cfgs(arch)[1]
     params = init_params(cfg, prng.PRNGKey(0), device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -326,8 +328,10 @@ def test_memory_is_required(arch):
     mem = torch.zeros((1, 6, cfg.d_model))
     with pytest.raises(ValueError, match="mem_len=6"):
         prefill(cfg, params, toks, cache, memory=mem)
-    with pytest.raises(NotImplementedError, match=f"loss_fn: the {cfg.family} family"):
-        loss_fn(cfg, params, {"tokens": toks, "labels": toks, "memory": mem})
+    with pytest.raises(ValueError, match=f"loss_fn: the {cfg.family} family .*{what}"):
+        loss_fn(cfg, params, {"tokens": toks, "labels": toks})
+    loss = loss_fn(cfg, params, {"tokens": toks, "labels": toks, "memory": mem})
+    assert loss.shape == () and bool(torch.isfinite(loss))
 
 
 def test_generate_with_memory():
