@@ -449,6 +449,19 @@ It imports nothing of JAX and nothing of the JAX package ``repro``. Phases
     (causal; the cross call on float32 K/V through the cast, its gradients
     back to float32); one period of 5 layers card against CPU; a small
     (xattn, attn) model stepped and resumed; the kernels as phase 30.
+32. the solver's batch split over ``torch.distributed`` ranks (phase
+    ``sharded``, run after ``serve``): LOFAR CS302 at full size, batch 8
+    and 16, per_tensor and per_block g = 64, through
+    ``qniht_batch_sharded`` at one rank on NCCL (in this process) and at 2
+    and 4 ranks sharing the card on gloo (one ``spawn_ranks`` of 4): x and
+    the whole trace of every solve bitwise the same at every width and on
+    every rank, every rank's Φ̂ digest the same, every rank launching
+    kernels; each rank's wall, iterations (per-shard early exit) and set-up
+    reported, and at 4 ranks each rank's device busy share; then ``serve_scheduled`` on serve-continuous-packed
+    journaled at 2 ranks, one of them sent SIGTERM once a result is
+    journaled (every rank must stop at the same tick), resumed with
+    ``verify`` at 4 ranks and on one device (every answer bitwise its
+    reference_solve, exactly the journaled results drained).
 
 Every phase that drives a path sets the launch counts of all kernels to 0
 just before it and reads them just after.
@@ -3627,6 +3640,316 @@ def serve_kill_resume(mods):
     return {"killed_exit": code, "chunks_before_kill": before, "preempted": preempted,
             "resume_exit": done.returncode, "chunks_drained": drained,
             "digests_identical": got == want}
+
+
+SHARD_BATCHES = (8, 16)        # LOFAR skies a sharded solve takes (16: the serving config's)
+SHARD_GRANS = (("per_tensor", None), ("per_block", GROUP))
+SHARD_WIDTHS = (2, 4)          # gloo ranks sharing the card (one spawn of the widest)
+SHARD_KILL_WIDTH = 2           # ranks of the serve run stopped by a SIGTERM
+
+
+def shard_digest(*tensors) -> str:
+    """sha256 (16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def sigterm_after_first_result(journal):
+    """A thread that sends this process SIGTERM once ``journal`` holds a
+    result (a real signal reaching one rank of the run)."""
+    import os
+    import signal
+    import threading
+
+    def watch():
+        deadline = time.perf_counter() + 120
+        while not list(Path(journal).glob("*.done.json")):
+            if time.perf_counter() > deadline:
+                return
+            time.sleep(0.01)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    t = threading.Thread(target=watch, daemon=True)
+    t.start()
+    return t
+
+
+def sharded_rank(mesh, widths, serve_dir=None):
+    """One rank of the sharded phase (spawned by ``spawn_ranks``, so it runs
+    in a process of its own): LOFAR CS302 at full size, batch 8 and 16,
+    per_tensor and per_block, through ``qniht_batch_sharded`` on the mesh of
+    each width in ``widths`` (the first ranks of the process group), every
+    rank of it starting at a barrier. Per solve: digests of x and of the
+    whole trace, this rank's wall, the iterations its own rows ran (early
+    exit per shard), its kernel launches, and its mean rel_error; per
+    granularity the digest of the Φ̂ this rank packed and the pack's wall;
+    at the widest mesh of several ranks, under torch.profiler, this rank's
+    device busy share of one batch-16 per_tensor solve. With ``serve_dir``: serve-continuous-
+    packed on the first SHARD_KILL_WIDTH ranks, journaled there, rank 1
+    sent SIGTERM once a result is journaled; then, from a copy of the
+    journal, the run resumed with ``verify`` on every rank. ``marks``: the
+    seconds from the rank's entry to the end of each part."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import random as prng
+    from repro_torch.configs import CONFIGS, SERVE_CONFIGS
+    from repro_torch.core.operators import PackedStreamingOperator
+    from repro_torch.core.recovery import relative_error
+    from repro_torch.kernels.hsthresh.kernel import HSTHRESH
+    from repro_torch.kernels.qmm.kernel import QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE
+    from repro_torch.launch import serve
+    from repro_torch.launch.recover import lofar_instance
+    from repro_torch.parallel import make_batch_mesh
+    from repro_torch.parallel.dist import barrier
+    from repro_torch.quant.formats import as_granularity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    niht = importlib.import_module("repro_torch.core.niht")   # the module, not the function
+    kernels = (QMM, QMM_GROUP, QMM_CORE, QMM_GROUP_CORE, HSTHRESH)
+    cs, dev = CONFIGS["lofar"], mesh.device
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    t_rank = time.perf_counter()
+    out = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev), "marks": {}}
+
+    def mark(part):
+        out["marks"][part] = time.perf_counter() - t_rank
+
+    if mesh.backend == "nccl":
+        # the route itself: a one-rank group still builds its communicator
+        t = torch.ones(1, device=dev)
+        dist.all_reduce(t)
+        parts = [torch.empty(1, device=dev)]
+        dist.all_gather(parts, t)
+        out["nccl_collectives"] = float(parts[0].item())
+        mark("nccl")
+    key = prng.PRNGKey(0)
+    t0 = time.perf_counter()
+    phi, Y, X_true = lofar_instance(cs, 0, max(SHARD_BATCHES), dev)
+    sync()
+    out["instance_s"] = time.perf_counter() - t0
+    _, kphi = prng.split(key)
+    out["phi_digest"], out["pack_s"] = {}, {}
+    for gran, g in SHARD_GRANS:
+        sync()
+        t0 = time.perf_counter()
+        op = PackedStreamingOperator.pack(phi, cs.bits_phi, prng.fold_in(kphi, 0),
+                                          granularity=as_granularity(gran, g))
+        sync()
+        out["pack_s"][gran] = time.perf_counter() - t0
+        p = op.packed
+        out["phi_digest"][gran] = shard_digest(*(w.packed for w in p if w is not None),
+                                               *(w.scale for w in p if w is not None))
+        del op, p
+    mark("instance and packs")
+    stops = []
+    real_advance = niht._advance
+
+    def advance(*a, **k):
+        res = real_advance(*a, **k)
+        stops.append(res[0])
+        return res
+
+    def solve(sub, batch, gran=None, g=None):
+        kw = dict(key=key, real_signal=True, nonneg=True, bits_phi=cs.bits_phi,
+                  bits_y=cs.bits_y, requantize="fixed", backend="packed")
+        if gran is not None:
+            kw.update(scale_granularity=gran, group_size=g)
+        return niht.qniht_batch_sharded(phi, Y[:batch], cs.n_sources, cs.n_iters, mesh=sub, **kw)
+
+    out["solves"], out["busy"] = {}, {}
+    for width in widths:
+        sub = make_batch_mesh(width, "cuda")
+        if not sub.member:
+            continue
+        for batch in SHARD_BATCHES:
+            for gran, g in SHARD_GRANS:
+                for k in kernels:
+                    k.reset_counts()
+                stops.clear()
+                barrier(sub)
+                sync()
+                t0 = time.perf_counter()
+                with stand_in(niht, _advance=advance):
+                    res = solve(sub, batch, gran, g)
+                sync()
+                wall = time.perf_counter() - t0
+                rel = [float(relative_error(res.x[b], X_true[b])) for b in range(batch)]
+                out["solves"][f"w{width}_b{batch}_{gran}"] = {
+                    "x_digest": shard_digest(res.x), "trace_digest": shard_digest(*res.trace),
+                    "wall_s": wall, "iterations": stops[0] if stops else None,
+                    "launches": {k.entry: k.launches for k in kernels if k.launches},
+                    "rel_error_mean": sum(rel) / batch}
+        mark(f"solves w{width}")
+        if width != max(widths) or width == 1:
+            continue
+        # this rank's device busy share of one batch-16 per_tensor solve (the
+        # profiler's start is left out of every rank's wall by the barrier)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            barrier(sub)
+            sync()
+            t0 = time.perf_counter()
+            solve(sub, max(SHARD_BATCHES))
+            sync()
+            wall = time.perf_counter() - t0
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+        busy = sum(getattr(e, "self_device_time_total", 0) or 0 for e in evs) / 1e6
+        out["busy"][f"w{width}"] = {"wall_s": wall, "busy_s": busy if evs else None,
+                                    "share": busy / wall if evs else None}
+        mark(f"profiled w{width}")
+    del phi, Y
+    if serve_dir is None:
+        return out
+    cfg = SERVE_CONFIGS[SERVE_CONTINUOUS]
+    journal = Path(serve_dir) / "journal"
+    sub = make_batch_mesh(SHARD_KILL_WIDTH, "cuda")
+    if sub.member:
+        if sub.rank == 1:
+            sigterm_after_first_result(journal)
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            out["serve_killed"] = serve.serve_scheduled(cfg, "continuous", journal_dir=str(journal),
+                                                        mesh=sub)
+        out["serve_killed_stdout"] = buf.getvalue()
+    mark("serve stopped")
+    barrier(mesh)
+    if mesh.is_writer:
+        out["journaled_at_kill"] = len(list(journal.glob("*.done.json")))
+        shutil.copytree(journal, Path(serve_dir) / "journal_1")
+    barrier(mesh)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        out["serve_resumed"] = serve.serve_scheduled(cfg, "continuous", journal_dir=str(journal),
+                                                     resume=True, verify=True, mesh=mesh)
+    out["serve_resumed_stdout"] = buf.getvalue()
+    mark("serve resumed")
+    return out
+
+
+def one_nccl_rank(fn, *args):
+    """``fn(mesh, *args)`` as the one rank of an NCCL process group made in
+    this process (it meets in a FileStore of a temporary directory), the
+    group destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.parallel.dist import world_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            return fn(world_mesh("cuda"), *args)
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded(torch, mods):
+    """The solver's batch split over torch.distributed ranks on the one card
+    (``sharded_rank``): LOFAR CS302 at full size, batch 8 and 16, per_tensor
+    and per_block g = 64, at 1 rank on NCCL (this process) and at 2 and 4
+    ranks sharing the card on gloo (one spawn of 4): x and the whole trace of every solve bitwise the same at
+    every width and on every rank, every rank's Φ̂ digest the same, every
+    rank launching the path's kernel; then serve-continuous-packed at 2
+    ranks stopped by a SIGTERM to one of them once a result is journaled,
+    resumed at 4 ranks and at 1 (here) with ``verify`` (every answer bitwise
+    its reference_solve, exactly the journaled results drained)."""
+    import tempfile
+
+    spawn_ranks = mods["spawn_ranks"]
+    t_phase = time.perf_counter()
+    out = {"nvidia_smi": nvidia_smi_line()}
+    mods["out_dir"].mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=mods["out_dir"]) as tmp:
+        t0 = time.perf_counter()
+        one = [one_nccl_rank(sharded_rank, (1,))]
+        out["nccl_1_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        many = spawn_ranks(sharded_rank, max(SHARD_WIDTHS), device="cuda", backend="gloo",
+                           args=(SHARD_WIDTHS, tmp))
+        out["spawn_gloo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            resumed_1 = mods["serve"].serve_scheduled(
+                mods["SERVE_CONFIGS"][SERVE_CONTINUOUS], "continuous",
+                journal_dir=str(Path(tmp) / "journal_1"), resume=True, verify=True,
+                device=mods["device"])
+        out["resume_1_s"] = time.perf_counter() - t0
+    ranks = one + many
+    out["ranks"] = ranks
+    if one[0].get("nccl_collectives") != 1.0:
+        raise AssertionError(f"sharded: the one-rank NCCL collectives gave {one[0]}")
+    for gran, _ in SHARD_GRANS:
+        digests = {r["phi_digest"][gran] for r in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"sharded: ranks packed different {gran} Φ̂: {digests}")
+    for batch in SHARD_BATCHES:
+        for gran, _ in SHARD_GRANS:
+            want = one[0]["solves"][f"w1_b{batch}_{gran}"]
+            line = [f"w1 {want['wall_s']:.3f} s it {want['iterations']}"]
+            for width in SHARD_WIDTHS:
+                got = [r["solves"][f"w{width}_b{batch}_{gran}"] for r in many[:width]]
+                for r, g in enumerate(got):
+                    if (g["x_digest"], g["trace_digest"]) != (want["x_digest"],
+                                                              want["trace_digest"]):
+                        raise AssertionError(f"sharded b{batch} {gran}: rank {r} of width "
+                                             f"{width} differs from the one-rank solve")
+                    if not g["launches"]:
+                        raise AssertionError(f"sharded b{batch} {gran}: rank {r} of width "
+                                             f"{width} launched no kernel")
+                line.append(f"w{width} {max(g['wall_s'] for g in got):.3f} s it "
+                            f"{[g['iterations'] for g in got]}")
+            print(f"[chip_smoke]   sharded lofar b{batch} {gran}: x and trace bitwise at widths "
+                  f"1, {', '.join(map(str, SHARD_WIDTHS))} (rel_error_mean "
+                  f"{want['rel_error_mean']:.4f}, launches {want['launches']}) | "
+                  + " | ".join(line), flush=True)
+    for r in ranks:
+        print(f"[chip_smoke]   sharded rank {r['rank']} ({r['backend']}): instance "
+              f"{r['instance_s']:.2f} s, pack " + ", ".join(f"{g} {v * 1e3:.1f} ms" for g, v in
+                                                        r["pack_s"].items())
+              + " | busy " + ", ".join(f"{w}: {b['share']:.3f} of {b['wall_s']:.3f} s"
+                                       for w, b in r["busy"].items() if b["share"] is not None)
+              + " | marks " + ", ".join(f"{k} {v:.1f} s" for k, v in r["marks"].items()),
+              flush=True)
+    killed = [r for r in many[:SHARD_KILL_WIDTH]]
+    at = {r["serve_killed"]["preempted_at"] for r in killed}
+    journaled = many[0]["journaled_at_kill"]
+    if None in at or len(at) != 1 or not 1 <= journaled < killed[0]["serve_killed"]["requests"]:
+        raise AssertionError(f"sharded serve: the {SHARD_KILL_WIDTH}-rank run stopped at ticks "
+                             f"{at} with {journaled} results journaled")
+    for label, metrics, text in [("4 ranks", many[0]["serve_resumed"],
+                                  many[0]["serve_resumed_stdout"]),
+                                 ("1 rank", resumed_1, buf.getvalue())]:
+        if "bitwise against standalone solves" not in text or metrics["drained"] != journaled:
+            raise AssertionError(f"sharded serve: the resume at {label} drained "
+                                 f"{metrics['drained']} of {journaled}: {text[-1000:]}")
+    out["serve"] = {"preempted_at": at.pop(), "journaled_at_kill": journaled,
+                    "resumed_4": many[0]["serve_resumed"], "resumed_1": resumed_1}
+    print(f"[chip_smoke]   sharded serve {SERVE_CONTINUOUS}: {SHARD_KILL_WIDTH} ranks, SIGTERM to "
+          f"rank 1 after the first journaled result: every rank stopped at tick "
+          f"{out['serve']['preempted_at']} with {journaled} results journaled; resumed with "
+          f"verify at 4 ranks ({many[0]['serve_resumed']['items_per_s']} items/s, wall "
+          f"{many[0]['serve_resumed']['wall_s']} s) and at 1 ({resumed_1['items_per_s']} "
+          f"items/s, wall {resumed_1['wall_s']} s), each draining the {journaled}, every answer "
+          f"bitwise its reference_solve", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   sharded phase {out['seconds']:.1f} s (1 nccl rank "
+          f"{out['nccl_1_s']:.1f} s, the spawn of {max(SHARD_WIDTHS)} gloo ranks "
+          f"{out['spawn_gloo_s']:.1f} s; {out['nvidia_smi']})", flush=True)
+    return out
 
 
 def sv_gate(torch, label, sv_card, sv_cpu):
@@ -6998,6 +7321,7 @@ def load_port() -> dict:
     from repro_torch.configs import SERVE_CONFIGS
     from repro_torch.launch import serve
     from repro_torch.parallel import Request
+    from repro_torch.parallel.dist import spawn_ranks
     from repro_torch.kernels.cudalib import CudaLibrary
     from repro_torch.kernels.hsthresh import kernel as hs_kernel, ops as hs_ops
     from repro_torch.kernels.hsthresh import ref as hsthresh_ref_mod
@@ -7133,6 +7457,7 @@ def load_port() -> dict:
                 fake_quantize=fake_quantize, support_recovery=support_recovery,
                 source_recovery=source_recovery,
                 relative_error=relative_error, parallel=parallel, SERVE_CONFIGS=SERVE_CONFIGS,
+                spawn_ranks=spawn_ranks,
                 serve=serve, Request=Request, PackedStreamingOperator=PackedStreamingOperator,
                 KERNELS=(QMM, QMM_CORE, QMM_GROUP, QMM_GROUP_CORE, QMM_BATCHED, QMM_EXPERTS,
                          hs_kernel.HIST,
@@ -7240,6 +7565,7 @@ def main(argv=None) -> int:
     report["mri"] = phases.run("mri", phase_mri, torch, mods)
     report["resume"] = phases.run("resume", phase_resume, torch, mods)
     report["serve"] = phases.run("serve", phase_serve, torch, mods)
+    report["sharded"] = phases.run("sharded", phase_sharded, torch, mods)
     report["theory"] = phases.run("theory", phase_theory, torch, mods, report["lofar"])
     report["baselines"] = phases.run("baselines", phase_baselines, torch, mods)
     report["sanitize"] = phases.run("sanitize", phase_sanitize, torch, mods)

@@ -1,6 +1,6 @@
 """Solver core of the port: the paper's low-precision NIHT (QNIHT), its
 baselines and the RIP theory around it, operator backends, thresholding and
-metrics (the names of ``repro.core``; sharding is not yet ported)."""
+metrics (the names of ``repro.core``)."""
 from repro_torch.core.baselines import clean, cosamp, fista_l1, iht, spectral_norm
 from repro_torch.core.niht import (
     IHTResult,
@@ -10,6 +10,7 @@ from repro_torch.core.niht import (
     niht_iteration,
     qniht,
     qniht_batch,
+    qniht_batch_sharded,
     solver_init,
     solver_result,
     solver_segment,
@@ -57,7 +58,7 @@ from repro_torch.core.threshold import (
 __all__ = [
     "clean", "cosamp", "fista_l1", "iht", "spectral_norm",
     "IHTResult", "IHTTrace", "SolverState", "niht", "niht_iteration", "qniht",
-    "qniht_batch", "solver_init", "solver_result", "solver_segment",
+    "qniht_batch", "qniht_batch_sharded", "solver_init", "solver_result", "solver_segment",
     "stopping_iterations",
     "ComposedOperator", "DenseOperator", "FakeQuantPairOperator",
     "PackedStreamingOperator", "SubsampledFourierOperator",

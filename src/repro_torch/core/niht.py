@@ -44,7 +44,8 @@ and applies each operator one row at a time (:class:`_RowBlocks`), or in
 blocks of up to 16 rows for the packed operator on the card, whose ``qmm``
 kernels give row b of such a block the bits of a batch of one.
 
-Not yet ported: sharding (``qniht_batch_sharded``); the single-device serving
+:func:`qniht_batch_sharded` splits the batch's rows over a mesh of
+``torch.distributed`` ranks (:mod:`repro_torch.parallel.batch`); the serving
 layer on these segments is :mod:`repro_torch.parallel`.
 """
 from __future__ import annotations
@@ -553,6 +554,57 @@ def qniht_batch(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
     return _qniht_core(phi, Y, s, n_iters, bits_phi, bits_y, key, requantize, backend,
                        threshold, c, shrink_k, max_backtracks, real_signal, nonneg,
                        with_trace, scale_granularity, group_size, early_exit, exit_tol)
+
+
+def qniht_batch_sharded(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *, mesh=None,
+                        n_devices: Optional[int] = None, bits_phi: Optional[int] = None,
+                        bits_y: Optional[int] = None, key: Optional[torch.Tensor] = None,
+                        requantize: str = "pair", backend: str = "dense",
+                        threshold: str = "topk", c: float = 0.01, shrink_k: float = 2.0,
+                        max_backtracks: int = 30, real_signal: bool = False,
+                        nonneg: bool = False, with_trace: bool = True,
+                        scale_granularity: str = "per_tensor",
+                        group_size: Optional[int] = None, early_exit: bool = True,
+                        exit_tol: float = 0.0, unroll: int = 1) -> IHTResult:
+    """:func:`qniht_batch` with the B axis split over a mesh of ranks: the
+    multi-device serving mode.
+
+    Every rank of the mesh calls it with the same global ``Y`` and gets the
+    global result. ``mesh`` is a
+    :class:`~repro_torch.parallel.dist.BatchMesh` (default:
+    :func:`~repro_torch.parallel.batch.make_batch_mesh` of ``n_devices``,
+    inside a process group the first ``n_devices`` of its ranks, all by
+    default). Each rank pads ``Y`` to a multiple of the width, solves its own
+    contiguous block of rows on its own device with Φ̂ (or the matrix-free
+    operator) and the key of its own, with no collective inside an
+    iteration, and the ranks ``all_gather`` x and the trace and strip the
+    padding (an all-zero row converges at the first iteration, so padding
+    never delays a rank).
+
+    Contract: row b is ``qniht_batch(phi, Y, ...)``'s row b bit for bit,
+    trace included, at every width: the same draws, and each row meets the
+    shapes of the one-device solve (see :mod:`repro_torch.parallel.batch`).
+    ``early_exit`` defaults to True here: a rank whose rows have all
+    converged stops instead of riding along with the slowest row of the
+    whole batch.
+
+    Called with ``n_devices`` > 1 outside a process group it raises a
+    ``ValueError``: the ranks come from
+    :func:`~repro_torch.parallel.dist.spawn_ranks`, or from the CLIs'
+    ``--devices``. All other arguments as :func:`qniht_batch`."""
+    if Y.ndim != 2:
+        raise ValueError("qniht_batch_sharded expects Y of shape (B, M)")
+    _validate(phi, bits_phi, bits_y, key, requantize, backend, threshold, real_signal,
+              scale_granularity, group_size, early_exit, exit_tol, unroll)
+    from repro_torch.parallel.batch import sharded_qniht_run
+
+    return sharded_qniht_run(
+        phi, Y, key, mesh=mesh, n_devices=n_devices, s=s, n_iters=n_iters,
+        bits_phi=bits_phi, bits_y=bits_y, requantize=requantize, backend=backend,
+        threshold=threshold, c=c, shrink_k=shrink_k, max_backtracks=max_backtracks,
+        real_signal=real_signal, nonneg=nonneg, with_trace=with_trace,
+        scale_granularity=scale_granularity, group_size=group_size, early_exit=early_exit,
+        exit_tol=exit_tol)
 
 
 def niht(phi, y, s, n_iters=50, **kw) -> IHTResult:

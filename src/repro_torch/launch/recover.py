@@ -55,15 +55,27 @@ naming it, and a ``[sanitize] ok ...`` line reports the kernel-library builds.
 Chrome/Perfetto JSON) of the whole solve to ``D``. ``--full-precision`` is
 ``--backend dense``.
 
+``--devices N`` (with ``--batch``) splits the batch's rows over N ranks
+(:func:`~repro_torch.core.niht.qniht_batch_sharded`, one process per shard
+started by :func:`~repro_torch.parallel.dist.spawn_ranks`): every rank builds
+the instance, solves its rows, and gathers the rest; only rank 0 prints, and
+its line is the one-device run's bit for bit (``early_exit`` is on, as in the
+reference, wherever Φ̂ is stationary). ``--dist-backend`` names the process
+group's backend: ``nccl`` (the default on the card: one rank per card) or
+``gloo`` (the CPU's, and on the card ranks that share the cards). With
+``--checkpoint-dir`` the ranks checkpoint together (rank 0 writes), and
+``--resume`` goes on at any width. ``--sanitize`` and ``--profile-dir``
+act in every rank (rank 0's ``[sanitize]`` line; one trace per rank under
+``D/rank_<r>``).
+
 The streaming H_s (``threshold="hsthresh"``) has no flag here, as in the
 reference's CLI; it is reached through ``qniht``/``qniht_batch``.
-
-Not yet ported: ``--devices`` (the sharded batch).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import os
 import sys
 import time
@@ -72,7 +84,14 @@ import torch
 
 from repro_torch import random as prng
 from repro_torch.configs import CONFIGS
-from repro_torch.core.niht import IHTResult, IHTTrace, niht, qniht, qniht_batch
+from repro_torch.core.niht import (
+    IHTResult,
+    IHTTrace,
+    niht,
+    qniht,
+    qniht_batch,
+    qniht_batch_sharded,
+)
 from repro_torch.core.recovery import (
     psnr,
     relative_error,
@@ -108,20 +127,42 @@ def _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity="per_
     return kw
 
 
+def x_digest(x: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of x's bytes: equal digests, equal
+    bits (the batch lines print it, so runs at two ``--devices`` widths
+    compare)."""
+    return hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def _batch_solver(ckpt):
-    """qniht_batch, or with ``ckpt`` (``--checkpoint-dir``) the segmented
-    checkpointed runner: the same arguments and the same bits."""
+def _early_exit(kw) -> bool:
+    """``early_exit`` wherever Φ̂ is stationary (not ``requantize='pair'``
+    with a quantized Φ̂, which redraws it every iteration)."""
+    return not (kw.get("bits_phi") and kw.get("requantize", "pair") == "pair")
+
+
+def _batch_solver(ckpt, mesh=None):
+    """qniht_batch, or its sharded twin on ``mesh`` (``--devices``), or with
+    ``ckpt`` (``--checkpoint-dir``) the segmented checkpointed runner: the
+    same arguments and the same bits."""
     if not ckpt:
-        return qniht_batch
+        if mesh is None:
+            return qniht_batch
+
+        def sharded(phi, Y, s, n_iters, **kw):
+            return qniht_batch_sharded(phi, Y, s, n_iters, mesh=mesh,
+                                       early_exit=_early_exit(kw), **kw)
+        return sharded
     from repro_torch.launch.resilience import recover_resilient
 
     def run(phi, Y, s, n_iters, **kw):
-        return recover_resilient(phi, Y, s, n_iters, verbose=True, **ckpt, **kw)
+        if mesh is not None:
+            kw.setdefault("early_exit", _early_exit(kw))
+        return recover_resilient(phi, Y, s, n_iters, verbose=True, mesh=mesh, **ckpt, **kw)
     return run
 
 
@@ -150,9 +191,11 @@ def lofar_instance(cs, seed, batch, device):
 
 
 def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batch=0,
-                  device=None, granularity="per_tensor", group_size=None, ckpt=None):
+                  device=None, granularity="per_tensor", group_size=None, ckpt=None,
+                  mesh=None):
     """LOFAR sky recovery. Returns (metrics dict, IHTResult, x_true). ``ckpt``
-    (``checkpoint_dir``, ``ckpt_every``, ``resume``) runs it checkpointed."""
+    (``checkpoint_dir``, ``ckpt_every``, ``resume``) runs it checkpointed;
+    ``mesh`` splits a batch's rows over its ranks (on the rank's device)."""
     dev = resolve_device(device)
     key = prng.PRNGKey(seed)
     kw = _solver_kwargs(backend, bits_phi, bits_y, key, requantize, granularity, group_size)
@@ -161,13 +204,14 @@ def recover_lofar(cs, backend, bits_phi, bits_y, seed=0, requantize="pair", batc
         Y, X_true = y, x
         _sync(dev)
         t0 = time.perf_counter()
-        res = _batch_solver(ckpt)(phi, Y, cs.n_sources, cs.n_iters, real_signal=True,
-                                  nonneg=True, **kw)
+        res = _batch_solver(ckpt, mesh)(phi, Y, cs.n_sources, cs.n_iters, real_signal=True,
+                                        nonneg=True, **kw)
         _sync(dev)
         wall = time.perf_counter() - t0
         rel = [float(relative_error(res.x[b], X_true[b])) for b in range(batch)]
         return ({"batch": batch, "rel_error_mean": sum(rel) / batch,
-                 "rel_error_max": max(rel), "wall_s": wall}, res, X_true)
+                 "rel_error_max": max(rel), "x_digest": x_digest(res.x), "wall_s": wall},
+                res, X_true)
     _sync(dev)
     t0 = time.perf_counter()
     if ckpt:
@@ -203,7 +247,8 @@ def gaussian_batch_instance(g, seed, batch, device):
 
 
 def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", batch=0,
-                     device=None, granularity="per_tensor", group_size=None, ckpt=None):
+                     device=None, granularity="per_tensor", group_size=None, ckpt=None,
+                     mesh=None):
     """Gaussian toy recovery. Returns (metrics dict, IHTResult, x_true)."""
     dev = resolve_device(device)
     key = prng.PRNGKey(seed)
@@ -212,12 +257,13 @@ def recover_gaussian(g, backend, bits_phi, bits_y, seed=0, requantize="pair", ba
         phi, Y, X_true = gaussian_batch_instance(g, seed, batch, dev)
         _sync(dev)
         t0 = time.perf_counter()
-        res = _batch_solver(ckpt)(phi, Y, g.s, g.n_iters, **kw)
+        res = _batch_solver(ckpt, mesh)(phi, Y, g.s, g.n_iters, **kw)
         _sync(dev)
         wall = time.perf_counter() - t0
         rel = [float(relative_error(res.x[b], X_true[b])) for b in range(batch)]
         return ({"batch": batch, "rel_error_mean": sum(rel) / batch,
-                 "rel_error_max": max(rel), "wall_s": wall}, res, X_true)
+                 "rel_error_max": max(rel), "x_digest": x_digest(res.x), "wall_s": wall},
+                res, X_true)
     prob = make_gaussian_problem(g.m, g.n, g.s, 20.0, key, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
@@ -282,7 +328,7 @@ def mri_instance(cfg, seed, batch, device, bits_y=8, granularity="per_tensor",
 
 
 def recover_mri(cfg, bits_y, seed=0, batch=0, device=None, granularity="per_tensor",
-                n_bands=None, sparsity_basis=None, ckpt=None):
+                n_bands=None, sparsity_basis=None, ckpt=None, mesh=None):
     """The matrix-free §5 workload: image-space PSNR and relative error of the
     recovered phantom(s). ``bits_y=None`` keeps full-precision observations;
     ``per_band`` quantizes them with one scale per radial k-space band
@@ -297,7 +343,7 @@ def recover_mri(cfg, bits_y, seed=0, batch=0, device=None, granularity="per_tens
     _sync(dev)
     t0 = time.perf_counter()
     if batch:
-        res = _batch_solver(ckpt)(prob.op, y, cfg.n_sparse, cfg.n_iters, **kw)
+        res = _batch_solver(ckpt, mesh)(prob.op, y, cfg.n_sparse, cfg.n_iters, **kw)
     elif ckpt:
         res = _single_via_ckpt(ckpt, prob.op, y, cfg.n_sparse, cfg.n_iters, **kw)
     else:
@@ -312,7 +358,7 @@ def recover_mri(cfg, bits_y, seed=0, batch=0, device=None, granularity="per_tens
         return ({"basis": basis, "batch": batch, "m": prob.op.shape[0],
                  "psnr_mean": sum(ps) / batch, "psnr_min": min(ps),
                  "rel_error_mean": sum(rel) / batch, "rel_error_max": max(rel),
-                 "wall_s": wall}, res, truth)
+                 "x_digest": x_digest(res.x), "wall_s": wall}, res, truth)
     out = {"basis": basis, "m": prob.op.shape[0],
            "psnr": float(psnr(img_hat.reshape(r, r), truth.reshape(r, r))),
            "rel_error": float(relative_error(img_hat, truth)),
@@ -351,7 +397,13 @@ def main(argv=None):
                     help="MRI recovery model: the s-sparse phantom in pixels, or the "
                          "whole phantom's wavelet coefficients through Φ = P_Ω F W† "
                          "(default: the config's)")
-    ap.add_argument("--devices", type=int, default=None)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="split the --batch rows over N ranks, one process each "
+                         "(qniht_batch_sharded; bit for bit the one-device rows)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the ranks' process-group backend with --devices N > 1 (default: "
+                         "nccl on the card, one rank per card; gloo on the CPU, and on the "
+                         "card when ranks share it)")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="run the solve in checkpointed segments saved to this "
                          "directory (SIGTERM/SIGINT writes a last checkpoint and exits "
@@ -373,7 +425,12 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
     if args.devices is not None:
-        ap.exit(2, "recover: --devices is not yet ported\n")
+        if args.devices < 1:
+            ap.error("--devices must be >= 1")
+        if not args.batch:
+            ap.error("--devices shards the batch axis; combine it with --batch B")
+    if args.dist_backend and not (args.devices or 0) > 1:
+        ap.error("--dist-backend names the backend of the ranks of --devices N > 1")
     if (args.resume or args.ckpt_every != 10) and not args.checkpoint_dir:
         ap.error("--resume/--ckpt-every need --checkpoint-dir")
     if args.ckpt_every < 1:
@@ -382,10 +439,41 @@ def main(argv=None):
                  resume=args.resume) if args.checkpoint_dir else None)
     if args.sparsity_basis and not args.config.startswith("mri"):
         ap.error("--sparsity-basis selects the MRI recovery model; use an mri config")
-    backend = "dense" if args.full_precision else args.backend
-    cfg = CONFIGS[args.config]
+    _check_instance_args(ap, args)
+    if (args.devices or 0) > 1:
+        from repro_torch.parallel.dist import spawn_ranks
+
+        resolve_device(args.device)
+        spawn_ranks(_rank_main, args.devices, device=args.device, backend=args.dist_backend,
+                    args=(args, ckpt))
+        return
+    mesh = None
+    if args.devices:
+        from repro_torch.parallel.batch import make_batch_mesh
+
+        mesh = make_batch_mesh(1, args.device)
+    _solve_and_print(args, ckpt, mesh, args.profile_dir)
+
+
+def _rank_main(mesh, args, ckpt):
+    """One rank of ``--devices N``: the whole run on the rank's device, with
+    the rows split over the ranks; rank 0 prints, and each rank writes its
+    own profile under ``--profile-dir``."""
+    prof = (os.path.join(args.profile_dir, f"rank_{mesh.rank}") if args.profile_dir
+            else None)
+    _solve_and_print(args, ckpt, mesh, prof)
+
+
+def _solve_and_print(args, ckpt, mesh, profile_dir):
+    """The solve the arguments ask for, and its ``[recover]`` line (on rank 0
+    of a mesh): a preemption's line instead when SIGTERM/SIGINT stopped a
+    checkpointed run."""
     from repro_torch.launch.resilience import Preempted
 
+    backend = "dense" if args.full_precision else args.backend
+    cfg = CONFIGS[args.config]
+    device = mesh.device if mesh is not None else args.device
+    speak = mesh is None or mesh.is_writer
     if args.sanitize:
         from repro_torch.analysis.sanitize import sanitize
 
@@ -394,14 +482,17 @@ def main(argv=None):
         ctx = contextlib.nullcontext()
     counter = None
     try:
-        with profiled(args.profile_dir, args.device), ctx as counter:
-            out, label = _run(ap, args, cfg, backend, ckpt)
+        with profiled(profile_dir, device), ctx as counter:
+            out, label = _run(args, cfg, backend, ckpt, device, mesh)
     except Preempted as e:
-        print(f"[recover] {e}; restart with --resume to continue", flush=True)
+        if speak:
+            print(f"[recover] {e}; restart with --resume to continue", flush=True)
         return
-    if counter is not None:
-        print(f"[sanitize] ok {counter.summary()} debug_nans=on debug_infs=on", flush=True)
-    print(format_line(args.config, label, out), flush=True)
+    if speak:
+        if counter is not None:
+            print(f"[sanitize] ok {counter.summary()} debug_nans=on debug_infs=on",
+                  flush=True)
+        print(format_line(args.config, label, out), flush=True)
 
 
 @contextlib.contextmanager
@@ -423,29 +514,36 @@ def profiled(profile_dir, device):
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
-def _run(ap, args, cfg, backend, ckpt):
-    """The solve the arguments ask for: (metrics dict, label)."""
+def _check_instance_args(ap, args) -> None:
+    """The combinations of instance flags the solve refuses (exit 2)."""
     if args.config.startswith("mri"):
         if args.scale_granularity in ("per_channel", "per_block"):
             ap.error("the MRI Φ is matrix-free (nothing packed to scale); "
                      "use --scale-granularity per_band for the observations")
+        return
+    gran = args.scale_granularity or "per_tensor"
+    if gran == "per_band":
+        ap.error("per_band is the MRI observation granularity; use an mri config")
+    if gran == "per_block" and args.group_size is None:
+        ap.error("--scale-granularity per_block needs --group-size")
+
+
+def _run(args, cfg, backend, ckpt, device, mesh=None):
+    """The solve the arguments ask for: (metrics dict, label)."""
+    if args.config.startswith("mri"):
         bits_y = None if backend == "dense" else args.bits_y
         gran = args.scale_granularity or cfg.scale_granularity
-        out, _, _ = recover_mri(cfg, bits_y, args.seed, args.batch, args.device, gran,
-                                args.group_size, args.sparsity_basis, ckpt)
+        out, _, _ = recover_mri(cfg, bits_y, args.seed, args.batch, device, gran,
+                                args.group_size, args.sparsity_basis, ckpt, mesh)
         basis = args.sparsity_basis or cfg.sparsity_basis
         label = ("32bit[matrix-free]" if bits_y is None
                  else f"y@{bits_y}bit[{gran},matrix-free]") + f"[{basis}]"
     else:
         gran = args.scale_granularity or "per_tensor"
-        if gran == "per_band":
-            ap.error("per_band is the MRI observation granularity; use an mri config")
-        if gran == "per_block" and args.group_size is None:
-            ap.error("--scale-granularity per_block needs --group-size")
         run = recover_lofar if args.config.startswith("lofar") else recover_gaussian
         out, _, _ = run(cfg, backend, args.bits_phi, args.bits_y, args.seed,
-                        args.requantize, args.batch, args.device, gran, args.group_size,
-                        ckpt)
+                        args.requantize, args.batch, device, gran, args.group_size,
+                        ckpt, mesh)
         label = ("32bit" if backend == "dense"
                  else f"{args.bits_phi}&{args.bits_y}bit[{backend}]")
     return out, label

@@ -14,9 +14,13 @@ restart point:
   and :class:`Preempted` is raised.
 * ``resume=True`` restores the newest complete checkpoint (past torn ones)
   and goes on; the result has the bits of the uninterrupted run.
-
-Single device: the reference's mesh (``mesh``/``n_devices``, elastic resume
-across widths) is not ported yet.
+* ``mesh``/``n_devices`` split the rows over ranks
+  (:func:`~repro_torch.parallel.batch.sharded_segment_run`): every rank runs
+  this function alike, the stop is agreed across the ranks at every segment
+  boundary, rank 0 writes the checkpoints and every rank restores them.
+  Checkpoints are elastic: the state is saved stripped of the mesh's
+  padding, so a run checkpointed at ``--devices 4`` resumes at 2 or on one
+  device, to the same bits.
 
 CLI: ``python -m repro_torch.launch.recover --checkpoint-dir CKPT
 --ckpt-every 10 [--resume]``.
@@ -34,9 +38,10 @@ from repro_torch.core.niht import (
     SolverState,
     solver_init,
     solver_result,
-    solver_segment,
 )
 from repro_torch.core.operators import PackedStreamingOperator
+from repro_torch.parallel.batch import make_batch_mesh, one_device_mesh, sharded_segment_run
+from repro_torch.parallel.dist import any_rank
 from repro_torch.quant.formats import as_granularity
 from repro_torch.train.checkpoint import restore_latest, save
 from repro_torch.train.fault import PreemptionGuard
@@ -64,6 +69,7 @@ def _sync(t: torch.Tensor) -> None:
 
 def recover_resilient(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
                       checkpoint_dir: str, ckpt_every: int = 10, resume: bool = False,
+                      mesh=None, n_devices: Optional[int] = None,
                       keep: int = 3, async_save: bool = False,
                       guard: Optional[PreemptionGuard] = None, verbose: bool = False,
                       key: Optional[torch.Tensor] = None, **solver_kw) -> IHTResult:
@@ -75,6 +81,9 @@ def recover_resilient(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
     :class:`PreemptionGuard` to poll between segments; ``None`` installs one
     for this call. ``async_save`` overlaps the checkpoint writes with the next
     segment; the last checkpoint and a preemption's are synchronous.
+    ``mesh`` (or ``n_devices``: :func:`~repro_torch.parallel.batch.make_batch_mesh`)
+    splits the rows over ranks, each of which calls this function with the
+    same arguments; the default is one device.
 
     The packed backend is packed once here, not in every segment: the codes
     are a function of (phi, key), so a restarted process packs the same
@@ -87,6 +96,9 @@ def recover_resilient(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
         raise TypeError(f"recover_resilient got unexpected solver kwargs {sorted(unknown)}")
     statics = {**_SEG_DEFAULTS, **solver_kw}
     key = key if key is not None else prng.PRNGKey(0)
+    if mesh is None:
+        mesh = make_batch_mesh(n_devices, Y.device) if n_devices else one_device_mesh(Y.device)
+    verbose = verbose and mesh.is_writer
 
     # the guard is in place before the first line is printed: a SIGTERM from
     # then on is absorbed at the next segment's end, never the default kill
@@ -112,14 +124,16 @@ def recover_resilient(phi, Y: torch.Tensor, s: int, n_iters: int = 50, *,
 
         while int(state.k) < n_iters:
             n = min(ckpt_every, n_iters - int(state.k))
-            state: SolverState = solver_segment(seg_phi, state, n, s=s, **seg_statics)
+            state: SolverState = sharded_segment_run(seg_phi, state, n, mesh=mesh, s=s,
+                                                     **seg_statics)
             _sync(state.X)
             k = int(state.k)
             final = k >= n_iters
-            preempt = g.requested
+            # every rank stops at the same segment boundary
+            preempt = any_rank(mesh, g.requested)
             # preemption and the horizon both need a durable (synchronous) write
             save(checkpoint_dir, k, state, keep=keep,
-                 async_=async_save and not final and not preempt)
+                 async_=async_save and not final and not preempt, mesh=mesh)
             if verbose:
                 print(f"[resilience] k={k}/{n_iters} checkpointed", flush=True)
             if preempt and not final:

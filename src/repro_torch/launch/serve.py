@@ -38,8 +38,15 @@ after the whole run (scheduler). ``--profile-dir D`` writes a
 ``torch.profiler`` trace (CPU and CUDA activity, Chrome/Perfetto JSON) of the
 chunked serving loop to ``D``.
 
-Not yet ported: ``--devices N`` for N > 1 (ROADMAP.md queue 1, "Sharding over several
-devices").
+``--devices N`` (N > 1) serves on N ranks, one process each
+(:func:`~repro_torch.parallel.dist.spawn_ranks`): every rank builds the same
+stream, each chunk's (or the slot table's) rows are split over the ranks
+and gathered after each solve (or segment), and only rank 0 prints, writes
+the journal and the metrics; the last line reports ``devices=N``.
+``--dist-backend`` names the backend: ``nccl`` (the card's default: one
+rank per card) or ``gloo`` (the CPU's, and ranks sharing a card). A SIGTERM
+is agreed across the ranks at the next chunk (or segment) boundary, and a
+journal written at one width resumes at another.
 
 Workloads are the reference's: Φ from ``make_gaussian_problem`` and each
 signal's support and signs from ``permutation`` and ``rademacher`` under the
@@ -52,6 +59,7 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import os
 import statistics
 import sys
 import time
@@ -62,12 +70,6 @@ from repro_torch import random as prng
 from repro_torch.configs import SERVE_CONFIGS
 from repro_torch.core.recovery import relative_error
 from repro_torch.device import resolve_device
-
-NOT_PORTED = {
-    "--devices": "--devices N > 1 (sharding the batch) is not yet ported: ROADMAP.md queue 1, "
-                 "\"Sharding over several devices\", over torch.distributed",
-}
-
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -193,8 +195,8 @@ def _sanitizer(sanitize):
     return sanitize_ctx()
 
 
-def _sanitize_line(counter) -> None:
-    if counter is not None:
+def _sanitize_line(counter, speak=True) -> None:
+    if counter is not None and speak:
         print(f"[sanitize] ok {counter.summary()} debug_nans=on debug_infs=on", flush=True)
 
 
@@ -203,7 +205,7 @@ def _mean(xs, digits):
 
 
 def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
-                    verify=False, device=None, sanitize=None):
+                    verify=False, device=None, sanitize=None, mesh=None):
     """Run the bursty request trace through a
     :class:`~repro_torch.parallel.scheduler.ContinuousScheduler`; returns
     metrics: p50/p99 request latency, items/s, slot occupancy, queue-wait
@@ -215,41 +217,55 @@ def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
     and asserts bitwise equality. ``journal_dir``/``resume`` journal each
     request under its rid and drain completed results on restart.
     ``sanitize`` (default: ``cfg.sanitize``) runs the scheduler under the
-    NaN/Inf tripwires, its counter marked warm after the run."""
+    NaN/Inf tripwires, its counter marked warm after the run. ``mesh``
+    splits the slot table's rows over its ranks (every rank calls this
+    alike, and verifies its share of the answers). A SIGTERM/SIGINT stops
+    the run at the next segment boundary (``preempted_at``)."""
     import numpy as np
 
     from repro_torch.parallel import ContinuousScheduler
+    from repro_torch.parallel.dist import barrier
+    from repro_torch.train.fault import PreemptionGuard
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if sanitize is None:
         sanitize = cfg.sanitize
     key = prng.PRNGKey(cfg.seed)
     phi, arrivals, truths, hard_rids = build_requests(cfg, key, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    with _sanitizer(sanitize) as counter:
+    with _sanitizer(sanitize) as counter, PreemptionGuard() as guard:
         sch = ContinuousScheduler(
             phi, cfg.s, cfg.n_iters, slots=cfg.slots, seg_len=cfg.seg_len,
             policy=policy, queue_depth=cfg.queue_depth, age_every=cfg.age_every,
-            n_devices=devices, key=key, exit_tol=cfg.exit_tol, journal_dir=journal_dir,
-            resume=resume, **_solver_kwargs(cfg, sanitize))
-        reports = sch.run(arrivals)
+            mesh=mesh, n_devices=devices if mesh is None else None, key=key,
+            exit_tol=cfg.exit_tol, journal_dir=journal_dir, resume=resume,
+            **_solver_kwargs(cfg, sanitize))
+        reports = sch.run(arrivals, stop=lambda: guard.requested)
         if counter is not None:
             counter.mark_warm()
     wall = time.perf_counter() - t0
-    _sanitize_line(counter)
-
+    speak = sch.mesh.is_writer
+    _sanitize_line(counter, speak)
+    if sch.preempted_at is not None and speak:
+        print(f"[serve] preempted at tick {sch.preempted_at} "
+              f"(journal has {sum(r.status == 'done' for r in reports.values())} results)",
+              flush=True)
     done = [r for r in reports.values() if r.status == "done"]
     if verify:
+        # each rank checks its share of the answers; the barrier holds rank
+        # 0's line until every share has passed
         requests = {req.rid: req for _, req in arrivals}
-        for r in done:
+        for r in done[sch.mesh.rank::sch.mesh.size]:
             req = requests[r.rid]
             ref = sch.reference_solve(req.y, req.n_iters).cpu().numpy()
-            assert np.array_equal(ref, np.asarray(r.x)), (
-                f"request {r.rid}: scheduler answer differs from its "
-                "standalone reference solve")
-        print(f"[serve] verified {len(done)} requests bitwise against "
-              "standalone solves", flush=True)
+            if not np.array_equal(ref, np.asarray(r.x)):
+                raise AssertionError(f"request {r.rid}: scheduler answer differs from its "
+                                     "standalone reference solve")
+        barrier(sch.mesh)
+        if speak:
+            print(f"[serve] verified {len(done)} requests bitwise against "
+                  "standalone solves", flush=True)
     lat = sorted(r.latency_s for r in done)
     waits = [r.queue_wait_ticks for r in done if r.queue_wait_ticks is not None]
     iters = [r.iters_used for r in done if r.iters_used is not None]
@@ -271,6 +287,8 @@ def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
     return {
         **sanitize_fields,
         "scheduler": policy,
+        "devices": sch.mesh.size,
+        "preempted_at": sch.preempted_at,
         "requests": len(reports),
         "completed": len(done),
         "drained": stats["drained"],
@@ -295,7 +313,7 @@ def serve_scheduled(cfg, policy, devices=None, journal_dir=None, resume=False,
 
 
 def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device=None,
-          sanitize=None, profile_dir=None):
+          sanitize=None, profile_dir=None, mesh=None):
     """Run the stream through a BatchServer; returns a metrics dict.
 
     The loop runs under a :class:`~repro_torch.train.fault.PreemptionGuard`:
@@ -310,12 +328,16 @@ def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device
     first chunk, its metrics included: the ``[sanitize]`` line and the
     ``sanitize_compiles*`` fields say whether later chunks built or loaded
     anything. ``profile_dir`` writes a ``torch.profiler`` trace of the whole
-    loop (set-up chunk included)."""
+    loop (set-up chunk included). ``mesh`` splits each chunk's rows over its
+    ranks: every rank calls this alike, the stop is agreed across them at
+    each chunk boundary, and only rank 0 prints."""
     from repro_torch.launch.recover import profiled
     from repro_torch.parallel import BatchServer
     from repro_torch.train.fault import PreemptionGuard
 
-    dev = resolve_device(device)
+    from repro_torch.parallel.dist import any_rank
+
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if sanitize is None:
         sanitize = cfg.sanitize
     key = prng.PRNGKey(cfg.seed)
@@ -326,9 +348,11 @@ def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device
     preempted = None
     with profiled(profile_dir, dev), _sanitizer(sanitize) as counter, \
             PreemptionGuard() as guard:
-        srv = BatchServer(phi, cfg.s, cfg.n_iters, n_devices=devices, key=key,
+        srv = BatchServer(phi, cfg.s, cfg.n_iters, mesh=mesh,
+                          n_devices=devices if mesh is None else None, key=key,
                           exit_tol=cfg.exit_tol, journal_dir=journal_dir,
                           resume=resume, **_solver_kwargs(cfg, sanitize))
+        speak = srv.mesh.is_writer
         for ci, Y in enumerate(stream):
             _sync(dev)
             t0 = time.perf_counter()
@@ -337,7 +361,8 @@ def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device
             walls.append(time.perf_counter() - t0)
             x = res.x.cpu()
             digest = hashlib.sha256(x.numpy().tobytes()).hexdigest()[:16]
-            print(f"[serve] chunk {ci} x_digest={digest}", flush=True)
+            if speak:
+                print(f"[serve] chunk {ci} x_digest={digest}", flush=True)
             truth = truths[ci].cpu()
             for b in range(cfg.chunk):
                 r = float(relative_error(x[b], truth[b]))
@@ -345,12 +370,14 @@ def serve(cfg, devices=None, chunks=None, journal_dir=None, resume=False, device
             if counter is not None and ci == 0:
                 # warm-up = chunk 0 end to end, metrics included
                 counter.mark_warm()
-            if guard.requested and ci + 1 < len(stream):
+            # every rank reads the agreed flag, so every rank stops here
+            if any_rank(srv.mesh, guard.requested) and ci + 1 < len(stream):
                 preempted = ci + 1
-                print(f"[serve] preempted after chunk {ci} "
-                      f"(journal has {ci + 1}/{len(stream)} chunks)", flush=True)
+                if speak:
+                    print(f"[serve] preempted after chunk {ci} "
+                          f"(journal has {ci + 1}/{len(stream)} chunks)", flush=True)
                 break
-    _sanitize_line(counter)
+    _sanitize_line(counter, speak)
     steady = walls[1:] if len(walls) > 1 else walls
     sanitize_fields = {} if counter is None else {
         "sanitize_compiles": counter.compiles,
@@ -391,7 +418,12 @@ def main(argv=None):
                          "request's standalone qniht_batch reference and "
                          "assert bitwise equality")
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices to serve on; only 1 (sharding is not yet ported)")
+                    help="serve on N ranks, one process each, every chunk's (or the slot "
+                         "table's) rows split over them (default: one device)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the ranks' process-group backend with --devices N > 1 (default: "
+                         "nccl on the card, one rank per card; gloo on the CPU, and on the "
+                         "card when ranks share it)")
     ap.add_argument("--chunks", type=int, default=None,
                     help="override the config's number of stream chunks")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -412,32 +444,55 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
-    if args.devices is not None and args.devices > 1:
-        ap.exit(2, f"serve: {NOT_PORTED['--devices']}\n")
     if args.devices is not None and args.devices < 1:
         ap.error("--devices must be >= 1")
+    if args.dist_backend and not (args.devices or 0) > 1:
+        ap.error("--dist-backend names the backend of the ranks of --devices N > 1")
     if args.chunks is not None and args.chunks < 1:
         ap.error("--chunks must be >= 1")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume needs --checkpoint-dir")
-
-    cfg = SERVE_CONFIGS[args.config]
     is_continuous_cfg = args.config.startswith("serve-continuous")
     if (args.scheduler != "chunked") != is_continuous_cfg:
         ap.error("--scheduler continuous|lockstep goes with the "
                  "serve-continuous* configs; chunked with the serve-gaussian* "
                  "ones")
+    if args.scheduler != "chunked" and args.profile_dir:
+        ap.error("--profile-dir is a chunked-path flag")
+    if (args.devices or 0) > 1:
+        from repro_torch.parallel.dist import spawn_ranks
+
+        resolve_device(args.device)
+        spawn_ranks(_rank_main, args.devices, device=args.device, backend=args.dist_backend,
+                    args=(args,))
+        return
+    _serve_and_print(args, None, args.profile_dir)
+
+
+def _rank_main(mesh, args):
+    """One rank of ``--devices N``: the whole run on the rank's device, rows
+    split over the ranks; rank 0 prints and writes, and each rank writes its
+    own profile under ``--profile-dir``."""
+    prof = (os.path.join(args.profile_dir, f"rank_{mesh.rank}") if args.profile_dir
+            else None)
+    _serve_and_print(args, mesh, prof)
+
+
+def _serve_and_print(args, mesh, profile_dir):
+    """The run the arguments ask for, its metrics JSON and its last line
+    (rank 0 of a mesh alone writes and prints)."""
+    cfg = SERVE_CONFIGS[args.config]
     if args.scheduler == "chunked":
         out = serve(cfg, args.devices, args.chunks, journal_dir=args.checkpoint_dir,
                     resume=args.resume, device=args.device, sanitize=args.sanitize,
-                    profile_dir=args.profile_dir)
+                    profile_dir=profile_dir, mesh=mesh)
     else:
-        if args.profile_dir:
-            ap.error("--profile-dir is a chunked-path flag")
         out = serve_scheduled(cfg, args.scheduler, devices=args.devices,
                               journal_dir=args.checkpoint_dir, resume=args.resume,
                               verify=args.verify, device=args.device,
-                              sanitize=args.sanitize)
+                              sanitize=args.sanitize, mesh=mesh)
+    if mesh is not None and not mesh.is_writer:
+        return
     if args.metrics_json:
         from repro_torch.parallel.journal import write_json_durable
 

@@ -52,7 +52,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         ap.exit(2, f"train: --mesh {args.mesh} is not ported: training runs on one device; "
-                   "sharding over several devices is ROADMAP.md queue 1's sharding item\n")
+                   "sharding training over several devices is the training half of "
+                   "ROADMAP.md queue 1's sharding item, \"Sharding over several devices\"\n")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family in ("encdec", "vlm"):

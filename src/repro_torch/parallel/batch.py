@@ -1,5 +1,5 @@
-"""Batch recovery for serving, on one device (port of the single-device half
-of ``repro.parallel.batch``).
+"""Batch recovery for serving: the chunked server, and the batch's rows split
+over a mesh of ranks (port of ``repro.parallel.batch``).
 
 NIHT iterations for independent observations of one Φ̂ never interact: all
 cross-row structure in ``qniht_batch`` is the shared operator stream, while
@@ -13,16 +13,34 @@ holds the serving loop's pieces that rest on that:
   :class:`~repro_torch.core.niht.SolverState`, every other row bitwise
   untouched (the continuous-batching refill of
   :mod:`repro_torch.parallel.scheduler`);
+* :func:`make_batch_mesh` — the serving mesh
+  (:class:`~repro_torch.parallel.dist.BatchMesh`): one device, or the ranks
+  of a ``torch.distributed`` process group
+  (:func:`~repro_torch.parallel.dist.spawn_ranks`);
+* :func:`sharded_qniht_run` and :func:`sharded_segment_run` — the solve and
+  the segment with the rows split over a mesh: every rank pads the global
+  batch to the mesh width, solves its own contiguous block of rows
+  (:func:`owned_rows`, :func:`shard_state`) on its own device with no
+  collective inside an iteration, and the ranks ``all_gather`` the blocks
+  (:func:`gather_state`) and strip the padding. Φ̂ (or the matrix-free
+  operator) and the key are on every rank, so each rank draws what the
+  one-device solve draws. A rank whose rows have all converged stops
+  (``early_exit``);
 * :class:`BatchServer` — the multi-chunk server: Φ̂ packed once at
   construction, a stream of equally shaped ``(B, M)`` chunks solved with
-  per-chunk keys, optionally write-ahead journaled;
-* :func:`make_batch_mesh` — the serving "mesh", which on one device is the
-  device itself.
+  per-chunk keys over a mesh, optionally write-ahead journaled.
 
-The reference splits the rows over a ``("batch",)`` device mesh with
-``shard_map``; that half (``sharded_qniht_run``, ``sharded_segment_run``,
-``state_shardings``, ``force_host_devices``) is not yet ported: it comes
-over ``torch.distributed``. Here every chunk runs on the device of its Φ.
+Bit-identity across widths: torch's batched products and sums (on the CPU,
+and cuBLAS and cuFFT on the card) choose their order of summation by the
+batch's width, not by the other rows' values. So a rank solves its block as
+a batch of the one-device width, with every row outside its block a pad row,
+and row b meets the shapes of the one-device solve; under the freeze rule
+(``exit_tol > 0``) the solver already computes every row alone, and a rank
+solves only its own rows. Row b is then the one-device row b bit for bit, at
+every width, and a state checkpointed at one width resumes at another. On the
+CPU the products also choose their order by the number of intra-op threads;
+ranks run one thread each, so the one-device run they equal is a one-thread
+run.
 """
 from __future__ import annotations
 
@@ -30,30 +48,76 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as prng
-from repro_torch.core.niht import IHTResult, IHTTrace, SolverState, _validate, qniht_batch
+from repro_torch.core.niht import (
+    _SEG_DEFAULTS,
+    IHTResult,
+    IHTTrace,
+    SolverState,
+    _qniht_core,
+    _validate,
+    solver_segment,
+)
 from repro_torch.core.operators import PackedStreamingOperator
 from repro_torch.device import resolve_device
+from repro_torch.parallel.dist import SPAWN_HINT, BatchMesh, all_gather_rows, narrow, world_mesh
 from repro_torch.parallel.journal import ChunkJournal
 from repro_torch.quant.formats import as_granularity
 
-SHARDING_NOT_PORTED = ("sharding the batch over several devices is not yet ported "
-                       "(ROADMAP.md queue 1, \"Sharding over several devices\": over "
-                       "torch.distributed)")
+
+def make_batch_mesh(n_devices: Optional[int] = None, device=None,
+                    backend: Optional[str] = None) -> BatchMesh:
+    """The serving mesh.
+
+    Outside a process group it is one device, ``device`` (default ``cuda``),
+    and ``n_devices`` may be None or 1: more raises a ``ValueError`` that
+    names :func:`~repro_torch.parallel.dist.spawn_ranks` and the CLIs'
+    ``--devices``. Inside a rank it is the first ``n_devices`` ranks of the
+    process group (default: all of them), each on its own device of
+    ``device``'s type; every rank must call it, and a rank past
+    ``n_devices`` gets a mesh it is not a member of. ``backend``, if given,
+    must be the group's."""
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    if not (dist.is_available() and dist.is_initialized()):
+        if n_devices is not None and n_devices > 1:
+            raise ValueError(f"a mesh of {n_devices} devices is a process group of "
+                             f"{n_devices} ranks, and this process is in none: {SPAWN_HINT}")
+        return one_device_mesh(device)
+    mesh = world_mesh(device if device is not None else "cuda")
+    if backend is not None and backend != mesh.backend:
+        raise ValueError(f"the process group's backend is {mesh.backend!r}, not {backend!r}")
+    if n_devices is not None and n_devices > mesh.size:
+        raise ValueError(f"n_devices={n_devices} but the process group has {mesh.size} ranks")
+    return narrow(mesh, n_devices if n_devices is not None else mesh.size)
 
 
-def make_batch_mesh(n_devices: Optional[int] = None, device=None) -> torch.device:
-    """The serving mesh of one device: ``device`` itself (default ``cuda``).
+def one_device_mesh(device=None) -> BatchMesh:
+    """The mesh of one device (default ``cuda``), in a process group or not."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return BatchMesh(size=1, rank=0, device=dev)
 
-    ``n_devices`` may be None or 1; more raises, since sharding the batch is
-    not yet ported."""
-    if n_devices is not None:
-        if n_devices < 1:
-            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-        if n_devices > 1:
-            raise NotImplementedError(SHARDING_NOT_PORTED)
-    return resolve_device(device)
+
+def check_mesh(mesh) -> BatchMesh:
+    """``mesh``, if it is a :class:`BatchMesh` (else ``TypeError``)."""
+    if not isinstance(mesh, BatchMesh):
+        raise TypeError(f"mesh must be a BatchMesh (make_batch_mesh), got {type(mesh).__name__}")
+    return mesh
+
+
+def _solver_mesh(mesh, n_devices, device) -> BatchMesh:
+    """``mesh``, or :func:`make_batch_mesh` of ``n_devices``; this rank must
+    be in it, on ``device``."""
+    mesh = check_mesh(mesh) if mesh is not None else make_batch_mesh(n_devices, device)
+    if not mesh.member:
+        raise ValueError(f"this rank is outside the mesh of {mesh.size} ranks")
+    if torch.device(device) != mesh.device:
+        raise ValueError(f"the mesh's device is {mesh.device}, but the rows lie on {device}")
+    return mesh
 
 
 def _operator_device(phi) -> Optional[torch.device]:
@@ -115,12 +179,7 @@ def strip_state(state: SolverState, b: int) -> SolverState:
     """Drop pad rows again (inverse of :func:`pad_state` on the real rows)."""
     if state.Y.shape[0] == b:
         return state
-    return SolverState(
-        k=state.k, X=state.X[:b], done=state.done[:b], streak=state.streak[:b],
-        last=IHTTrace(*(t[:b] for t in state.last)),
-        trace=IHTTrace(*(t[:, :b] for t in state.trace)),
-        Y=state.Y[:b], key=state.key,
-    )
+    return _take_rows(state, slice(None, b))
 
 
 def refill_rows(state: SolverState, rows, Y_rows, live) -> SolverState:
@@ -186,18 +245,128 @@ def refill_rows(state: SolverState, rows, Y_rows, live) -> SolverState:
     )
 
 
+def owned_rows(b_pad: int, mesh: BatchMesh) -> slice:
+    """The rows of a batch padded to the mesh's width (:func:`pad_batch`)
+    that this rank solves: its contiguous block of ``b_pad / size`` rows, in
+    rank order (the reference's ``P("batch")`` split)."""
+    per = b_pad // mesh.size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def _take_rows(state: SolverState, rows: slice) -> SolverState:
+    return SolverState(
+        k=state.k, X=state.X[rows], done=state.done[rows], streak=state.streak[rows],
+        last=IHTTrace(*(t[rows] for t in state.last)),
+        trace=IHTTrace(*(t[:, rows] for t in state.trace)),
+        Y=state.Y[rows], key=state.key)
+
+
+def _only_rows(Y: torch.Tensor, rows: slice) -> torch.Tensor:
+    """``Y`` with every row outside ``rows`` zeroed (a pad row)."""
+    out = torch.zeros_like(Y)
+    out[rows] = Y[rows]
+    return out
+
+
+def shard_state(state: SolverState, mesh: BatchMesh, row_local: bool) -> tuple:
+    """This rank's share of a stripped :class:`SolverState` on ``mesh`` (the
+    counterpart of the reference's ``state_shardings``: a state of any
+    width, from a segment or a checkpoint, is placed on the mesh it goes on
+    with). Returns ``(local_state, B)``.
+
+    ``row_local`` (the freeze rule computes every row alone): the rank's rows
+    of the state padded to the mesh width. Otherwise the state at its own
+    width with every row outside the rank's block a pad row, so that each
+    row meets the shapes of the one-device solve."""
+    state_p, b = pad_state(state, mesh.size)
+    rows = owned_rows(state_p.Y.shape[0], mesh)
+    if row_local:
+        return _take_rows(state_p, rows), b
+    foreign = [r for r in range(b) if not rows.start <= r < rows.stop]
+    if not foreign:
+        return state, b
+    blank = torch.zeros((len(foreign), state.Y.shape[1]), dtype=state.Y.dtype,
+                        device=state.Y.device)
+    return refill_rows(state, foreign, blank, [False] * len(foreign)), b
+
+
+def gather_state(local: SolverState, mesh: BatchMesh, b: int, row_local: bool,
+                 Y: torch.Tensor) -> SolverState:
+    """The inverse of :func:`shard_state` after a segment: every rank's block
+    gathered (one ``all_gather``), the padding stripped, ``Y`` the global
+    observations. Every rank returns the same state."""
+    b_pad = -(-b // mesh.size) * mesh.size
+    if not row_local:
+        local = _take_rows(pad_state(local, mesh.size)[0], owned_rows(b_pad, mesh))
+    leaves = [local.X, local.done, local.streak, *local.last, *local.trace]
+    out = all_gather_rows(mesh, leaves, [0] * 8 + [1] * 5)
+    return strip_state(SolverState(
+        k=local.k, X=out[0], done=out[1], streak=out[2], last=IHTTrace(*out[3:8]),
+        trace=IHTTrace(*out[8:]), Y=pad_batch(Y, mesh.size)[0], key=local.key), b)
+
+
+def sharded_qniht_run(phi, Y: torch.Tensor, key, *, mesh=None, n_devices=None,
+                      **statics) -> IHTResult:
+    """Pad, solve this rank's rows, ``all_gather``, strip: the backend of
+    :func:`repro_torch.core.niht.qniht_batch_sharded` (call that instead: it
+    validates the solver configuration first). Every rank of the mesh calls
+    it with the same arguments and returns the same global result."""
+    mesh = _solver_mesh(mesh, n_devices, Y.device)
+    statics.pop("unroll", None)      # the reference's scan knob, no effect here
+    if mesh.size == 1:
+        return _qniht_core(phi, Y, key=key, **statics)
+    row_local = statics["exit_tol"] > 0.0
+    Y_pad, b = pad_batch(Y, mesh.size)
+    rows = owned_rows(Y_pad.shape[0], mesh)
+    res = _qniht_core(phi, Y_pad[rows] if row_local else _only_rows(Y, rows), key=key,
+                      **statics)
+    x, trace = res.x, res.trace
+    if not row_local:
+        p = Y_pad.shape[0] - b
+        x = _pad_rows(x, p)[rows]
+        trace = [torch.cat([t, torch.zeros((t.shape[0], p), dtype=t.dtype, device=t.device)],
+                           dim=1)[:, rows] for t in trace]
+    x, *trace = all_gather_rows(mesh, [x, *trace], [0] + [1] * 5)
+    return IHTResult(x=x[:b], trace=IHTTrace(*(t[:, :b] for t in trace)))
+
+
+def sharded_segment_run(phi, state: SolverState, n_steps: int, *, mesh=None,
+                        n_devices: Optional[int] = None, **statics) -> SolverState:
+    """:func:`~repro_torch.core.niht.solver_segment` with the state's rows
+    split over a mesh: the segment engine of the preemption-safe driver
+    (:mod:`repro_torch.launch.resilience`) and of the continuous scheduler.
+
+    The returned (and checkpointed) state is stripped of the padding and
+    never records the mesh it ran on: save at ``--devices 4``, resume at
+    ``--devices 2`` or on one device, to the same bits. Every rank of the
+    mesh calls it with the same state and returns the same state."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    statics = {**_SEG_DEFAULTS, **statics}
+    mesh = _solver_mesh(mesh, n_devices, state.Y.device)
+    if mesh.size == 1:
+        return solver_segment(phi, state, n_steps, **statics)
+    row_local = statics["exit_tol"] > 0.0
+    local, b = shard_state(state, mesh, row_local)
+    out = solver_segment(phi, local, n_steps, **statics)
+    return gather_state(out, mesh, b, row_local, state.Y)
+
+
 class BatchServer:
-    """Multi-chunk recovery service on one device: the chunked serving loop.
+    """Multi-chunk recovery service: the chunked serving loop, over a mesh.
 
     Holds one measurement operator and one solver configuration, and solves a
-    stream of equally shaped ``(B, M)`` observation chunks on the device of
-    Φ. Amortization contract:
+    stream of equally shaped ``(B, M)`` observation chunks, each chunk's rows
+    split over ``mesh`` (default :func:`make_batch_mesh` of ``n_devices``
+    on the device of Φ: one device, or inside a rank the process group's
+    ranks, each of which runs the server on the same stream). Amortization
+    contract:
 
     * **pack once** — with ``backend="packed"``, Φ̂ is quantized and packed at
       construction (keyed as the solver would: ``fold_in(kφ, 0)`` of the
-      construction key's second split half), and every chunk streams the same
-      codes through the ``qmm`` kernels as a matrix-free operator, so no
-      chunk quantizes or packs Φ̂;
+      construction key's second split half), on every rank, and every chunk
+      streams the same codes through the ``qmm`` kernels as a matrix-free
+      operator, so no chunk quantizes or packs Φ̂;
     * **per-chunk keys** — ``submit(Y, key=k)`` draws the chunk's observation
       quantization from ``k`` (default: the construction key).
 
@@ -206,15 +375,16 @@ class BatchServer:
 
     Bit-identity: with construction key K and ``submit(Y, key=K)``, row ``b``
     equals ``qniht_batch(phi, Y, ..., key=K)`` of the user-level backend
-    configuration bit for bit.
+    configuration bit for bit, at every mesh width.
 
     Restartability: with ``journal_dir`` set, every chunk is write-ahead
-    journaled (:class:`~repro_torch.parallel.journal.ChunkJournal`) — inputs
-    before the solve, result after. A restarted server with the same
-    ``journal_dir`` and ``resume=True``, fed the same deterministic stream,
-    drains completed chunks from disk (``n_drained`` counts them) and replays
-    in-flight ones; the ``x`` stream is bit-identical to the uninterrupted
-    run's. Drained chunks carry a NaN/zero placeholder trace.
+    journaled (:class:`~repro_torch.parallel.journal.ChunkJournal`, written
+    by rank 0 only) — inputs before the solve, result after. A restarted
+    server with the same ``journal_dir`` and ``resume=True``, fed the same
+    deterministic stream, drains completed chunks from disk on every rank
+    (``n_drained`` counts them) and replays in-flight ones; the ``x`` stream
+    is bit-identical to the uninterrupted run's, whatever the widths of the
+    two runs. Drained chunks carry a NaN/zero placeholder trace.
     """
 
     def __init__(self, phi, s: int, n_iters: int = 50, *, mesh=None,
@@ -235,12 +405,13 @@ class BatchServer:
         if resume and journal_dir is None:
             raise ValueError("resume=True needs a journal_dir to resume from")
         dev = _operator_device(phi)
-        self.mesh = mesh if mesh is not None else make_batch_mesh(n_devices, dev)
-        if dev is not None and torch.device(self.mesh) != dev:
-            raise ValueError(f"the mesh is device {self.mesh}, but Φ lies on {dev}")
+        self.mesh = check_mesh(mesh) if mesh is not None else make_batch_mesh(n_devices, dev)
+        if dev is not None and self.mesh.device != dev:
+            raise ValueError(f"the mesh's device is {self.mesh.device}, but Φ lies on {dev}")
         self.key = key if key is not None else prng.PRNGKey(0)
         self.phi = phi
-        self.journal = ChunkJournal(journal_dir) if journal_dir is not None else None
+        self.journal = (ChunkJournal(journal_dir, writer=self.mesh.is_writer)
+                        if journal_dir is not None else None)
         self._resume = bool(resume)
         self.n_chunks = 0
         self.n_items = 0
@@ -297,7 +468,7 @@ class BatchServer:
                 return IHTResult(x=x, trace=self._placeholder_trace(Y.shape[0], Y.device))
             self.journal.record_submit(idx, Y, k, mask)
         self._shapes.add(tuple(Y.shape))
-        res = qniht_batch(self.phi, Y, key=k, **self._statics)
+        res = sharded_qniht_run(self.phi, Y, k, mesh=self.mesh, **self._statics)
         if self.journal is not None:
             self.journal.record_result(idx, res.x, mask)
         return res
@@ -323,7 +494,7 @@ class BatchServer:
 
     @property
     def n_shards(self) -> int:
-        return 1
+        return self.mesh.size
 
     @property
     def compile_cache_keys(self) -> tuple:

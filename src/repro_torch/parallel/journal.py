@@ -36,6 +36,10 @@ are fsync'd and results are published by atomic rename, so a torn write can
 only lose the *marker* — which safely demotes a completed chunk to in-flight
 (it gets re-solved, to the same bytes) — never publish a torn result.
 
+On a mesh of ranks (:mod:`repro_torch.parallel.dist`) only rank 0 writes
+(``writer=True``); every rank reads, so every rank drains the same chunks on
+a resume.
+
 The files are the reference's, byte for byte in layout and dtype, so either
 package drains the other's journal: arrays (numpy or torch, on any device)
 are stored as numpy, and a key as its two raw uint32 words (the port holds
@@ -97,11 +101,15 @@ def write_json_durable(path: str, obj) -> None:
 
 
 class ChunkJournal:
-    """Per-chunk write-ahead log under one directory (see module docstring)."""
+    """Per-chunk write-ahead log under one directory (see module docstring).
+    ``writer=False`` (a rank other than a mesh's rank 0) reads it and never
+    writes: its ``record_*`` calls do nothing."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, writer: bool = True):
         self.directory = directory
-        os.makedirs(directory, exist_ok=True)
+        self.writer = bool(writer)
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
 
     # -- paths ------------------------------------------------------------
     def _p(self, index: int, suffix: str) -> str:
@@ -138,6 +146,8 @@ class ChunkJournal:
         a mismatch means the re-presented stream is not the journaled one,
         and raises.
         """
+        if not self.writer:
+            return
         Y = _host(Y)
         if os.path.exists(self._p(index, "meta.json")):
             self.verify_submit(index, Y, key, row_mask)
@@ -172,6 +182,8 @@ class ChunkJournal:
         masked rows are zeroed before the solve (``y = 0`` rows fix at
         ``x = 0``).
         """
+        if not self.writer:
+            return
         x = _host(x)
         mask = self._norm_mask(row_mask, x.shape[0])
         b_total = x.shape[0]
@@ -211,6 +223,8 @@ class ChunkJournal:
 
     def _indices(self) -> list:
         out = []
+        if not os.path.isdir(self.directory):
+            return out
         for name in os.listdir(self.directory):
             if name.startswith("chunk_") and name.endswith(".meta.json"):
                 out.append(int(name[len("chunk_"):len("chunk_") + 6]))

@@ -1,5 +1,5 @@
 """Continuous batching for the serving layer: admission queue + slot refill
-(port of ``repro.parallel.scheduler``, on one device).
+(port of ``repro.parallel.scheduler``).
 
 :class:`~repro_torch.parallel.batch.BatchServer` serves in *lockstep*: it
 solves pre-cut ``(B, M)`` chunks to a uniform horizon, so one slow row holds
@@ -18,7 +18,13 @@ early-exited row can be *harvested* at any segment boundary and its slot
   repeatedly harvests rows whose ``done`` flag is set (or whose budget is
   spent), splices queued requests into the freed rows
   (:func:`~repro_torch.parallel.batch.refill_rows`), and advances the whole
-  table one *segment* of up to ``seg_len`` iterations (:func:`segment_step`).
+  table one *segment* of up to ``seg_len`` iterations (:func:`segment_step`),
+  on one device or with the slot table's rows split over a mesh of ranks
+  (:func:`~repro_torch.parallel.batch.sharded_segment_run`). Every rank then
+  runs the same admission and harvest over the whole table: after each
+  segment every rank holds the gathered state, so every decision taken on
+  the host is the same on every rank, and a stop (SIGTERM) is agreed at each
+  segment boundary, so no rank enters a segment another skips.
 
 Time is **logical**: one tick = one segment. Every scheduling decision —
 admission, shed, refill order — is a pure function of (arrival trace,
@@ -49,11 +55,14 @@ from repro_torch import random as prng
 from repro_torch.core.niht import _validate, qniht_batch, solver_init, solver_segment
 from repro_torch.core.operators import PackedStreamingOperator
 from repro_torch.parallel.batch import (
-    SHARDING_NOT_PORTED,
     _operator_device,
+    check_mesh,
     make_batch_mesh,
+    one_device_mesh,
     refill_rows,
+    sharded_segment_run,
 )
+from repro_torch.parallel.dist import any_rank
 from repro_torch.parallel.journal import ChunkJournal
 from repro_torch.quant.formats import as_granularity
 
@@ -203,11 +212,12 @@ def segment_step(phi, state, n_steps: int, *, mesh=None, **statics):
     global ``k`` cannot mean "the iteration every row is at". That is sound
     because the scheduler requires stationary operators (the ``early_exit``
     precondition): the iteration map never reads the index. Trace buffers are
-    segment-local scratch. ``mesh`` must be None: the sharded segment is not
-    yet ported."""
-    if mesh is not None:
-        raise NotImplementedError(SHARDING_NOT_PORTED)
+    segment-local scratch. With ``mesh`` the rows are split over its ranks
+    (:func:`~repro_torch.parallel.batch.sharded_segment_run`), and every rank
+    returns the same gathered state."""
     state = state._replace(k=torch.zeros_like(state.k))
+    if mesh is not None:
+        return sharded_segment_run(phi, state, n_steps, mesh=mesh, **statics)
     return solver_segment(phi, state, n_steps, **statics)
 
 
@@ -218,7 +228,7 @@ def _row_tensor(y, dtype, device) -> torch.Tensor:
 
 class ContinuousScheduler:
     """Continuous-batching recovery service over one measurement operator,
-    on the device of Φ.
+    on the device of Φ, or with the slot table's rows split over a mesh.
 
     Construction mirrors :class:`~repro_torch.parallel.batch.BatchServer`
     (pack once, one PRNG key for the whole service) plus the scheduling
@@ -235,8 +245,13 @@ class ContinuousScheduler:
     ``journal_dir`` write-ahead journals each request under its **request
     id** (inputs at splice time, result at harvest); a restarted scheduler
     with ``resume=True`` fed the same arrival trace drains completed requests
-    from disk and re-solves in-flight ones. ``mesh``/``n_devices`` > 1 raise:
-    sharding is not yet ported.
+    from disk and re-solves in-flight ones; on a mesh only rank 0 writes it.
+
+    ``mesh`` (or ``n_devices``, the first ranks of the process group this
+    rank is in: :func:`~repro_torch.parallel.batch.make_batch_mesh`) splits
+    the slot table's rows over ranks; every rank of the mesh constructs the
+    scheduler alike and runs the same arrival trace, and gets the same
+    reports. The default is one device.
     """
 
     def __init__(self, phi, s: int, n_iters: int = 50, *, slots: int = 8,
@@ -261,15 +276,17 @@ class ContinuousScheduler:
                 f"unknown policy {policy!r} (use 'continuous' or 'lockstep')")
         if resume and journal_dir is None:
             raise ValueError("resume=True needs a journal_dir to resume from")
-        if mesh is not None:
-            raise NotImplementedError(SHARDING_NOT_PORTED)
         # early_exit=True is load-bearing twice over: harvest needs the done
         # flags, and its stationarity precondition makes segment_step's
         # k-reset sound
         _validate(phi, bits_phi, bits_y, key, requantize, backend, threshold,
                   real_signal, scale_granularity, group_size, True, exit_tol)
         dev = _operator_device(phi)
-        self.device = make_batch_mesh(n_devices, dev)
+        if mesh is None:
+            mesh = (make_batch_mesh(n_devices, dev) if n_devices is not None
+                    else one_device_mesh(dev))
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.device
         self.key = key if key is not None else prng.PRNGKey(0)
         self.phi = phi
         self._ref_phi = phi  # user-level operator, before the pack-once translation
@@ -277,7 +294,8 @@ class ContinuousScheduler:
         self.seg_len = seg_len
         self.n_iters = n_iters
         self.policy = policy
-        self.journal = ChunkJournal(journal_dir) if journal_dir is not None else None
+        self.journal = (ChunkJournal(journal_dir, writer=mesh.is_writer)
+                        if journal_dir is not None else None)
         self._resume = bool(resume)
         # the user-level solver config — what reference_solve replays
         self._ref_statics = dict(
@@ -330,6 +348,8 @@ class ContinuousScheduler:
         self._segment_lengths: dict[int, int] = {}
         self._occupied_slot_segments = 0
         self.n_drained = 0
+        #: the tick at which ``run`` was stopped, or None
+        self.preempted_at: Optional[int] = None
 
     # -- admission ---------------------------------------------------------
     def _admit(self, req: Request, arrival_tick: int) -> None:
@@ -454,7 +474,8 @@ class ContinuousScheduler:
         # segment (its standalone answer is the iterate AT the budget)
         n_steps = min(self.seg_len,
                       int(min(self._horizon[b] - self._ages[b] for b in occ)))
-        self._state = segment_step(self.phi, self._state, n_steps, **self._statics)
+        self._state = segment_step(self.phi, self._state, n_steps, mesh=self.mesh,
+                                   **self._statics)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         for b in occ:
@@ -464,13 +485,20 @@ class ContinuousScheduler:
         self._occupied_slot_segments += len(occ)
         self.log.append((self.tick, "segment", None, (n_steps, len(occ))))
 
-    def run(self, arrivals) -> dict[int, RequestReport]:
+    def run(self, arrivals, stop=None) -> dict[int, RequestReport]:
         """Drive an arrival trace to completion; returns ``{rid: report}``.
 
         ``arrivals`` is an iterable of ``(tick, Request)`` with nondecreasing
         ticks. The loop delivers arrivals due at the current tick, harvests +
         refills, runs one segment when any slot is live, and advances the
         tick; with nothing live it jumps straight to the next arrival.
+
+        ``stop`` (optional, a callable such as a
+        :class:`~repro_torch.train.fault.PreemptionGuard`'s flag) is read
+        before every segment, and agreed across the mesh's ranks: when any
+        rank's is set, every rank ends the run there (``preempted_at`` holds
+        the tick). Requests in a slot keep status ``running``: journaled
+        but not harvested, a resumed run solves them again.
         """
         arr = list(arrivals)
         for (t0, _), (t1, _) in zip(arr, arr[1:]):
@@ -489,6 +517,10 @@ class ContinuousScheduler:
                 self.tick = max(self.tick + 1,
                                 arr[ai][0] if ai < len(arr) else self.tick + 1)
                 continue
+            if stop is not None and any_rank(self.mesh, stop()):
+                self.preempted_at = self.tick
+                self.log.append((self.tick, "preempted", None, None))
+                break
             self._run_segment()
             self.tick += 1
         return self.reports

@@ -15,8 +15,13 @@ spelled as JAX spells them (``.X``, ``.last.mu``, ``[0]``, ``['k']``), so the
 two packages' manifests read alike.
 
 :func:`restore` puts every leaf on the device of the target's leaf at the
-same path, with its dtype checked. The reference's ``shardings`` argument (a
-mesh placement) has no counterpart until the port has a mesh.
+same path, with its dtype checked. On a mesh of ranks every rank holds the
+same solver state: :func:`save` meets the other ranks at a barrier and rank
+0 alone writes, and every rank restores. The solver state is saved stripped
+of the mesh's padding, so it resumes on a mesh of any width
+(:func:`repro_torch.parallel.batch.shard_state` places it); the reference's
+``shardings`` argument has no counterpart, and the parameter shardings of
+training come with the training half of sharding.
 """
 from __future__ import annotations
 
@@ -76,15 +81,23 @@ def _np_dtype(leaf) -> np.dtype:
 
 
 def save(directory: str, step: int, state, *, keep: int = 3,
-         async_: bool = False) -> Optional[threading.Thread]:
+         async_: bool = False, mesh=None) -> Optional[threading.Thread]:
     """Write a checkpoint of ``state`` as step ``step``. The device→host
     copies happen here; with ``async_=True`` the disk writes run on a
-    background thread (returned).
+    background thread (returned). With a ``mesh`` of several ranks (a
+    :class:`~repro_torch.parallel.dist.BatchMesh`), every rank calls it with
+    the same state: the ranks meet at a barrier and only rank 0 writes.
 
     Durability: the manifest is fsync'd and the directory entry fsync'd
     after the tmp→rename, so a crash at any point leaves either the complete
     new checkpoint or the previous one, never a half-written directory that
     reads as complete. Saves to one directory are serialized by a lock."""
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.parallel.dist import barrier
+
+        barrier(mesh)
+        if not mesh.is_writer:
+            return None
     host_leaves = [(name, _host(leaf)) for name, leaf in _flatten(state)]
 
     def write():

@@ -23,7 +23,9 @@ results to bfloat16 can set them apart), which scales with the output where
 row is the same in any slot of a table of co-tenants (dense f32 and packed
 Φ̂ at 8 slots, packed at 24), ``serve_scheduled(verify=True)`` holds every
 request to its ``reference_solve``, a splice leaves its input state and the
-other rows alone, and pad rows stay zero through a segment.
+other rows alone, and pad rows stay zero through a segment. Sharding
+(``repro_torch.parallel.dist``): two gloo ranks sharing the card solve the
+LOFAR SMOKE batch to the one-device solve's bits.
 """
 import math
 import shutil
@@ -1082,6 +1084,35 @@ def test_scheduler_answers_are_their_reference_solves_on_the_card(cuda, packed):
         cfg = dataclasses.replace(cfg, bits_phi=4, bits_y=8, backend="packed")
     out = serve_scheduled(cfg, "continuous", verify=True, device=cuda)
     assert out["completed"] == cfg.n_requests
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_the_card():
+    """The LOFAR SMOKE cases solved by two gloo ranks sharing the card
+    (spawned once for the module)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import torch_sharded_ranks as ranks
+    from repro_torch.parallel.dist import spawn_ranks
+
+    return spawn_ranks(ranks.card_cases, 2, device="cuda", backend="gloo")
+
+
+@pytest.mark.parametrize("name", ["lofar_per_tensor", "lofar_per_block", "lofar_hsthresh",
+                                  "lofar_dense", "lofar_freeze"])
+def test_two_gloo_ranks_on_the_card_are_one_rank_bitwise(cuda, two_ranks_on_the_card, name):
+    """Two ranks sharing the card over gloo, each solving 3 of 6 LOFAR SMOKE
+    skies (QMM, QMM_GROUP, the fused H_s, cuBLAS on the dense complex Φ, the
+    freeze rule's row blocks): x and the whole trace on each rank equal the
+    one-device solve bit for bit."""
+    import torch_sharded_ranks as ranks
+
+    x, trace = ranks.card_solve(name, device=cuda)
+    for rank, by_name in enumerate(two_ranks_on_the_card):
+        got_x, got_trace = by_name[name]
+        assert torch.equal(got_x, x), f"x of rank {rank}"
+        for got, want in zip(got_trace, trace):
+            assert torch.equal(got.nan_to_num(), want.nan_to_num()), f"trace of rank {rank}"
 
 
 def test_splice_purity_on_the_card(cuda):

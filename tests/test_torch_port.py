@@ -155,12 +155,29 @@ def test_recover_cli_default_device_fails_without_gpu():
     assert "[recover]" not in out.stdout
 
 
-@pytest.mark.parametrize("argv", [["--devices", "2"]])
-def test_recover_rejects_unported_options(argv, capsys):
+@pytest.mark.parametrize("argv,says", [
+    (["--devices", "2"], "combine it with --batch"),
+    (["--batch", "2", "--dist-backend", "gloo"], "--dist-backend"),
+])
+def test_recover_rejects_unported_options(argv, says, capsys):
+    """What --devices still refuses: it splits a batch's rows, so it needs
+    --batch, and --dist-backend names the backend of N > 1 ranks."""
     with pytest.raises(SystemExit) as exc:
         recover.main(["--device", "cpu", *argv])
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
+
+
+def test_recover_cli_devices_4_prints_the_one_device_line(capfd):
+    """``--devices 4`` (four gloo ranks on the CPU): rank 0 alone prints, and
+    its line is the one-device run's, x_digest included."""
+    argv = ["--device", "cpu", "--config", "gaussian-smoke", "--batch", "10"]
+    recover.main(argv)
+    one = capfd.readouterr().out.strip().splitlines()
+    recover.main([*argv, "--devices", "4"])
+    four = capfd.readouterr().out.strip().splitlines()
+    assert len(one) == len(four) == 1 and "x_digest=" in one[0]
+    assert one[0].split(" wall_s=")[0] == four[0].split(" wall_s=")[0]
 
 
 def test_recover_lofar_smoke_batch_on_cpu():

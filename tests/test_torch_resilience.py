@@ -391,6 +391,41 @@ def test_recover_cli_sigterm_then_resume(tmp_path):
         assert torch.equal(u[1].nan_to_num(), v[1].nan_to_num()), u[0]
 
 
+def test_recover_cli_sigterm_to_four_ranks_then_resume_at_two(tmp_path, capsys):
+    """A real SIGTERM to the CLI of ``--devices 4``, sent once the first
+    segment is checkpointed (every rank's guard is in place by then): the CLI
+    passes it on, the ranks agree to stop at the next segment, rank 0 writes
+    the checkpoint and says so, and the CLI exits 0. ``--resume`` at
+    ``--devices 2`` prints the one-device run's line, x_digest included."""
+    argv = ["--config", "gaussian-smoke", "--backend", "packed", "--bits-phi", "4",
+            "--device", "cpu", "--batch", "10", "--ckpt-every", "1"]
+    recover.main([*argv, "--checkpoint-dir", str(tmp_path / "whole")])
+    whole = capsys.readouterr().out.strip().splitlines()[-1]
+    d = str(tmp_path / "killed")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.recover", *argv,
+                             "--checkpoint-dir", d, "--devices", "4"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=_env(), cwd=REPO)
+    lines = []
+    for line in proc.stdout:
+        lines.append(line)
+        if line.startswith("[resilience] k=1/"):
+            proc.send_signal(signal.SIGTERM)
+    err = proc.stderr.read()
+    assert proc.wait(timeout=300) == 0, err[-3000:]
+    stopped = [ln for ln in lines if "preempted at iteration" in ln]
+    assert len(stopped) == 1, lines
+    k = int(stopped[0].split("preempted at iteration ")[1].split(";")[0])
+    assert 1 <= k < recover.CONFIGS["gaussian-smoke"].n_iters and ckpt.latest_step(d) == k
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.recover", *argv,
+                          "--checkpoint-dir", d, "--devices", "2", "--resume"],
+                         capture_output=True, text=True, env=_env(), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    resumed = out.stdout.strip().splitlines()
+    assert resumed[0] == f"[resilience] resumed from step {k} (k={k})"
+    assert resumed[-1].split(" wall_s=")[0] == whole.split(" wall_s=")[0]
+
+
 @pytest.mark.parametrize("argv", [["--resume"], ["--ckpt-every", "3"],
                                   ["--checkpoint-dir", "d", "--ckpt-every", "0"]])
 def test_recover_cli_checkpoint_flag_errors(argv):

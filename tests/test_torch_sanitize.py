@@ -234,11 +234,20 @@ def test_recover_cli_full_precision_is_the_dense_backend(capsys):
 
 
 def test_recover_cli_devices_still_exits_2():
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.recover", "--device",
-                          "cpu", "--devices", "2", "--sanitize"], capture_output=True,
-                         text=True, cwd=REPO, env={"PYTHONPATH": str(REPO / "src"),
-                                                   "PATH": "/usr/bin:/bin"}, timeout=120)
-    assert out.returncode == 2 and "not yet ported" in out.stderr
+    """``--devices`` with ``--sanitize`` still exits 2 without ``--batch``
+    (the rows it splits); with a batch each rank runs under the tripwire and
+    rank 0 prints the ``[sanitize]`` line and the result."""
+    base = [sys.executable, "-m", "repro_torch.launch.recover", "--device", "cpu",
+            "--devices", "2", "--sanitize"]
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(base, capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 2 and "combine it with --batch" in out.stderr
+    out = subprocess.run([*base, "--config", "gaussian-smoke", "--batch", "4"],
+                         capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 2 and lines[0].startswith("[sanitize] ok compiles=0 ")
+    assert lines[1].startswith("[recover] gaussian-smoke 2&8bit[fake]: batch=4 ")
 
 
 def test_a_failed_build_counts_nothing_and_leaves_no_file(tmp_path, monkeypatch):

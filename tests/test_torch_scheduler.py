@@ -453,15 +453,18 @@ def test_scheduler_validation():
 
 
 def test_sharding_is_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_batch_mesh(2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Outside a process group a mesh has one device: more raises, naming
+    where ranks come from (tests/test_torch_sharded.py runs them); a mesh
+    that is not a BatchMesh is refused."""
+    with pytest.raises(ValueError, match="spawn_ranks"):
+        make_batch_mesh(2, "cpu")
+    with pytest.raises(ValueError, match="spawn_ranks"):
         _scheduler(n_devices=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="BatchMesh"):
         _scheduler(mesh=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="BatchMesh"):
         segment_step(PHI, _advanced_state(), 2, mesh=torch.device("cpu"), s=S)
-    assert make_batch_mesh(1, "cpu") == torch.device("cpu")
+    assert make_batch_mesh(1, "cpu").device == torch.device("cpu")
     assert _scheduler(n_devices=1).device == torch.device("cpu")
 
 

@@ -252,7 +252,7 @@ def test_server_stream_keys_and_validation():
         BatchServer(phi, cfg.s, resume=True)
     with pytest.raises(ValueError, match=r"\(B, M\)"):
         srv.submit(Y[0])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="spawn_ranks"):
         BatchServer(phi, cfg.s, n_devices=2)
 
 
@@ -298,14 +298,39 @@ def test_cli_defaults_to_the_gpu():
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--devices", "2"], "Sharding over several devices"),
+    (["--dist-backend", "gloo"], "--dist-backend names the backend of the ranks"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, says, capsys):
+    """``--devices N`` is ported (below); a backend without N > 1 ranks is
+    refused."""
     with pytest.raises(SystemExit) as exc:
         serve.main(["--device", "cpu", "--config", "serve-gaussian-smoke", *argv])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and says in err
+    assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--config", "serve-gaussian-smoke"],
+    ["--config", "serve-continuous-smoke", "--scheduler", "continuous", "--verify"],
+])
+def test_cli_on_two_ranks_is_the_one_device_run(argv, capfd):
+    """``--devices 2`` (two gloo ranks): rank 0 alone prints; the chunk
+    digests (chunked) or the verified answers and the metrics (scheduler)
+    are the one-device run's, and the last line says devices=2."""
+    serve.main(["--device", "cpu", *argv])
+    one = capfd.readouterr().out.strip().splitlines()
+    serve.main(["--device", "cpu", *argv, "--devices", "2"])
+    two = capfd.readouterr().out.strip().splitlines()
+    assert len(one) == len(two)
+    assert _digests("\n".join(one)) == _digests("\n".join(two))
+    assert "devices=1 " in one[-1] and "devices=2 " in two[-1]
+
+    def fields(line):       # the metrics the clock does not move
+        return [f for f in line.split() if not re.match(r"(wall_s|compile_chunk_s|"
+                                                        r"steady_chunk_s|items_per_s|"
+                                                        r"latency_p\d+_s|devices)=", f)]
+
+    assert fields(one[-1]) == fields(two[-1])
 
 
 @pytest.mark.parametrize("flag", ["--sanitize", "--profile-dir"])
